@@ -1,0 +1,474 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU.
+
+  python3 chip_smoke.py
+
+Phases, any failure exits non-zero before the result line:
+  1. build the CUDA kernels from src/repro_torch/csrc (nvcc, sm_90a);
+  2. hold each kernel against its plain PyTorch version on the card, at the
+     shapes the serving path gives it (paper-demo-110m: Hq 12, Hkv 4,
+     hd 64, block 16; vocabulary 32000), with adversarial rows, and one
+     decode step on the card against the CPU path on the smoke config
+     (same weights, same cache) within a stated tolerance;
+  3. serve a Poisson trace through ServingEngine on paper-demo-110m at full
+     width (16 requests, prompt 64, gen 32, 8 slots, greedy, prefix cache
+     on) with the launch counts zeroed before and read after, then check
+     every token against the streamed-prefill one-shot baseline;
+  4. serve a seeded top-k/top-p run at 8 and 4 slots (counts zeroed
+     before the first) and require bit-identical tokens;
+  5. time each kernel beside its plain version and a PyTorch yardstick at
+     the phase-2 shapes (CUDA events), with its bound from those inputs;
+  6. profile 24 steps of the greedy serve (torch.profiler): wall time per
+     step, device busy time and idle share, the kernels that take it.
+Prints the kernel report as one JSON line, the card's name and power
+limit, and last {"ok": true, "device": {...}}. Needs no network; the
+kernel build lands in build/ (git-ignored).
+"""
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, "src"))
+
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 rate, the
+# bf16 tensor-core rate (paged decode's products take bf16 inputs) and the
+# f32 CUDA-core rate (the mask's arithmetic on f32 logits)
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+
+# paged decode vs its plain version: both compute in f32 from the same bf16
+# inputs, so they differ only by summation order (sound runs read below
+# 1e-6); a kernel rounding its probabilities to bf16 before P.V reads
+# above 1e-3 (phase 2 checks that on the card)
+PAGED_TOL = 1e-5
+# one decode step, card vs CPU: |diff| / max(|logit|, 1). bf16 logits keep
+# 8 bits, so one rounding step is up to 2^-8 of the value; GEMM sums are
+# taken in another order on each device
+LOGIT_TOL = 3e-2
+
+
+def fail(msg):
+    print(f"FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def _events_ms(run, n):
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def call_ms(fn, iters=100, warmup=10):
+    """Milliseconds per eager call, host work included: back-to-back calls
+    whose Python side is slower than the device leave the device idle."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    return _events_ms(fn, iters)
+
+
+def device_ms(fn, calls=20, replays=20):
+    """Milliseconds of device work per call: `calls` calls captured once
+    in a CUDA graph, replayed `replays` times, so no host work sits
+    between the launches."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return _events_ms(graph.replay, replays) / calls
+
+
+def paged_inputs(gen, dev):
+    """One step of the main path: 8 decode rows at depths 64..95 and a
+    64-row prefill lane at 0..63, plus adversarial rows (fully masked,
+    depth 0, full table), over the engine's 49-block pool."""
+    import torch
+    B_dec, lane, Hq, Hkv, hd, bs, MB = 8, 64, 12, 4, 64, 16, 6
+    B = B_dec + lane + 3
+    NB = 1 + 8 * MB
+    q = torch.randn((B, Hq, hd), generator=gen, device=dev).to(torch.bfloat16)
+    kp = torch.randn((NB, Hkv, bs, hd), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    vp = torch.randn((NB, Hkv, bs, hd), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    perm = torch.randperm(NB - 1, generator=gen, device=dev) + 1
+    tables = torch.zeros((B, MB), dtype=torch.int32, device=dev)
+    lengths = torch.zeros((B,), dtype=torch.int32, device=dev)
+    for b in range(B_dec):
+        tables[b] = perm[(b % 8) * MB:(b % 8 + 1) * MB].int()
+        lengths[b] = 64 + (b * 5) % 32
+    tables[B_dec:B_dec + lane] = perm[:MB].int()
+    lengths[B_dec:B_dec + lane] = torch.arange(lane, device=dev).int()
+    lengths[B - 3] = -1  # masked row: null table
+    tables[B - 2] = perm[MB:2 * MB].int()
+    lengths[B - 2] = 0
+    tables[B - 1] = perm[2 * MB:3 * MB].int()
+    lengths[B - 1] = MB * bs - 1
+    return q, kp, vp, tables, lengths
+
+
+def paged_bound_ms(q, kp, tables, lengths):
+    """Least time for this call: q, the used table entries and lengths
+    read once, the f32 output written once, and each K/V token that some
+    row needs read once: rows whose tables share a physical block (every
+    row of a prefill lane reads the same blocks) share its read. QK and PV
+    at 2 operations per multiply-add per row, at the bf16 rate. Counts this
+    run's lengths."""
+    B, Hq, hd = q.shape
+    Hkv, bs = kp.shape[1], kp.shape[2]
+    n_tok = (lengths.long() + 1).clamp_min(0).tolist()
+    tab = tables.tolist()
+    need = {}  # physical block -> leading tokens of it that some row reads
+    for row, n in zip(tab, n_tok):
+        for j in range(-(-n // bs)):
+            need[row[j]] = max(need.get(row[j], 0), min(bs, n - j * bs))
+    blocks = sum(-(-n // bs) for n in n_tok)
+    nbytes = (B * Hq * hd * 2 + sum(need.values()) * Hkv * hd * 2 * 2
+              + blocks * 4 + B * 4 + B * Hq * hd * 4)
+    flops = sum(n_tok) * Hq * hd * 2 * 2
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def mask_bound_ms(T, V):
+    """One read and one write of the [T,V] f32 logits (+ per-row k, p);
+    about 7 operations an element (max, exp, sum, divide, two compares,
+    select)."""
+    nbytes = 2 * T * V * 4 + T * 8
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 7 * T * V / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def paged_decode_bf16_probs(q, k_pool, v_pool, tables, lengths):
+    """The plain version with its softmax probabilities rounded to bf16
+    before P.V: what PAGED_TOL must tell apart from a sound kernel."""
+    import torch
+    B, Hq, hd = q.shape
+    _, Hkv, bs, _ = k_pool.shape
+    MB = tables.shape[1]
+    idx = tables.long()
+    kg = k_pool[idx].transpose(1, 2).reshape(B, Hkv, MB * bs, hd).float()
+    vg = v_pool[idx].transpose(1, 2).reshape(B, Hkv, MB * bs, hd).float()
+    s = q.reshape(B, Hkv, Hq // Hkv, hd).float() @ kg.transpose(-1, -2)
+    ok = (torch.arange(MB * bs, device=q.device)[None, None, None, :]
+          <= lengths.long()[:, None, None, None])
+    a = torch.softmax((s / math.sqrt(hd)).masked_fill(~ok, float("-inf")), -1)
+    a = torch.nan_to_num(a, nan=0.0).to(torch.bfloat16).float()
+    return (a @ vg).reshape(B, Hq, hd)
+
+
+def check_kernels(dev):
+    import torch
+    from repro_torch.kernels.paged_decode.ops import paged_flash_decode
+    from repro_torch.kernels.paged_decode.ref import paged_decode_ref
+    from repro_torch.kernels.sampling.ops import topk_topp_mask
+    from repro_torch.kernels.sampling.ref import NEG_INF, topk_topp_mask_ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out = {}
+    # paged decode over the block pool, and over a contiguous cache read as
+    # B blocks of S tokens (the one-shot baseline's layout)
+    pin = paged_inputs(gen, dev)
+    q, kp, vp, tables, lengths = pin
+    got = paged_flash_decode(*pin)
+    torch.cuda.synchronize()
+    want = paged_decode_ref(*pin)
+    err = float((got - want).abs().max())
+    if not math.isfinite(err) or err > PAGED_TOL:
+        fail(f"paged decode kernel vs plain: max abs err {err}")
+    if float(got[-3].abs().max()) != 0.0:
+        fail("paged decode: the masked row is not zero")
+    kc = torch.randn((16, 4, 96, 64), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    vc = torch.randn((16, 4, 96, 64), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    qc = torch.randn((16, 12, 64), generator=gen, device=dev).to(torch.bfloat16)
+    ident = torch.arange(16, dtype=torch.int32, device=dev)[:, None]
+    lc = torch.randint(0, 96, (16,), generator=gen, device=dev).int()
+    err_c = float((paged_flash_decode(qc, kc, vc, ident, lc)
+                   - paged_decode_ref(qc, kc, vc, ident, lc)).abs().max())
+    if not math.isfinite(err_c) or err_c > PAGED_TOL:
+        fail(f"paged decode kernel vs plain, contiguous cache: {err_c}")
+    err_bf16 = float((paged_decode_bf16_probs(*pin) - want).abs().max())
+    if not err_bf16 > PAGED_TOL:
+        fail(f"paged decode: bf16 probabilities read {err_bf16}, within the "
+             f"tolerance {PAGED_TOL}, so it cannot tell them apart")
+    out["paged"] = (pin, max(err, err_c))
+    print(f"paged decode: kernel vs plain max abs err {err:.3e} (pool), "
+          f"{err_c:.3e} (contiguous cache); tolerance {PAGED_TOL}; the plain "
+          f"version with bf16 probabilities reads {err_bf16:.3e}")
+
+    # top-k/top-p mask at the sampled step's shapes: 72 rows x 32000
+    T, V = 72, 32000
+    logits = torch.randn((T, V), generator=gen, device=dev) * 3.0
+    logits[2, :8] = logits[2].max() + 1.0  # 8 tied values, top_k 5
+    ks = torch.tensor([0, 1, 5, 40, 50, V, V + 7, 8], dtype=torch.int32,
+                      device=dev).repeat(T // 8)
+    ps = torch.tensor([1.0, 0.9, 0.5, 0.25, 1e-3, 0.95, 1.0, 0.999],
+                      device=dev).repeat_interleave(T // 8)
+    got = topk_topp_mask(logits, ks, ps)
+    torch.cuda.synchronize()
+    want = topk_topp_mask_ref(logits, ks, ps)
+    keep_g, keep_w = got > NEG_INF / 2, want > NEG_INF / 2
+    if not bool(torch.equal(keep_g, keep_w)):
+        bad = int((keep_g != keep_w).sum())
+        fail(f"top-k/top-p mask: keep-sets differ in {bad} entries")
+    if not bool(torch.equal(got, want)):
+        fail("top-k/top-p mask: kept logits changed")
+    out["mask"] = ((logits, ks, ps), float((got - want).abs().max()))
+    print(f"top-k/top-p mask: keep-sets equal over {T}x{V} "
+          f"({int(keep_g.sum())} kept), kept logits bit-equal")
+    return out
+
+
+def serve_args(extra):
+    from repro_torch.launch.serve import build_parser
+    return build_parser().parse_args(
+        ["--requests", "16", "--prompt-len", "64", "--gen", "32",
+         "--slots", "8", "--rate", "16", "--prefix-cache", "on",
+         "--device", "cuda"] + extra)
+
+
+def check_tokens(run, cfg):
+    out, trace = run["out"], run["trace"]
+    if sorted(out) != sorted(r.rid for r in trace):
+        fail("not every request completed")
+    for r in trace:
+        toks = out[r.rid]
+        if len(toks) != r.eff_gen_len or not all(
+                0 <= t < cfg.vocab_size for t in toks):
+            fail(f"request {r.rid}: bad tokens {toks[:8]}...")
+
+
+def check_against_cpu():
+    """One decode step of the smoke config on the card vs the CPU path on
+    the same weights and cache (bf16 logits)."""
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import steps as St
+    from repro_torch.models import model as Mo
+    from repro_torch.models.env import Env
+
+    cfg = get_smoke("paper-demo")
+    params = Mo.init_params(cfg, Env(), seed=1, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    B, S = 6, 40
+    cache = Mo.init_cache(cfg, Env(), B, S, device="cpu")
+    for leaf in cache["blocks"][0].values():
+        leaf.copy_(torch.randn(leaf.shape, generator=gen).to(leaf.dtype))
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen)
+    cur = torch.tensor([0, 3, 17, 30, 38, 39])
+    step = St.make_decode_step(cfg, Env())
+    to_dev = lambda t: {k: to_dev(v) for k, v in t.items()} \
+        if isinstance(t, dict) else (tuple(to_dev(v) for v in t)
+                                     if isinstance(t, tuple) else t.cuda())
+    lg_gpu, _ = step(to_dev(params), to_dev(cache), tok.cuda(), cur.cuda())
+    lg_cpu, _ = step(params, cache, tok, cur)
+    ref = lg_cpu.float()
+    err = float(((lg_gpu.float().cpu() - ref).abs()
+                 / ref.abs().clamp_min(1.0)).max())
+    if not math.isfinite(err) or err > LOGIT_TOL:
+        fail(f"decode step card vs CPU: max relative logit err {err}")
+    print(f"decode step on the card vs the CPU path (smoke config): max "
+          f"relative logit err {err:.3e}; tolerance {LOGIT_TOL}")
+
+
+def profile_steps(args, cfg, params, n_steps=24, warm=4):
+    """Per-step wall time, device busy time (sum of the profiler's
+    device-side events; one stream, so no overlap) and the top kernels,
+    over n_steps engine steps after `warm` steps. The profiler adds host
+    time, so the idle share is an upper bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import make_engine, make_trace
+
+    engine = make_engine(args, cfg, params)
+    engine.submit(make_trace(args, cfg))
+    for _ in range(warm):
+        engine.step()
+        engine.clock.sleep(args.step_time)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            engine.step()
+            engine.clock.sleep(args.step_time)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = lambda e: getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+    # device-side events only (kernels, copies): an operator's own device
+    # time repeats that of the kernels it launched
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and dev(e) > 0]
+    busy_us = sum(dev(e) for e in events)
+    wall_us = wall * 1e6
+    if not events:
+        print(f"profile, {n_steps} greedy steps: {wall_us / n_steps:.0f} us "
+              "wall per step; the profiler saw no device time, so device "
+              "busy time and idle share are not measured")
+        return
+    print(f"profile, {n_steps} greedy steps: {wall_us / n_steps:.0f} us wall "
+          f"per step, {busy_us / n_steps:.0f} us device busy per step, "
+          f"device idle share {1 - busy_us / wall_us:.3f}")
+    for e in sorted(events, key=dev, reverse=True)[:8]:
+        print(f"  {dev(e) / n_steps:9.1f} us/step  x{e.count / n_steps:6.1f}"
+              f"  {e.key[:70]}")
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_decode.ops import paged_flash_decode
+    from repro_torch.kernels.paged_decode.ref import paged_decode_ref
+    from repro_torch.kernels.sampling.ops import topk_topp_mask
+    from repro_torch.kernels.sampling.ref import topk_topp_mask_ref
+    from repro_torch.launch.serve import serve, verify
+    from repro_torch.models import model as Mo
+    from repro_torch.models.env import Env
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dev = torch.device("cuda")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+          f"{torch.cuda.get_device_name(0)}")
+
+    # 1. build
+    t0 = time.perf_counter()
+    kernels.library()
+    print(f"kernel build: {time.perf_counter() - t0:.1f}s")
+    for line in kernels.build_log.splitlines():
+        if "registers" in line or "spill" in line or line.startswith("=="):
+            print("  " + line.strip())
+
+    # 2. kernels vs plain versions; one decode step card vs CPU
+    checked = check_kernels(dev)
+    check_against_cpu()
+
+    # 3. the main path, greedy, full width
+    cfg = get_config("paper-demo")
+    params = Mo.init_params(cfg, Env(), seed=0, device=dev)
+    args = serve_args([])
+    paged_flash_decode.launches = topk_topp_mask.launches = 0
+    run = serve(args, cfg, params)
+    n_paged = paged_flash_decode.launches
+    if n_paged <= 0:
+        fail("the greedy serving run never launched the paged decode kernel")
+    check_tokens(run, cfg)
+    tok_s = run["tokens"] / run["wall_s"]
+    print(f"greedy serve {cfg.name}: {len(run['out'])} requests, "
+          f"{run['tokens']} tokens in {run['steps']} steps, "
+          f"{run['wall_s']:.3f}s wall, {tok_s:.1f} tokens/s wall; paged "
+          f"decode launches {n_paged}")
+    ok, what = verify(args, cfg, params, run)
+    if not ok:
+        fail(f"greedy tokens differ from the {what}")
+    print(f"verify vs {what}: token-for-token MATCH")
+
+    # 4. seeded top-k/top-p at two slot counts
+    sargs = serve_args(["--temperature", "0.8", "--top-k", "50",
+                        "--top-p", "0.9", "--sample-seed", "7"])
+    paged_flash_decode.launches = topk_topp_mask.launches = 0
+    srun = serve(sargs, cfg, params)
+    n_mask = topk_topp_mask.launches
+    if n_mask <= 0 or paged_flash_decode.launches <= 0:
+        fail("the sampled serving run never launched both kernels")
+    check_tokens(srun, cfg)
+    ok, what = verify(sargs, cfg, params, srun)
+    if not ok:
+        fail(f"{what}: tokens differ")
+    print(f"seeded serve: {srun['tokens']} tokens, {srun['wall_s']:.3f}s "
+          f"wall, mask launches {n_mask}; {what}: bit-identical MATCH")
+
+    # 5. timings at the phase-2 shapes
+    pin, paged_err = checked["paged"]
+    q, kp, vp, tables, lengths = pin
+    B, Hq, hd = q.shape
+    MB, bs, Hkv = tables.shape[1], kp.shape[2], kp.shape[1]
+    g = Hq // Hkv  # SDPA over the gathered KV, heads expanded beforehand
+    kg = kp[tables.long()].transpose(1, 2).reshape(
+        B, Hkv, MB * bs, hd).repeat_interleave(g, dim=1)
+    vg = vp[tables.long()].transpose(1, 2).reshape(
+        B, Hkv, MB * bs, hd).repeat_interleave(g, dim=1)
+    amask = (torch.arange(MB * bs, device=dev)[None, :]
+             <= lengths.long()[:, None])[:, None, None, :]
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None, :], kg, vg, attn_mask=amask)
+    paged_bound, paged_by = paged_bound_ms(q, kp, tables, lengths)
+    (logits, ks, ps), mask_err = checked["mask"]
+    mask_bound, mask_by = mask_bound_ms(*logits.shape)
+    # every time is device work per call (CUDA graph replay); the kernels'
+    # eager per-call times, host work included, are printed beside them
+    calls = {"paged_flash_decode": lambda: paged_flash_decode(*pin),
+             "topk_topp_mask": lambda: topk_topp_mask(logits, ks, ps)}
+    report = [
+        {"name": "paged_flash_decode", "route": "cuda",
+         "source": "src/repro_torch/csrc/paged_decode.cu",
+         "replaces": "src/repro/kernels/paged_decode/kernel.py:121",
+         "launches": n_paged, "max_abs_err": paged_err,
+         "ms": device_ms(calls["paged_flash_decode"]),
+         "plain_ms": device_ms(lambda: paged_decode_ref(*pin)),
+         "bound_ms": paged_bound, "bound_by": paged_by,
+         "library_ms": device_ms(sdpa)},
+        {"name": "topk_topp_mask", "route": "cuda",
+         "source": "src/repro_torch/csrc/topk_topp_mask.cu",
+         "replaces": "src/repro/kernels/sampling/kernel.py:75",
+         "launches": n_mask, "max_abs_err": mask_err,
+         "ms": device_ms(calls["topk_topp_mask"]),
+         "plain_ms": device_ms(lambda: topk_topp_mask_ref(logits, ks, ps)),
+         "bound_ms": mask_bound, "bound_by": mask_by,
+         "library_ms": device_ms(lambda: torch.sort(logits, dim=-1,
+                                                    descending=True))},
+    ]
+    for k in report:
+        print(f"{k['name']}: {k['ms'] * 1e3:.1f} us kernel, "
+              f"{k['plain_ms'] * 1e3:.1f} us plain, "
+              f"{k['library_ms'] * 1e3:.1f} us library, bound "
+              f"{k['bound_ms'] * 1e3:.2f} us ({k['bound_by']}); "
+              f"{call_ms(calls[k['name']]) * 1e3:.1f} us per eager call "
+              f"with the wrapper's host work")
+    print(f"wall tokens/s (greedy serve, full width): {tok_s:.1f}")
+
+    # 6. where a step's time goes
+    profile_steps(args, cfg, params)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    print(json.dumps({"kernels": report}))
+    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0
+          else "nvidia-smi unavailable")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

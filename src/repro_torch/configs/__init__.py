@@ -1,0 +1,36 @@
+"""Architecture config registry: --arch <id> resolution.
+
+The port serves `paper-demo` only; the registry grows with each
+architecture the port learns to run."""
+from __future__ import annotations
+
+import importlib
+from typing import Dict
+
+from repro_torch.configs.base import (  # noqa: F401
+    SHAPES,
+    ModelConfig,
+    MoEConfig,
+    ParallelPlan,
+    ShapeConfig,
+    default_plan,
+)
+
+# arch id -> module name
+_ARCH_MODULES: Dict[str, str] = {
+    "paper-demo": "paper_demo",
+}
+
+
+def _module(arch: str):
+    if arch not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
+    return importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def get_smoke(arch: str) -> ModelConfig:
+    return _module(arch).smoke()

@@ -1,0 +1,126 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a) and their plain versions.
+
+Each kernel package has:
+  ops.py — the wrapper: on a CUDA tensor it checks device, dtype, shape
+           and contiguity, allocates the output, launches the kernel on
+           torch's current stream and counts the launch; on a CPU tensor
+           it runs the plain version. Any other device raises.
+  ref.py — the plain PyTorch version (the oracle the kernel is held to)
+
+The CUDA sources live in repro_torch/csrc/. The first kernel call builds
+them with nvcc into one shared library with a plain C interface under
+build/ at the repository root (one nvcc per source, all started together,
+then one link), keyed by a digest of the sources and flags so an edited
+source rebuilds, and loads it with ctypes. Nothing here runs at import
+time: the CPU tests import every module.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import List, Optional
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signature of every kernel entry point in csrc/: (argtypes, restype)
+_SIGNATURES = {
+    "paged_decode_bf16": ([_P] * 6 + [_I] * 6 + [_P], _I),
+    "topk_topp_mask_f32": ([_P] * 4 + [_I, _I, _P], _I),
+    "kernel_error_string": ([_I], ctypes.c_char_p),
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+build_log = ""  # nvcc's -Xptxas -v report from the last build in-process
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build with the "
+                           "CUDA toolkit (PATH or /usr/local/cuda/bin)")
+    return path
+
+
+def _sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _build(lib_path: Path) -> str:
+    nvcc = _nvcc()
+    obj_dir = lib_path.with_suffix("")
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for src in _sources():
+        obj = obj_dir / (src.stem + ".o")
+        procs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log = []
+    failed = []
+    for src, _, p in procs:
+        out, _ = p.communicate()
+        log.append(f"== {src.name}\n{out}")
+        if p.returncode != 0:
+            failed.append(src.name)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
+    tmp = lib_path.with_name(lib_path.name + f".tmp{os.getpid()}")
+    link = subprocess.run(
+        [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in procs)],
+        capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+    os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or nothing
+    return "\n".join(log)
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first use."""
+    global _lib, build_log
+    with _lock:
+        if _lib is not None:
+            return _lib
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for src in _sources():
+            h.update(src.name.encode())
+            h.update(src.read_bytes())
+        lib_path = BUILD_DIR / f"libreprokernels-{h.hexdigest()[:16]}.so"
+        if not lib_path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            build_log = _build(lib_path)
+        lib = ctypes.CDLL(str(lib_path))
+        for name, (argtypes, restype) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        _lib = lib
+        return lib
+
+
+def check_launch(code: int, name: str) -> None:
+    """Raise if a kernel's C entry point reported a CUDA error."""
+    if code != 0:
+        msg = library().kernel_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA error {code} ({msg})")
+
+
+def check_tensors(name: str, *tensors) -> None:
+    """Device and layout checks shared by the wrappers: every tensor on the
+    first one's device, contiguous."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: non-contiguous input {tuple(t.shape)}")

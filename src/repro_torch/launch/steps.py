@@ -1,0 +1,110 @@
+"""Fused decode step builders (port of the JAX package's launch/steps.py).
+
+PyTorch runs eagerly, so a "step" is a plain function over tensors on one
+device; nothing is traced or compiled. The builders keep the JAX names and
+closures so the serving code reads as in the reference.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import random as R
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.sampling.ops import topk_topp_mask
+from repro_torch.models import model as Mo
+from repro_torch.models.env import Env
+
+# Packed per-row step metadata: one [META_I_ROWS,T] int32 + one
+# [META_F_ROWS,T] float32 upload per decode step (ReplicaEngine.step_decode
+# fills them; the fused steps below index through these names). This is
+# what keeps the serving loop's per-step host traffic down to two small
+# uploads and one [T] token-vector download.
+ROW_TOK_SRC = 0  # row in prev_tok holding this row's input token (-1: fresh)
+ROW_FRESH = 1    # freshly uploaded input token (prompt chunk / first token)
+ROW_CUR_LEN = 2  # KV write position == attention depth for the row
+ROW_SEED = 3     # SamplingParams.seed (per-request PRNG root)
+ROW_TOP_K = 4    # top-k cutoff (<=0 disables)
+ROW_POS0 = 5     # len(prompt)-1 of the row's request (PRNG position base)
+META_I_ROWS = 6
+ROW_TEMPERATURE = 0  # <=0 lowers the row to greedy argmax
+ROW_TOP_P = 1        # nucleus mass (>=1 disables)
+META_F_ROWS = 2
+
+
+def make_decode_step(cfg: ModelConfig, env: Env):
+    """Contiguous-cache decode: (logits [B,Vpad], caches) for one token per
+    row at write position cur_len (the one-shot baseline's step)."""
+    def decode_step(params, caches, tokens, cur_len):
+        logits, new_caches = Mo.forward(params, tokens, cfg, env,
+                                        mode="decode", caches=caches,
+                                        cur_len=cur_len)
+        return logits[:, 0, :], new_caches
+
+    return decode_step
+
+
+def _select_tokens(prev_tok, meta_i):
+    """Device-side input-token select from the packed step metadata. Row i
+    decodes prev_tok[tok_src[i]] (last step's fused sample/argmax, still on
+    device) unless tok_src[i] < 0, in which case it takes the freshly
+    uploaded token (prompt-chunk token or a first token)."""
+    tok_src, fresh_tok = meta_i[ROW_TOK_SRC], meta_i[ROW_FRESH]
+    safe = tok_src.clamp(0, prev_tok.shape[0] - 1).long()
+    return torch.where(tok_src >= 0, prev_tok[safe], fresh_tok)
+
+
+def make_sample_fn(cfg: ModelConfig, prompt_len: int):
+    """Fused on-device sample step: [T,Vpad] logits -> [T] int32 tokens.
+
+    Each row's key is fold_in(PRNGKey(seed), position) where position =
+    cur_len - pos0 is the request-logical token index (0 for the first
+    generated token), so a seeded request emits bit-identical tokens
+    whether it decodes alone, inside a busy mixed-depth batch, or after a
+    preemption restart. Rows with temperature <= 0 take the plain argmax.
+    top-k/top-p masking runs through kernels/sampling; sampling itself is
+    Gumbel-max over the masked, temperature-scaled logits."""
+    V = cfg.vocab_size
+
+    def sample(logits, meta_i, meta_f):
+        lf = logits[:, :V].float()
+        greedy = torch.argmax(lf, dim=-1)
+        temp = meta_f[ROW_TEMPERATURE]
+        pos = torch.clamp_min(meta_i[ROW_CUR_LEN] - meta_i[ROW_POS0], 0)
+        # temperature first, nucleus second (the vLLM/HF ordering): top_p
+        # must see the distribution actually being sampled
+        scaled = lf / torch.clamp_min(temp, 1e-6)[:, None]
+        masked = topk_topp_mask(scaled, meta_i[ROW_TOP_K].contiguous(),
+                                meta_f[ROW_TOP_P].contiguous())
+        key = R.fold_in(R.PRNGKey(meta_i[ROW_SEED]), pos)
+        sampled = torch.argmax(masked + R.gumbel(key, V), dim=-1)
+        return torch.where(temp > 0.0, sampled, greedy).to(torch.int32)
+
+    return sample
+
+
+def make_paged_decode_step(cfg: ModelConfig, env: Env, *, prompt_len: int = 0,
+                           sample: bool = False):
+    """Fused decode step over a paged (block-table) KV cache.
+
+    Rows are decode slots plus optional piggybacked prefill lanes: every
+    row writes its token's K/V into the physical block its table names at
+    cur_len and attends at its own depth, so a prompt chunk (consecutive
+    cur_len values sharing one table) prefills inside the running decode
+    batch. The sample/argmax step is fused; the [T] token vector is the
+    only per-step download."""
+    V = cfg.vocab_size
+    sampler = make_sample_fn(cfg, prompt_len) if sample else None
+
+    def step(params, caches, prev_tok, meta_i, meta_f, tables):
+        tok = _select_tokens(prev_tok, meta_i)
+        logits, new_caches = Mo.forward(
+            params, tok[:, None], cfg, env, mode="decode", caches=caches,
+            cur_len=meta_i[ROW_CUR_LEN], block_tables=tables)
+        lg = logits[:, 0, :]
+        if sampler is None:
+            nxt = torch.argmax(lg[:, :V], dim=-1).to(torch.int32)
+        else:
+            nxt = sampler(lg, meta_i, meta_f)
+        return nxt, new_caches
+
+    return step

@@ -1,0 +1,128 @@
+"""Core layers: RMSNorm, RoPE, GQA decode attention, SwiGLU.
+
+Port of the JAX package's models/layers.py, for the decode path. dtype
+policy as there: parameters and activations bf16, norm and softmax
+statistics f32. Elementwise bf16 expressions are written op by op as the
+JAX code reads, so each op rounds to bf16 where the reference's does.
+
+Batch invariance: a served row's tokens must not depend on which other
+rows share its step (slot count, prefill lanes, the one-shot baseline's
+batch). Dense row-wise work therefore runs on fixed ROW_TILE-row tiles
+(models/model.py pads every step to a multiple of ROW_TILE rows and
+`linear` multiplies one tile at a time), so the GEMM and reduction kernels
+chosen for a row never change with the batch around it.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.paged_decode import ops as pd_ops
+
+ROW_TILE = 128
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int) -> torch.Tensor:
+    """The JAX package's dense_init: N(0, 1) * 1/sqrt(d_in) in f32, then
+    bf16 — drawn from a torch.Generator, so the values are not the JAX
+    package's, but the shapes and scales are the same."""
+    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return (w * (1.0 / math.sqrt(d_in))).to(torch.bfloat16)
+
+
+def rms_norm(x, scale, eps: float = 1e-6):
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    return ((x * torch.rsqrt(var + eps)) * (1.0 + scale.float())).to(dt)
+
+
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    # f64 pow rounded once to f32 reproduces the JAX package's f32 table
+    i = torch.arange(head_dim // 2, dtype=torch.float64, device=device)
+    return (theta ** (-2.0 * i / head_dim)).float()  # [hd/2]
+
+
+def rope_cos_sin(positions, head_dim: int, theta: float):
+    """cos/sin of the rotary angles, [..., S, 1, hd/2] for positions
+    [..., S]: computed once per step, shared by every layer's q and k."""
+    ang = positions[..., None].float() * rope_freqs(head_dim, theta,
+                                                    positions.device)
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
+def rotate(x, cos, sin):
+    """Apply rotary angles (rope_cos_sin) to x [..., S, H, hd]."""
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: [..., S, H, hd]; positions: broadcastable to [..., S] (int)."""
+    return rotate(x, *rope_cos_sin(positions, x.shape[-1], theta))
+
+
+def linear(x, w):
+    """x [..., K] @ w [K, N] in ROW_TILE-row tiles (batch invariance, see
+    the module docstring). On the CPU the product is taken in f32 and
+    rounded once to bf16, as XLA's CPU dot does for bf16 operands; on the
+    GPU it is a bf16 GEMM with f32 accumulation."""
+    lead = x.shape[:-1]
+    if x.device.type == "cpu":
+        mm = lambda t: (t.float() @ w.float()).to(x.dtype)
+    else:
+        mm = lambda t: t @ w
+    tiles = [mm(t) for t in x.reshape(-1, x.shape[-1]).split(ROW_TILE)]
+    y = tiles[0] if len(tiles) == 1 else torch.cat(tiles)
+    return y.reshape(*lead, w.shape[-1])
+
+
+def _project_qkv(p, x, cfg: ModelConfig):
+    """Returns q [B,S,Hq,hd], k/v [B,S,Hkv,hd] (no rope yet)."""
+    hd = cfg.head_dim
+    B, S = x.shape[0], x.shape[1]
+    q = linear(x, p["wq"]).reshape(B, S, -1, hd)
+    k = linear(x, p["wk"]).reshape(B, S, -1, hd)
+    v = linear(x, p["wv"]).reshape(B, S, -1, hd)
+    return q, k, v
+
+
+def attention_paged_decode(q, k_pool, v_pool, tables, lengths,
+                           cfg: ModelConfig):
+    """Single-token attention over a block-paged KV pool.
+
+    q: [B,1,Hq,hd]; k_pool/v_pool: [NB,Hkv,bs,hd]; tables: [B,MB] int32
+    physical block ids (0 = null block); lengths: [B] int32 index of the
+    last valid position. Softmax probabilities stay f32 up to the P·V
+    product (the TPU kernel's semantics); the result is cast to the
+    activation dtype. Returns [B,1,Hq*hd]."""
+    B = q.shape[0]
+    o = pd_ops.paged_flash_decode(q[:, 0].contiguous(), k_pool, v_pool,
+                                  tables, lengths)
+    return o.reshape(B, 1, -1).to(q.dtype)
+
+
+def attention_decode(q, k_cache, v_cache, cur_len, cfg: ModelConfig):
+    """Single-token attention over a contiguous cache [B,Hkv,Smax,hd].
+
+    cur_len: [B] int32 write position == last attended position per row.
+    A contiguous cache is a block pool of B blocks of Smax tokens, so this
+    is attention_paged_decode through the identity table. Unlike the JAX
+    package's attention_decode it keeps the probabilities in f32 (that one
+    rounds them to bf16 before P·V), so the one-shot baseline and the
+    paged engine compute the same function."""
+    B = q.shape[0]
+    tables = torch.arange(B, dtype=torch.int32, device=q.device)[:, None]
+    return attention_paged_decode(q, k_cache, v_cache, tables,
+                                  cur_len.to(torch.int32), cfg)
+
+
+def mlp(p, x):
+    # jax.nn.silu(g) * u, op by op in bf16: silu(g) = g * (1 / (1 + exp(-g)))
+    g = linear(x, p["w_gate"])
+    h = g * (1 / (1 + torch.exp(-g))) * linear(x, p["w_up"])
+    return linear(h, p["w_down"])

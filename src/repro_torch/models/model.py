@@ -1,0 +1,258 @@
+"""Model assembly for the decode path: embed -> layers -> norm -> unembed.
+
+Port of the JAX package's models/model.py for what serving a dense
+attention-only model needs: parameter init, the contiguous and paged
+caches, the paged-pool helpers behind the BlockManager, and
+forward(mode="decode") over a contiguous cache or block tables. The JAX
+layer scan becomes a Python loop over the stacked `blocks` leaves
+(parameters and caches keep the JAX layout: a leading layer axis).
+
+Unlike the JAX package's pure functions, the cache ops here update the
+cache tensors in place (one pool, no copy per step); they still return the
+cache so call sites read as in the reference.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.env import Env, head_pad, kv_head_pad, vocab_pad
+
+Pytree = Any
+
+PAGEABLE_KINDS = ("attn",)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """The port serves dense attention-only decoders so far."""
+    kinds = set(cfg.block_pattern) | set(cfg.pattern_tail)
+    if (kinds != {"attn"} or cfg.qkv_bias or cfg.qk_norm or cfg.mrope
+            or cfg.is_encdec or cfg.family == "vlm"):
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs dense attention-only decoders "
+            f"(block kinds {sorted(kinds)})")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _init_attn_block(gen: torch.Generator, cfg: ModelConfig, env: Env) -> dict:
+    hq, hkv = head_pad(cfg, env), kv_head_pad(cfg, env)
+    hd, d = cfg.head_dim, cfg.d_model
+    z = torch.zeros((d,), dtype=torch.float32, device=gen.device)
+    return {"ln1": z,
+            "attn": {"wq": L.dense_init(gen, d, hq * hd),
+                     "wk": L.dense_init(gen, d, hkv * hd),
+                     "wv": L.dense_init(gen, d, hkv * hd),
+                     "wo": L.dense_init(gen, hq * hd, d)},
+            "ln2": z.clone(),
+            "mlp": {"w_gate": L.dense_init(gen, d, cfg.d_ff),
+                    "w_up": L.dense_init(gen, d, cfg.d_ff),
+                    "w_down": L.dense_init(gen, cfg.d_ff, d)}}
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def init_params(cfg: ModelConfig, env: Env, *, seed: int = 0,
+                device="cuda") -> Pytree:
+    """Seeded random parameters with the JAX package's shapes, dtypes and
+    scales (Mo.init_params): `blocks` leaves stacked on a leading layer
+    axis, vocabulary padded to vocab_pad. Drawn from a torch.Generator on
+    `device`, so the values are not jax's; tests that compare the two
+    packages bridge jax's parameters instead (repro_torch/bridge.py)."""
+    check_supported(cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    d, vp = cfg.d_model, vocab_pad(cfg, env)
+    return {
+        "embed": L.dense_init(gen, vp, d),
+        "blocks": (_stack([_init_attn_block(gen, cfg, env)
+                           for _ in range(cfg.num_blocks)]),),
+        "tail": (),
+        "final_norm": torch.zeros((d,), dtype=torch.float32, device=device),
+        "unembed": L.dense_init(gen, d, vp),
+    }
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, env: Env, batch: int, max_len: int, *,
+               device="cuda") -> Pytree:
+    """Contiguous decode cache: k/v [L, B, Hkv, max_len, hd] bf16."""
+    shape = (cfg.num_blocks, batch, kv_head_pad(cfg, env), max_len,
+             cfg.head_dim)
+    return {"blocks": ({"k": torch.zeros(shape, dtype=torch.bfloat16,
+                                         device=device),
+                        "v": torch.zeros(shape, dtype=torch.bfloat16,
+                                         device=device)},),
+            "tail": ()}
+
+
+def init_paged_cache(cfg: ModelConfig, env: Env, num_blocks: int,
+                     block_size: int, *, device="cuda") -> Pytree:
+    """Block-pooled decode cache: k/v [L, NB, Hkv, bs, hd] bf16, shared by
+    every request through per-request block tables; physical block 0 is
+    the null block that absorbs masked rows' writes."""
+    return init_cache(cfg, env, num_blocks, block_size, device=device)
+
+
+# Paged-pool helpers (serve/blocks.py). The JAX package builds them as
+# closures to jit; here they work in place on the pool's k/v leaves. The
+# port's pools hold global-attention blocks only, so there are no window
+# tables and no row-addressed recurrent state.
+
+
+def _kv_leaves(pool: Pytree):
+    return [leaf for unit in pool["blocks"] for leaf in unit.values()]
+
+
+def make_paged_insert(cfg: ModelConfig, block_size: int):
+    """Scatter a batch-1 cache ([L,1,Hkv,S,hd] leaves) into the blocks its
+    table names, block_size positions per block (unallocated entries are 0:
+    padding lands in the null block)."""
+    bs = block_size
+
+    def insert(pool, request, tables):
+        for dst, src in zip(_kv_leaves(pool), _kv_leaves(request)):
+            Lyr, _, H, S, hd = src.shape
+            nb = -(-S // bs)
+            src = F.pad(src, (0, 0, 0, nb * bs - S)).to(dst.dtype)
+            chunks = src.reshape(Lyr, H, nb, bs, hd).transpose(1, 2)
+            dst[:, tables[:nb].long()] = chunks
+        return pool
+
+    return insert
+
+
+def make_paged_copy(cfg: ModelConfig):
+    """Copy one physical block's K/V (every layer) from `src` to `dst` —
+    the copy-on-write step behind prefix sharing (serve/blocks.py)."""
+    def copy(pool, src: int, dst: int):
+        for leaf in _kv_leaves(pool):
+            leaf[:, dst] = leaf[:, src]
+        return pool
+
+    return copy
+
+
+def make_paged_evict(cfg: ModelConfig):
+    """Zero the blocks a table names — hygiene only; allocation hygiene
+    lives in the BlockManager free list."""
+    def evict(pool, tables):
+        for leaf in _kv_leaves(pool):
+            leaf[:, tables.long()] = 0
+        return pool
+
+    return evict
+
+
+def make_paged_read(cfg: ModelConfig):
+    """Gather one slot back out of a pool as a batch-1 cache (inverse of
+    insert). `valid` masks unallocated table entries, so a freed slot
+    reads as zeros whatever masked rows left in the null block."""
+    def read(pool, tables, valid):
+        ok = valid.to(torch.bfloat16)
+        units = []
+        for unit in pool["blocks"]:
+            out = {}
+            for name, leaf in unit.items():
+                g = leaf[:, tables.long()] * ok[None, :, None, None, None]
+                Lyr, MB, H, bs, hd = g.shape
+                out[name] = g.transpose(1, 2).reshape(Lyr, 1, H, MB * bs, hd)
+            units.append(out)
+        return {"blocks": tuple(units), "tail": ()}
+
+    return read
+
+
+# ---------------------------------------------------------------------------
+# decode forward
+# ---------------------------------------------------------------------------
+
+
+def _layer(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _attn_sublayer(p, h, cfg: ModelConfig, n_rows: int, cur_len, rope,
+                   cache_k, cache_v, tables):
+    """Decode attention for the first n_rows rows of the row-padded h: each
+    row writes its token's K/V at cur_len (through its block table, or at
+    its own row of a contiguous cache) and attends at its own depth. rope:
+    the rows' (cos, sin) from layers.rope_cos_sin."""
+    q, k, v = L._project_qkv(p, h, cfg)  # [Bp,1,H,hd]
+    q = L.rotate(q, *rope)[:n_rows]
+    k = L.rotate(k, *rope)[:n_rows, 0]
+    v = v[:n_rows, 0]
+    if tables is not None:
+        bs = cache_k.shape[-2]
+        phys = torch.gather(tables, 1, (cur_len // bs)[:, None])[:, 0].long()
+        off = cur_len % bs
+        cache_k[phys, :, off] = k.to(cache_k.dtype)
+        cache_v[phys, :, off] = v.to(cache_v.dtype)
+        o = L.attention_paged_decode(q, cache_k, cache_v, tables,
+                                     cur_len.to(torch.int32), cfg)
+    else:
+        rows = torch.arange(n_rows, device=h.device)
+        cache_k[rows, :, cur_len] = k.to(cache_k.dtype)
+        cache_v[rows, :, cur_len] = v.to(cache_v.dtype)
+        o = L.attention_decode(q, cache_k, cache_v, cur_len, cfg)
+    o = F.pad(o, (0, 0, 0, 0, 0, h.shape[0] - n_rows))
+    return L.linear(o, p["wo"])
+
+
+def forward(params, tokens, cfg: ModelConfig, env: Env, mode: str = "decode",
+            caches=None, cur_len=None, block_tables=None):
+    """tokens: [B,1] int (one decode token per row).
+
+    cur_len: [B] int (or a scalar) KV write position == attention depth of
+    each row. block_tables (paged cache): {"global": [B,MB] int32} block
+    tables into caches from init_paged_cache; without it, caches is a
+    contiguous init_cache cache with one row per batch row. The caches are
+    updated in place. Returns (logits [B,1,Vpad] bf16, caches).
+
+    Every row-wise op runs on the batch padded to a multiple of
+    layers.ROW_TILE rows (batch invariance, see models/layers.py); the
+    padding rows never touch the cache."""
+    if mode != "decode":
+        raise NotImplementedError(f"mode={mode!r}: the port runs decode")
+    check_supported(cfg)
+    B = tokens.shape[0]
+    Bp = -(-B // L.ROW_TILE) * L.ROW_TILE
+    cl = torch.as_tensor(cur_len, device=tokens.device).long()
+    cl = cl.expand(B) if cl.ndim == 0 else cl
+    rope = L.rope_cos_sin(F.pad(cl, (0, Bp - B))[:, None], cfg.head_dim,
+                          cfg.rope_theta)  # [Bp,1,1,hd/2] each
+    tok = F.pad(tokens[:, 0].long(), (0, Bp - B))
+    h = params["embed"][tok][:, None, :].to(torch.bfloat16)  # [Bp,1,d]
+    tables = None if block_tables is None else block_tables["global"]
+    eps = cfg.norm_eps
+    blocks, cache = params["blocks"][0], caches["blocks"][0]
+    for i in range(cfg.num_blocks):
+        p = _layer(blocks, i)
+        a = _attn_sublayer(p["attn"], L.rms_norm(h, p["ln1"], eps), cfg, B,
+                           cl, rope, cache["k"][i], cache["v"][i], tables)
+        # the reference (XLA) fuses this residual add into the next norm:
+        # the norm reads the f32 sum, the residual stream its bf16 rounding
+        hf = h.float() + a.float()
+        h = hf.to(torch.bfloat16)
+        hn = L.rms_norm(hf, p["ln2"], eps).to(torch.bfloat16)
+        h = h + L.mlp(p["mlp"], hn)
+    h = L.rms_norm(h, params["final_norm"], eps)
+    logits = L.linear(h, params["unembed"])[:B]
+    return logits, caches

@@ -1,0 +1,554 @@
+"""BlockManager — a paged KV cache: global block pool + per-request tables.
+
+Port of the JAX package's serve/blocks.py for attention-only models. The
+BlockManager owns a global pool of fixed-size KV blocks
+(Mo.init_paged_cache) on the serving device and a host-side
+[num_slots, MB] block table per request; blocks are allocated on demand as
+a request's cur_len crosses block boundaries and returned to an O(1) free
+list at retirement, so resident KV tracks what requests actually wrote.
+
+Admission is gated by *reservation*: a request reserves (but does not yet
+allocate) the blocks its declared gen_len can ever need, so on-demand
+allocation can never deadlock mid-decode and block exhaustion surfaces as
+clean queue backpressure at admit time.
+
+Physical block 0 is the null block: never allocated, it absorbs the writes
+of masked rows (free slots / idle prefill lanes) in the fused decode step.
+
+Prefix caching (copy-on-write sharing): full prompt blocks are
+content-addressed by a per-block hash *chain* (h_j = H(h_{j-1} ||
+tokens_j), so a block hash commits to its whole prefix); a request whose
+prompt chain hits the index admits with its table pointing at the shared
+physical blocks, and those prefill positions are never recomputed (the
+engine starts its lanes at `cached_len`). Sharing is refcounted: a block
+returns to the pool only when its last reference drops, and registered
+blocks whose refcount hits zero are *retained* in a reclaim list (still
+KV-valid, still admission capacity) until the free list runs dry; reclaim
+takes the block with the fewest lifetime hits, LRU breaking ties. The
+first write into a still-shared block — only ever the boundary block of a
+fully-cached prompt — copies it into a fresh block first
+(Mo.make_paged_copy), so two requests sharing a prefix never observe each
+other's writes. Double frees raise before the free list is poisoned.
+
+Left out of the port so far: the host swap tier (HostSwapPool), the int8
+QuantBlockManager, sliding-window ring tables and recurrent-state rows.
+"""
+from __future__ import annotations
+
+import hashlib
+from collections import deque
+from dataclasses import dataclass
+from typing import Any, Deque, Dict, List, Optional, Set, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import steps as St
+from repro_torch.models import model as Mo
+from repro_torch.models.env import Env
+
+Pytree = Any
+
+FREE = -1
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclass
+class PagedSlot:
+    rid: int
+    cur_len: int  # next decode write position
+    tokens_done: int
+    gen_len: int
+    plen: int = 0  # the request's own prompt length (0: engine prompt_len)
+    prefilling: bool = False  # still consuming prompt chunks (lane rows)
+    alloc_g: int = 0  # table entries bound so far (shared + private)
+    reserved: int = 0  # blocks reserved but not yet allocated
+    cached_len: int = 0  # prompt tokens served from the prefix cache
+    shared_g: int = 0  # leading table entries referencing shared blocks
+    hashes: Tuple[bytes, ...] = ()  # prompt block hash chain (full blocks)
+
+
+class BlockManager:
+    kind = "paged"
+
+    def __init__(self, cfg: ModelConfig, env: Env, *, num_slots: int,
+                 prompt_len: int, max_gen: int, block_size: int = 16,
+                 num_blocks: Optional[int] = None,
+                 prefix_cache: bool = True,
+                 max_shared_fraction: float = 1.0,
+                 device="cuda"):
+        Mo.check_supported(cfg)
+        self.cfg = cfg
+        self.env = env
+        self.device = torch.device(device)
+        self.num_slots = num_slots
+        self.prompt_len = prompt_len
+        self.max_gen = max_gen
+        self.block_size = block_size
+        bs = block_size
+        self.mb_global = _ceil_div(prompt_len + max_gen, bs)
+        self.num_blocks = (num_blocks if num_blocks is not None
+                           else num_slots * self.mb_global + 1)  # + null
+        if self.num_blocks < 1 + self.mb_global:
+            raise ValueError(
+                f"num_blocks={self.num_blocks} cannot hold even one request "
+                f"({self.mb_global} blocks + null)")
+        self.caches: Pytree = Mo.init_paged_cache(
+            cfg, env, self.num_blocks, bs, device=self.device)
+        # host-side tables: row per slot, 0 = unallocated (null block)
+        self.table = np.zeros((num_slots, self.mb_global), np.int32)
+        self._slots: List[Optional[PagedSlot]] = [None] * num_slots
+        self._free_slots: Deque[int] = deque(range(num_slots))
+        self._free_blocks: Deque[int] = deque(range(1, self.num_blocks))
+        # mirror of _free_blocks for the O(1) double-free guard: a block id
+        # returned twice would sit in the free list twice and get handed to
+        # two requests, silently cross-writing their KV
+        self._free_block_set: Set[int] = set(self._free_blocks)
+        self._reserved_total = 0  # blocks promised to admitted requests
+        self.prefix_cache = bool(prefix_cache)
+        if not 0.0 <= max_shared_fraction <= 1.0:
+            raise ValueError(f"max_shared_fraction must be in [0, 1], got "
+                             f"{max_shared_fraction}")
+        self.max_shared_fraction = float(max_shared_fraction)
+        self._ref = np.zeros(self.num_blocks, np.int64)  # table references
+        self._cached: Dict[bytes, int] = {}   # prefix-chain hash -> block id
+        self._hash_of: Dict[int, bytes] = {}  # registered block -> its hash
+        self._hits: Dict[int, int] = {}  # registered block -> cache hits
+        # registered blocks whose last reference dropped: still KV-valid,
+        # still admission capacity. Values are insertion sequence numbers:
+        # reclaim pops the fewest-hits entry, LRU breaking ties.
+        self._reclaim: Dict[int, int] = {}
+        self._reclaim_seq = 0
+        self._hit_tokens = 0     # prompt tokens served from the cache
+        self._lookup_tokens = 0  # prompt tokens probed at admission
+        self._cow_copies = 0
+        # one-entry probe memo: a backpressured queue head re-probes every
+        # scheduler step — don't re-hash the prompt each time. Invalidated
+        # whenever the index changes.
+        self._probe_memo: Optional[Tuple[bytes, tuple]] = None
+        self._copy = Mo.make_paged_copy(cfg)
+        self._evict = Mo.make_paged_evict(cfg)
+        self._read = Mo.make_paged_read(cfg)
+        # two fused-step variants: an all-greedy batch runs the pure-argmax
+        # step (no mask/Gumbel work); any sampling row selects the sampler
+        self._decode = {s: St.make_paged_decode_step(
+            cfg, env, prompt_len=prompt_len, sample=s) for s in (False, True)}
+
+    # -- sizing / admission math -------------------------------------------
+    def blocks_for(self, gen_len: int, plen: Optional[int] = None) -> int:
+        """Physical blocks a request with this gen_len can ever touch (its
+        KV spans positions [0, plen + gen_len - 1))."""
+        kv = max((plen or self.prompt_len) + gen_len - 1, 1)
+        return _ceil_div(kv, self.block_size)
+
+    @property
+    def usable_blocks(self) -> int:
+        return self.num_blocks - 1
+
+    @property
+    def free_unreserved(self) -> int:
+        """Free + reclaimable (cache-retained, refcount 0) minus promised
+        reservations — the capacity admission may still hand out."""
+        return (len(self._free_blocks) + len(self._reclaim)
+                - self._reserved_total)
+
+    def _prompt_hashes(self, prompt) -> Tuple[bytes, ...]:
+        """Content-hash chain over the prompt's *full* blocks. blake2b,
+        not Python hash(): a collision here would silently serve one
+        request another's KV."""
+        bs = self.block_size
+        toks = np.ascontiguousarray(np.asarray(prompt, np.int32))
+        h = b"paged-prefix-root"
+        out = []
+        for j in range(len(toks) // bs):
+            m = hashlib.blake2b(h, digest_size=16)
+            m.update(toks[j * bs:(j + 1) * bs].tobytes())
+            h = m.digest()
+            out.append(h)
+        return tuple(out)
+
+    def _probe(self, prompt) -> Tuple[Tuple[bytes, ...], int, int, int]:
+        """(hashes, shared, cached_len, cow): how much of `prompt` the
+        cache already holds. cached_len is capped at len(prompt) - 1 — the
+        last prompt token always runs (its logits emit the first generated
+        token), so a fully-cached prompt keeps exactly one lane row and its
+        write into the shared boundary block is the copy-on-write case
+        (cow=1 reserves the fresh block that copy will need)."""
+        if prompt is None or not self.prefix_cache:
+            return (), 0, 0, 0
+        key = np.ascontiguousarray(np.asarray(prompt, np.int32)).tobytes()
+        if self._probe_memo is not None and self._probe_memo[0] == key:
+            return self._probe_memo[1]
+        hashes = self._prompt_hashes(prompt)
+        shared = 0
+        for h in hashes:
+            if h not in self._cached:
+                break
+            shared += 1
+        cached_len = min(shared * self.block_size, len(prompt) - 1)
+        cow = 1 if shared * self.block_size > cached_len else 0
+        self._probe_memo = (key, (hashes, shared, cached_len, cow))
+        return hashes, shared, cached_len, cow
+
+    def can_admit(self, gen_len: int, *, prompt=None) -> bool:
+        """With `prompt`, admission is prefix-aware: shared blocks cost no
+        fresh capacity, except that resurrecting a reclaimable block (and
+        the one copy-on-write block of a fully-cached prompt) re-commits
+        physical capacity the reservation math must still cover."""
+        if not self._free_slots:
+            return False
+        hashes, shared, _, cow = self._probe(prompt)
+        resurrect = sum(1 for h in hashes[:shared]
+                        if self._ref[self._cached[h]] == 0)
+        plen = len(prompt) if prompt is not None else None
+        need = self.blocks_for(gen_len, plen) - shared + cow + resurrect
+        return need <= self.free_unreserved
+
+    def preempt_frees(self, slot: int, gen_len: int, *,
+                      prompt=None) -> bool:
+        """Evicting `slot` frees its unspent reservation plus every block
+        it holds the *last* reference to — admit iff that covers the
+        candidate's (prefix-discounted) need."""
+        s = self._slots[slot]
+        assert s is not None
+        vblocks = {int(self.table[slot, j]) for j in range(s.alloc_g)}
+        freed = s.reserved + sum(  # replint: ignore[R001] -- order-insensitive reduction: sum over the set is the same for any iteration order
+            1 for b in vblocks if self._ref[b] == 1)
+        hashes, shared, _, cow = self._probe(prompt)
+        resurrect = 0
+        for h in hashes[:shared]:
+            bid = self._cached[h]
+            if self._ref[bid] == 0 or (self._ref[bid] == 1
+                                       and bid in vblocks):
+                resurrect += 1
+        plen = len(prompt) if prompt is not None else None
+        need = self.blocks_for(gen_len, plen) - shared + cow + resurrect
+        return need <= self.free_unreserved + freed
+
+    # -- occupancy ----------------------------------------------------------
+    def active_slots(self) -> List[int]:
+        """Slots in the decode batch (prefilling slots ride lane rows)."""
+        return [i for i, s in enumerate(self._slots)
+                if s is not None and not s.prefilling]
+
+    def occupied_slots(self) -> List[int]:
+        return [i for i, s in enumerate(self._slots) if s is not None]
+
+    @property
+    def free_slot_count(self) -> int:
+        return len(self._free_slots)
+
+    @property
+    def occupancy(self) -> float:
+        return 1.0 - len(self._free_slots) / max(self.num_slots, 1)
+
+    @property
+    def blocks_in_use(self) -> int:
+        """Blocks referenced by live requests (cache-retained blocks with
+        no referents are reclaimable capacity, not use)."""
+        return (self.usable_blocks - len(self._free_blocks)
+                - len(self._reclaim))
+
+    @property
+    def block_occupancy(self) -> float:
+        """Fraction of the pool committed (allocated + reserved) — the
+        admission-honest load signal published to the autoscaler."""
+        committed = self.blocks_in_use + self._reserved_total
+        return committed / max(self.usable_blocks, 1)
+
+    def info(self, slot: int) -> Optional[PagedSlot]:
+        return self._slots[slot]
+
+    def rid_of(self, slot: int) -> int:
+        s = self._slots[slot]
+        return FREE if s is None else s.rid
+
+    # -- admission / allocation --------------------------------------------
+    def admit(self, rid: int, gen_len: int, *, prefilling: bool = False,
+              prompt=None) -> int:
+        """Reserve a slot + the request's worst-case blocks; allocation
+        itself happens on demand via ensure(). Returns the slot. With
+        `prompt`, hit blocks of the prefix cache are attached (refcounted)
+        to the slot's table and `cached_len` records how many prompt
+        positions never need a prefill lane."""
+        use_prefix = prefilling and prompt is not None
+        assert self.can_admit(gen_len, prompt=prompt if use_prefix else None)
+        slot = self._free_slots.popleft()
+        plen = len(prompt) if prompt is not None else self.prompt_len
+        need = self.blocks_for(gen_len, plen)
+        hashes, shared, cached_len, cow = (
+            self._probe(prompt) if use_prefix else ((), 0, 0, 0))
+        s = PagedSlot(rid=rid, cur_len=0, tokens_done=0, gen_len=gen_len,
+                      plen=plen, prefilling=prefilling,
+                      reserved=need - shared + cow,
+                      cached_len=cached_len, shared_g=shared, hashes=hashes)
+        self._slots[slot] = s
+        for j in range(shared):
+            self._attach(slot, j, self._cached[hashes[j]])
+        s.alloc_g = shared
+        self._reserved_total += s.reserved
+        if use_prefix and self.prefix_cache:
+            self._lookup_tokens += len(prompt)
+            self._hit_tokens += cached_len
+        return slot
+
+    def _attach(self, slot: int, j: int, bid: int) -> None:
+        """Point table entry j at shared block `bid` (incref; resurrect it
+        from the reclaim list if its last holder already retired)."""
+        if self._ref[bid] == 0:
+            del self._reclaim[bid]
+        self._ref[bid] += 1
+        self._hits[bid] = self._hits.get(bid, 0) + 1
+        self.table[slot, j] = bid
+
+    def _unregister_coldest(self) -> int:
+        """Pop the reclaimable block with the fewest lifetime cache hits
+        (LRU insertion order breaks ties) and drop its index entry."""
+        bid = min(self._reclaim,
+                  key=lambda b: (self._hits.get(b, 0), self._reclaim[b]))
+        del self._reclaim[bid]
+        del self._cached[self._hash_of.pop(bid)]
+        self._hits.pop(bid, None)
+        self._probe_memo = None  # the index shrank; memoized hits may lie
+        return bid
+
+    def _take_block(self) -> int:
+        """A fresh physical block: the free list first, else reclaim the
+        coldest cache-retained block."""
+        if self._free_blocks:
+            bid = self._free_blocks.popleft()
+            self._free_block_set.discard(bid)
+            return bid
+        return self._unregister_coldest()
+
+    def _release(self, bid: int) -> bool:
+        """Drop one reference to `bid`; returns True iff the block went
+        back to the free list (registered blocks are retained)."""
+        self._ref[bid] -= 1
+        if self._ref[bid] > 0:
+            return False
+        if bid in self._hash_of:
+            self._reclaim[bid] = self._reclaim_seq
+            self._reclaim_seq += 1
+            return False
+        self._free_blocks.append(bid)
+        self._free_block_set.add(bid)
+        return True
+
+    def _alloc(self, slot: int) -> None:
+        s = self._slots[slot]
+        bid = self._take_block()
+        self._ref[bid] = 1
+        self.table[slot, s.alloc_g] = bid
+        s.alloc_g += 1
+        s.reserved -= 1
+        self._reserved_total -= 1
+        assert s.reserved >= 0, "request outgrew its reservation"
+
+    def _cow(self, slot: int, j: int) -> None:
+        """Copy-on-write: `slot` is about to write into shared table entry
+        j. Copy the block's KV into a fresh block (reserved at admission),
+        repoint the table, drop the shared reference."""
+        s = self._slots[slot]
+        old = int(self.table[slot, j])
+        new = self._take_block()
+        self._ref[new] = 1
+        self.caches = self._copy(self.caches, old, new)
+        self.table[slot, j] = new
+        s.shared_g = j
+        s.reserved -= 1
+        self._reserved_total -= 1
+        assert s.reserved >= 0, "copy-on-write outgrew its reservation"
+        self._cow_copies += 1
+        self._release(old)
+
+    def ensure(self, slot: int, pos: int) -> None:
+        """Allocate blocks so `slot` can write KV at logical position
+        `pos`. Writes are strictly sequential from cached_len, so the only
+        write that can land in a shared block is the first one past a
+        partially-cached boundary — the copy-on-write trigger."""
+        s = self._slots[slot]
+        assert s is not None
+        bs = self.block_size
+        if s.shared_g * bs > s.cached_len and pos >= s.cached_len:
+            self._cow(slot, s.shared_g - 1)
+        while s.alloc_g < pos // bs + 1:
+            self._alloc(slot)
+
+    def truncate(self, slot: int, n: int) -> None:
+        """Roll `slot`'s committed KV back to its first `n` positions:
+        blocks wholly past position n-1 go back through _release and their
+        reservation is re-credited. Never reaches shared prefix blocks."""
+        s = self._slots[slot]
+        assert s is not None and not s.prefilling
+        keep = _ceil_div(n, self.block_size)
+        assert keep >= s.shared_g, \
+            f"truncate({n}) would free shared prefix blocks of slot {slot}"
+        for j in range(keep, s.alloc_g):
+            self._release(int(self.table[slot, j]))
+            self.table[slot, j] = 0
+            s.reserved += 1
+            self._reserved_total += 1
+        s.alloc_g = min(s.alloc_g, keep)
+
+    def finish_prefill(self, slot: int) -> PagedSlot:
+        """Chunked prefill consumed the whole prompt: the slot joins the
+        decode batch. Its full prompt blocks now hold valid KV — register
+        any not yet in the prefix index so later identical prefixes hit."""
+        s = self._slots[slot]
+        assert s is not None and s.prefilling
+        s.prefilling = False
+        s.cur_len = s.plen or self.prompt_len
+        s.tokens_done = 1
+        if self.prefix_cache:
+            cap = int(self.max_shared_fraction * self.usable_blocks)
+            for j, h in enumerate(s.hashes):
+                if h in self._cached:
+                    continue
+                if len(self._hash_of) >= cap:
+                    # residency cap: make room by unregistering the coldest
+                    # reclaimable entry, else this block stays private
+                    if not self._reclaim:
+                        continue
+                    freed = self._unregister_coldest()
+                    self._free_blocks.append(freed)
+                    self._free_block_set.add(freed)
+                bid = int(self.table[slot, j])
+                self._cached[h] = bid
+                self._hash_of[bid] = h
+                self._hits.setdefault(bid, 0)
+                self._probe_memo = None  # the index grew; re-probe
+        return s
+
+    # -- the fused step -------------------------------------------------------
+    def decode(self, params, prev_tok, meta_i, meta_f, row_slots, *,
+               sample: bool):
+        """One fused step over the block pool. row_slots[t] names the slot
+        whose table row t addresses (decode rows: the slot itself; prefill
+        lane rows: the admitting slot; -1: masked row -> null table)."""
+        rs = np.asarray(row_slots)
+        safe = np.clip(rs, 0, self.num_slots - 1)
+        live = (rs >= 0)[:, None]
+        dev = self.device
+        tables = {"global": torch.as_tensor(
+            np.where(live, self.table[safe], 0), device=dev)}
+        nxt, self.caches = self._decode[sample](
+            params, self.caches, prev_tok, torch.as_tensor(meta_i, device=dev),
+            torch.as_tensor(meta_f, device=dev), tables)
+        return nxt
+
+    # -- decode-batch views -------------------------------------------------
+    def advance(self, slot: int) -> PagedSlot:
+        s = self._slots[slot]
+        assert s is not None and not s.prefilling
+        s.cur_len += 1
+        s.tokens_done += 1
+        return s
+
+    def finished(self, slot: int) -> bool:
+        s = self._slots[slot]
+        return (s is not None and not s.prefilling
+                and s.tokens_done >= s.gen_len)
+
+    # -- retirement ---------------------------------------------------------
+    def evict(self, slot: int, *, zero: bool = False) -> None:
+        """Free `slot`: drop one reference per table entry. Zeroing is
+        hygiene only (tests) and skips blocks that stay shared or cached.
+        Double frees are hard errors, not silent corruption."""
+        s = self._slots[slot]
+        if s is None:
+            raise RuntimeError(
+                f"double free: slot {slot} is already free (its block "
+                "table was returned to the pool once)")
+        freeing = [int(self.table[slot, j]) for j in range(s.alloc_g)]
+        dup = [b for b in freeing
+               if b in self._free_block_set or self._ref[b] <= 0]
+        if len(set(freeing)) != len(freeing):  # within-table alias
+            dup += [b for b in sorted(set(freeing)) if freeing.count(b) > 1]
+        if dup:
+            raise RuntimeError(
+                f"double free: slot {slot} block table names free block(s) "
+                f"{sorted(set(dup))} — the free list would hand them to "
+                "two requests")
+        if zero:
+            # only blocks this eviction returns to the free list may be
+            # zeroed; shared or cache-retained blocks keep their KV
+            dropping = [b for b in freeing
+                        if self._ref[b] == 1 and b not in self._hash_of]
+            if dropping:
+                self.caches = self._evict(
+                    self.caches, torch.as_tensor(dropping, device=self.device))
+        for b in freeing:
+            self._release(b)
+        self.table[slot, :] = 0
+        self._reserved_total -= s.reserved
+        self._slots[slot] = None
+        self._free_slots.append(slot)
+
+    def cached_prefix_len(self, slot: int) -> int:
+        """Prompt positions this slot serves from the prefix cache."""
+        s = self._slots[slot]
+        return 0 if s is None else s.cached_len
+
+    def release(self) -> None:
+        """Retire the pool. Verifies the free-list accounting returns to
+        empty — every usable block either free or cache-retained with zero
+        references, no dangling reservations — then drops the device
+        cache. Leaks raise."""
+        live = [i for i, s in enumerate(self._slots) if s is not None]
+        if live:
+            raise RuntimeError(f"release with occupied slots {live}")
+        if self._reserved_total:
+            raise RuntimeError(f"release leaked {self._reserved_total} "
+                               "reserved blocks")
+        accounted = len(self._free_blocks) + len(self._reclaim)
+        if accounted != self.usable_blocks:
+            raise RuntimeError(
+                f"release leaked {self.usable_blocks - accounted} blocks "
+                f"({len(self._free_blocks)} free + {len(self._reclaim)} "
+                f"reclaimable of {self.usable_blocks})")
+        if int(np.count_nonzero(self._ref)):
+            held = np.flatnonzero(self._ref).tolist()
+            raise RuntimeError(f"release with referenced blocks {held}")
+        self.caches = None
+
+    # -- reporting ----------------------------------------------------------
+    @property
+    def prefix_hit_rate(self) -> float:
+        """Cumulative fraction of probed prompt tokens served from the
+        cache (the prefill compute the pool saved)."""
+        return self._hit_tokens / max(self._lookup_tokens, 1)
+
+    @property
+    def shared_occupancy(self) -> float:
+        """Fraction of the pool actively shared — blocks referenced by two
+        or more live requests right now."""
+        return (int(np.count_nonzero(self._ref >= 2))
+                / max(self.usable_blocks, 1))
+
+    def metrics(self) -> Dict[str, float]:
+        """Backend load signals merged into the engine snapshot."""
+        return {"kv_block_occupancy": self.block_occupancy,
+                "prefix_hit_rate": self.prefix_hit_rate,
+                "kv_shared_occupancy": self.shared_occupancy}
+
+    def describe(self) -> str:
+        return (f"paged KV: {self.num_blocks} blocks x "
+                f"{self.block_size} tokens, prefix cache "
+                f"{'on' if self.prefix_cache else 'off'}")
+
+    # -- introspection (tests) ----------------------------------------------
+    def read_slot(self, slot: int) -> Pytree:
+        """Gather `slot` back as a batch-1 cache; unallocated table entries
+        read as zeros (the null block may hold masked-row junk)."""
+        s = self._slots[slot]
+        ag = 0 if s is None else s.alloc_g
+        valid = torch.as_tensor(np.arange(self.mb_global) < ag,
+                                device=self.device)
+        return self._read(self.caches,
+                          torch.as_tensor(self.table[slot], device=self.device),
+                          valid)

@@ -1,0 +1,112 @@
+"""KVBackend — the one KV-cache contract the serving plane talks to.
+
+Port of the JAX package's serve/kv.py. A backend owns its device cache, its
+bookkeeping, and its fused decode step; the engine schedules rows and
+never learns what a block table is. The port has one backend so far, the
+paged BlockManager (serve/blocks.py). There is no counterpart of the JAX
+package's shared_jit registry: PyTorch runs eagerly, so there is nothing
+to compile once per config.
+
+Lifecycle of one request through a backend:
+
+    can_admit(gen_len, prompt=…)  reservation check (admission-time
+                            backpressure; prompt makes it prefix-aware)
+    admit(rid, gen_len, prompt=…) bind a slot + reserve worst-case
+                            capacity; a prompt whose prefix the backend
+                            already caches admits with shared blocks
+    cached_prefix_len(slot) prompt positions admit() served from its
+                            prefix cache — the engine starts prefill
+                            lanes there
+    ensure(slot, pos)       grow capacity to cover position (first write
+                            into a shared block = copy-on-write)
+    finish_prefill(slot)    the slot joins the decode batch (registers
+                            full prompt blocks for reuse)
+    decode(params, …)       one fused step over the whole row set
+    advance(slot)           host bookkeeping per emitted token
+    finished(slot)          declared gen budget consumed?
+    evict(slot)             return capacity (double-free is an error;
+                            refcounted backends drop one reference)
+"""
+from __future__ import annotations
+
+from typing import (Any, Dict, List, Optional, Protocol,
+                    runtime_checkable)
+
+import numpy as np
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.env import Env
+
+Pytree = Any
+
+
+@runtime_checkable
+class KVBackend(Protocol):
+    kind: str                 # registry name ("paged")
+    num_slots: int
+    caches: Pytree            # the device cache the backend owns
+
+    # -- admission / reservation -------------------------------------------
+    def can_admit(self, gen_len: int, *, prompt=None) -> bool: ...
+    def preempt_frees(self, slot: int, gen_len: int, *,
+                      prompt=None) -> bool:
+        """Would evicting `slot` make can_admit(gen_len, prompt=...) true?
+        The engine asks before acting on a preemption verdict."""
+        ...
+    def admit(self, rid: int, gen_len: int, *, prefilling: bool = False,
+              prompt=None) -> int: ...
+    def cached_prefix_len(self, slot: int) -> int: ...
+    def release(self) -> None:
+        """Retire the backend: verify the free-list accounting returns to
+        empty (leaks raise), then drop the device cache."""
+        ...
+    def ensure(self, slot: int, pos: int) -> None: ...
+    def finish_prefill(self, slot: int) -> Any: ...
+    def truncate(self, slot: int, n: int) -> None:
+        """Roll the slot's committed KV back to its first `n` positions."""
+        ...
+
+    # -- the fused step ----------------------------------------------------
+    def decode(self, params: Pytree, prev_tok, meta_i: np.ndarray,
+               meta_f: np.ndarray, row_slots: np.ndarray, *,
+               sample: bool):
+        """Run one fused decode step over T rows (launch/steps.py packed
+        metadata; row_slots[t] names the slot whose KV row t addresses,
+        -1: masked). Returns the [T] int32 device token vector."""
+        ...
+
+    # -- per-token bookkeeping / retirement --------------------------------
+    def advance(self, slot: int) -> Any: ...
+    def finished(self, slot: int) -> bool: ...
+    def evict(self, slot: int, *, zero: bool = False) -> None: ...
+
+    # -- introspection ------------------------------------------------------
+    def info(self, slot: int) -> Any: ...
+    def rid_of(self, slot: int) -> int: ...
+    def active_slots(self) -> List[int]: ...
+    def occupied_slots(self) -> List[int]: ...
+    @property
+    def free_slot_count(self) -> int: ...
+    @property
+    def occupancy(self) -> float: ...
+    def metrics(self) -> Dict[str, float]: ...
+    def describe(self) -> str: ...
+
+
+def make_kv_backend(kind: str, cfg: ModelConfig, env: Env, *, num_slots: int,
+                    prompt_len: int, max_gen: int, block_size: int = 16,
+                    kv_blocks: Optional[int] = None,
+                    prefix_cache: bool = True,
+                    max_shared_fraction: float = 1.0,
+                    device="cuda") -> KVBackend:
+    """The one cache-kind dispatch in the serving plane."""
+    from repro_torch.serve.blocks import BlockManager
+
+    if kind == "paged":
+        return BlockManager(cfg, env, num_slots=num_slots,
+                            prompt_len=prompt_len, max_gen=max_gen,
+                            block_size=block_size, num_blocks=kv_blocks,
+                            prefix_cache=prefix_cache,
+                            max_shared_fraction=max_shared_fraction,
+                            device=device)
+    raise ValueError(f"unknown KV backend {kind!r} (the port has 'paged')")

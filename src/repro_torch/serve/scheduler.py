@@ -1,0 +1,481 @@
+"""ReplicaEngine + ServingEngine — continuous batching over a KVBackend.
+
+Port of the JAX package's serve/scheduler.py, chunked-prefill path.
+
+`ReplicaEngine` is ONE serving replica: a KVBackend (its own block pool,
+its own prefix cache), the in-flight lane/slot bookkeeping, the fused
+decode step, and its own ServingMetrics. It has no arrival queue and no
+SchedulerPolicy — it only answers "can you take this request?"
+(`can_take`), commits admissions (`admit`), and runs decode ticks
+(`step_decode`).
+
+`ServingEngine` is the single-replica composition: a RequestQueue +
+SchedulerPolicy admission loop over one ReplicaEngine.
+
+One scheduler iteration (ServingEngine.step()):
+
+  1. admit: the SchedulerPolicy picks which arrived request admits next
+     while the KVBackend can reserve its worst case (exhaustion = queue
+     backpressure, not an OOM mid-decode). If the backend is full, the
+     policy may issue a preemption verdict: the engine evicts the victim,
+     clears its progress, and re-queues it at its original arrival time —
+     restart-preemption is safe because sampling is position-keyed, so the
+     victim regenerates identical tokens. The prompt is not prefilled in a
+     separate batch-1 call: it streams through `prefill_chunk` piggybacked
+     lane rows of the regular decode step (chunked prefill).
+  2. decode: one fused step over decode rows (+ lane rows), run by the
+     backend: every row writes K/V where its table says and attends at its
+     own depth; the sample step happens on the device and the [T] int32
+     token vector is the only per-step host download.
+  3. retire: finished slots (gen budget spent, or a stop token emitted)
+     return their capacity to the backend.
+
+Greedy decoding keeps output token-for-token equal to the streamed one-shot
+serve_batch baseline (launch/serve.py); seeded sampling is reproducible
+and lane-placement-invariant. The clock is injected: tests and the CLI
+drive a ManualClock; nothing here sleeps.
+
+Left out of the port so far: classic (batch-1 prefill + insert)
+admission, speculative verify rows, the host swap tier and the drain
+lifecycle of a fleet's replicas.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.clock import Clock, ManualClock
+from repro_torch.launch import steps as St
+from repro_torch.models.env import Env
+from repro_torch.serve.kv import KVBackend, make_kv_backend
+from repro_torch.serve.metrics import ServingMetrics
+from repro_torch.serve.policy import FIFOPolicy, SchedulerPolicy
+from repro_torch.serve.request import Request, RequestQueue
+
+Pytree = Any
+
+
+@dataclass
+class _Lane:
+    """An in-flight chunked prefill riding the decode batch's lane rows.
+
+    prefill_chunk is a *token budget* shared by every admitting request:
+    each step the budget rows are packed FIFO across the open lanes, so
+    several short prompts can prefill in one step while a long prompt
+    streams through in chunks."""
+    slot: int
+    req: Request
+    pos: int = 0  # prompt tokens consumed so far
+    take: int = 0  # rows granted this step
+    last_row: int = 0  # row of the chunk's final token (first-token source)
+
+
+class ReplicaEngine:
+    """One serving replica: KVBackend + lanes + fused step + metrics."""
+
+    def __init__(self, cfg: ModelConfig, params: Pytree, *,
+                 name: str = "replica-0",
+                 num_slots: int = 4, prompt_len: int = 32, max_gen: int = 32,
+                 kv: str = "paged", block_size: int = 16,
+                 kv_blocks: Optional[int] = None,
+                 prefix_cache: bool = True,
+                 max_shared_fraction: float = 1.0,
+                 prefill_chunk: Optional[int] = None,
+                 clock: Optional[Clock] = None,
+                 metrics_window_s: float = 10.0,
+                 device="cuda"):
+        self.cfg = cfg
+        self.params = params
+        self.name = name
+        self.prompt_len = prompt_len
+        self.max_gen = max_gen
+        self.clock = clock or ManualClock()
+        self.env = Env()
+        self.device = torch.device(device)
+        self.pool: KVBackend = make_kv_backend(
+            kv, cfg, self.env, num_slots=num_slots, prompt_len=prompt_len,
+            max_gen=max_gen, block_size=block_size, kv_blocks=kv_blocks,
+            prefix_cache=prefix_cache,
+            max_shared_fraction=max_shared_fraction, device=self.device)
+        self.kv = self.pool.kind
+        if prefill_chunk is None:
+            prefill_chunk = prompt_len
+        if prefill_chunk <= 0:
+            raise ValueError(
+                f"{cfg.name}: the port admits through chunked prefill only "
+                f"(prefill_chunk={prefill_chunk})")
+        self.prefill_chunk = int(prefill_chunk)
+        self.metrics = ServingMetrics(window_s=metrics_window_s)
+        self._lanes: List[_Lane] = []
+        # device [T] int32: last step's fused sample/argmax
+        self._tok_prev = torch.zeros((num_slots,), dtype=torch.int32,
+                                     device=self.device)
+        self._row_src: Dict[int, int] = {}  # slot -> row in _tok_prev
+        self._inflight: Dict[int, Request] = {}  # rid -> request
+        self.completed: List[Request] = []
+        self.decode_steps = 0
+
+    # -- state -----------------------------------------------------------------
+    @property
+    def busy(self) -> bool:
+        return bool(self._inflight)
+
+    def admission_room(self) -> bool:
+        """Lane-budget gate: open lanes only while the step's token budget
+        can still reach a new prompt (bounds admitted-but-starved lanes)."""
+        return (sum(len(l.req.prompt) - l.pos for l in self._lanes)
+                < self.prefill_chunk)
+
+    def can_take(self, req: Request) -> bool:
+        """Capacity predicate only: can the backend hold `req` right now?"""
+        return self.pool.can_admit(req.eff_gen_len, prompt=req.prompt)
+
+    # -- admission commit ---------------------------------------------------
+    def admit(self, req: Request, now: float) -> None:
+        """Commit one admission (caller already took it off its queue)."""
+        req.t_admit = now
+        self._inflight[req.rid] = req
+        slot = self.pool.admit(req.rid, req.eff_gen_len,
+                               prefilling=True, prompt=req.prompt)
+        # cached prefix positions never ride a lane: start at the first
+        # uncached token (the last prompt token always runs to emit the
+        # first generated token)
+        self._lanes.append(_Lane(slot=slot, req=req,
+                                 pos=self.pool.cached_prefix_len(slot)))
+
+    # -- preemption (restart-style) ------------------------------------------
+    def running(self) -> List[Request]:
+        """Decoding (preemptible) requests, for the policy's verdict."""
+        return [self._inflight[self.pool.info(s).rid]
+                for s in self.pool.active_slots()]
+
+    def slot_of(self, req: Request) -> Optional[int]:
+        """The slot `req` occupies, or None (a stale policy verdict)."""
+        return next((s for s in self.pool.occupied_slots()
+                     if self.pool.rid_of(s) == req.rid), None)
+
+    def lane_open(self, slot: int) -> bool:
+        return any(ln.slot == slot for ln in self._lanes)
+
+    def preempt(self, victim: Request, slot: int, now: float) -> Request:
+        """Restart preemption: return the victim's KV capacity and clear
+        its progress; the caller re-queues it at its original arrival time.
+        Safe because sampling is position-keyed — on re-admission the
+        victim regenerates bit-identical tokens — but the re-prefill is
+        paid compute, booked into recomputed_tokens via `restarts`."""
+        assert not self.lane_open(slot), \
+            f"preempting slot {slot} with an open prefill lane"
+        self.pool.evict(slot)
+        self._row_src.pop(slot, None)
+        del self._inflight[victim.rid]
+        victim.t_admit = None
+        victim.tokens.clear()
+        victim.t_first_token = None
+        victim.restarts += 1
+        self.metrics.record_preempt(now)
+        return victim
+
+    def release(self) -> None:
+        """Return the replica's pool. Must be idle; the backend's release()
+        verifies its free-list accounting (no leaked blocks/reservations)."""
+        if self.busy or self._lanes:
+            raise RuntimeError(
+                f"{self.name}: release() while {len(self._inflight)} "
+                "requests are in flight")
+        self.pool.release()
+
+    # -- one decode tick -----------------------------------------------------
+    def step_decode(self, now: float) -> int:
+        """Run one fused decode step over the replica's mixed batch
+        (+ prefill lanes) and retire finished requests. Returns tokens
+        emitted this tick."""
+        active = self.pool.active_slots()
+        lanes = self._lanes
+        if not active and not lanes:
+            return 0
+
+        # pack the prefill token budget FIFO across open lanes
+        N = self.pool.num_slots
+        budget = self.prefill_chunk
+        for lane in lanes:
+            lane.take = min(budget, len(lane.req.prompt) - lane.pos)
+            budget -= lane.take
+        # prefill compute actually spent this step; chunks of
+        # restart-preempted requests are re-work, booked separately
+        self.metrics.record_prefill_tokens(
+            sum(ln.take for ln in lanes if ln.req.restarts == 0))
+        self.metrics.record_prefill_tokens(
+            sum(ln.take for ln in lanes if ln.req.restarts > 0),
+            recompute=True)
+        T = N + (self.prefill_chunk if lanes else 0)
+        meta_i = np.zeros((St.META_I_ROWS, T), np.int32)
+        meta_f = np.zeros((St.META_F_ROWS, T), np.float32)
+        meta_i[St.ROW_TOK_SRC, :] = -1
+        row_slots = np.full((T,), -1, np.int32)
+        sample = False
+        for slot in active:
+            info = self.pool.info(slot)
+            req = self._inflight[info.rid]
+            self.pool.ensure(slot, info.cur_len)
+            row_slots[slot] = slot
+            meta_i[St.ROW_CUR_LEN, slot] = info.cur_len
+            sample |= self._fill_sampling(meta_i, meta_f, slot, req)
+            meta_i[St.ROW_TOK_SRC, slot] = self._row_src.pop(slot, slot)
+        row = N
+        for lane in lanes:
+            if lane.take <= 0:
+                continue
+            self.pool.ensure(lane.slot, lane.pos + lane.take - 1)
+            sl = slice(row, row + lane.take)
+            meta_i[St.ROW_FRESH, sl] = \
+                lane.req.prompt[lane.pos:lane.pos + lane.take]
+            meta_i[St.ROW_CUR_LEN, sl] = \
+                np.arange(lane.pos, lane.pos + lane.take)
+            row_slots[sl] = lane.slot
+            sample |= self._fill_sampling(meta_i, meta_f, sl, lane.req)
+            row += lane.take
+            lane.last_row = row - 1
+
+        nxt_dev = self.pool.decode(self.params, self._tok_prev, meta_i,
+                                   meta_f, row_slots, sample=sample)
+        self._tok_prev = nxt_dev
+        nxt = nxt_dev.cpu().numpy()  # the one host transfer per step
+        self.decode_steps += 1
+
+        emitted = 0
+        for slot in active:
+            info = self.pool.info(slot)
+            req = self._inflight[info.rid]
+            tok = int(nxt[slot])
+            self._row_src[slot] = slot
+            self.pool.advance(slot)
+            req.tokens.append(tok)
+            emitted += 1
+            if self.pool.finished(slot) or tok in req.sampling.stop_set:
+                self._retire(slot, now)
+        still_open: List[_Lane] = []
+        for lane in lanes:
+            lane.pos += lane.take
+            if lane.pos < len(lane.req.prompt):
+                still_open.append(lane)
+                continue
+            slot = lane.slot
+            self.pool.finish_prefill(slot)
+            req = lane.req
+            req.t_first_token = now
+            tok = int(nxt[lane.last_row])
+            req.tokens.append(tok)
+            self.metrics.record_first_token(req, now)
+            # next step, this slot's input token comes from the lane row
+            self._row_src[slot] = lane.last_row
+            emitted += 1
+            if self.pool.finished(slot) or tok in req.sampling.stop_set:
+                self._retire(slot, now)
+        self._lanes = still_open
+        if emitted:
+            self.metrics.record_tokens(now, emitted)
+        return emitted
+
+    @staticmethod
+    def _fill_sampling(meta_i, meta_f, rows, req: Request) -> bool:
+        """Write one request's SamplingParams into its row(s); returns
+        whether the row actually samples (so an all-greedy batch can take
+        the pure-argmax step variant)."""
+        sp = req.sampling
+        meta_i[St.ROW_SEED, rows] = sp.seed
+        meta_i[St.ROW_TOP_K, rows] = sp.top_k
+        meta_i[St.ROW_POS0, rows] = len(req.prompt) - 1
+        meta_f[St.ROW_TEMPERATURE, rows] = sp.temperature
+        meta_f[St.ROW_TOP_P, rows] = sp.top_p
+        return not sp.greedy
+
+    def _retire(self, slot: int, now: float) -> None:
+        rid = self.pool.rid_of(slot)
+        req = self._inflight.pop(rid)
+        req.t_done = now
+        self.completed.append(req)
+        self.metrics.record_done(req, now)
+        self.pool.evict(slot)
+        self._row_src.pop(slot, None)
+
+    # -- reporting ----------------------------------------------------------------
+    def snapshot(self, *, queue_depth: Optional[int] = None
+                 ) -> Dict[str, float]:
+        return self.metrics.snapshot(self.clock.now(),
+                                     queue_depth=queue_depth,
+                                     slot_occupancy=self.pool.occupancy,
+                                     **self.pool.metrics())
+
+
+class ServingEngine:
+    """The single-replica serving composition: RequestQueue +
+    SchedulerPolicy admission loop over one ReplicaEngine."""
+
+    def __init__(self, cfg: ModelConfig, params: Pytree, *,
+                 num_slots: int = 4, prompt_len: int = 32, max_gen: int = 32,
+                 kv: str = "paged", block_size: int = 16,
+                 kv_blocks: Optional[int] = None,
+                 prefix_cache: bool = True,
+                 max_shared_fraction: float = 1.0,
+                 prefill_chunk: Optional[int] = None,
+                 policy: Optional[SchedulerPolicy] = None,
+                 clock: Optional[Clock] = None,
+                 metrics_window_s: float = 10.0,
+                 device="cuda"):
+        self.replica = ReplicaEngine(
+            cfg, params, num_slots=num_slots, prompt_len=prompt_len,
+            max_gen=max_gen, kv=kv, block_size=block_size,
+            kv_blocks=kv_blocks, prefix_cache=prefix_cache,
+            max_shared_fraction=max_shared_fraction,
+            prefill_chunk=prefill_chunk, clock=clock,
+            metrics_window_s=metrics_window_s, device=device)
+        self.policy: SchedulerPolicy = policy or FIFOPolicy()
+        self.queue = RequestQueue()
+
+    # -- delegated surface (the replica owns the data plane) -----------------
+    @property
+    def clock(self):
+        return self.replica.clock
+
+    @property
+    def pool(self) -> KVBackend:
+        return self.replica.pool
+
+    @property
+    def kv(self) -> str:
+        return self.replica.kv
+
+    @property
+    def prompt_len(self) -> int:
+        return self.replica.prompt_len
+
+    @property
+    def max_gen(self) -> int:
+        return self.replica.max_gen
+
+    @property
+    def prefill_chunk(self) -> int:
+        return self.replica.prefill_chunk
+
+    @property
+    def metrics(self) -> ServingMetrics:
+        return self.replica.metrics
+
+    @property
+    def completed(self) -> List[Request]:
+        return self.replica.completed
+
+    @property
+    def decode_steps(self) -> int:
+        return self.replica.decode_steps
+
+    # -- state -----------------------------------------------------------------
+    @property
+    def busy(self) -> bool:
+        return self.replica.busy
+
+    def pending(self) -> int:
+        return len(self.queue)
+
+    def drained(self) -> bool:
+        return not self.busy and not self.pending()
+
+    def submit(self, requests: Sequence[Request]) -> None:
+        """Validate and enqueue. Never mutates the caller's Requests."""
+        validate_requests(requests, self.prompt_len, self.max_gen)
+        for r in requests:
+            self.queue.push(r)
+
+    # -- scheduler iteration ------------------------------------------------------
+    def step(self) -> Dict[str, float]:
+        """Admit arrivals (policy order), run one fused decode step over
+        the mixed batch (+ prefill lanes), retire finished requests.
+        Returns the metrics snapshot (what a node would publish)."""
+        now = self.clock.now()
+        self._admit_ready(now)
+        self.replica.step_decode(now)
+        return self.snapshot()
+
+    def _admit_ready(self, now: float) -> None:
+        rep = self.replica
+        preempted = False  # at most one restart per iteration (no thrash)
+        ready = None  # built lazily, invalidated when the queue changes
+        while True:
+            if not rep.admission_room():
+                return
+            if self.queue.peek_ready(now) is None:
+                return  # O(1) hot-path exit: nothing has arrived
+            if ready is None:
+                ready = self.queue.ready(now)
+            req = self.policy.select(ready, now)
+            if req is None:
+                return
+            if not rep.can_take(req):
+                victim = None if preempted else \
+                    self.policy.victim(rep.running(), req, now)
+                if victim is None:
+                    return  # backend exhaustion -> queue backpressure
+                vslot = rep.slot_of(victim)
+                if vslot is None or rep.lane_open(vslot):
+                    return  # stale or mid-prefill verdict: backpressure
+                if not rep.pool.preempt_frees(vslot, req.eff_gen_len,
+                                              prompt=req.prompt):
+                    return  # eviction could not make room
+                self.queue.push(rep.preempt(victim, vslot, now))
+                preempted = True
+                ready = None  # the victim re-joined the arrived set
+                if not rep.can_take(req):
+                    return
+            self.queue.remove(req)
+            if ready is not None:
+                ready.remove(req)
+            rep.admit(req, now)
+
+    # -- reporting ----------------------------------------------------------------
+    def snapshot(self) -> Dict[str, float]:
+        now = self.clock.now()
+        return self.replica.snapshot(queue_depth=self.queue.depth(now))
+
+    def results(self) -> Dict[int, List[int]]:
+        """rid -> generated tokens, for every completed request."""
+        return {r.rid: list(r.tokens) for r in self.completed}
+
+
+def validate_requests(requests: Sequence[Request], prompt_len: int,
+                      max_gen: int) -> None:
+    """Submit-time validation: chunked prefill streams prompts through
+    lane rows at the request's own length, so any prompt up to the
+    engine's prompt_len budget is accepted."""
+    for r in requests:
+        n = len(r.prompt)
+        if not 0 < n <= prompt_len:
+            raise ValueError(f"request {r.rid}: prompt length {n} not in "
+                             f"(0, {prompt_len}]")
+        if r.eff_gen_len > max_gen:
+            raise ValueError(
+                f"request {r.rid}: gen_len {r.eff_gen_len} > "
+                f"engine max_gen {max_gen}")
+
+
+def run_to_completion(engine, requests: Sequence[Request] = (), *,
+                      dt: float = 0.05, max_steps: int = 100_000,
+                      on_step: Optional[Callable[[int, Dict[str, float]],
+                                                 None]] = None
+                      ) -> Dict[int, List[int]]:
+    """Standalone drain loop: step the engine, advance the clock by `dt`
+    between iterations."""
+    engine.submit(requests)
+    steps = 0
+    while not engine.drained() and steps < max_steps:
+        snap = engine.step()
+        engine.clock.sleep(dt)
+        if on_step is not None:
+            on_step(steps, snap)
+        steps += 1
+    if not engine.drained():
+        raise RuntimeError(f"serve did not drain in {max_steps} steps")
+    return engine.results()

@@ -1,0 +1,102 @@
+"""The port's CUDA kernels and serving path on the card.
+
+Every test here needs an NVIDIA GPU (marker `gpu`) and skips without one.
+The file imports neither jax nor the JAX package, so it runs where only
+PyTorch is installed; tests/conftest.py imports jax, hence:
+
+  PYTHONPATH=src python -m pytest -m gpu --noconftest tests/test_torch_cuda.py
+
+Each kernel is held to its plain version on the same inputs: paged decode
+within 1e-5 (both sides compute in f32 from the same bf16 inputs; sound
+runs read below 1e-6, a kernel rounding its probabilities to bf16 reads
+above 1e-3), the top-k/top-p mask exactly (same keep-set, kept logits
+equal).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_smoke
+from repro_torch.core.clock import ManualClock
+from repro_torch.kernels.paged_decode.ops import paged_flash_decode
+from repro_torch.kernels.paged_decode.ref import paged_decode_ref
+from repro_torch.kernels.sampling.ops import MAX_VOCAB, topk_topp_mask
+from repro_torch.kernels.sampling.ref import topk_topp_mask_ref
+from repro_torch.launch.serve import serve_batch
+from repro_torch.models import model as Mo
+from repro_torch.models.env import Env
+from repro_torch.serve import (SamplingParams, ServingEngine, poisson_trace,
+                               run_to_completion)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,hd,bs,MB", [
+    (2, 4, 2, 32, 16, 4), (3, 8, 8, 64, 8, 3), (1, 4, 1, 128, 32, 2),
+    (9, 12, 4, 64, 16, 6)])
+def test_paged_decode_kernel_matches_plain(B, Hq, Hkv, hd, bs, MB, cuda):
+    rng = np.random.default_rng(B + hd)
+    NB = 1 + B * MB + 3
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(cuda).to(torch.bfloat16)
+    q, kp, vp = mk(B, Hq, hd), mk(NB, Hkv, bs, hd), mk(NB, Hkv, bs, hd)
+    tables = torch.from_numpy(rng.permutation(np.arange(1, NB))[:B * MB]
+                              .reshape(B, MB).astype(np.int32)).to(cuda)
+    lengths = torch.tensor([(i * 7) % (MB * bs) for i in range(B)],
+                           dtype=torch.int32, device=cuda)
+    lengths[0] = -1
+    before = paged_flash_decode.launches
+    got = paged_flash_decode(q, kp, vp, tables, lengths)
+    torch.cuda.synchronize()
+    assert paged_flash_decode.launches == before + 1
+    assert float((got - paged_decode_ref(q, kp, vp, tables, lengths))
+                 .abs().max()) < 1e-5
+    assert float(got[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("T,V", [(4, 128), (3, 200), (72, 32000),
+                                 (2, MAX_VOCAB)])
+def test_mask_kernel_matches_plain(T, V, cuda):
+    gen = torch.Generator(device=cuda).manual_seed(T * V)
+    logits = torch.randn((T, V), generator=gen, device=cuda) * 3.0
+    top_k = torch.tensor([0, 5, 1, 40] * T, dtype=torch.int32,
+                         device=cuda)[:T]
+    top_p = torch.tensor([1.0, 0.9, 0.5, 0.25] * T, device=cuda)[:T]
+    before = topk_topp_mask.launches
+    got = topk_topp_mask(logits, top_k, top_p)
+    torch.cuda.synchronize()
+    assert topk_topp_mask.launches == before + 1
+    assert torch.equal(got, topk_topp_mask_ref(logits, top_k, top_p))
+
+
+def test_mask_kernel_refuses_rows_wider_than_shared_memory(cuda):
+    logits = torch.zeros((1, MAX_VOCAB + 1), device=cuda)
+    k = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        topk_topp_mask(logits, k, torch.ones((1,), device=cuda))
+
+
+def test_engine_on_the_card_is_exact_and_lane_invariant(cuda):
+    """Smoke config on the card: greedy tokens equal the streamed one-shot
+    baseline; seeded tokens are identical at two slot counts."""
+    cfg = get_smoke("paper-demo")
+    params = Mo.init_params(cfg, Env(), seed=0, device=cuda)
+    mk = lambda sampling: poisson_trace(8, 16.0, prompt_len=16,
+                                        vocab_size=cfg.vocab_size, gen_len=8,
+                                        sampling=sampling, seed=0)
+    run = lambda n, sampling: run_to_completion(ServingEngine(
+        cfg, params, num_slots=n, prompt_len=16, max_gen=8,
+        clock=ManualClock(), device=cuda), mk(sampling), dt=0.05)
+    out = run(4, None)
+    base = serve_batch(cfg, params, np.stack([r.prompt for r in mk(None)]), 8,
+                       device=cuda)
+    assert all(out[i] == list(base[i]) for i in range(8))
+    sp = SamplingParams(temperature=0.9, top_k=40, top_p=0.95, seed=3)
+    assert run(4, sp) == run(2, sp)
