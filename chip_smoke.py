@@ -19,7 +19,17 @@ Phases, any failure exits non-zero before the result line:
   5. time each kernel beside its plain version and a PyTorch yardstick at
      the phase-2 shapes (CUDA events), with its bound from those inputs;
   6. profile 24 steps of the greedy serve (torch.profiler): wall time per
-     step, device busy time and idle share, the kernels that take it.
+     step, device busy time and idle share, the kernels that take it;
+  7. the paper's loop at full width: run_trace on paper-demo-110m with an
+     int8 KV pool, 2 replicas autoscaled up to 4 nodes under a 16-request
+     burst (counts zeroed before, read after the run and before its
+     verify): the quant kernel launched and the bf16 one not, a scale-up
+     and a scale-down, a drained replica released without a leak, and
+     the fleet bit-identical to one engine;
+  8. one quant engine under the cluster (counts read the same way): the
+     same tokens at 8 and 4 slots.
+Phase 2 also holds the quant kernel to its plain version and to the bf16
+kernel on the same pool (relative RMS), and phase 5 times it.
 Prints the kernel report as one JSON line, the card's name and power
 limit, and last {"ok": true, "device": {...}}. Needs no network; the
 kernel build lands in build/ (git-ignored).
@@ -42,10 +52,14 @@ BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 
 # paged decode vs its plain version: both compute in f32 from the same bf16
-# inputs, so they differ only by summation order (sound runs read below
-# 1e-6); a kernel rounding its probabilities to bf16 before P.V reads
-# above 1e-3 (phase 2 checks that on the card)
+# inputs (or the same int8 values and f32 scales), so they differ only by
+# summation order (sound runs read below 1e-6); a kernel rounding its
+# probabilities to bf16 before P.V reads above 1e-3 (phase 2 checks that
+# on the card)
 PAGED_TOL = 1e-5
+# the int8 pool's attention output against the bf16 pool's, relative RMS:
+# the JAX package's bound for its quant kernel (tests/test_kernels.py)
+QUANT_RMS_TOL = 0.05
 # one decode step, card vs CPU: |diff| / max(|logit|, 1). bf16 logits keep
 # 8 bits, so one rounding step is up to 2^-8 of the value; GEMM sums are
 # taken in another order on each device
@@ -55,6 +69,15 @@ LOGIT_TOL = 3e-2
 def fail(msg):
     print(f"FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def demangle(name):
+    """A kernel's C++ name (c++filt where the machine has it)."""
+    try:
+        return subprocess.run(["c++filt", name], capture_output=True,
+                              text=True, timeout=30).stdout.strip() or name
+    except OSError:
+        return name
 
 
 def _events_ms(run, n):
@@ -128,13 +151,14 @@ def paged_inputs(gen, dev):
     return q, kp, vp, tables, lengths
 
 
-def paged_bound_ms(q, kp, tables, lengths):
+def paged_bound_ms(q, kp, tables, lengths, token_bytes):
     """Least time for this call: q, the used table entries and lengths
     read once, the f32 output written once, and each K/V token that some
-    row needs read once: rows whose tables share a physical block (every
-    row of a prefill lane reads the same blocks) share its read. QK and PV
-    at 2 operations per multiply-add per row, at the bf16 rate. Counts this
-    run's lengths."""
+    row needs read once, at `token_bytes` per (token, KV head) for K and V
+    together (2 x 2 hd in bf16; 2 x (hd + 4) in int8 with its f32 scale):
+    rows whose tables share a physical block (every row of a prefill lane
+    reads the same blocks) share its read. QK and PV at 2 operations per
+    multiply-add per row, at the bf16 rate. Counts this run's lengths."""
     B, Hq, hd = q.shape
     Hkv, bs = kp.shape[1], kp.shape[2]
     n_tok = (lengths.long() + 1).clamp_min(0).tolist()
@@ -144,7 +168,7 @@ def paged_bound_ms(q, kp, tables, lengths):
         for j in range(-(-n // bs)):
             need[row[j]] = max(need.get(row[j], 0), min(bs, n - j * bs))
     blocks = sum(-(-n // bs) for n in n_tok)
-    nbytes = (B * Hq * hd * 2 + sum(need.values()) * Hkv * hd * 2 * 2
+    nbytes = (B * Hq * hd * 2 + sum(need.values()) * Hkv * token_bytes
               + blocks * 4 + B * 4 + B * Hq * hd * 4)
     flops = sum(n_tok) * Hq * hd * 2 * 2
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
@@ -180,8 +204,10 @@ def paged_decode_bf16_probs(q, k_pool, v_pool, tables, lengths):
 
 def check_kernels(dev):
     import torch
-    from repro_torch.kernels.paged_decode.ops import paged_flash_decode
-    from repro_torch.kernels.paged_decode.ref import paged_decode_ref
+    from repro_torch.kernels.paged_decode.ops import (
+        paged_flash_decode, paged_flash_decode_quant, quantize_kv)
+    from repro_torch.kernels.paged_decode.ref import (paged_decode_quant_ref,
+                                                      paged_decode_ref)
     from repro_torch.kernels.sampling.ops import topk_topp_mask
     from repro_torch.kernels.sampling.ref import NEG_INF, topk_topp_mask_ref
 
@@ -220,6 +246,27 @@ def check_kernels(dev):
           f"{err_c:.3e} (contiguous cache); tolerance {PAGED_TOL}; the plain "
           f"version with bf16 probabilities reads {err_bf16:.3e}")
 
+    # quantized paged decode: the same pool, quantized as the quant
+    # backend writes it (int8 over head_dim, one f32 scale per row)
+    kq, ks = quantize_kv(kp)
+    vq, vs = quantize_kv(vp)
+    qin = (q, kq, vq, ks, vs, tables, lengths)
+    got_q = paged_flash_decode_quant(*qin)
+    torch.cuda.synchronize()
+    err_q = float((got_q - paged_decode_quant_ref(*qin)).abs().max())
+    if not math.isfinite(err_q) or err_q > PAGED_TOL:
+        fail(f"quant paged decode kernel vs plain: max abs err {err_q}")
+    if float(got_q[-3].abs().max()) != 0.0:
+        fail("quant paged decode: the masked row is not zero")
+    fp = paged_flash_decode(*pin)
+    rms = float(((got_q - fp) ** 2).mean().sqrt() / (fp ** 2).mean().sqrt())
+    if not rms < QUANT_RMS_TOL:
+        fail(f"quant paged decode vs the bf16 pool: relative RMS {rms}")
+    out["quant"] = (qin, err_q)
+    print(f"quant paged decode: kernel vs plain max abs err {err_q:.3e}; "
+          f"tolerance {PAGED_TOL}; relative RMS against the bf16 kernel on "
+          f"the unquantized pool {rms:.3e} (bound {QUANT_RMS_TOL})")
+
     # top-k/top-p mask at the sampled step's shapes: 72 rows x 32000
     T, V = 72, 32000
     logits = torch.randn((T, V), generator=gen, device=dev) * 3.0
@@ -244,8 +291,8 @@ def check_kernels(dev):
 
 
 def serve_args(extra):
-    from repro_torch.launch.serve import build_parser
-    return build_parser().parse_args(
+    from repro_torch.launch.serve import parse_args
+    return parse_args(
         ["--requests", "16", "--prompt-len", "64", "--gen", "32",
          "--slots", "8", "--rate", "16", "--prefix-cache", "on",
          "--device", "cuda"] + extra)
@@ -346,11 +393,13 @@ def main():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
     from repro_torch import kernels
     from repro_torch.configs import get_config
-    from repro_torch.kernels.paged_decode.ops import paged_flash_decode
-    from repro_torch.kernels.paged_decode.ref import paged_decode_ref
+    from repro_torch.kernels.paged_decode.ops import (
+        paged_flash_decode, paged_flash_decode_quant)
+    from repro_torch.kernels.paged_decode.ref import (paged_decode_quant_ref,
+                                                      paged_decode_ref)
     from repro_torch.kernels.sampling.ops import topk_topp_mask
     from repro_torch.kernels.sampling.ref import topk_topp_mask_ref
-    from repro_torch.launch.serve import serve, verify
+    from repro_torch.launch.serve import run_trace, serve, verify
     from repro_torch.models import model as Mo
     from repro_torch.models.env import Env
 
@@ -364,7 +413,9 @@ def main():
     kernels.library()
     print(f"kernel build: {time.perf_counter() - t0:.1f}s")
     for line in kernels.build_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if "entry function" in line:  # names the instantiation that follows
+            print("  entry " + demangle(line.split("'")[1]))
+        elif "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip())
 
     # 2. kernels vs plain versions; one decode step card vs CPU
@@ -386,10 +437,10 @@ def main():
           f"{run['tokens']} tokens in {run['steps']} steps, "
           f"{run['wall_s']:.3f}s wall, {tok_s:.1f} tokens/s wall; paged "
           f"decode launches {n_paged}")
-    ok, what = verify(args, cfg, params, run)
+    ok, line = verify(args, cfg, params, run)
     if not ok:
-        fail(f"greedy tokens differ from the {what}")
-    print(f"verify vs {what}: token-for-token MATCH")
+        fail(f"greedy serve: {line}")
+    print(line)
 
     # 4. seeded top-k/top-p at two slot counts
     sargs = serve_args(["--temperature", "0.8", "--top-k", "50",
@@ -400,11 +451,11 @@ def main():
     if n_mask <= 0 or paged_flash_decode.launches <= 0:
         fail("the sampled serving run never launched both kernels")
     check_tokens(srun, cfg)
-    ok, what = verify(sargs, cfg, params, srun)
+    ok, line = verify(sargs, cfg, params, srun)
     if not ok:
-        fail(f"{what}: tokens differ")
+        fail(f"seeded serve: {line}")
     print(f"seeded serve: {srun['tokens']} tokens, {srun['wall_s']:.3f}s "
-          f"wall, mask launches {n_mask}; {what}: bit-identical MATCH")
+          f"wall, mask launches {n_mask}; {line}")
 
     # 5. timings at the phase-2 shapes
     pin, paged_err = checked["paged"]
@@ -420,13 +471,29 @@ def main():
              <= lengths.long()[:, None])[:, None, None, :]
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
         q[:, :, None, :], kg, vg, attn_mask=amask)
-    paged_bound, paged_by = paged_bound_ms(q, kp, tables, lengths)
+    paged_bound, paged_by = paged_bound_ms(q, kp, tables, lengths,
+                                           token_bytes=2 * 2 * hd)
+    qin, quant_err = checked["quant"]
+    _, kq, vq, kqs, vqs, _, _ = qin
+    # the library yardstick for the quant kernel reads KV dequantized to
+    # bf16 beforehand: it leaves the dequant out
+    deq = lambda x, sc: (x.float() * sc[..., None]).to(torch.bfloat16)
+    kgq = deq(kq, kqs)[tables.long()].transpose(1, 2).reshape(
+        B, Hkv, MB * bs, hd).repeat_interleave(g, dim=1)
+    vgq = deq(vq, vqs)[tables.long()].transpose(1, 2).reshape(
+        B, Hkv, MB * bs, hd).repeat_interleave(g, dim=1)
+    sdpa_q = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None, :], kgq, vgq, attn_mask=amask)
+    quant_bound, quant_by = paged_bound_ms(q, kq, tables, lengths,
+                                           token_bytes=2 * (hd + 4))
     (logits, ks, ps), mask_err = checked["mask"]
     mask_bound, mask_by = mask_bound_ms(*logits.shape)
     # every time is device work per call (CUDA graph replay); the kernels'
     # eager per-call times, host work included, are printed beside them
     calls = {"paged_flash_decode": lambda: paged_flash_decode(*pin),
-             "topk_topp_mask": lambda: topk_topp_mask(logits, ks, ps)}
+             "topk_topp_mask": lambda: topk_topp_mask(logits, ks, ps),
+             "paged_flash_decode_quant":
+                 lambda: paged_flash_decode_quant(*qin)}
     report = [
         {"name": "paged_flash_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_decode.cu",
@@ -445,6 +512,15 @@ def main():
          "bound_ms": mask_bound, "bound_by": mask_by,
          "library_ms": device_ms(lambda: torch.sort(logits, dim=-1,
                                                     descending=True))},
+        {"name": "paged_flash_decode_quant", "route": "cuda",
+         "source": "src/repro_torch/csrc/paged_decode_quant.cu",
+         "replaces": "src/repro/kernels/paged_decode/kernel.py:170",
+         "launches": None,  # the fleet run's, phase 7
+         "max_abs_err": quant_err,
+         "ms": device_ms(calls["paged_flash_decode_quant"]),
+         "plain_ms": device_ms(lambda: paged_decode_quant_ref(*qin)),
+         "bound_ms": quant_bound, "bound_by": quant_by,
+         "library_ms": device_ms(sdpa_q)},
     ]
     for k in report:
         print(f"{k['name']}: {k['ms'] * 1e3:.1f} us kernel, "
@@ -457,6 +533,51 @@ def main():
 
     # 6. where a step's time goes
     profile_steps(args, cfg, params)
+
+    # 7. the paper's loop: an autoscaled fleet of int8-KV replicas
+    # counts read between the run and its verify, as in phases 3-4: the
+    # verify's own engine launches the kernel too
+    fargs = serve_args(["--trace", "burst", "--kv", "quant", "--replicas",
+                        "2", "--max-nodes", "4"])
+    paged_flash_decode.launches = paged_flash_decode_quant.launches = 0
+    topk_topp_mask.launches = 0
+    frun = run_trace(fargs, cfg, params)
+    n_quant, n_fp = paged_flash_decode_quant.launches, \
+        paged_flash_decode.launches
+    if n_quant <= 0 or n_fp != 0:
+        fail(f"the quant fleet launched the quant kernel {n_quant} times "
+             f"and the bf16 one {n_fp} times")
+    check_tokens(frun, cfg)
+    if not frun["peak"] > frun["start"] or not frun["final"] < frun["peak"]:
+        fail(f"the autoscaler did not scale up and back: start "
+             f"{frun['start']} peak {frun['peak']} final {frun['final']}")
+    if not frun["engine"].released:
+        fail("no replica was drained and released")
+    ok, line = verify(fargs, cfg, params, frun)
+    if not ok:
+        fail(f"quant fleet: {line}")
+    print(line)
+    report[2]["launches"] = n_quant
+    print(f"quant fleet: timeline {frun['sizes']}, "
+          f"{len(frun['actions'])} autoscaler actions, released "
+          f"{frun['engine'].released} (leak-checked), quant decode "
+          f"launches {n_quant}, bf16 decode launches {n_fp}; "
+          f"{frun['tokens']} tokens in {frun['steps']} replica decode "
+          f"steps, {frun['tokens'] / frun['wall_s']:.1f} tokens/s wall")
+
+    # 8. one quant engine under the cluster: 8 vs 4 slots
+    qargs = serve_args(["--trace", "burst", "--kv", "quant"])
+    paged_flash_decode.launches = paged_flash_decode_quant.launches = 0
+    qrun = run_trace(qargs, cfg, params)
+    n_quant1 = paged_flash_decode_quant.launches
+    if n_quant1 <= 0 or paged_flash_decode.launches != 0:
+        fail("the quant engine never launched the quant kernel, or "
+             "launched the bf16 one")
+    check_tokens(qrun, cfg)
+    ok, line = verify(qargs, cfg, params, qrun)
+    if not ok:
+        fail(f"quant engine: {line}")
+    print(f"quant engine: quant decode launches {n_quant1}; {line}")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

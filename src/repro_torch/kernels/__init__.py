@@ -7,7 +7,8 @@ Each kernel package has:
            it runs the plain version. Any other device raises.
   ref.py — the plain PyTorch version (the oracle the kernel is held to)
 
-The CUDA sources live in repro_torch/csrc/. The first kernel call builds
+The CUDA sources live in repro_torch/csrc/ (*.cu, with shared kernel
+bodies in *.cuh headers). The first kernel call builds
 them with nvcc into one shared library with a plain C interface under
 build/ at the repository root (one nvcc per source, all started together,
 then one link), keyed by a digest of the sources and flags so an edited
@@ -35,6 +36,7 @@ _I = ctypes.c_int
 # C signature of every kernel entry point in csrc/: (argtypes, restype)
 _SIGNATURES = {
     "paged_decode_bf16": ([_P] * 6 + [_I] * 6 + [_P], _I),
+    "paged_decode_int8": ([_P] * 8 + [_I] * 6 + [_P], _I),
     "topk_topp_mask_f32": ([_P] * 4 + [_I, _I, _P], _I),
     "kernel_error_string": ([_I], ctypes.c_char_p),
 }
@@ -92,7 +94,8 @@ def library() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in _sources():
+        # headers too: a source's object changes with what it includes
+        for src in sorted(CSRC.glob("*.cu*")):
             h.update(src.name.encode())
             h.update(src.read_bytes())
         lib_path = BUILD_DIR / f"libreprokernels-{h.hexdigest()[:16]}.so"

@@ -1,5 +1,5 @@
-"""Public paged-decode op: the CUDA kernel on the GPU, the plain version on
-the CPU.
+"""Public paged-decode ops: the CUDA kernels on the GPU, the plain versions
+on the CPU.
 
 Every attention read of the serving path goes through here: paged decode
 rows and prefill lane rows over the block pool, and the contiguous-cache
@@ -8,13 +8,47 @@ blocks of S tokens read through the identity table (models/layers.py). So
 the baseline and the engine attend with the same arithmetic on either
 device, and the greedy --verify compares the serving machinery (paging,
 lanes, prefix sharing, copy-on-write), not two softmax reduction orders.
+
+The int8 pool of `--kv quant` (serve/blocks.py QuantBlockManager) is read
+by paged_flash_decode_quant; quantize_kv is the write side's quantizer.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import check_launch, check_tensors, library
-from repro_torch.kernels.paged_decode.ref import paged_decode_ref
+from repro_torch.kernels.paged_decode.ref import (paged_decode_quant_ref,
+                                                  paged_decode_ref)
+
+
+def quantize_kv(x, eps: float = 1e-8):
+    """Symmetric int8 quantization over the last axis (head_dim): returns
+    (int8 values, f32 scales with that axis reduced). scale = absmax/127,
+    floored at eps so all-zero rows round-trip to zeros; values round half
+    to even and clip to +-127 (the JAX package's quantize_kv)."""
+    xf = x.float()
+    scale = torch.clamp_min(torch.amax(xf.abs(), dim=-1) / 127.0, eps)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _check_shapes(name, q, k_pool, v_pool, tables, lengths, vec):
+    """Shapes both kernels take: GQA group sizes the kernels are built for,
+    hd a multiple of the 16-byte load width `vec` with hd/vec a power of
+    two up to a warp."""
+    B, Hq, hd = q.shape
+    NB, Hkv, bs, hd_k = k_pool.shape
+    tpt = hd // vec
+    if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise ValueError(f"{name}: tables and lengths must be int32")
+    if (hd_k != hd or v_pool.shape != k_pool.shape or tables.dim() != 2
+            or tables.shape[0] != B or lengths.shape != (B,)
+            or Hq % Hkv or Hq // Hkv not in (1, 2, 3, 4, 6, 8)
+            or hd % vec or tpt > 32 or tpt & (tpt - 1)):
+        raise ValueError(
+            f"{name}: unsupported shapes q {tuple(q.shape)}, pools "
+            f"{tuple(k_pool.shape)}, tables {tuple(tables.shape)}, lengths "
+            f"{tuple(lengths.shape)}")
 
 
 def paged_flash_decode(q, k_pool, v_pool, tables, lengths):
@@ -29,20 +63,11 @@ def paged_flash_decode(q, k_pool, v_pool, tables, lengths):
         raise ValueError(f"paged_flash_decode: no kernel for {q.device}")
     name = "paged_flash_decode"
     check_tensors(name, q, k_pool, v_pool, tables, lengths)
-    B, Hq, hd = q.shape
-    NB, Hkv, bs, hd_k = k_pool.shape
     if (q.dtype, k_pool.dtype, v_pool.dtype) != (torch.bfloat16,) * 3:
         raise ValueError(f"{name}: q and pools must be bf16")
-    if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
-        raise ValueError(f"{name}: tables and lengths must be int32")
-    if (hd_k != hd or v_pool.shape != k_pool.shape or tables.dim() != 2
-            or tables.shape[0] != B or lengths.shape != (B,)
-            or Hq % Hkv or Hq // Hkv not in (1, 2, 3, 4, 6, 8)
-            or hd % 8 or hd // 8 > 32 or (hd // 8) & (hd // 8 - 1)):
-        raise ValueError(
-            f"{name}: unsupported shapes q {tuple(q.shape)}, pools "
-            f"{tuple(k_pool.shape)}, tables {tuple(tables.shape)}, lengths "
-            f"{tuple(lengths.shape)}")
+    _check_shapes(name, q, k_pool, v_pool, tables, lengths, vec=8)
+    B, Hq, hd = q.shape
+    _, Hkv, bs, _ = k_pool.shape
     out = torch.empty((B, Hq, hd), dtype=torch.float32, device=q.device)
     if B == 0:
         return out
@@ -56,3 +81,48 @@ def paged_flash_decode(q, k_pool, v_pool, tables, lengths):
 
 
 paged_flash_decode.launches = 0
+
+
+def paged_flash_decode_quant(q, k_pool, v_pool, k_scale, v_scale, tables,
+                             lengths):
+    """Quantized paged decode. q [B,Hq,hd] bf16; k_pool/v_pool
+    [NB,Hkv,bs,hd] int8; k_scale/v_scale [NB,Hkv,bs] f32 per-row dequant
+    scales; tables [B,MB] int32; lengths [B] int32 (-1: zero row).
+
+    Returns [B,Hq,hd] f32. CUDA tensors launch the kernel
+    (csrc/paged_decode_quant.cu); CPU tensors run the plain version."""
+    if q.device.type == "cpu":
+        return paged_decode_quant_ref(q, k_pool, v_pool, k_scale, v_scale,
+                                      tables, lengths)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_flash_decode_quant: no kernel for {q.device}")
+    name = "paged_flash_decode_quant"
+    check_tensors(name, q, k_pool, v_pool, k_scale, v_scale, tables, lengths)
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: q must be bf16")
+    if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8:
+        raise ValueError(f"{name}: pools must be int8")
+    if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+        raise ValueError(f"{name}: scales must be f32")
+    _check_shapes(name, q, k_pool, v_pool, tables, lengths, vec=16)
+    if (k_scale.shape != k_pool.shape[:3]
+            or v_scale.shape != k_pool.shape[:3]):
+        raise ValueError(f"{name}: scales {tuple(k_scale.shape)} and "
+                         f"{tuple(v_scale.shape)} do not match pools "
+                         f"{tuple(k_pool.shape)}")
+    B, Hq, hd = q.shape
+    _, Hkv, bs, _ = k_pool.shape
+    out = torch.empty((B, Hq, hd), dtype=torch.float32, device=q.device)
+    if B == 0:
+        return out
+    rc = library().paged_decode_int8(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(), tables.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), B, Hq, Hkv, hd, bs,
+        tables.shape[1], torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch(rc, name)
+    paged_flash_decode_quant.launches += 1
+    return out
+
+
+paged_flash_decode_quant.launches = 0

@@ -32,3 +32,14 @@ def paged_decode_ref(q, k_pool, v_pool, tables, lengths):
     a = torch.nan_to_num(a, nan=0.0)  # fully-masked rows -> zeros
     o = torch.matmul(a, vg.float())
     return o.reshape(B, Hq, hd)
+
+
+def paged_decode_quant_ref(q, k_pool, v_pool, k_scale, v_scale, tables,
+                           lengths):
+    """Quantized oracle: dequantize the whole int8 pool up front (values
+    times per-row scales, in f32), then run the fp version. k_pool/v_pool
+    [NB,Hkv,bs,hd] int8; k_scale/v_scale [NB,Hkv,bs] f32. Returns
+    [B,Hq,hd] f32."""
+    kf = k_pool.float() * k_scale[..., None]
+    vf = v_pool.float() * v_scale[..., None]
+    return paged_decode_ref(q, kf, vf, tables, lengths)

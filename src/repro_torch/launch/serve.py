@@ -1,14 +1,22 @@
-"""Serving CLI for the port — the continuous-batching engine on one device.
+"""Serving CLI for the port — the paper's closed loop on the GPU.
 
-Serve a seeded Poisson trace through the paged engine (chunked prefill,
-prefix cache) on the GPU and check every greedy token against the
-streamed-prefill one-shot baseline:
+Inject an arrival trace, serve it by continuous batching over a paged
+(block-table) KV cache with chunked prefill, on a VirtualCluster whose
+autoscaling policy reads the engine's published metrics: the cluster grows
+while the queue is deep and shrinks as it drains. With --replicas N the
+data plane is a ReplicaSet fleet: every scale-up spawns a cold replica,
+every scale-down drains one and releases its pool with a leak check.
+--kv quant serves from an int8 KV pool (the quantized paged-decode
+kernel). --verify checks the tokens (against one engine for a fleet, at
+another slot count for quant or seeded runs, else against the streamed
+one-shot baseline):
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --trace poisson --verify
+  PYTHONPATH=src python -m repro_torch.launch.serve --trace burst \\
+      --replicas 2 --max-nodes 4 --kv quant --verify
 
 `--smoke` swaps in the tiny smoke config; `--device cpu` runs the kernels'
-plain versions on the CPU. The engine runs under run_to_completion with a
-ManualClock (simulated seconds per step); wall time is measured around it.
+plain versions on the CPU. Time on the cluster is simulated (a
+ManualClock advanced per step); wall time is measured around the serve.
 """
 from __future__ import annotations
 
@@ -19,13 +27,16 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke
+from repro_torch.core import (ClusterImage, LatencyPolicy, QueueDepthPolicy,
+                              VirtualCluster)
 from repro_torch.core.clock import ManualClock
 from repro_torch.launch import steps as St
 from repro_torch.models import model as Mo
-from repro_torch.models.env import Env
-from repro_torch.serve import (SamplingParams, ServingEngine, burst_trace,
-                               poisson_trace, run_to_completion,
-                               sysprompt_trace)
+from repro_torch.models.env import SERVE_PLAN, Env
+from repro_torch.serve import (SamplingParams, burst_trace,
+                               make_scheduler_policy, make_serving_engine,
+                               poisson_trace, repetitive_trace,
+                               run_to_completion, sysprompt_trace)
 
 
 def serve_batch(cfg, params, prompts, gen_len: int, *,
@@ -64,26 +75,58 @@ def make_trace(args, cfg):
     """The arrival trace (deterministic for the args — --verify
     regenerates it for a second engine)."""
     kw = dict(prompt_len=args.prompt_len, vocab_size=cfg.vocab_size,
-              gen_len=args.gen, sampling=_sampling_of(args), seed=args.seed)
+              gen_len=args.gen, deadline_s=args.deadline,
+              sampling=_sampling_of(args), seed=args.seed)
     if args.trace == "burst":
         return burst_trace(args.requests, **kw)
     if args.trace == "sysprompt":
         return sysprompt_trace(args.requests, args.rate,
-                               prefix_len=(3 * args.prompt_len) // 4, **kw)
-    return poisson_trace(args.requests, args.rate, **kw)
+                               prefix_len=args.prefix_len,
+                               gen_len_max=args.gen_max, **kw)
+    if args.trace == "repetitive":
+        return repetitive_trace(args.requests, args.rate,
+                                gen_len_max=args.gen_max, **kw)
+    return poisson_trace(args.requests, args.rate, gen_len_max=args.gen_max,
+                         **kw)
 
 
-def make_engine(args, cfg, params, *, num_slots=None) -> ServingEngine:
-    return ServingEngine(cfg, params, num_slots=num_slots or args.slots,
-                         prompt_len=args.prompt_len, max_gen=args.gen,
-                         block_size=args.block_size,
-                         kv_blocks=args.kv_blocks,
-                         prefix_cache=args.prefix_cache == "on",
-                         clock=ManualClock(), device=args.device)
+def make_policy(args):
+    """The autoscaling policy (--policy)."""
+    if args.policy == "latency":
+        return LatencyPolicy(target_p95_ms=args.target_p95_ms,
+                             min_nodes=args.nodes, max_nodes=args.max_nodes)
+    return QueueDepthPolicy(target_per_node=args.queue_per_node,
+                            min_nodes=args.nodes, max_nodes=args.max_nodes)
+
+
+def make_engine(args, cfg, params, *, num_slots=None, replicas=None,
+                clock=None):
+    """A ServingEngine (replicas == 1) or a Router + ReplicaSet data
+    plane. --kv-blocks is per replica. --swap on and --spec raise: the
+    swap tier and speculative decoding come with later slices."""
+    if args.spec != "off":
+        raise NotImplementedError(
+            f"--spec {args.spec}: speculative decoding (drafters, verify "
+            "rows) is not ported yet; it comes with the speculative-"
+            "decoding slice")
+    sched = {"preemptive": True} if (args.sched == "edf"
+                                     and args.edf_preempt) else {}
+    return make_serving_engine(
+        cfg, params,
+        replicas=args.replicas if replicas is None else replicas,
+        routing=args.routing, drain_mode=args.drain,
+        num_slots=num_slots or args.slots,
+        prompt_len=args.prompt_len, max_gen=args.gen_max,
+        kv=args.kv, block_size=args.block_size, kv_blocks=args.kv_blocks,
+        prefix_cache=args.prefix_cache == "on",
+        prefill_chunk=args.prefill_chunk, swap=args.swap == "on",
+        policy=make_scheduler_policy(args.sched, **sched),
+        clock=clock or ManualClock(), device=args.device)
 
 
 def serve(args, cfg, params) -> dict:
-    """Serve the trace; returns rid -> tokens plus the run's numbers."""
+    """Serve the trace on one engine (or fleet) without a cluster; returns
+    rid -> tokens plus the run's numbers."""
     engine = make_engine(args, cfg, params)
     trace = make_trace(args, cfg)
     if args.device.startswith("cuda"):
@@ -97,21 +140,126 @@ def serve(args, cfg, params) -> dict:
 
 
 def verify(args, cfg, params, run) -> tuple:
-    """(ok, what): greedy runs against the streamed one-shot baseline;
-    seeded runs against a fresh engine at another slot count (sampling
-    has no one-shot oracle; output must be lane-placement-invariant)."""
-    out, trace = run["out"], run["trace"]
+    """(ok, line): the acceptance bar of the run, in the JAX package's
+    order. A fleet emits bit-identically what one zero-router engine
+    emits; a greedy quant run (bounded divergence, so the fp one-shot is
+    no oracle) and a seeded run emit bit-identically what a fresh engine
+    at another slot count emits; a greedy fp run equals the streamed
+    one-shot baseline token for token."""
+    out, trace, engine = run["out"], run["trace"], run["engine"]
+    alt = args.slots // 2 if args.slots > 1 else args.slots + 1
+    again = lambda **kw: run_to_completion(
+        make_engine(args, cfg, params, **kw), make_trace(args, cfg),
+        dt=args.step_time)
+    match = lambda ok: "bit-identical MATCH" if ok else "MISMATCH"
+    if args.replicas > 1:
+        ok = out == again(replicas=1)
+        return ok, (f"verify {args.replicas} replicas "
+                    f"({engine.routing.name} routing) vs 1: {match(ok)}")
+    if args.kv == "quant" and args.temperature <= 0:
+        ok = out == again(num_slots=alt)
+        return ok, (f"verify quant KV ({args.slots} vs {alt} slots): "
+                    f"{match(ok)}")
     if args.temperature > 0:
-        alt = args.slots // 2 if args.slots > 1 else args.slots + 1
-        out2 = run_to_completion(make_engine(args, cfg, params,
-                                             num_slots=alt),
-                                 make_trace(args, cfg), dt=args.step_time)
-        return out == out2, f"seeded sampling ({args.slots} vs {alt} slots)"
+        ok = out == again(num_slots=alt)
+        return ok, (f"verify seeded sampling ({args.slots} vs {alt} "
+                    f"slots): {match(ok)}")
     base = serve_batch(cfg, params, np.stack([r.prompt for r in trace]),
-                       args.gen, device=args.device)
+                       args.gen_max, device=args.device)
+    # slice by the admitted budget (gen_len capped by max_tokens)
     ok = all(np.array_equal(base[r.rid][:r.eff_gen_len], np.array(out[r.rid]))
              for r in trace)
-    return ok, "streamed-prefill one-shot baseline"
+    return ok, ("verify vs streamed-prefill one-shot baseline: "
+                f"{'token-for-token MATCH' if ok else 'MISMATCH'}")
+
+
+def run_trace(args, cfg, params) -> dict:
+    """The paper's loop: serve the trace on a VirtualCluster whose
+    autoscaler resizes it from the engine's published metrics (port of
+    the JAX package's launch/serve.py run_trace). Prints the scaling
+    timeline and the run's numbers; returns them with rc (0, or 1 when
+    --verify fails)."""
+    policy = make_policy(args)
+    image = ClusterImage.build(f"{cfg.name}-serve", cfg, SERVE_PLAN, "serve")
+    n0 = max(args.nodes, args.replicas)  # fleet replicas track nodes 1:1
+    cluster = VirtualCluster(n_compute=n0, image=image, policy=policy,
+                             cooldown_s=args.cooldown, device=args.device)
+    print("serving replicas register to the catalog:\n" + cluster.hostfile)
+
+    engine = make_engine(args, cfg, params, clock=cluster.clock)
+    multi = args.replicas > 1
+    plane = engine.describe() if multi else engine.pool.describe()
+    print(f"{cfg.name} on {args.device}: {plane}, chunked prefill="
+          f"{engine.prefill_chunk}, scheduler={engine.policy.name}, "
+          f"sampling="
+          f"{'greedy' if args.temperature <= 0 else _sampling_of(args)}")
+    trace = make_trace(args, cfg)
+
+    sizes = []  # scaling timeline: (sim_t, n_compute)
+
+    def on_step(i, snap, c):
+        n = len(c.current_view().compute)
+        if not sizes or sizes[-1][1] != n:
+            sizes.append((c.clock.now(), n))
+            extra = (f"  replicas={snap['replicas_live']:.0f}"
+                     if multi else "")
+            print(f"  t={c.clock.now():7.2f}s  nodes={n}  "
+                  f"queue={snap['queue_depth']:.0f}  "
+                  f"p95={snap.get('latency_p95_ms', 0.0):.0f}ms  "
+                  f"occ={snap['slot_occupancy']:.2f}{extra}")
+
+    if multi:
+        # every live replica decodes its own batch within the tick, so one
+        # step costs step_time flat
+        dt = args.step_time
+    else:
+        # one decode step costs step_time on one node; N data-parallel
+        # serving nodes drain the shared queue ~N x faster (the JAX
+        # package's simulated speedup model for the single engine)
+        dt = lambda n: args.step_time / max(n, 1)
+    if args.device.startswith("cuda"):
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = cluster.serve(engine, trace, dt=dt, on_step=on_step)
+    wall = time.perf_counter() - t0  # each step ends in a host transfer
+
+    peak = max((n for _, n in sizes), default=n0)
+    final = len(cluster.current_view().compute)
+    n_tok = sum(len(t) for t in out.values())
+    snap = engine.snapshot()
+    print(f"served {len(out)}/{len(trace)} requests, {n_tok} tokens "
+          f"in {engine.clock.now():.2f}s sim, {engine.decode_steps} decode "
+          f"steps ({wall:.3f}s wall, {n_tok / wall:.1f} tokens/s wall)")
+    print(f"autoscale: start={n0} peak={peak} final={final} "
+          f"({len(cluster.scaler.history)} actions)")
+    if multi:
+        print(f"fleet: replicas live={snap['replicas_live']:.0f} "
+              f"cold warmups={snap['replica_warmups']:.0f} "
+              f"drained+released={len(engine.released)} "
+              f"routing={engine.routing.name}")
+    print(f"p50={snap.get('latency_p50_ms', 0.0):.0f}ms "
+          f"p95={snap.get('latency_p95_ms', 0.0):.0f}ms "
+          f"tokens/s(sim)={snap['tokens_per_s']:.1f}")
+    if snap.get("prefix_hit_rate", 0.0) > 0.0:
+        print(f"prefix cache: hit rate "
+              f"{snap['prefix_hit_rate']:.2f}, prefill tokens computed "
+              f"{snap['prefill_tokens']:.0f}, shared occupancy "
+              f"{snap['kv_shared_occupancy']:.2f}")
+    if "kv_quant_divergence" in snap:
+        print(f"quant KV: calibrated divergence "
+              f"{snap['kv_quant_divergence']:.4f} relative RMS")
+
+    run = {"out": out, "trace": trace, "engine": engine, "cluster": cluster,
+           "sizes": sizes, "start": n0, "peak": peak, "final": final,
+           "actions": list(cluster.scaler.history), "wall_s": wall,
+           "tokens": n_tok, "steps": engine.decode_steps, "snapshot": snap,
+           "verify": None, "rc": 0}
+    if args.verify:
+        ok, line = verify(args, cfg, params, run)
+        print(line)
+        run["verify"], run["rc"] = line, 0 if ok else 1
+    cluster.shutdown()
+    return run
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -120,19 +268,55 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="paper-demo")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--trace", default="poisson",
-                    choices=("poisson", "burst", "sysprompt"))
+                    choices=("poisson", "burst", "sysprompt", "repetitive",
+                             "oneshot"),
+                    help="arrival trace (oneshot, the full-sequence "
+                    "prefill batch, comes with the classic-prefill slice)")
     ap.add_argument("--requests", type=int, default=24)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--gen-max", type=int, default=None,
+                    help="max gen length (default: --gen)")
     ap.add_argument("--rate", type=float, default=16.0,
                     help="poisson arrival rate, requests/s (sim time)")
     ap.add_argument("--slots", type=int, default=4,
-                    help="KV-cache slots (max concurrent decodes)")
+                    help="KV-cache slots per replica (max concurrent "
+                    "decodes each)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="serving replicas, each with its own KV pool and "
+                    "prefix cache; a Router admits requests across them "
+                    "and the autoscaler drains/spawns them live (1 = the "
+                    "zero-router single-engine data plane)")
+    ap.add_argument("--routing", default="occupancy",
+                    choices=("occupancy", "prefix"),
+                    help="replica routing policy: least committed KV, or "
+                    "prefix-affine")
+    ap.add_argument("--drain", default="finish",
+                    choices=("finish", "preempt"),
+                    help="scale-down drain mode: let a draining replica's "
+                    "requests finish, or restart-preempt them back to the "
+                    "router queue (bit-identical either way)")
+    ap.add_argument("--kv", default="paged",
+                    choices=("paged", "quant", "slot"),
+                    help="paged block-table cache, or int8-quantized paged "
+                    "cache (~2x blocks per byte, bounded divergence); the "
+                    "slot backend comes with a later slice")
+    ap.add_argument("--swap", default="off", choices=("on", "off"),
+                    help="host swap tier (comes with a later slice)")
+    ap.add_argument("--spec", default="off",
+                    choices=("off", "ngram", "model"),
+                    help="speculative decoding (comes with a later slice)")
     ap.add_argument("--block-size", type=int, default=16,
                     help="paged KV: tokens per block")
     ap.add_argument("--kv-blocks", type=int, default=None,
-                    help="paged KV: physical blocks (default: worst case)")
+                    help="paged KV: physical blocks per replica (default: "
+                    "worst case)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="chunked prefill lane width (default: prompt_len)")
     ap.add_argument("--prefix-cache", default="on", choices=("on", "off"))
+    ap.add_argument("--prefix-len", type=int, default=None,
+                    help="sysprompt trace: shared system-prompt length "
+                    "(default: 3/4 of --prompt-len)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature (0 = greedy argmax)")
     ap.add_argument("--top-k", type=int, default=0,
@@ -142,41 +326,55 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sample-seed", type=int, default=0,
                     help="sampling PRNG root (per-request seeds derive "
                     "from it)")
+    ap.add_argument("--sched", default="fifo", choices=("fifo", "edf"),
+                    help="admission-order scheduler policy")
+    ap.add_argument("--edf-preempt", action="store_true",
+                    help="EDF only: allow restart-preemption of the "
+                    "slackest running request for an urgent arrival")
+    ap.add_argument("--deadline", type=float, default=float("inf"),
+                    help="per-request completion deadline, seconds (EDF "
+                    "orders by it; misses feed the autoscaler)")
+    ap.add_argument("--nodes", type=int, default=1,
+                    help="initial / minimum compute nodes")
+    ap.add_argument("--max-nodes", type=int, default=6)
+    ap.add_argument("--policy", default="queue", choices=("queue", "latency"))
+    ap.add_argument("--queue-per-node", type=int, default=2)
+    ap.add_argument("--target-p95-ms", type=float, default=400.0)
+    ap.add_argument("--cooldown", type=float, default=0.3,
+                    help="autoscaler cooldown between actions (sim seconds)")
     ap.add_argument("--seed", type=int, default=0,
                     help="trace seed (weights are seeded separately)")
     ap.add_argument("--step-time", type=float, default=0.05,
-                    help="simulated seconds per decode step")
+                    help="simulated seconds per decode step on one node")
     ap.add_argument("--verify", action="store_true",
-                    help="check tokens against the one-shot baseline")
+                    help="check the tokens (see the module docstring)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     return ap
 
 
+def parse_args(argv=None) -> argparse.Namespace:
+    """Parse the CLI and fill the defaults that depend on other flags."""
+    args = build_parser().parse_args(argv)
+    if args.gen_max is None:
+        args.gen_max = args.gen
+    if args.prefix_len is None:
+        args.prefix_len = (3 * args.prompt_len) // 4
+    return args
+
+
 def main() -> int:
-    args = build_parser().parse_args()
+    args = parse_args()
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu for the plain "
                          "versions of the kernels")
+    if args.trace == "oneshot":
+        raise NotImplementedError(
+            "--trace oneshot needs full-sequence prefill, which comes with "
+            "the classic-prefill (flash-attention) slice")
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     params = Mo.init_params(cfg, Env(), seed=0, device=args.device)
-    run = serve(args, cfg, params)
-    eng = run["engine"]
-    snap = eng.snapshot()
-    print(f"{cfg.name} on {args.device}: {eng.pool.describe()}, chunked "
-          f"prefill={eng.prefill_chunk}, sampling="
-          f"{'greedy' if args.temperature <= 0 else _sampling_of(args)}")
-    print(f"served {len(run['out'])} requests, {run['tokens']} tokens in "
-          f"{run['steps']} steps, {run['wall_s']:.3f}s wall "
-          f"({run['tokens'] / run['wall_s']:.1f} tokens/s wall)")
-    print(f"p50={snap.get('latency_p50_ms', 0.0):.0f}ms "
-          f"p95={snap.get('latency_p95_ms', 0.0):.0f}ms (sim) "
-          f"prefix hit rate {snap['prefix_hit_rate']:.2f}")
-    if not args.verify:
-        return 0
-    ok, what = verify(args, cfg, params, run)
-    print(f"verify vs {what}: {'MATCH' if ok else 'MISMATCH'}")
-    return 0 if ok else 1
+    return run_trace(args, cfg, params)["rc"]
 
 
 if __name__ == "__main__":

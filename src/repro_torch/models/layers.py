@@ -106,6 +106,20 @@ def attention_paged_decode(q, k_pool, v_pool, tables, lengths,
     return o.reshape(B, 1, -1).to(q.dtype)
 
 
+def attention_paged_decode_quant(q, k_pool, v_pool, k_scale, v_scale, tables,
+                                 lengths, cfg: ModelConfig):
+    """attention_paged_decode over an int8 quant pool: k_pool/v_pool
+    [NB,Hkv,bs,hd] int8, k_scale/v_scale [NB,Hkv,bs] f32. The op
+    dequantizes in f32 (in registers on the card; the whole pool up front
+    in the plain version the CPU runs) and keeps f32 probabilities; the
+    result is cast back to the activation dtype, as the fp pool's read
+    hands attention bf16. Returns [B,1,Hq*hd]."""
+    B = q.shape[0]
+    o = pd_ops.paged_flash_decode_quant(q[:, 0].contiguous(), k_pool, v_pool,
+                                        k_scale, v_scale, tables, lengths)
+    return o.reshape(B, 1, -1).to(q.dtype)
+
+
 def attention_decode(q, k_cache, v_cache, cur_len, cfg: ModelConfig):
     """Single-token attention over a contiguous cache [B,Hkv,Smax,hd].
 

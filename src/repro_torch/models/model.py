@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.paged_decode import ops as pd_ops
 from repro_torch.models import layers as L
 from repro_torch.models.env import Env, head_pad, kv_head_pad, vocab_pad
 
@@ -102,35 +103,63 @@ def init_cache(cfg: ModelConfig, env: Env, batch: int, max_len: int, *,
 
 
 def init_paged_cache(cfg: ModelConfig, env: Env, num_blocks: int,
-                     block_size: int, *, device="cuda") -> Pytree:
+                     block_size: int, *, quant: bool = False,
+                     device="cuda") -> Pytree:
     """Block-pooled decode cache: k/v [L, NB, Hkv, bs, hd] bf16, shared by
     every request through per-request block tables; physical block 0 is
-    the null block that absorbs masked rows' writes."""
-    return init_cache(cfg, env, num_blocks, block_size, device=device)
+    the null block that absorbs masked rows' writes.
+
+    With quant=True, k/v store int8 values plus per-row f32 dequant scales
+    k_scale/v_scale [L, NB, Hkv, bs] (one scale per (block, head, token)
+    over the head dim): (hd + 4) / (2 hd) of the bf16 pool's bytes. The
+    decode path dispatches on the presence of "k_scale"."""
+    if not quant:
+        return init_cache(cfg, env, num_blocks, block_size, device=device)
+    shape = (cfg.num_blocks, num_blocks, kv_head_pad(cfg, env), block_size,
+             cfg.head_dim)
+    z = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)
+    return {"blocks": ({"k": z(shape, torch.int8),
+                        "v": z(shape, torch.int8),
+                        "k_scale": z(shape[:-1], torch.float32),
+                        "v_scale": z(shape[:-1], torch.float32)},),
+            "tail": ()}
 
 
 # Paged-pool helpers (serve/blocks.py). The JAX package builds them as
-# closures to jit; here they work in place on the pool's k/v leaves. The
-# port's pools hold global-attention blocks only, so there are no window
-# tables and no row-addressed recurrent state.
+# closures to jit; here they work in place on the pool's leaves: k/v
+# [L,NB,H,bs,hd] and, in a quant pool, the scales [L,NB,H,bs] (no head-dim
+# axis). The port's pools hold global-attention blocks only, so there are
+# no window tables and no row-addressed recurrent state.
 
 
 def _kv_leaves(pool: Pytree):
     return [leaf for unit in pool["blocks"] for leaf in unit.values()]
 
 
+def _seq_axis_last(leaf) -> bool:
+    """Scale leaves [L,NB,H,bs] end on the token axis; k/v on head_dim."""
+    return leaf.dim() == 4
+
+
 def make_paged_insert(cfg: ModelConfig, block_size: int):
-    """Scatter a batch-1 cache ([L,1,Hkv,S,hd] leaves) into the blocks its
+    """Scatter a batch-1 cache ([L,1,Hkv,S,hd] leaves; a quant request from
+    quantize_paged_request adds [L,1,Hkv,S] scales) into the blocks its
     table names, block_size positions per block (unallocated entries are 0:
     padding lands in the null block)."""
     bs = block_size
 
     def insert(pool, request, tables):
         for dst, src in zip(_kv_leaves(pool), _kv_leaves(request)):
-            Lyr, _, H, S, hd = src.shape
-            nb = -(-S // bs)
-            src = F.pad(src, (0, 0, 0, nb * bs - S)).to(dst.dtype)
-            chunks = src.reshape(Lyr, H, nb, bs, hd).transpose(1, 2)
+            if _seq_axis_last(dst):  # [L,1,H,S] -> chunks [L,nb,H,bs]
+                Lyr, _, H, S = src.shape
+                nb = -(-S // bs)
+                src = F.pad(src, (0, nb * bs - S)).to(dst.dtype)
+                chunks = src.reshape(Lyr, H, nb, bs).transpose(1, 2)
+            else:  # [L,1,H,S,hd] -> chunks [L,nb,H,bs,hd]
+                Lyr, _, H, S, hd = src.shape
+                nb = -(-S // bs)
+                src = F.pad(src, (0, 0, 0, nb * bs - S)).to(dst.dtype)
+                chunks = src.reshape(Lyr, H, nb, bs, hd).transpose(1, 2)
             dst[:, tables[:nb].long()] = chunks
         return pool
 
@@ -138,8 +167,9 @@ def make_paged_insert(cfg: ModelConfig, block_size: int):
 
 
 def make_paged_copy(cfg: ModelConfig):
-    """Copy one physical block's K/V (every layer) from `src` to `dst` —
-    the copy-on-write step behind prefix sharing (serve/blocks.py)."""
+    """Copy one physical block's K/V (and scales; every layer) from `src`
+    to `dst` — the copy-on-write step behind prefix sharing
+    (serve/blocks.py)."""
     def copy(pool, src: int, dst: int):
         for leaf in _kv_leaves(pool):
             leaf[:, dst] = leaf[:, src]
@@ -164,18 +194,46 @@ def make_paged_read(cfg: ModelConfig):
     insert). `valid` masks unallocated table entries, so a freed slot
     reads as zeros whatever masked rows left in the null block."""
     def read(pool, tables, valid):
-        ok = valid.to(torch.bfloat16)
         units = []
         for unit in pool["blocks"]:
             out = {}
             for name, leaf in unit.items():
-                g = leaf[:, tables.long()] * ok[None, :, None, None, None]
-                Lyr, MB, H, bs, hd = g.shape
-                out[name] = g.transpose(1, 2).reshape(Lyr, 1, H, MB * bs, hd)
+                g = leaf[:, tables.long()]  # [L,MB,H,bs(,hd)]
+                ok = valid.to(leaf.dtype).reshape(
+                    (1, -1) + (1,) * (g.dim() - 2))
+                g = (g * ok).transpose(1, 2)
+                Lyr, H, MB, bs = g.shape[:4]
+                out[name] = g.reshape(Lyr, 1, H, MB * bs, *g.shape[4:])
             units.append(out)
         return {"blocks": tuple(units), "tail": ()}
 
     return read
+
+
+def quantize_paged_request(cfg: ModelConfig, request: Pytree) -> Pytree:
+    """Expand a batch-1 fp cache ({"k","v"} per unit) into the quant pool's
+    structure ({"k","v","k_scale","v_scale"}): symmetric int8 over the
+    head dim, one f32 scale per (head, position) — insertable into a quant
+    pool with make_paged_insert."""
+    def unit(d):
+        kq, ks = pd_ops.quantize_kv(d["k"])
+        vq, vs = pd_ops.quantize_kv(d["v"])
+        return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+
+    return {"blocks": tuple(unit(d) for d in request["blocks"]),
+            "tail": ()}
+
+
+def dequantize_paged_request(cfg: ModelConfig, request: Pytree) -> Pytree:
+    """Inverse of quantize_paged_request (up to quantization error): fold
+    the scales back into bf16 {"k","v"} units — what make_paged_read
+    returns from a quant pool becomes comparable to an fp read."""
+    def unit(d):
+        return {n: (d[n].float() * d[f"{n}_scale"][..., None]).to(
+            torch.bfloat16) for n in ("k", "v")}
+
+    return {"blocks": tuple(unit(d) for d in request["blocks"]),
+            "tail": ()}
 
 
 # ---------------------------------------------------------------------------
@@ -190,28 +248,43 @@ def _layer(tree, i: int):
 
 
 def _attn_sublayer(p, h, cfg: ModelConfig, n_rows: int, cur_len, rope,
-                   cache_k, cache_v, tables):
+                   cache, tables):
     """Decode attention for the first n_rows rows of the row-padded h: each
     row writes its token's K/V at cur_len (through its block table, or at
     its own row of a contiguous cache) and attends at its own depth. rope:
-    the rows' (cos, sin) from layers.rope_cos_sin."""
+    the rows' (cos, sin) from layers.rope_cos_sin. cache: this layer's
+    leaves ({"k","v"}, plus "k_scale"/"v_scale" in a quant pool)."""
     q, k, v = L._project_qkv(p, h, cfg)  # [Bp,1,H,hd]
     q = L.rotate(q, *rope)[:n_rows]
     k = L.rotate(k, *rope)[:n_rows, 0]
     v = v[:n_rows, 0]
+    ck, cv = cache["k"], cache["v"]
     if tables is not None:
-        bs = cache_k.shape[-2]
+        bs = ck.shape[-2]
         phys = torch.gather(tables, 1, (cur_len // bs)[:, None])[:, 0].long()
         off = cur_len % bs
-        cache_k[phys, :, off] = k.to(cache_k.dtype)
-        cache_v[phys, :, off] = v.to(cache_v.dtype)
-        o = L.attention_paged_decode(q, cache_k, cache_v, tables,
-                                     cur_len.to(torch.int32), cfg)
+        lengths = cur_len.to(torch.int32)
+        if "k_scale" in cache:
+            # quant pool: quantize-on-insert (this token's K/V row goes in
+            # as int8 + per-row scale), dequant fused into the read
+            ks_pool, vs_pool = cache["k_scale"], cache["v_scale"]
+            kq, ks = pd_ops.quantize_kv(k)  # [B,Hkv,hd] int8, [B,Hkv]
+            vq, vs = pd_ops.quantize_kv(v)
+            ck[phys, :, off] = kq
+            cv[phys, :, off] = vq
+            ks_pool[phys, :, off] = ks
+            vs_pool[phys, :, off] = vs
+            o = L.attention_paged_decode_quant(q, ck, cv, ks_pool, vs_pool,
+                                               tables, lengths, cfg)
+        else:
+            ck[phys, :, off] = k.to(ck.dtype)
+            cv[phys, :, off] = v.to(cv.dtype)
+            o = L.attention_paged_decode(q, ck, cv, tables, lengths, cfg)
     else:
         rows = torch.arange(n_rows, device=h.device)
-        cache_k[rows, :, cur_len] = k.to(cache_k.dtype)
-        cache_v[rows, :, cur_len] = v.to(cache_v.dtype)
-        o = L.attention_decode(q, cache_k, cache_v, cur_len, cfg)
+        ck[rows, :, cur_len] = k.to(ck.dtype)
+        cv[rows, :, cur_len] = v.to(cv.dtype)
+        o = L.attention_decode(q, ck, cv, cur_len, cfg)
     o = F.pad(o, (0, 0, 0, 0, 0, h.shape[0] - n_rows))
     return L.linear(o, p["wo"])
 
@@ -222,9 +295,10 @@ def forward(params, tokens, cfg: ModelConfig, env: Env, mode: str = "decode",
 
     cur_len: [B] int (or a scalar) KV write position == attention depth of
     each row. block_tables (paged cache): {"global": [B,MB] int32} block
-    tables into caches from init_paged_cache; without it, caches is a
-    contiguous init_cache cache with one row per batch row. The caches are
-    updated in place. Returns (logits [B,1,Vpad] bf16, caches).
+    tables into caches from init_paged_cache (bf16 or quant); without it,
+    caches is a contiguous init_cache cache with one row per batch row.
+    The caches are updated in place. Returns (logits [B,1,Vpad] bf16,
+    caches).
 
     Every row-wise op runs on the batch padded to a multiple of
     layers.ROW_TILE rows (batch invariance, see models/layers.py); the
@@ -246,7 +320,7 @@ def forward(params, tokens, cfg: ModelConfig, env: Env, mode: str = "decode",
     for i in range(cfg.num_blocks):
         p = _layer(blocks, i)
         a = _attn_sublayer(p["attn"], L.rms_norm(h, p["ln1"], eps), cfg, B,
-                           cl, rope, cache["k"][i], cache["v"][i], tables)
+                           cl, rope, _layer(cache, i), tables)
         # the reference (XLA) fuses this residual add into the next norm:
         # the norm reads the f32 sum, the residual stream its bf16 rounding
         hf = h.float() + a.float()

@@ -1,11 +1,17 @@
 """Continuous-batching serving subsystem (port of the JAX package's serve/).
 
 Request (with a SamplingParams contract) -> RequestQueue -> ServingEngine
-(SchedulerPolicy picks admission order + preemption verdicts; the paged
-BlockManager owns the cache and the fused decode/sample step) ->
-ServingMetrics.
+(SchedulerPolicy picks admission order + preemption verdicts; a KVBackend
+— the paged BlockManager, or its int8 QuantBlockManager — owns the cache
+and the fused decode/sample step) -> ServingMetrics -> registry KV ->
+AutoScaler policies -> cluster size. A ReplicaSet (serve/router.py) is
+the multi-replica data plane behind the same surface.
 """
-from repro_torch.serve.blocks import BlockManager  # noqa: F401
+from repro_torch.models.env import SERVE_PLAN  # noqa: F401
+from repro_torch.serve.blocks import (  # noqa: F401
+    BlockManager,
+    QuantBlockManager,
+)
 from repro_torch.serve.kv import KVBackend, make_kv_backend  # noqa: F401
 from repro_torch.serve.metrics import ServingMetrics, percentile  # noqa: F401
 from repro_torch.serve.policy import (  # noqa: F401
@@ -19,7 +25,16 @@ from repro_torch.serve.request import (  # noqa: F401
     RequestQueue,
     burst_trace,
     poisson_trace,
+    repetitive_trace,
     sysprompt_trace,
+)
+from repro_torch.serve.router import (  # noqa: F401
+    LeastOccupancyRouting,
+    PrefixAffineRouting,
+    ReplicaSet,
+    RoutingPolicy,
+    make_routing_policy,
+    make_serving_engine,
 )
 from repro_torch.serve.sampling import GREEDY, SamplingParams  # noqa: F401
 from repro_torch.serve.scheduler import (  # noqa: F401

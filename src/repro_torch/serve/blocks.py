@@ -30,8 +30,11 @@ fully-cached prompt — copies it into a fresh block first
 (Mo.make_paged_copy), so two requests sharing a prefix never observe each
 other's writes. Double frees raise before the free list is poisoned.
 
-Left out of the port so far: the host swap tier (HostSwapPool), the int8
-QuantBlockManager, sliding-window ring tables and recurrent-state rows.
+QuantBlockManager (`--kv quant`) is the same bookkeeping over an int8
+pool with per-row f32 scales.
+
+Left out of the port so far: the host swap tier (HostSwapPool),
+sliding-window ring tables and recurrent-state rows.
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.paged_decode import ops as pd_ops
 from repro_torch.launch import steps as St
 from repro_torch.models import model as Mo
 from repro_torch.models.env import Env
@@ -74,6 +78,7 @@ class PagedSlot:
 
 class BlockManager:
     kind = "paged"
+    _quant = False  # int8 pool + scales (QuantBlockManager)
 
     def __init__(self, cfg: ModelConfig, env: Env, *, num_slots: int,
                  prompt_len: int, max_gen: int, block_size: int = 16,
@@ -98,7 +103,8 @@ class BlockManager:
                 f"num_blocks={self.num_blocks} cannot hold even one request "
                 f"({self.mb_global} blocks + null)")
         self.caches: Pytree = Mo.init_paged_cache(
-            cfg, env, self.num_blocks, bs, device=self.device)
+            cfg, env, self.num_blocks, bs, quant=self._quant,
+            device=self.device)
         # host-side tables: row per slot, 0 = unallocated (null block)
         self.table = np.zeros((num_slots, self.mb_global), np.int32)
         self._slots: List[Optional[PagedSlot]] = [None] * num_slots
@@ -245,6 +251,12 @@ class BlockManager:
     @property
     def occupancy(self) -> float:
         return 1.0 - len(self._free_slots) / max(self.num_slots, 1)
+
+    @property
+    def free_capacity(self) -> int:
+        """Absolute admission headroom: unreserved blocks (slots are
+        rarely the binding constraint on a paged pool)."""
+        return max(self.free_unreserved, 0)
 
     @property
     def blocks_in_use(self) -> int:
@@ -494,6 +506,14 @@ class BlockManager:
         s = self._slots[slot]
         return 0 if s is None else s.cached_len
 
+    def probe_prefix(self, prompt) -> int:
+        """Prompt positions an admission would serve from the cache right
+        now (read-only). The router's prefix-affine policy probes every
+        replica's pool with this before choosing one."""
+        if prompt is None:
+            return 0
+        return self._probe(prompt)[2]
+
     def release(self) -> None:
         """Retire the pool. Verifies the free-list accounting returns to
         empty — every usable block either free or cache-retained with zero
@@ -517,6 +537,18 @@ class BlockManager:
         self.caches = None
 
     # -- reporting ----------------------------------------------------------
+    @property
+    def prefix_hit_tokens(self) -> int:
+        """Cumulative prompt tokens served from the cache — the fleet
+        rollup sums these raw counts across replicas."""
+        return self._hit_tokens
+
+    @property
+    def prefix_lookup_tokens(self) -> int:
+        """Cumulative prompt tokens probed at admission (the hit-rate
+        denominator)."""
+        return self._lookup_tokens
+
     @property
     def prefix_hit_rate(self) -> float:
         """Cumulative fraction of probed prompt tokens served from the
@@ -552,3 +584,51 @@ class BlockManager:
         return self._read(self.caches,
                           torch.as_tensor(self.table[slot], device=self.device),
                           valid)
+
+
+class QuantBlockManager(BlockManager):
+    """The `--kv quant` backend: BlockManager bookkeeping over an int8
+    block pool with per-row f32 dequant scales ([NB,Hkv,bs] — one scale
+    per (block, head, token) across the head dim).
+
+    Everything host-side (tables, refcounts, prefix hashing, reservation
+    math) is inherited unchanged; the deltas are on the device: the pool
+    layout (Mo.init_paged_cache quant=True), quantize-on-insert (the fused
+    decode step quantizes each new token's K/V row in models/model.py,
+    dispatching on the "k_scale" cache leaf; prompt rows arrive the same
+    way, as chunked-prefill lane rows), and dequant fused into the read
+    (kernels/paged_decode paged_flash_decode_quant).
+
+    At (hd+4)/(2*hd) the bytes per token of the bf16 pool, an equal-byte
+    budget holds ~2x the blocks — ~2x admitted concurrency — with
+    bit-exactness relaxed to a bounded-divergence contract:
+    `kv_quant_divergence` below is the scheme's calibrated relative RMS
+    quantization error."""
+
+    kind = "quant"
+    _quant = True
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        # calibrated divergence: relative RMS error of the int8 scheme on a
+        # seeded unit-normal sample (a per-write measurement would sync the
+        # hot path; tests pin the end-to-end bound)
+        x = torch.as_tensor(np.random.default_rng(0).normal(
+            size=(1024, self.cfg.head_dim)), dtype=torch.float32)
+        q, sc = pd_ops.quantize_kv(x)
+        deq = q.float() * sc[..., None]
+        self.quant_divergence = float(
+            torch.sqrt(torch.mean((deq - x) ** 2) / torch.mean(x ** 2)))
+
+    def metrics(self) -> Dict[str, float]:
+        m = super().metrics()
+        m["kv_quant_divergence"] = self.quant_divergence
+        return m
+
+    def describe(self) -> str:
+        return "int8 " + super().describe().replace("paged KV", "quant KV", 1)
+
+    def read_slot(self, slot: int) -> Pytree:
+        """Introspection reads dequantize (int8 * scales -> bf16) so the
+        result is directly comparable to an fp pool's read."""
+        return Mo.dequantize_paged_request(self.cfg, super().read_slot(slot))

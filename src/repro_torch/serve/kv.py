@@ -2,8 +2,9 @@
 
 Port of the JAX package's serve/kv.py. A backend owns its device cache, its
 bookkeeping, and its fused decode step; the engine schedules rows and
-never learns what a block table is. The port has one backend so far, the
-paged BlockManager (serve/blocks.py). There is no counterpart of the JAX
+never learns what a block table is. The port has two backends so far, the
+paged BlockManager (serve/blocks.py) and its int8 variant
+QuantBlockManager (`--kv quant`). There is no counterpart of the JAX
 package's shared_jit registry: PyTorch runs eagerly, so there is nothing
 to compile once per config.
 
@@ -42,7 +43,7 @@ Pytree = Any
 
 @runtime_checkable
 class KVBackend(Protocol):
-    kind: str                 # registry name ("paged")
+    kind: str                 # registry name ("paged", "quant")
     num_slots: int
     caches: Pytree            # the device cache the backend owns
 
@@ -89,6 +90,17 @@ class KVBackend(Protocol):
     def free_slot_count(self) -> int: ...
     @property
     def occupancy(self) -> float: ...
+    @property
+    def free_capacity(self) -> int:
+        """Admission capacity still available, in the backend's own units
+        (paged: unreserved blocks). Absolute, not a fraction — the
+        router's load key uses it to break occupancy ties across
+        heterogeneous pool sizes."""
+        ...
+    def probe_prefix(self, prompt) -> int:
+        """Prompt positions an admission would serve from the backend's
+        prefix cache right now (read-only; the prefix-affine router)."""
+        ...
     def metrics(self) -> Dict[str, float]: ...
     def describe(self) -> str: ...
 
@@ -99,14 +111,19 @@ def make_kv_backend(kind: str, cfg: ModelConfig, env: Env, *, num_slots: int,
                     prefix_cache: bool = True,
                     max_shared_fraction: float = 1.0,
                     device="cuda") -> KVBackend:
-    """The one cache-kind dispatch in the serving plane."""
-    from repro_torch.serve.blocks import BlockManager
+    """The one cache-kind dispatch in the serving plane: "paged" (bf16
+    block pool) or "quant" (int8 block pool + per-row scales)."""
+    from repro_torch.serve.blocks import BlockManager, QuantBlockManager
 
-    if kind == "paged":
-        return BlockManager(cfg, env, num_slots=num_slots,
-                            prompt_len=prompt_len, max_gen=max_gen,
-                            block_size=block_size, num_blocks=kv_blocks,
-                            prefix_cache=prefix_cache,
-                            max_shared_fraction=max_shared_fraction,
-                            device=device)
-    raise ValueError(f"unknown KV backend {kind!r} (the port has 'paged')")
+    if kind in ("paged", "quant"):
+        cls = QuantBlockManager if kind == "quant" else BlockManager
+        return cls(cfg, env, num_slots=num_slots, prompt_len=prompt_len,
+                   max_gen=max_gen, block_size=block_size,
+                   num_blocks=kv_blocks, prefix_cache=prefix_cache,
+                   max_shared_fraction=max_shared_fraction, device=device)
+    if kind == "slot":
+        raise NotImplementedError(
+            "kv='slot': the slot backend (SlotPool) is not ported yet; it "
+            "comes with the speculative-decoding slice")
+    raise ValueError(f"unknown KV backend {kind!r} "
+                     "(expected 'paged', 'quant', or 'slot')")

@@ -6,11 +6,14 @@ Port of the JAX package's serve/scheduler.py, chunked-prefill path.
 its own prefix cache), the in-flight lane/slot bookkeeping, the fused
 decode step, and its own ServingMetrics. It has no arrival queue and no
 SchedulerPolicy — it only answers "can you take this request?"
-(`can_take`), commits admissions (`admit`), and runs decode ticks
-(`step_decode`).
+(`can_accept`), commits admissions (`admit`), and runs decode ticks
+(`step_decode`). It also owns the drain lifecycle real scale-down needs:
+a draining replica accepts no new work, finishes (or restart-preempts)
+what it holds, and `release()` returns its pool with leak checking.
 
 `ServingEngine` is the single-replica composition: a RequestQueue +
-SchedulerPolicy admission loop over one ReplicaEngine.
+SchedulerPolicy admission loop over one ReplicaEngine. The multi-replica
+composition is `serve/router.py`'s `ReplicaSet`.
 
 One scheduler iteration (ServingEngine.step()):
 
@@ -36,8 +39,8 @@ and lane-placement-invariant. The clock is injected: tests and the CLI
 drive a ManualClock; nothing here sleeps.
 
 Left out of the port so far: classic (batch-1 prefill + insert)
-admission, speculative verify rows, the host swap tier and the drain
-lifecycle of a fleet's replicas.
+admission, speculative verify rows and the host swap tier
+(make_serving_engine(swap=True) raises).
 """
 from __future__ import annotations
 
@@ -118,6 +121,7 @@ class ReplicaEngine:
         self._inflight: Dict[int, Request] = {}  # rid -> request
         self.completed: List[Request] = []
         self.decode_steps = 0
+        self.draining = False
 
     # -- state -----------------------------------------------------------------
     @property
@@ -133,6 +137,13 @@ class ReplicaEngine:
     def can_take(self, req: Request) -> bool:
         """Capacity predicate only: can the backend hold `req` right now?"""
         return self.pool.can_admit(req.eff_gen_len, prompt=req.prompt)
+
+    def can_accept(self, req: Request) -> bool:
+        """Could this replica commit `req` right now? (Routing predicate —
+        admission-accurate because admit() takes its reservations
+        immediately, so successive calls within one tick stay honest.)"""
+        return (not self.draining and self.admission_room()
+                and self.can_take(req))
 
     # -- admission commit ---------------------------------------------------
     def admit(self, req: Request, now: float) -> None:
@@ -179,13 +190,39 @@ class ReplicaEngine:
         self.metrics.record_preempt(now)
         return victim
 
+    # -- drain lifecycle ------------------------------------------------------
+    def start_drain(self, *, preempt: bool = False) -> List[Request]:
+        """Enter drain mode: no new admissions (can_accept goes False).
+        With preempt=False the replica finishes what it holds; with
+        preempt=True every in-flight request — decoding or mid-prefill —
+        is restart-preempted and returned for the caller to re-queue
+        (bit-identical regeneration is the position-keyed sampling
+        guarantee, so a drain can be immediate without changing output)."""
+        self.draining = True
+        if not preempt:
+            return []
+        now = self.clock.now()
+        # closing the lanes first makes mid-prefill slots preemptible too
+        # (preempt()'s open-lane guard is about a lane writing into a
+        # freed slot; with no lanes left there is nothing to write)
+        self._lanes.clear()
+        return [self.preempt(self._inflight[self.pool.rid_of(slot)], slot,
+                             now)
+                for slot in list(self.pool.occupied_slots())]
+
+    def cancel_drain(self) -> None:
+        """Scale-up may reuse a still-draining replica: its cache is warm,
+        which beats a cold spawn."""
+        self.draining = False
+
     def release(self) -> None:
         """Return the replica's pool. Must be idle; the backend's release()
-        verifies its free-list accounting (no leaked blocks/reservations)."""
+        verifies its free-list accounting (no leaked blocks/reservations)
+        before dropping the device cache."""
         if self.busy or self._lanes:
             raise RuntimeError(
                 f"{self.name}: release() while {len(self._inflight)} "
-                "requests are in flight")
+                "requests are in flight — drain first")
         self.pool.release()
 
     # -- one decode tick -----------------------------------------------------
@@ -303,6 +340,16 @@ class ReplicaEngine:
         self._row_src.pop(slot, None)
 
     # -- reporting ----------------------------------------------------------------
+    def load_score(self):
+        """Routing key: committed KV first (the signal that gates admission
+        on a paged backend), the in-flight count as the queue-depth
+        tiebreak, then *absolute* free capacity (more free capacity =
+        smaller key, so of two empty replicas with unequal pools the big
+        one wins)."""
+        m = self.pool.metrics()
+        return (m.get("kv_block_occupancy", self.pool.occupancy),
+                len(self._inflight), -self.pool.free_capacity)
+
     def snapshot(self, *, queue_depth: Optional[int] = None
                  ) -> Dict[str, float]:
         return self.metrics.snapshot(self.clock.now(),
@@ -337,6 +384,14 @@ class ServingEngine:
         self.queue = RequestQueue()
 
     # -- delegated surface (the replica owns the data plane) -----------------
+    @property
+    def cfg(self):
+        return self.replica.cfg
+
+    @property
+    def params(self):
+        return self.replica.params
+
     @property
     def clock(self):
         return self.replica.clock
@@ -466,8 +521,10 @@ def run_to_completion(engine, requests: Sequence[Request] = (), *,
                       on_step: Optional[Callable[[int, Dict[str, float]],
                                                  None]] = None
                       ) -> Dict[int, List[int]]:
-    """Standalone drain loop: step the engine, advance the clock by `dt`
-    between iterations."""
+    """Standalone drain loop (no cluster): step the engine (a
+    ServingEngine or a router.ReplicaSet), advance the clock by `dt`
+    between iterations. VirtualCluster.serve() is the cluster-integrated
+    version of this loop."""
     engine.submit(requests)
     steps = 0
     while not engine.drained() and steps < max_steps:

@@ -7,10 +7,10 @@ PyTorch is installed; tests/conftest.py imports jax, hence:
   PYTHONPATH=src python -m pytest -m gpu --noconftest tests/test_torch_cuda.py
 
 Each kernel is held to its plain version on the same inputs: paged decode
-within 1e-5 (both sides compute in f32 from the same bf16 inputs; sound
-runs read below 1e-6, a kernel rounding its probabilities to bf16 reads
-above 1e-3), the top-k/top-p mask exactly (same keep-set, kept logits
-equal).
+over the bf16 and the int8 pool within 1e-5 (both sides compute in f32
+from the same bf16 or int8-and-scale inputs; sound runs read below 1e-6,
+a kernel rounding its probabilities to bf16 reads above 1e-3), the
+top-k/top-p mask exactly (same keep-set, kept logits equal).
 """
 import numpy as np
 import pytest
@@ -18,14 +18,18 @@ import torch
 
 from repro_torch.configs import get_smoke
 from repro_torch.core.clock import ManualClock
-from repro_torch.kernels.paged_decode.ops import paged_flash_decode
-from repro_torch.kernels.paged_decode.ref import paged_decode_ref
+from repro_torch.kernels.paged_decode.ops import (paged_flash_decode,
+                                                  paged_flash_decode_quant,
+                                                  quantize_kv)
+from repro_torch.kernels.paged_decode.ref import (paged_decode_quant_ref,
+                                                  paged_decode_ref)
 from repro_torch.kernels.sampling.ops import MAX_VOCAB, topk_topp_mask
 from repro_torch.kernels.sampling.ref import topk_topp_mask_ref
 from repro_torch.launch.serve import serve_batch
 from repro_torch.models import model as Mo
 from repro_torch.models.env import Env
-from repro_torch.serve import (SamplingParams, ServingEngine, poisson_trace,
+from repro_torch.serve import (SamplingParams, ServingEngine,
+                               make_serving_engine, poisson_trace,
                                run_to_completion)
 
 pytestmark = pytest.mark.gpu
@@ -58,6 +62,36 @@ def test_paged_decode_kernel_matches_plain(B, Hq, Hkv, hd, bs, MB, cuda):
     assert paged_flash_decode.launches == before + 1
     assert float((got - paged_decode_ref(q, kp, vp, tables, lengths))
                  .abs().max()) < 1e-5
+    assert float(got[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,hd,bs,MB", [
+    (2, 4, 2, 32, 16, 4), (3, 8, 8, 64, 8, 3), (1, 4, 1, 128, 32, 2),
+    (9, 12, 4, 64, 16, 6)])
+def test_quant_paged_decode_kernel_matches_plain(B, Hq, Hkv, hd, bs, MB,
+                                                 cuda):
+    """The sweep shapes put 2, 4 and 8 threads on a token row (hd 32, 64,
+    128 at 16 int8 values a load); rows 0-2 are the masks: fully masked,
+    depth 0, the whole table."""
+    rng = np.random.default_rng(B + hd + 1)
+    NB = 1 + B * MB + 3
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(cuda)
+    q = mk(B + 3, Hq, hd).to(torch.bfloat16)
+    kq, ks = quantize_kv(mk(NB, Hkv, bs, hd))
+    vq, vs = quantize_kv(mk(NB, Hkv, bs, hd))
+    ids = rng.permutation(np.arange(1, NB))
+    rows = [ids[(i % B) * MB:(i % B + 1) * MB] for i in range(B + 3)]
+    tables = torch.from_numpy(np.stack(rows).astype(np.int32)).to(cuda)
+    lengths = torch.tensor([-1, 0, MB * bs - 1]
+                           + [(i * 7) % (MB * bs) for i in range(B)],
+                           dtype=torch.int32, device=cuda)
+    before = paged_flash_decode_quant.launches
+    got = paged_flash_decode_quant(q, kq, vq, ks, vs, tables, lengths)
+    torch.cuda.synchronize()
+    assert paged_flash_decode_quant.launches == before + 1
+    want = paged_decode_quant_ref(q, kq, vq, ks, vs, tables, lengths)
+    assert float((got - want).abs().max()) < 1e-5
     assert float(got[0].abs().max()) == 0.0
 
 
@@ -100,3 +134,23 @@ def test_engine_on_the_card_is_exact_and_lane_invariant(cuda):
     assert all(out[i] == list(base[i]) for i in range(8))
     sp = SamplingParams(temperature=0.9, top_k=40, top_p=0.95, seed=3)
     assert run(4, sp) == run(2, sp)
+
+
+def test_quant_fleet_on_the_card_is_lane_and_fleet_invariant(cuda):
+    """Smoke config on the card, int8 KV: the same tokens at two slot
+    counts, and a 2-replica fleet equal to one engine; every attention
+    read goes through the quant kernel."""
+    cfg = get_smoke("paper-demo")
+    params = Mo.init_params(cfg, Env(), seed=0, device=cuda)
+    mk = lambda: poisson_trace(8, 16.0, prompt_len=16,
+                               vocab_size=cfg.vocab_size, gen_len=8, seed=0)
+    run = lambda **kw: run_to_completion(make_serving_engine(
+        cfg, params, prompt_len=16, max_gen=8, kv="quant",
+        clock=ManualClock(), device=cuda, **kw), mk(), dt=0.05)
+    before = paged_flash_decode.launches
+    quant_before = paged_flash_decode_quant.launches
+    out = run(num_slots=4)
+    assert paged_flash_decode_quant.launches > quant_before
+    assert paged_flash_decode.launches == before
+    assert run(num_slots=2) == out
+    assert run(num_slots=2, replicas=2) == out
