@@ -27,9 +27,19 @@ Phases, any failure exits non-zero before the result line:
      and a scale-down, a drained replica released without a leak, and
      the fleet bit-identical to one engine;
   8. one quant engine under the cluster (counts read the same way): the
-     same tokens at 8 and 4 slots.
+     same tokens at 8 and 4 slots;
+  9. classic admission at full width: 16 requests of 256-token prompts
+     (gen 32, 8 slots, greedy), each admitted by a batch-1 prefill through
+     the flash-attention kernel and inserted into the paged pool (counts
+     read between the run and its verify: 16 x 12 flash launches), then
+     every token against the full-prefill one-shot baseline (one B=16
+     prefill);
+ 10. the same trace on the slot pool (--kv slot): the same tokens as
+     phase 9, bit for bit.
 Phase 2 also holds the quant kernel to its plain version and to the bf16
-kernel on the same pool (relative RMS), and phase 5 times it.
+kernel on the same pool (relative RMS), the flash-attention kernel to its
+plain version at six shapes, and one full-width 256-token prefill on the
+card to the CPU path; phase 5 times all four kernels.
 Prints the kernel report as one JSON line, the card's name and power
 limit, and last {"ok": true, "device": {...}}. Needs no network; the
 kernel build lands in build/ (git-ignored).
@@ -64,6 +74,19 @@ QUANT_RMS_TOL = 0.05
 # 8 bits, so one rounding step is up to 2^-8 of the value; GEMM sums are
 # taken in another order on each device
 LOGIT_TOL = 3e-2
+# flash attention vs its plain version, max abs error of the bf16 output:
+# the JAX package's bound for its kernel (tests/test_kernels.py). Both
+# compute in f32 from the same bf16 inputs; the output's one bf16 rounding
+# is up to 2^-8 of values of a few units
+FLASH_TOL = 2e-2
+# the flash kernel at the phase-2 shapes: (B, S, Hq, Hkv, hd, causal,
+# window); paper-demo's heads first
+FLASH_SHAPES = [(1, 256, 12, 4, 64, True, 0), (2, 200, 12, 4, 64, True, 0),
+                (1, 256, 12, 4, 64, True, 64), (1, 256, 12, 4, 64, False, 0),
+                (1, 256, 12, 1, 64, True, 0), (2, 256, 12, 4, 16, True, 0)]
+# ... and the shapes it is timed at (phase 5): the classic admission's
+# batch-1 prefill, the one-shot baseline's B=16, a long prompt
+FLASH_TIMED = [(1, 256), (16, 256), (1, 2048)]
 
 
 def fail(msg):
@@ -202,6 +225,37 @@ def paged_decode_bf16_probs(q, k_pool, v_pool, tables, lengths):
     return (a @ vg).reshape(B, Hq, hd)
 
 
+def flash_inputs(gen, dev, B, S, Hq, Hkv, hd):
+    import torch
+    mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(
+        torch.bfloat16)
+    return mk(B, S, Hq, hd), mk(B, S, Hkv, hd), mk(B, S, Hkv, hd)
+
+
+def flash_plain(q, k, v, causal=True, window=0):
+    """The plain version in the op's layout ([B,S,H,hd] in, [B,S,Hq*hd]
+    out)."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    B, S, Hq, hd = q.shape
+    o = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                      v.transpose(1, 2), causal=causal, window=window)
+    return o.transpose(1, 2).reshape(B, S, Hq * hd)
+
+
+def flash_bound_ms(B, S, Hq, Hkv, hd, causal=True, window=0):
+    """Least time for one call: q, k, v read once and the output written
+    once (bf16), against 4 hd flops (two products, a multiply and an add
+    each) per unmasked (query, key) pair per query head, at the bf16
+    tensor-core rate."""
+    lo = lambda i: max(0, i - window + 1) if window > 0 else 0
+    hi = lambda i: i if causal else S - 1
+    pairs = sum(hi(i) - lo(i) + 1 for i in range(S))
+    nbytes = 2 * (2 * B * S * Hq * hd + 2 * B * S * Hkv * hd)
+    flops = 4 * hd * pairs * Hq * B
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def check_kernels(dev):
     import torch
     from repro_torch.kernels.paged_decode.ops import (
@@ -287,6 +341,26 @@ def check_kernels(dev):
     out["mask"] = ((logits, ks, ps), float((got - want).abs().max()))
     print(f"top-k/top-p mask: keep-sets equal over {T}x{V} "
           f"({int(keep_g.sum())} kept), kept logits bit-equal")
+
+    # flash attention at the phase-2 shapes (a ragged tile, a window,
+    # bidirectional, MQA, narrow heads)
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    worst = 0.0
+    for B, S, Hq, Hkv, hd, causal, window in FLASH_SHAPES:
+        q, k, v = flash_inputs(gen, dev, B, S, Hq, Hkv, hd)
+        got = flash_attention(q, k, v, causal=causal, window=window,
+                              n_kv_heads=Hkv)
+        torch.cuda.synchronize()
+        err = float((got.float() - flash_plain(q, k, v, causal, window)
+                     .float()).abs().max())
+        print(f"flash attention B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} "
+              f"causal={causal} window={window}: kernel vs plain max abs "
+              f"err {err:.3e}; tolerance {FLASH_TOL}")
+        if not math.isfinite(err) or err > FLASH_TOL:
+            fail(f"flash attention kernel vs plain at B={B} S={S} "
+                 f"Hkv={Hkv} hd={hd} causal={causal} window={window}: {err}")
+        worst = max(worst, err)
+    out["flash"] = worst
     return out
 
 
@@ -342,6 +416,59 @@ def check_against_cpu():
           f"relative logit err {err:.3e}; tolerance {LOGIT_TOL}")
 
 
+def check_prefill_against_cpu(cfg, params):
+    """One full-width prefill (B=1, S=256: the flash branch) on the card
+    vs the CPU path (plain attention, f32-accumulated GEMMs) on the same
+    weights, |diff| / max(|logit|, 1) over every position's logits.
+
+    Twelve bf16 layers spread under any change of summation order, so the
+    tolerance is measured in the same run: the CPU path against itself
+    with its GEMMs accumulated in f64 (each product still rounded once to
+    bf16) — two computations of the same function that differ only in
+    rounding. The card may differ from the CPU by at most twice that
+    spread, in the worst logit and on average: it reorders the GEMMs
+    (cuBLAS) and the attention sums (the flash kernel's online softmax)."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as Mo
+    from repro_torch.models.env import Env
+
+    tok = torch.randint(0, cfg.vocab_size, (1, 256),
+                        generator=torch.Generator().manual_seed(2))
+    cpu = lambda t: {k: cpu(v) for k, v in t.items()} \
+        if isinstance(t, dict) else (tuple(cpu(v) for v in t)
+                                     if isinstance(t, tuple) else t.cpu())
+    prefill = lambda p, t: Mo.forward(p, t, cfg, Env(), mode="prefill")[0]
+    lg_gpu = prefill(params, tok.cuda()).float().cpu()
+    cparams = cpu(params)
+    ref = prefill(cparams, tok).float()
+    linear = L.linear
+
+    def linear_f64(x, w):
+        y = x.reshape(-1, x.shape[-1]).double() @ w.double()
+        return y.float().to(x.dtype).reshape(*x.shape[:-1], w.shape[-1])
+
+    L.linear = linear_f64
+    try:
+        alt = prefill(cparams, tok).float()
+    finally:
+        L.linear = linear
+    rel = lambda a: (a - ref).abs() / ref.abs().clamp_min(1.0)
+    err, spread = rel(lg_gpu), rel(alt)
+    same = float((lg_gpu.argmax(-1) == ref.argmax(-1)).float().mean())
+    print(f"full-width prefill (S=256) on the card vs the CPU path: "
+          f"relative logit err max {float(err.max()):.3e}, mean "
+          f"{float(err.mean()):.3e}; the CPU path against itself with "
+          f"f64-accumulated GEMMs: max {float(spread.max()):.3e}, mean "
+          f"{float(spread.mean()):.3e}; argmax equal at {same:.4f} of the "
+          f"positions")
+    if not (math.isfinite(float(err.max()))
+            and float(err.max()) <= 2 * float(spread.max())
+            and float(err.mean()) <= 2 * float(spread.mean())):
+        fail("prefill card vs CPU: the logits differ by more than twice "
+             "the spread of a reordered CPU computation")
+
+
 def profile_steps(args, cfg, params, n_steps=24, warm=4):
     """Per-step wall time, device busy time (sum of the profiler's
     device-side events; one stream, so no overlap) and the top kernels,
@@ -387,12 +514,22 @@ def profile_steps(args, cfg, params, n_steps=24, warm=4):
               f"  {e.key[:70]}")
 
 
+def card():
+    """The card's name and power limit, as nvidia-smi reports them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return (smi.stdout.strip().splitlines()[0] if smi.returncode == 0
+            else "nvidia-smi unavailable")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
     from repro_torch import kernels
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.paged_decode.ops import (
         paged_flash_decode, paged_flash_decode_quant)
     from repro_torch.kernels.paged_decode.ref import (paged_decode_quant_ref,
@@ -418,13 +555,16 @@ def main():
         elif "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip())
 
-    # 2. kernels vs plain versions; one decode step card vs CPU
+    # 2. kernels vs plain versions; one decode step and one full-width
+    # prefill, card vs CPU
     checked = check_kernels(dev)
     check_against_cpu()
 
-    # 3. the main path, greedy, full width
     cfg = get_config("paper-demo")
     params = Mo.init_params(cfg, Env(), seed=0, device=dev)
+    check_prefill_against_cpu(cfg, params)
+
+    # 3. the main path, greedy, full width
     args = serve_args([])
     paged_flash_decode.launches = topk_topp_mask.launches = 0
     run = serve(args, cfg, params)
@@ -488,12 +628,37 @@ def main():
                                            token_bytes=2 * (hd + 4))
     (logits, ks, ps), mask_err = checked["mask"]
     mask_bound, mask_by = mask_bound_ms(*logits.shape)
+    # flash attention at paper-demo's heads, causal: the classic
+    # admission's batch-1 prefill (the JSON line's shape), the one-shot
+    # baseline's B=16, one long prompt; beside it PyTorch's fused attention
+    fgen = torch.Generator(device=dev).manual_seed(5)
+    flash = []
+    for B, S in FLASH_TIMED:
+        fin = flash_inputs(fgen, dev, B, S, 12, 4, 64)
+        sdpa_f = lambda fin=fin: \
+            torch.nn.functional.scaled_dot_product_attention(
+                *(t.transpose(1, 2) for t in fin), is_causal=True,
+                enable_gqa=True)
+        bound, by = flash_bound_ms(B, S, 12, 4, 64)
+        row = {"B": B, "S": S,
+               "ms": device_ms(lambda fin=fin: flash_attention(
+                   *fin, causal=True, n_kv_heads=4)),
+               "plain_ms": device_ms(lambda fin=fin: flash_plain(*fin)),
+               "library_ms": device_ms(sdpa_f), "bound_ms": bound,
+               "bound_by": by, "fin": fin}
+        print(f"flash attention B={B} S={S}: {row['ms'] * 1e3} us "
+              f"kernel, {row['plain_ms'] * 1e3} us plain, "
+              f"{row['library_ms'] * 1e3} us SDPA, bound {bound * 1e3} us "
+              f"({by}), {bound / row['ms']:.4f} of the bound")
+        flash.append(row)
     # every time is device work per call (CUDA graph replay); the kernels'
     # eager per-call times, host work included, are printed beside them
     calls = {"paged_flash_decode": lambda: paged_flash_decode(*pin),
              "topk_topp_mask": lambda: topk_topp_mask(logits, ks, ps),
              "paged_flash_decode_quant":
-                 lambda: paged_flash_decode_quant(*qin)}
+                 lambda: paged_flash_decode_quant(*qin),
+             "flash_attention": lambda: flash_attention(
+                 *flash[0]["fin"], causal=True, n_kv_heads=4)}
     report = [
         {"name": "paged_flash_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_decode.cu",
@@ -521,6 +686,13 @@ def main():
          "plain_ms": device_ms(lambda: paged_decode_quant_ref(*qin)),
          "bound_ms": quant_bound, "bound_by": quant_by,
          "library_ms": device_ms(sdpa_q)},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:91",
+         "launches": None,  # the classic serve's, phase 9
+         "max_abs_err": checked["flash"],
+         **{k: flash[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}},
     ]
     for k in report:
         print(f"{k['name']}: {k['ms'] * 1e3:.1f} us kernel, "
@@ -579,12 +751,54 @@ def main():
         fail(f"quant engine: {line}")
     print(f"quant engine: quant decode launches {n_quant1}; {line}")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    # 9. classic admission: a batch-1 prefill per request (the flash
+    # kernel at 256 tokens), its K/V inserted into the paged pool; counts
+    # read between the run and its verify, whose B=16 prefill launches the
+    # kernel too
+    cargs = serve_args(["--prefill-chunk", "0", "--prompt-len", "256"])
+    counted = (paged_flash_decode, paged_flash_decode_quant, topk_topp_mask,
+               flash_attention)
+    for op in counted:
+        op.launches = 0
+    crun = serve(cargs, cfg, params)
+    n_flash, n_dec = flash_attention.launches, paged_flash_decode.launches
+    want = cargs.requests * cfg.num_blocks
+    if n_flash != want or n_dec <= 0:
+        fail(f"the classic serve launched flash attention {n_flash} times "
+             f"(expected {want}) and paged decode {n_dec} times")
+    if crun["engine"].metrics.preemptions:
+        fail("the classic serve preempted at the worst-case block budget")
+    check_tokens(crun, cfg)
+    ok, line = verify(cargs, cfg, params, crun)
+    if not ok:
+        fail(f"classic serve: {line}")
+    report[3]["launches"] = n_flash
+    print(f"classic serve {cfg.name} (prompt 256, gen 32, 8 slots): "
+          f"{crun['tokens']} tokens in {crun['steps']} decode steps, "
+          f"{crun['wall_s']:.3f}s wall, "
+          f"{crun['tokens'] / crun['wall_s']:.1f} tokens/s wall on {card()}; "
+          f"flash attention launches {n_flash}, paged decode launches "
+          f"{n_dec}; {line}")
+
+    # 10. the slot pool on the same trace: paged == slot, bit for bit
+    slargs = serve_args(["--kv", "slot", "--prompt-len", "256"])
+    for op in counted:
+        op.launches = 0
+    slrun = serve(slargs, cfg, params)
+    if flash_attention.launches != want or paged_flash_decode.launches <= 0:
+        fail(f"the slot pool launched flash attention "
+             f"{flash_attention.launches} times and paged decode "
+             f"{paged_flash_decode.launches} times")
+    check_tokens(slrun, cfg)
+    if slrun["out"] != crun["out"]:
+        bad = sum(slrun["out"][r] != crun["out"][r] for r in crun["out"])
+        fail(f"slot pool vs paged classic: {bad} requests differ")
+    print(f"slot pool: {slrun['tokens']} tokens, {slrun['wall_s']:.3f}s "
+          f"wall, flash attention launches {flash_attention.launches}; "
+          "tokens equal the paged classic serve's bit for bit")
+
     print(json.dumps({"kernels": report}))
-    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0
-          else "nvidia-smi unavailable")
+    print(card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -38,6 +38,7 @@ _SIGNATURES = {
     "paged_decode_bf16": ([_P] * 6 + [_I] * 6 + [_P], _I),
     "paged_decode_int8": ([_P] * 8 + [_I] * 6 + [_P], _I),
     "topk_topp_mask_f32": ([_P] * 4 + [_I, _I, _P], _I),
+    "flash_attention_bf16": ([_P] * 4 + [_I] * 8 + [_P], _I),
     "kernel_error_string": ([_I], ctypes.c_char_p),
 }
 

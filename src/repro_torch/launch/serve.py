@@ -7,12 +7,19 @@ while the queue is deep and shrinks as it drains. With --replicas N the
 data plane is a ReplicaSet fleet: every scale-up spawns a cold replica,
 every scale-down drains one and releases its pool with a leak check.
 --kv quant serves from an int8 KV pool (the quantized paged-decode
-kernel). --verify checks the tokens (against one engine for a fleet, at
-another slot count for quant or seeded runs, else against the streamed
-one-shot baseline):
+kernel), --kv slot from contiguous per-request slots. --prefill-chunk 0
+(and always --kv slot) admits by classic prefill: one batch-1 prefill of
+the whole prompt (the flash-attention kernel past 128 tokens) inserted
+into the cache. --verify checks the tokens (against one engine for a
+fleet, at another slot count for quant or seeded runs, else against the
+one-shot baseline: streamed prefill for chunked admission, full prefill
+for classic):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --trace burst \\
       --replicas 2 --max-nodes 4 --kv quant --verify
+
+--trace oneshot runs the one-shot baseline alone (a full-prefill batch
+submitted to the cluster), as the JAX CLI's legacy path does.
 
 `--smoke` swaps in the tiny smoke config; `--device cpu` runs the kernels'
 plain versions on the CPU. Time on the cluster is simulated (a
@@ -42,20 +49,28 @@ from repro_torch.serve import (SamplingParams, burst_trace,
 def serve_batch(cfg, params, prompts, gen_len: int, *,
                 streamed_prefill: bool = True, device="cuda") -> np.ndarray:
     """One-shot batch serving, the correctness baseline for the engine:
-    feed every prompt token by token through the contiguous-cache decode
-    step (streamed prefill — the fp path of chunked prefill), then decode
-    the uniform batch greedily to gen_len. Returns [B, gen_len] int32."""
-    if not streamed_prefill:
-        raise NotImplementedError(
-            "the port has no full-sequence prefill: streamed_prefill=True")
+    prefill every prompt together, then decode the uniform batch greedily
+    to gen_len. Returns [B, gen_len] int32.
+
+    streamed_prefill=True feeds the prompts token by token through the
+    contiguous-cache decode step (the fp path of chunked prefill);
+    streamed_prefill=False runs one full-sequence prefill of the batch
+    (the fp path of classic admission) and grows its caches for decode.
+    The two reduce attention in another order, so greedy argmax can flip
+    on a near-tie between them."""
     env = Env()
     prompts = torch.as_tensor(np.asarray(prompts), device=device)
     B, S = prompts.shape
     decode = St.make_decode_step(cfg, env)
-    caches = Mo.init_cache(cfg, env, B, S + gen_len, device=device)
-    logits = None
-    for i in range(S):
-        logits, caches = decode(params, caches, prompts[:, i:i + 1], i)
+    if streamed_prefill:
+        caches = Mo.init_cache(cfg, env, B, S + gen_len, device=device)
+        logits = None
+        for i in range(S):
+            logits, caches = decode(params, caches, prompts[:, i:i + 1], i)
+    else:
+        logits, caches = St.make_prefill_step(cfg, env)(
+            params, {"tokens": prompts})
+        caches = Mo.grow_caches(caches, gen_len)
     V = cfg.vocab_size
     tok = torch.argmax(logits[:, :V], dim=-1).to(torch.int32)[:, None]
     out = [tok]
@@ -102,8 +117,9 @@ def make_policy(args):
 def make_engine(args, cfg, params, *, num_slots=None, replicas=None,
                 clock=None):
     """A ServingEngine (replicas == 1) or a Router + ReplicaSet data
-    plane. --kv-blocks is per replica. --swap on and --spec raise: the
-    swap tier and speculative decoding come with later slices."""
+    plane. --kv-blocks is per replica; --prefill-chunk 0 admits by classic
+    prefill. --swap on and --spec raise: the swap tier and speculative
+    decoding come with later slices."""
     if args.spec != "off":
         raise NotImplementedError(
             f"--spec {args.spec}: speculative decoding (drafters, verify "
@@ -145,7 +161,8 @@ def verify(args, cfg, params, run) -> tuple:
     emits; a greedy quant run (bounded divergence, so the fp one-shot is
     no oracle) and a seeded run emit bit-identically what a fresh engine
     at another slot count emits; a greedy fp run equals the streamed
-    one-shot baseline token for token."""
+    one-shot baseline token for token: the streamed-prefill one under
+    chunked admission, the full-prefill one under classic admission."""
     out, trace, engine = run["out"], run["trace"], run["engine"]
     alt = args.slots // 2 if args.slots > 1 else args.slots + 1
     again = lambda **kw: run_to_completion(
@@ -164,12 +181,17 @@ def verify(args, cfg, params, run) -> tuple:
         ok = out == again(num_slots=alt)
         return ok, (f"verify seeded sampling ({args.slots} vs {alt} "
                     f"slots): {match(ok)}")
+    # chunked prefill's fp path is the streamed one-shot's, classic
+    # prefill's the full-prefill one-shot's
+    streamed = bool(engine.prefill_chunk)
     base = serve_batch(cfg, params, np.stack([r.prompt for r in trace]),
-                       args.gen_max, device=args.device)
+                       args.gen_max, streamed_prefill=streamed,
+                       device=args.device)
     # slice by the admitted budget (gen_len capped by max_tokens)
     ok = all(np.array_equal(base[r.rid][:r.eff_gen_len], np.array(out[r.rid]))
              for r in trace)
-    return ok, ("verify vs streamed-prefill one-shot baseline: "
+    tag = "streamed-prefill one-shot" if streamed else "one-shot"
+    return ok, (f"verify vs {tag} baseline: "
                 f"{'token-for-token MATCH' if ok else 'MISMATCH'}")
 
 
@@ -190,7 +212,7 @@ def run_trace(args, cfg, params) -> dict:
     multi = args.replicas > 1
     plane = engine.describe() if multi else engine.pool.describe()
     print(f"{cfg.name} on {args.device}: {plane}, chunked prefill="
-          f"{engine.prefill_chunk}, scheduler={engine.policy.name}, "
+          f"{engine.prefill_chunk or 'off (classic)'}, scheduler={engine.policy.name}, "
           f"sampling="
           f"{'greedy' if args.temperature <= 0 else _sampling_of(args)}")
     trace = make_trace(args, cfg)
@@ -262,6 +284,32 @@ def run_trace(args, cfg, params) -> dict:
     return run
 
 
+def run_oneshot(args, cfg, params) -> dict:
+    """The one-shot baseline alone (the JAX CLI's --trace oneshot): a
+    batch of --requests random prompts of --prompt-len tokens (numpy,
+    seeded by --seed) prefilled together and decoded greedily to --gen,
+    submitted to a VirtualCluster over its rendered devices."""
+    image = ClusterImage.build(f"{cfg.name}-serve", cfg, SERVE_PLAN, "serve")
+    cluster = VirtualCluster(n_compute=args.nodes, image=image,
+                             device=args.device)
+    print("serving replicas register to the catalog:\n" + cluster.hostfile)
+    prompts = np.random.default_rng(args.seed).integers(
+        0, cfg.vocab_size, (args.requests, args.prompt_len), dtype=np.int32)
+    if args.device.startswith("cuda"):
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = cluster.submit(
+        lambda devices: serve_batch(cfg, params, prompts, args.gen,
+                                    streamed_prefill=False, device=devices[0]))
+    wall = time.perf_counter() - t0  # ends in the tokens' host transfer
+    n_tok = args.requests * args.gen
+    print(f"generated {n_tok} tokens in {wall:.3f}s wall "
+          f"({n_tok / wall:.1f} tokens/s wall on {args.device})")
+    print("sample:", toks[0][:16])
+    cluster.shutdown()
+    return {"tokens": toks, "prompts": prompts, "wall_s": wall, "rc": 0}
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
@@ -270,8 +318,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--trace", default="poisson",
                     choices=("poisson", "burst", "sysprompt", "repetitive",
                              "oneshot"),
-                    help="arrival trace (oneshot, the full-sequence "
-                    "prefill batch, comes with the classic-prefill slice)")
+                    help="arrival trace; oneshot serves one full-prefill "
+                    "batch on the cluster, without the engine")
     ap.add_argument("--requests", type=int, default=24)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=16)
@@ -298,9 +346,9 @@ def build_parser() -> argparse.ArgumentParser:
                     "router queue (bit-identical either way)")
     ap.add_argument("--kv", default="paged",
                     choices=("paged", "quant", "slot"),
-                    help="paged block-table cache, or int8-quantized paged "
-                    "cache (~2x blocks per byte, bounded divergence); the "
-                    "slot backend comes with a later slice")
+                    help="paged block-table cache, int8-quantized paged "
+                    "cache (~2x blocks per byte, bounded divergence), or "
+                    "contiguous worst-case slots (classic prefill only)")
     ap.add_argument("--swap", default="off", choices=("on", "off"),
                     help="host swap tier (comes with a later slice)")
     ap.add_argument("--spec", default="off",
@@ -312,7 +360,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="paged KV: physical blocks per replica (default: "
                     "worst case)")
     ap.add_argument("--prefill-chunk", type=int, default=None,
-                    help="chunked prefill lane width (default: prompt_len)")
+                    help="chunked prefill lane width (default: prompt_len; "
+                    "0 = classic batch-1 prefill + insert)")
     ap.add_argument("--prefix-cache", default="on", choices=("on", "off"))
     ap.add_argument("--prefix-len", type=int, default=None,
                     help="sysprompt trace: shared system-prompt length "
@@ -368,12 +417,10 @@ def main() -> int:
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu for the plain "
                          "versions of the kernels")
-    if args.trace == "oneshot":
-        raise NotImplementedError(
-            "--trace oneshot needs full-sequence prefill, which comes with "
-            "the classic-prefill (flash-attention) slice")
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     params = Mo.init_params(cfg, Env(), seed=0, device=args.device)
+    if args.trace == "oneshot":
+        return run_oneshot(args, cfg, params)["rc"]
     return run_trace(args, cfg, params)["rc"]
 
 

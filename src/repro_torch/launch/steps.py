@@ -1,4 +1,5 @@
-"""Fused decode step builders (port of the JAX package's launch/steps.py).
+"""Prefill and fused decode step builders (port of the JAX package's
+launch/steps.py).
 
 PyTorch runs eagerly, so a "step" is a plain function over tensors on one
 device; nothing is traced or compiled. The builders keep the JAX names and
@@ -29,6 +30,17 @@ META_I_ROWS = 6
 ROW_TEMPERATURE = 0  # <=0 lowers the row to greedy argmax
 ROW_TOP_P = 1        # nucleus mass (>=1 disables)
 META_F_ROWS = 2
+
+
+def make_prefill_step(cfg: ModelConfig, env: Env):
+    """Full-sequence prefill: (last-position logits [B,Vpad], caches
+    {"k","v"} [L,B,Hkv,S,hd]) for batch {"tokens": [B,S]}."""
+    def prefill_step(params, batch):
+        logits, caches = Mo.forward(params, batch["tokens"], cfg, env,
+                                    mode="prefill")
+        return logits[:, -1, :], caches
+
+    return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig, env: Env):
@@ -80,6 +92,29 @@ def make_sample_fn(cfg: ModelConfig, prompt_len: int):
         return torch.where(temp > 0.0, sampled, greedy).to(torch.int32)
 
     return sample
+
+
+def make_fused_decode_step(cfg: ModelConfig, env: Env, *, prompt_len: int = 0,
+                           sample: bool = False):
+    """Contiguous-cache (slot pool) decode with the sample step fused:
+    (next tokens [T] int32, caches), row t == slot t. sample=False is the
+    pure-argmax variant an all-greedy batch runs."""
+    V = cfg.vocab_size
+    sampler = make_sample_fn(cfg, prompt_len) if sample else None
+
+    def step(params, caches, prev_tok, meta_i, meta_f):
+        tok = _select_tokens(prev_tok, meta_i)
+        logits, new_caches = Mo.forward(
+            params, tok[:, None], cfg, env, mode="decode", caches=caches,
+            cur_len=meta_i[ROW_CUR_LEN])
+        lg = logits[:, 0, :]
+        if sampler is None:
+            nxt = torch.argmax(lg[:, :V], dim=-1).to(torch.int32)
+        else:
+            nxt = sampler(lg, meta_i, meta_f)
+        return nxt, new_caches
+
+    return step
 
 
 def make_paged_decode_step(cfg: ModelConfig, env: Env, *, prompt_len: int = 0,

@@ -1,6 +1,6 @@
-"""Core layers: RMSNorm, RoPE, GQA decode attention, SwiGLU.
+"""Core layers: RMSNorm, RoPE, GQA attention (prefill and decode), SwiGLU.
 
-Port of the JAX package's models/layers.py, for the decode path. dtype
+Port of the JAX package's models/layers.py, for serving. dtype
 policy as there: parameters and activations bf16, norm and softmax
 statistics f32. Elementwise bf16 expressions are written op by op as the
 JAX code reads, so each op rounds to bf16 where the reference's does.
@@ -89,6 +89,58 @@ def _project_qkv(p, x, cfg: ModelConfig):
     k = linear(x, p["wk"]).reshape(B, S, -1, hd)
     v = linear(x, p["wv"]).reshape(B, S, -1, hd)
     return q, k, v
+
+
+def _group(q, hkv: int):
+    """[B,S,Hq,hd] -> [B,Hkv,G,S,hd]."""
+    B, S, Hq, hd = q.shape
+    return q.reshape(B, S, hkv, Hq // hkv, hd).permute(0, 2, 3, 1, 4)
+
+
+def _ungroup(o):
+    """[B,Hkv,G,S,hd] -> [B,S,Hq*hd]."""
+    B, Hkv, G, S, hd = o.shape
+    return o.permute(0, 3, 1, 2, 4).reshape(B, S, Hkv * G * hd)
+
+
+def _mask_bias(Sq: int, Sk: int, causal: bool, window: int, device):
+    """Additive f32 bias [Sq, Sk]: 0 where a query sees a key, -inf else."""
+    qpos = torch.arange(Sq, device=device)[:, None]
+    kpos = torch.arange(Sk, device=device)[None, :]
+    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        ok &= qpos >= kpos
+    if window > 0:
+        ok &= (qpos - kpos) < window
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return torch.where(ok, zero, float("-inf"))
+
+
+def _bf16_matmul(a, b):
+    """bf16 a @ b rounded where the JAX package's einsum rounds: on the
+    CPU the product is taken in f32 and rounded once to bf16 (XLA's CPU
+    dot); on the GPU a bf16 GEMM with f32 accumulation."""
+    if a.device.type == "cpu":
+        return (a.float() @ b.float()).to(a.dtype)
+    return a @ b
+
+
+def attention_naive(q, k, v, cfg: ModelConfig, *, causal: bool,
+                    window: int = 0):
+    """Full-matrix attention, the JAX package's attention_naive with its
+    own rounding: bf16 scores before the f32 scale, softmax in f32 rounded
+    to bf16, bf16 P·V. q [B,Sq,Hq,hd], k/v [B,Sk,Hkv,hd] -> [B,Sq,Hq*hd].
+    Classic prefill takes it for prompts of at most 128 tokens (the
+    reference's dispatch); longer ones go through the flash kernel."""
+    hkv = k.shape[2]
+    qg = _group(q, hkv)  # [B,Hkv,G,Sq,hd]
+    kk = k.transpose(1, 2)[:, :, None]  # [B,Hkv,1,Sk,hd]
+    vv = v.transpose(1, 2)[:, :, None]
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    s = _bf16_matmul(qg, kk.transpose(-1, -2)).float() * scale
+    s = s + _mask_bias(q.shape[1], k.shape[1], causal, window, q.device)
+    a = torch.softmax(s, dim=-1).to(v.dtype)
+    return _ungroup(_bf16_matmul(a, vv))
 
 
 def attention_paged_decode(q, k_pool, v_pool, tables, lengths,

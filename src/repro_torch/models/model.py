@@ -1,10 +1,11 @@
-"""Model assembly for the decode path: embed -> layers -> norm -> unembed.
+"""Model assembly for serving: embed -> layers -> norm -> unembed.
 
 Port of the JAX package's models/model.py for what serving a dense
 attention-only model needs: parameter init, the contiguous and paged
-caches, the paged-pool helpers behind the BlockManager, and
-forward(mode="decode") over a contiguous cache or block tables. The JAX
-layer scan becomes a Python loop over the stacked `blocks` leaves
+caches, the slot-pool and paged-pool helpers behind the KV backends, and
+forward in two modes: "prefill" (a whole prompt at once, emitting its K/V)
+and "decode" (one token per row over a contiguous cache or block tables).
+The JAX layer scan becomes a Python loop over the stacked `blocks` leaves
 (parameters and caches keep the JAX layout: a leading layer axis).
 
 Unlike the JAX package's pure functions, the cache ops here update the
@@ -19,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_decode import ops as pd_ops
 from repro_torch.models import layers as L
 from repro_torch.models.env import Env, head_pad, kv_head_pad, vocab_pad
@@ -26,6 +28,9 @@ from repro_torch.models.env import Env, head_pad, kv_head_pad, vocab_pad
 Pytree = Any
 
 PAGEABLE_KINDS = ("attn",)
+# prompts longer than this take the flash kernel in prefill, shorter ones
+# attention_naive: the JAX package's pallas-plan dispatch (Sq > 128)
+FLASH_MIN_LEN = 128
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -122,6 +127,47 @@ def init_paged_cache(cfg: ModelConfig, env: Env, num_blocks: int,
                         "v": z(shape, torch.int8),
                         "k_scale": z(shape[:-1], torch.float32),
                         "v_scale": z(shape[:-1], torch.float32)},),
+            "tail": ()}
+
+
+def grow_caches(caches: Pytree, extra: int) -> Pytree:
+    """Extend prefill-emitted KV caches ([L,B,Hkv,S,hd], length == prompt)
+    by `extra` zero positions so decode can append (attention units only:
+    the port has no window rings or recurrent state)."""
+    def grow(d):
+        return {n: F.pad(x, (0, 0, 0, extra)) if n in ("k", "v")
+                and x.dtype == torch.bfloat16 else x for n, x in d.items()}
+
+    return {"blocks": tuple(grow(d) for d in caches["blocks"]),
+            "tail": caches["tail"]}
+
+
+# Slot-pool cache ops (serve/slots.py). A pooled cache is an init_cache()
+# cache whose batch axis is the slot axis: leaves [L, num_slots, H, S, hd].
+# They work in place and return the pool.
+
+
+def cache_insert_slot(pool: Pytree, request: Pytree, slot: int) -> Pytree:
+    """Write a batch-1 cache (grown to the pool's length with grow_caches)
+    into `slot`; every leaf of the slot is overwritten, so freed slots need
+    no zeroing before reuse."""
+    for dst, src in zip(_kv_leaves(pool), _kv_leaves(request)):
+        dst[:, slot] = src[:, 0].to(dst.dtype)
+    return pool
+
+
+def cache_evict_slot(pool: Pytree, slot: int) -> Pytree:
+    """Zero `slot` (hygiene and tests: insert overwrites the whole slot)."""
+    for leaf in _kv_leaves(pool):
+        leaf[:, slot] = 0
+    return pool
+
+
+def cache_read_slot(pool: Pytree, slot: int) -> Pytree:
+    """`slot` as a batch-1 cache (a copy; inverse of insert)."""
+    return {"blocks": tuple({n: x[:, slot:slot + 1].clone()
+                             for n, x in unit.items()}
+                            for unit in pool["blocks"]),
             "tail": ()}
 
 
@@ -237,7 +283,7 @@ def dequantize_paged_request(cfg: ModelConfig, request: Pytree) -> Pytree:
 
 
 # ---------------------------------------------------------------------------
-# decode forward
+# forward
 # ---------------------------------------------------------------------------
 
 
@@ -245,6 +291,29 @@ def _layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _attn_prefill(p, h, cfg: ModelConfig, S: int, rope):
+    """Prefill attention over the first S (real) positions of the
+    row-padded h [B,Sp,d]: causal, global (window 0, no cross-attention).
+    Prompts longer than FLASH_MIN_LEN go through the flash kernel, shorter
+    ones through attention_naive, as the JAX package's pallas plan
+    dispatches; padding positions never enter attention (their output rows
+    are zeros). rope: (cos, sin) of positions 0..S-1. Returns (out
+    [B,Sp,d], {"k","v"} [B,Hkv,S,hd] after rope)."""
+    q, k, v = L._project_qkv(p, h, cfg)  # [B,Sp,H,hd]
+    q = L.rotate(q[:, :S], *rope)
+    k = L.rotate(k[:, :S], *rope)
+    v = v[:, :S]
+    if S > FLASH_MIN_LEN:
+        o = fa_ops.flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=True,
+                                   n_kv_heads=k.shape[2])
+    else:
+        o = L.attention_naive(q, k, v, cfg, causal=True)
+    o = F.pad(o, (0, 0, 0, h.shape[1] - S))
+    return L.linear(o, p["wo"]), {"k": k.transpose(1, 2),
+                                  "v": v.transpose(1, 2)}
 
 
 def _attn_sublayer(p, h, cfg: ModelConfig, n_rows: int, cur_len, rope,
@@ -289,23 +358,71 @@ def _attn_sublayer(p, h, cfg: ModelConfig, n_rows: int, cur_len, rope,
     return L.linear(o, p["wo"])
 
 
+def _block(p, h, eps: float, attn):
+    """One attention unit: h + attn(norm(h)), then h + mlp(norm(h)).
+    attn(x) returns (out, cache entries or None)."""
+    a, kv = attn(L.rms_norm(h, p["ln1"], eps))
+    # the reference (XLA) fuses this residual add into the next norm: the
+    # norm reads the f32 sum, the residual stream its bf16 rounding
+    hf = h.float() + a.float()
+    h = hf.to(torch.bfloat16)
+    hn = L.rms_norm(hf, p["ln2"], eps).to(torch.bfloat16)
+    return h + L.mlp(p["mlp"], hn), kv
+
+
+def _prefill(params, tokens, cfg: ModelConfig):
+    """forward(mode="prefill"): tokens [B,S] -> (logits [B,S,Vpad], caches
+    {"k","v"} [L,B,Hkv,S,hd]).
+
+    Each sequence is padded to a multiple of layers.ROW_TILE positions, so
+    every `linear` tile holds rows of one sequence only and a prompt's rows
+    do not depend on the batch around it (B=1 and B=16 prefills of the same
+    prompt give bit-identical rows); attention reads the real S positions
+    only."""
+    B, S = tokens.shape
+    Sp = -(-S // L.ROW_TILE) * L.ROW_TILE
+    tok = F.pad(tokens.long(), (0, Sp - S))
+    h = params["embed"][tok].to(torch.bfloat16)  # [B,Sp,d]
+    rope = L.rope_cos_sin(torch.arange(S, device=tokens.device),
+                          cfg.head_dim, cfg.rope_theta)  # [S,1,hd/2] each
+    blocks, eps = params["blocks"][0], cfg.norm_eps
+    ks, vs = [], []
+    for i in range(cfg.num_blocks):
+        p = _layer(blocks, i)
+        h, kv = _block(p, h, eps, lambda x: _attn_prefill(
+            p["attn"], x, cfg, S, rope))
+        ks.append(kv["k"])
+        vs.append(kv["v"])
+    h = L.rms_norm(h, params["final_norm"], eps)
+    logits = L.linear(h, params["unembed"])[:, :S]
+    return logits, {"blocks": ({"k": torch.stack(ks),
+                                "v": torch.stack(vs)},), "tail": ()}
+
+
 def forward(params, tokens, cfg: ModelConfig, env: Env, mode: str = "decode",
             caches=None, cur_len=None, block_tables=None):
-    """tokens: [B,1] int (one decode token per row).
+    """mode="prefill": tokens [B,S] (whole prompts); returns (logits
+    [B,S,Vpad] bf16, caches {"blocks": ({"k","v"} [L,B,Hkv,S,hd],),
+    "tail": ()}), the K/V after rope, ready for grow_caches or a pool
+    insert.
 
-    cur_len: [B] int (or a scalar) KV write position == attention depth of
-    each row. block_tables (paged cache): {"global": [B,MB] int32} block
-    tables into caches from init_paged_cache (bf16 or quant); without it,
-    caches is a contiguous init_cache cache with one row per batch row.
-    The caches are updated in place. Returns (logits [B,1,Vpad] bf16,
-    caches).
+    mode="decode": tokens [B,1] int (one token per row). cur_len: [B] int
+    (or a scalar) KV write position == attention depth of each row.
+    block_tables (paged cache): {"global": [B,MB] int32} block tables into
+    caches from init_paged_cache (bf16 or quant); without it, caches is a
+    contiguous init_cache cache with one row per batch row. The caches are
+    updated in place. Returns (logits [B,1,Vpad] bf16, caches).
 
-    Every row-wise op runs on the batch padded to a multiple of
-    layers.ROW_TILE rows (batch invariance, see models/layers.py); the
-    padding rows never touch the cache."""
-    if mode != "decode":
-        raise NotImplementedError(f"mode={mode!r}: the port runs decode")
+    Every row-wise op runs on rows padded to a multiple of layers.ROW_TILE
+    (batch invariance, see models/layers.py); the padding rows never touch
+    the cache. mode="train" waits for the training slice."""
     check_supported(cfg)
+    if mode == "prefill":
+        return _prefill(params, tokens, cfg)
+    if mode != "decode":
+        raise NotImplementedError(
+            f"mode={mode!r}: the port runs prefill and decode (training "
+            "comes with the training slice)")
     B = tokens.shape[0]
     Bp = -(-B // L.ROW_TILE) * L.ROW_TILE
     cl = torch.as_tensor(cur_len, device=tokens.device).long()
@@ -319,14 +436,8 @@ def forward(params, tokens, cfg: ModelConfig, env: Env, mode: str = "decode",
     blocks, cache = params["blocks"][0], caches["blocks"][0]
     for i in range(cfg.num_blocks):
         p = _layer(blocks, i)
-        a = _attn_sublayer(p["attn"], L.rms_norm(h, p["ln1"], eps), cfg, B,
-                           cl, rope, _layer(cache, i), tables)
-        # the reference (XLA) fuses this residual add into the next norm:
-        # the norm reads the f32 sum, the residual stream its bf16 rounding
-        hf = h.float() + a.float()
-        h = hf.to(torch.bfloat16)
-        hn = L.rms_norm(hf, p["ln2"], eps).to(torch.bfloat16)
-        h = h + L.mlp(p["mlp"], hn)
+        h, _ = _block(p, h, eps, lambda x: (_attn_sublayer(
+            p["attn"], x, cfg, B, cl, rope, _layer(cache, i), tables), None))
     h = L.rms_norm(h, params["final_norm"], eps)
     logits = L.linear(h, params["unembed"])[:B]
     return logits, caches

@@ -2,7 +2,8 @@
 
 Request (with a SamplingParams contract) -> RequestQueue -> ServingEngine
 (SchedulerPolicy picks admission order + preemption verdicts; a KVBackend
-— the paged BlockManager, or its int8 QuantBlockManager — owns the cache
+— the paged BlockManager, its int8 QuantBlockManager, or the contiguous
+SlotPool — owns the cache
 and the fused decode/sample step) -> ServingMetrics -> registry KV ->
 AutoScaler policies -> cluster size. A ReplicaSet (serve/router.py) is
 the multi-replica data plane behind the same surface.
@@ -42,3 +43,4 @@ from repro_torch.serve.scheduler import (  # noqa: F401
     ServingEngine,
     run_to_completion,
 )
+from repro_torch.serve.slots import SlotPool  # noqa: F401

@@ -30,6 +30,10 @@ fully-cached prompt — copies it into a fresh block first
 (Mo.make_paged_copy), so two requests sharing a prefix never observe each
 other's writes. Double frees raise before the free list is poisoned.
 
+Two ways in: chunked prefill streams a prompt through lane rows of the
+decode step (admit(prefilling=True) ... finish_prefill); classic admission
+scatters a batch-1 prefill's K/V into the slot's blocks (insert).
+
 QuantBlockManager (`--kv quant`) is the same bookkeeping over an int8
 pool with per-row f32 scales.
 
@@ -79,6 +83,8 @@ class PagedSlot:
 class BlockManager:
     kind = "paged"
     _quant = False  # int8 pool + scales (QuantBlockManager)
+    # attention-only pools: prompts may stream through decode lane rows
+    chunk_prefill_ok = True
 
     def __init__(self, cfg: ModelConfig, env: Env, *, num_slots: int,
                  prompt_len: int, max_gen: int, block_size: int = 16,
@@ -136,6 +142,7 @@ class BlockManager:
         # scheduler step — don't re-hash the prompt each time. Invalidated
         # whenever the index changes.
         self._probe_memo: Optional[Tuple[bytes, tuple]] = None
+        self._insert = Mo.make_paged_insert(cfg, bs)
         self._copy = Mo.make_paged_copy(cfg)
         self._evict = Mo.make_paged_evict(cfg)
         self._read = Mo.make_paged_read(cfg)
@@ -407,6 +414,33 @@ class BlockManager:
             self._reserved_total += 1
         s.alloc_g = min(s.alloc_g, keep)
 
+    def insert(self, slot: int, rid: int, prefill_caches: Pytree,
+               gen_len: int) -> None:
+        """Classic admission: bind `rid` to `slot` (taken by admit, or
+        claimed here for direct pool use) and scatter the batch-1 prefill
+        cache ({"k","v"} [L,1,Hkv,prompt_len,hd]) into the slot's blocks."""
+        if self._slots[slot] is None:
+            # direct pool use (tests): take this specific slot
+            assert self.can_admit(gen_len), "block pool exhausted"
+            self._free_slots.remove(slot)
+            need = self.blocks_for(gen_len)
+            self._slots[slot] = PagedSlot(rid=rid, cur_len=0, tokens_done=0,
+                                          gen_len=gen_len, reserved=need)
+            self._reserved_total += need
+        s = self._slots[slot]
+        assert s.shared_g == 0, \
+            "classic insert scatters the whole prompt; it cannot target a " \
+            "slot admitted with shared prefix blocks"
+        s.rid = rid
+        s.plen = self.prompt_len  # classic prefill scatters the full shape
+        self.ensure(slot, self.prompt_len - 1)
+        self.caches = self._insert(
+            self.caches, prefill_caches,
+            torch.as_tensor(self.table[slot], device=self.device))
+        s.cur_len = self.prompt_len
+        s.tokens_done = 1
+        s.prefilling = False
+
     def finish_prefill(self, slot: int) -> PagedSlot:
         """Chunked prefill consumed the whole prompt: the slot joins the
         decode batch. Its full prompt blocks now hold valid KV — register
@@ -596,8 +630,9 @@ class QuantBlockManager(BlockManager):
     layout (Mo.init_paged_cache quant=True), quantize-on-insert (the fused
     decode step quantizes each new token's K/V row in models/model.py,
     dispatching on the "k_scale" cache leaf; prompt rows arrive the same
-    way, as chunked-prefill lane rows), and dequant fused into the read
-    (kernels/paged_decode paged_flash_decode_quant).
+    way, as chunked-prefill lane rows; a classic insert quantizes the
+    prefill cache through Mo.quantize_paged_request), and dequant fused
+    into the read (kernels/paged_decode paged_flash_decode_quant).
 
     At (hd+4)/(2*hd) the bytes per token of the bf16 pool, an equal-byte
     budget holds ~2x the blocks — ~2x admitted concurrency — with
@@ -610,6 +645,9 @@ class QuantBlockManager(BlockManager):
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
+        cfg, base_insert = self.cfg, self._insert
+        self._insert = lambda pool, request, tables: base_insert(
+            pool, Mo.quantize_paged_request(cfg, request), tables)
         # calibrated divergence: relative RMS error of the int8 scheme on a
         # seeded unit-normal sample (a per-write measurement would sync the
         # hot path; tests pin the end-to-end bound)

@@ -2,9 +2,10 @@
 
 Port of the JAX package's serve/kv.py. A backend owns its device cache, its
 bookkeeping, and its fused decode step; the engine schedules rows and
-never learns what a block table is. The port has two backends so far, the
-paged BlockManager (serve/blocks.py) and its int8 variant
-QuantBlockManager (`--kv quant`). There is no counterpart of the JAX
+never learns what a block table is. The port has three backends: the
+paged BlockManager (serve/blocks.py), its int8 variant QuantBlockManager
+(`--kv quant`) and the contiguous SlotPool (serve/slots.py, `--kv slot`).
+There is no counterpart of the JAX
 package's shared_jit registry: PyTorch runs eagerly, so there is nothing
 to compile once per config.
 
@@ -18,10 +19,12 @@ Lifecycle of one request through a backend:
     cached_prefix_len(slot) prompt positions admit() served from its
                             prefix cache — the engine starts prefill
                             lanes there
-    ensure(slot, pos)       grow capacity to cover position (first write
-                            into a shared block = copy-on-write)
-    finish_prefill(slot)    the slot joins the decode batch (registers
-                            full prompt blocks for reuse)
+    insert(slot, …)         classic path: scatter a batch-1 prefill cache
+      — or —
+    ensure(slot, pos)       chunked path: grow capacity to cover position
+                            (first write into a shared block = copy-on-write)
+    finish_prefill(slot)    chunked path: the slot joins the decode batch
+                            (registers full prompt blocks for reuse)
     decode(params, …)       one fused step over the whole row set
     advance(slot)           host bookkeeping per emitted token
     finished(slot)          declared gen budget consumed?
@@ -43,9 +46,10 @@ Pytree = Any
 
 @runtime_checkable
 class KVBackend(Protocol):
-    kind: str                 # registry name ("paged", "quant")
+    kind: str                 # registry name ("paged", "quant", "slot")
     num_slots: int
     caches: Pytree            # the device cache the backend owns
+    chunk_prefill_ok: bool    # can prompts stream through decode lane rows?
 
     # -- admission / reservation -------------------------------------------
     def can_admit(self, gen_len: int, *, prompt=None) -> bool: ...
@@ -61,6 +65,8 @@ class KVBackend(Protocol):
         """Retire the backend: verify the free-list accounting returns to
         empty (leaks raise), then drop the device cache."""
         ...
+    def insert(self, slot: int, rid: int, prefill_caches: Pytree,
+               gen_len: int) -> None: ...
     def ensure(self, slot: int, pos: int) -> None: ...
     def finish_prefill(self, slot: int) -> Any: ...
     def truncate(self, slot: int, n: int) -> None:
@@ -112,8 +118,10 @@ def make_kv_backend(kind: str, cfg: ModelConfig, env: Env, *, num_slots: int,
                     max_shared_fraction: float = 1.0,
                     device="cuda") -> KVBackend:
     """The one cache-kind dispatch in the serving plane: "paged" (bf16
-    block pool) or "quant" (int8 block pool + per-row scales)."""
+    block pool), "quant" (int8 block pool + per-row scales) or "slot" (a
+    contiguous worst-case slot per request)."""
     from repro_torch.serve.blocks import BlockManager, QuantBlockManager
+    from repro_torch.serve.slots import SlotPool
 
     if kind in ("paged", "quant"):
         cls = QuantBlockManager if kind == "quant" else BlockManager
@@ -122,8 +130,7 @@ def make_kv_backend(kind: str, cfg: ModelConfig, env: Env, *, num_slots: int,
                    num_blocks=kv_blocks, prefix_cache=prefix_cache,
                    max_shared_fraction=max_shared_fraction, device=device)
     if kind == "slot":
-        raise NotImplementedError(
-            "kv='slot': the slot backend (SlotPool) is not ported yet; it "
-            "comes with the speculative-decoding slice")
+        return SlotPool(cfg, env, num_slots=num_slots, prompt_len=prompt_len,
+                        max_gen=max_gen, device=device)
     raise ValueError(f"unknown KV backend {kind!r} "
                      "(expected 'paged', 'quant', or 'slot')")

@@ -99,7 +99,7 @@ class PrefixAffineRouting:
             return None
         best, best_len = None, 0
         for r in cands:
-            cached = r.pool.probe_prefix(req.prompt)
+            cached = r.pool.probe_prefix(r.prompt_arg(req))
             if cached > best_len:
                 best, best_len = r, cached
         return best if best is not None else _least_loaded(cands)
@@ -264,7 +264,8 @@ class ReplicaSet:
         return not self.busy and not self.pending()
 
     def submit(self, requests: Sequence[Request]) -> None:
-        validate_requests(requests, self.prompt_len, self.max_gen)
+        validate_requests(requests, self.prompt_len, self.max_gen,
+                          allow_shorter=self.prefill_chunk > 0)
         for r in requests:
             self.queue.push(r)
 
@@ -334,7 +335,7 @@ class ReplicaSet:
             if rep.lane_open(vslot):
                 return None, None, None
             if not rep.pool.preempt_frees(vslot, req.eff_gen_len,
-                                          prompt=req.prompt):
+                                          prompt=rep.prompt_arg(req)):
                 return None, None, None
             return rep, victim, vslot
         return None, None, None  # stale verdict: the victim already retired

@@ -1,6 +1,7 @@
 """ReplicaEngine + ServingEngine — continuous batching over a KVBackend.
 
-Port of the JAX package's serve/scheduler.py, chunked-prefill path.
+Port of the JAX package's serve/scheduler.py: chunked-prefill and
+classic admission.
 
 `ReplicaEngine` is ONE serving replica: a KVBackend (its own block pool,
 its own prefix cache), the in-flight lane/slot bookkeeping, the fused
@@ -23,9 +24,13 @@ One scheduler iteration (ServingEngine.step()):
      policy may issue a preemption verdict: the engine evicts the victim,
      clears its progress, and re-queues it at its original arrival time —
      restart-preemption is safe because sampling is position-keyed, so the
-     victim regenerates identical tokens. The prompt is not prefilled in a
-     separate batch-1 call: it streams through `prefill_chunk` piggybacked
-     lane rows of the regular decode step (chunked prefill).
+     victim regenerates identical tokens. With prefill_chunk > 0 the
+     prompt is not prefilled in a separate batch-1 call: it streams
+     through `prefill_chunk` piggybacked lane rows of the regular decode
+     step (chunked prefill). With prefill_chunk == 0 (and always on the
+     slot pool) admission is classic: a batch-1 prefill of the whole
+     prompt (the flash-attention kernel past 128 tokens), its K/V inserted
+     into the backend, the first token taken from the prefill logits.
   2. decode: one fused step over decode rows (+ lane rows), run by the
      backend: every row writes K/V where its table says and attends at its
      own depth; the sample step happens on the device and the [T] int32
@@ -33,14 +38,14 @@ One scheduler iteration (ServingEngine.step()):
   3. retire: finished slots (gen budget spent, or a stop token emitted)
      return their capacity to the backend.
 
-Greedy decoding keeps output token-for-token equal to the streamed one-shot
-serve_batch baseline (launch/serve.py); seeded sampling is reproducible
+Greedy decoding keeps output token-for-token equal to the one-shot
+serve_batch baseline (launch/serve.py; streamed prefill for chunked
+admission, full prefill for classic); seeded sampling is reproducible
 and lane-placement-invariant. The clock is injected: tests and the CLI
 drive a ManualClock; nothing here sleeps.
 
-Left out of the port so far: classic (batch-1 prefill + insert)
-admission, speculative verify rows and the host swap tier
-(make_serving_engine(swap=True) raises).
+Left out of the port so far: speculative verify rows and the host swap
+tier (make_serving_engine(swap=True) raises).
 """
 from __future__ import annotations
 
@@ -106,18 +111,27 @@ class ReplicaEngine:
             max_shared_fraction=max_shared_fraction, device=self.device)
         self.kv = self.pool.kind
         if prefill_chunk is None:
-            prefill_chunk = prompt_len
-        if prefill_chunk <= 0:
+            prefill_chunk = prompt_len if self.pool.chunk_prefill_ok else 0
+        if prefill_chunk < 0:
+            raise ValueError(f"prefill_chunk must be >= 0, got "
+                             f"{prefill_chunk}")
+        if prefill_chunk and not self.pool.chunk_prefill_ok:
             raise ValueError(
-                f"{cfg.name}: the port admits through chunked prefill only "
-                f"(prefill_chunk={prefill_chunk})")
+                f"{cfg.name}: chunked prefill is not supported by the "
+                f"'{self.pool.kind}' backend (the slot pool has no per-row "
+                "tables)")
         self.prefill_chunk = int(prefill_chunk)
         self.metrics = ServingMetrics(window_s=metrics_window_s)
+        self._prefill = St.make_prefill_step(cfg, self.env)
+        # classic admissions sample their first token from the prefill
+        # logits with the same fused sample math (position 0)
+        self._sample_first = St.make_sample_fn(cfg, prompt_len)
         self._lanes: List[_Lane] = []
         # device [T] int32: last step's fused sample/argmax
         self._tok_prev = torch.zeros((num_slots,), dtype=torch.int32,
                                      device=self.device)
         self._row_src: Dict[int, int] = {}  # slot -> row in _tok_prev
+        self._fresh: Dict[int, int] = {}  # slot -> host-known next token
         self._inflight: Dict[int, Request] = {}  # rid -> request
         self.completed: List[Request] = []
         self.decode_steps = 0
@@ -128,15 +142,27 @@ class ReplicaEngine:
     def busy(self) -> bool:
         return bool(self._inflight)
 
+    def prompt_arg(self, req: Request):
+        """The prompt to hand the backend's admission probes: chunked
+        admissions pass it so a prefix-caching backend can attach shared
+        blocks (classic batch-1 prefill scatters the whole prompt and
+        cannot share)."""
+        return req.prompt if self.prefill_chunk else None
+
     def admission_room(self) -> bool:
         """Lane-budget gate: open lanes only while the step's token budget
-        can still reach a new prompt (bounds admitted-but-starved lanes)."""
+        can still reach a new prompt (bounds admitted-but-starved lanes).
+        Classic replicas always have room: the backend's can_admit is the
+        only gate."""
+        if not self.prefill_chunk:
+            return True
         return (sum(len(l.req.prompt) - l.pos for l in self._lanes)
                 < self.prefill_chunk)
 
     def can_take(self, req: Request) -> bool:
         """Capacity predicate only: can the backend hold `req` right now?"""
-        return self.pool.can_admit(req.eff_gen_len, prompt=req.prompt)
+        return self.pool.can_admit(req.eff_gen_len,
+                                   prompt=self.prompt_arg(req))
 
     def can_accept(self, req: Request) -> bool:
         """Could this replica commit `req` right now? (Routing predicate —
@@ -150,6 +176,10 @@ class ReplicaEngine:
         """Commit one admission (caller already took it off its queue)."""
         req.t_admit = now
         self._inflight[req.rid] = req
+        if not self.prefill_chunk:
+            self._admit_classic(
+                self.pool.admit(req.rid, req.eff_gen_len), req, now)
+            return
         slot = self.pool.admit(req.rid, req.eff_gen_len,
                                prefilling=True, prompt=req.prompt)
         # cached prefix positions never ride a lane: start at the first
@@ -157,6 +187,36 @@ class ReplicaEngine:
         # first generated token)
         self._lanes.append(_Lane(slot=slot, req=req,
                                  pos=self.pool.cached_prefix_len(slot)))
+
+    def _admit_classic(self, slot: int, req: Request, now: float) -> None:
+        """Batch-1 prefill + cache insert (the non-chunked path). The first
+        token comes from the prefill logits at position 0 — greedy requests
+        take the plain argmax, seeded ones the fused sample math — and
+        feeds the next step's decode row through the fresh-token path. A
+        restart-preempted request's re-prefill is booked as recompute."""
+        logits, caches = self._prefill(
+            self.params, {"tokens": torch.as_tensor(
+                np.asarray(req.prompt)[None], device=self.device)})
+        self.metrics.record_prefill_tokens(len(req.prompt),
+                                           recompute=req.restarts > 0)
+        self.pool.insert(slot, req.rid, caches, req.eff_gen_len)
+        if req.sampling.greedy:
+            first = int(torch.argmax(logits[0, :self.cfg.vocab_size]))
+        else:
+            mi = np.zeros((St.META_I_ROWS, 1), np.int32)
+            mf = np.zeros((St.META_F_ROWS, 1), np.float32)
+            mi[St.ROW_CUR_LEN, 0] = len(req.prompt) - 1  # -> position 0
+            self._fill_sampling(mi, mf, 0, req)
+            first = int(self._sample_first(
+                logits, torch.as_tensor(mi, device=self.device),
+                torch.as_tensor(mf, device=self.device))[0])
+        req.t_first_token = now
+        req.tokens.append(first)
+        self._fresh[slot] = first
+        self.metrics.record_first_token(req, now)
+        self.metrics.record_tokens(now, 1)
+        if self.pool.finished(slot) or first in req.sampling.stop_set:
+            self._retire(slot, now)  # gen_len == 1 / instant stop token
 
     # -- preemption (restart-style) ------------------------------------------
     def running(self) -> List[Request]:
@@ -182,6 +242,7 @@ class ReplicaEngine:
             f"preempting slot {slot} with an open prefill lane"
         self.pool.evict(slot)
         self._row_src.pop(slot, None)
+        self._fresh.pop(slot, None)
         del self._inflight[victim.rid]
         victim.t_admit = None
         victim.tokens.clear()
@@ -261,7 +322,11 @@ class ReplicaEngine:
             row_slots[slot] = slot
             meta_i[St.ROW_CUR_LEN, slot] = info.cur_len
             sample |= self._fill_sampling(meta_i, meta_f, slot, req)
-            meta_i[St.ROW_TOK_SRC, slot] = self._row_src.pop(slot, slot)
+            if slot in self._fresh:
+                meta_i[St.ROW_TOK_SRC, slot] = -1
+                meta_i[St.ROW_FRESH, slot] = self._fresh.pop(slot)
+            else:
+                meta_i[St.ROW_TOK_SRC, slot] = self._row_src.pop(slot, slot)
         row = N
         for lane in lanes:
             if lane.take <= 0:
@@ -338,6 +403,7 @@ class ReplicaEngine:
         self.metrics.record_done(req, now)
         self.pool.evict(slot)
         self._row_src.pop(slot, None)
+        self._fresh.pop(slot, None)
 
     # -- reporting ----------------------------------------------------------------
     def load_score(self):
@@ -441,7 +507,8 @@ class ServingEngine:
 
     def submit(self, requests: Sequence[Request]) -> None:
         """Validate and enqueue. Never mutates the caller's Requests."""
-        validate_requests(requests, self.prompt_len, self.max_gen)
+        validate_requests(requests, self.prompt_len, self.max_gen,
+                          allow_shorter=self.prefill_chunk > 0)
         for r in requests:
             self.queue.push(r)
 
@@ -469,6 +536,7 @@ class ServingEngine:
             req = self.policy.select(ready, now)
             if req is None:
                 return
+            prompt = rep.prompt_arg(req)
             if not rep.can_take(req):
                 victim = None if preempted else \
                     self.policy.victim(rep.running(), req, now)
@@ -478,7 +546,7 @@ class ServingEngine:
                 if vslot is None or rep.lane_open(vslot):
                     return  # stale or mid-prefill verdict: backpressure
                 if not rep.pool.preempt_frees(vslot, req.eff_gen_len,
-                                              prompt=req.prompt):
+                                              prompt=prompt):
                     return  # eviction could not make room
                 self.queue.push(rep.preempt(victim, vslot, now))
                 preempted = True
@@ -501,15 +569,20 @@ class ServingEngine:
 
 
 def validate_requests(requests: Sequence[Request], prompt_len: int,
-                      max_gen: int) -> None:
-    """Submit-time validation: chunked prefill streams prompts through
-    lane rows at the request's own length, so any prompt up to the
-    engine's prompt_len budget is accepted."""
+                      max_gen: int, *, allow_shorter: bool = False) -> None:
+    """Submit-time validation (ServingEngine and the router both gate
+    here). Chunked prefill streams prompts through lane rows at the
+    request's own length, so it accepts any prompt up to the engine's
+    prompt_len budget (allow_shorter=True); classic prefill keeps the
+    JAX package's exact-length contract."""
     for r in requests:
         n = len(r.prompt)
-        if not 0 < n <= prompt_len:
-            raise ValueError(f"request {r.rid}: prompt length {n} not in "
-                             f"(0, {prompt_len}]")
+        if (n != prompt_len if not allow_shorter
+                else not 0 < n <= prompt_len):
+            raise ValueError(
+                f"request {r.rid}: prompt length {n} "
+                + (f"not in (0, {prompt_len}]" if allow_shorter
+                   else f"!= engine prompt_len {prompt_len} (pad the trace)"))
         if r.eff_gen_len > max_gen:
             raise ValueError(
                 f"request {r.rid}: gen_len {r.eff_gen_len} > "

@@ -10,7 +10,10 @@ Each kernel is held to its plain version on the same inputs: paged decode
 over the bf16 and the int8 pool within 1e-5 (both sides compute in f32
 from the same bf16 or int8-and-scale inputs; sound runs read below 1e-6,
 a kernel rounding its probabilities to bf16 reads above 1e-3), the
-top-k/top-p mask exactly (same keep-set, kept logits equal).
+top-k/top-p mask exactly (same keep-set, kept logits equal), flash
+attention within 2e-2 on its bf16 output (the JAX package's bound for its
+kernel, tests/test_kernels.py: one bf16 rounding of values of a few units
+is up to 1.6e-2).
 """
 import numpy as np
 import pytest
@@ -18,6 +21,8 @@ import torch
 
 from repro_torch.configs import get_smoke
 from repro_torch.core.clock import ManualClock
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.paged_decode.ops import (paged_flash_decode,
                                                   paged_flash_decode_quant,
                                                   quantize_kv)
@@ -154,3 +159,67 @@ def test_quant_fleet_on_the_card_is_lane_and_fleet_invariant(cuda):
     assert paged_flash_decode.launches == before
     assert run(num_slots=2) == out
     assert run(num_slots=2, replicas=2) == out
+
+
+# the phase-2 shapes of chip_smoke.py: paper-demo's heads causal at B=1,
+# a ragged last tile (S=200), a sliding window, bidirectional, MQA, hd 16
+FLASH_SHAPES = [
+    dict(B=1, S=256, Hq=12, Hkv=4, hd=64, causal=True, window=0),
+    dict(B=2, S=200, Hq=12, Hkv=4, hd=64, causal=True, window=0),
+    dict(B=1, S=256, Hq=12, Hkv=4, hd=64, causal=True, window=64),
+    dict(B=1, S=256, Hq=12, Hkv=4, hd=64, causal=False, window=0),
+    dict(B=1, S=256, Hq=12, Hkv=1, hd=64, causal=True, window=0),
+    dict(B=2, S=130, Hq=4, Hkv=2, hd=16, causal=True, window=0),
+]
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES,
+                         ids=lambda d: "-".join(f"{k}{v}" for k, v in
+                                                d.items()))
+def test_flash_attention_kernel_matches_plain(shape, cuda):
+    B, S, Hq, Hkv, hd = (shape[k] for k in ("B", "S", "Hq", "Hkv", "hd"))
+    rng = np.random.default_rng(S + hd + Hkv)
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(cuda).to(torch.bfloat16)
+    q, k, v = mk(B, S, Hq, hd), mk(B, S, Hkv, hd), mk(B, S, Hkv, hd)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=shape["causal"],
+                          window=shape["window"], n_kv_heads=Hkv)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), causal=shape["causal"],
+                         window=shape["window"])
+    want = want.transpose(1, 2).reshape(B, S, Hq * hd)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert float((got.float() - want.float()).abs().max()) < 2e-2
+
+
+def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros((1, 8, 4, 64), device=cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        flash_attention(q, q, q)
+    qb = torch.zeros((1, 8, 4, 48), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="unsupported"):
+        flash_attention(qb, qb, qb)
+
+
+def test_classic_engine_on_the_card_matches_the_full_prefill_baseline(cuda):
+    """Smoke config on the card, prompts of 160 tokens (the flash branch):
+    classic admission on the paged pool and on the slot pool emits, token
+    for token, what the full-prefill one-shot batch emits."""
+    cfg = get_smoke("paper-demo")
+    params = Mo.init_params(cfg, Env(), seed=0, device=cuda)
+    P = 160
+    mk = lambda: poisson_trace(6, 16.0, prompt_len=P,
+                               vocab_size=cfg.vocab_size, gen_len=8, seed=0)
+    run = lambda **kw: run_to_completion(make_serving_engine(
+        cfg, params, num_slots=4, prompt_len=P, max_gen=8,
+        clock=ManualClock(), device=cuda, **kw), mk(), dt=0.05)
+    before = flash_attention.launches
+    out = run(prefill_chunk=0)
+    assert flash_attention.launches == before + 6 * cfg.num_blocks
+    base = serve_batch(cfg, params, np.stack([r.prompt for r in mk()]), 8,
+                       streamed_prefill=False, device=cuda)
+    assert all(out[i] == list(base[i]) for i in range(6))
+    assert run(kv="slot") == out

@@ -37,6 +37,7 @@ from repro.models.env import Env as JEnv
 from repro.serve import SERVE_PLAN
 from repro.serve import QuantBlockManager as JaxQuantBM
 from repro.serve import ServingEngine as JaxEngine
+from repro.serve import SlotPool as JaxSlotPool
 from repro.serve import request as jax_request
 from repro.serve import run_to_completion as jax_run
 from repro_torch import bridge
@@ -355,9 +356,12 @@ def test_quant_backend_registry_and_describe():
     with pytest.raises(ValueError):
         make_kv_backend("fp4", CFG, Env(), num_slots=2, prompt_len=P,
                         max_gen=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="slot backend"):
-        make_kv_backend("slot", CFG, Env(), num_slots=2, prompt_len=P,
-                        max_gen=8, device="cpu")
+    # the slot backend is registered beside the block pools
+    slot = make_kv_backend("slot", CFG, Env(), num_slots=2, prompt_len=P,
+                           max_gen=8, device="cpu")
+    assert slot.kind == "slot" and not slot.chunk_prefill_ok
+    assert slot.describe() == JaxSlotPool(JCFG, JENV, num_slots=2,
+                                          prompt_len=P, max_gen=8).describe()
 
 
 def test_quant_pool_costs_hd_plus_4_over_2hd_of_the_bf16_pool():
