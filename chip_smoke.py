@@ -35,15 +35,40 @@ Phases, any failure exits non-zero before the result line:
      every token against the full-prefill one-shot baseline (one B=16
      prefill);
  10. the same trace on the slot pool (--kv slot): the same tokens as
-     phase 9, bit for bit.
+     phase 9, bit for bit;
+ 11. the recurrent slice's kernels against their plain versions on the
+     card at recurrentgemma-9b's and rwkv6-1.6b's shapes: the RG-LRU scan
+     (B=1 S=2304 W=4096; B=2 S=200 with h0; S=1), WKV6 (B=1 S=256 H=32
+     hd=64; B=3 S=100; hd 16), flash attention at hd 256 (MQA 16:1,
+     S=2304 with window 2048; B=2 S=200) and paged decode at GQA 16, hd
+     256 over window-ring tables (full rings, shorter ones, a null row);
+     each timed beside its plain version, with its bound;
+ 12. recurrentgemma-9b at full width and depth (38 layers, random seeded
+     weights): 8 Poisson requests of 2304-token prompts (past the
+     2048-token window: prefill rolls the ring, the flash kernel masks by
+     window, decode wraps the ring), gen 32, 4 slots, block 16, greedy,
+     classic admission; counts read between the run and its verify (8 x
+     26 RG-LRU scans, 8 x 12 flash launches, paged decode, no WKV6), then
+     every token against the full-prefill one-shot baseline (one B=8
+     prefill);
+ 13. rwkv6-1.6b at full width and depth (24 layers): 16 requests of
+     256-token prompts, gen 32, 8 slots: 16 x 24 WKV6 launches and no
+     attention kernel, then the one-shot verify;
+ 14. card vs CPU prefill logits at full width and cut depth: one
+     (rglru, rglru, local) unit plus the tail of recurrentgemma-9b (5
+     layers) at prompt 160 (the flash branch), 2 layers of rwkv6-1.6b at
+     prompt 128, each within twice the CPU path's own spread under
+     f64-accumulated GEMMs (phase 2's method).
 Phase 2 also holds the quant kernel to its plain version and to the bf16
 kernel on the same pool (relative RMS), the flash-attention kernel to its
 plain version at six shapes, and one full-width 256-token prefill on the
-card to the CPU path; phase 5 times all four kernels.
+card to the CPU path; phase 5 times the first four kernels, phase 11 the
+recurrent ones.
 Prints the kernel report as one JSON line, the card's name and power
 limit, and last {"ok": true, "device": {...}}. Needs no network; the
 kernel build lands in build/ (git-ignored).
 """
+import dataclasses
 import json
 import math
 import os
@@ -87,6 +112,26 @@ FLASH_SHAPES = [(1, 256, 12, 4, 64, True, 0), (2, 200, 12, 4, 64, True, 0),
 # ... and the shapes it is timed at (phase 5): the classic admission's
 # batch-1 prefill, the one-shot baseline's B=16, a long prompt
 FLASH_TIMED = [(1, 256), (16, 256), (1, 2048)]
+# the recurrent slice (phase 11). RG-LRU scan and WKV6 against their plain
+# versions, max abs error of the f32 outputs: the JAX package's bound for
+# its kernels (tests/test_kernels.py). The RG-LRU kernel rounds each
+# product and sum as the plain version does, so it reads 0.
+REC_TOL = 2e-3
+RGLRU_SHAPES = [(1, 2304, 4096, False), (2, 200, 4096, True),
+                (3, 1, 4096, True)]  # (B, S, W, with h0)
+WKV_SHAPES = [(1, 256, 32, 64), (3, 100, 32, 64), (2, 70, 4, 16)]
+# flash attention at recurrentgemma-9b's heads: (B, S, Hq, Hkv, hd,
+# causal, window); the first is the classic admission's prefill of phase 12
+FLASH256_SHAPES = [(1, 2304, 16, 1, 256, True, 2048),
+                   (2, 200, 16, 1, 256, True, 0)]
+# ... held per output row (position, head) as well: an output row averages
+# up to 2048 value rows, so its entries are ~sqrt(e/2048) ~ 0.04 and
+# FLASH_TOL is half of one. |kernel - plain| / |plain| over each row's hd
+# entries (L2), the worst row: the two sides differ by summation order in
+# f32, which flips the bf16 rounding of an entry now and then (one step is
+# 2^-8..2^-7 of it, ~4e-4 of a row's norm per flip). A kernel that drops
+# or repeats one key of 2048 moves a row by ~1/sqrt(2048) ~ 2e-2.
+FLASH_ROW_TOL = 5e-3
 
 
 def fail(msg):
@@ -242,6 +287,15 @@ def flash_plain(q, k, v, causal=True, window=0):
     return o.transpose(1, 2).reshape(B, S, Hq * hd)
 
 
+def row_rel_err(got, want, Hq):
+    """|got - want| / |want| per (row, position, head), L2 over hd, of two
+    [B,S,Hq*hd] outputs: [B,S,Hq] f32."""
+    B, S, _ = want.shape
+    g = got.float().reshape(B, S, Hq, -1)
+    w = want.float().reshape(B, S, Hq, -1)
+    return (g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)
+
+
 def flash_bound_ms(B, S, Hq, Hkv, hd, causal=True, window=0):
     """Least time for one call: q, k, v read once and the output written
     once (bf16), against 4 hd flops (two products, a multiply and an add
@@ -254,6 +308,227 @@ def flash_bound_ms(B, S, Hq, Hkv, hd, causal=True, window=0):
     flops = 4 * hd * pairs * Hq * B
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def rglru_bound_ms(B, S, W, with_h0):
+    """a and b read once and h written once, 4 bytes each per (row, step,
+    channel), plus h0; a multiply and an add per element at the f32 rate."""
+    nbytes = 12 * B * S * W + (4 * B * W if with_h0 else 0)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * B * S * W / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def wkv6_bound_ms(B, S, H, hd):
+    """r, k, v (bf16) and logw (f32) read once, o (f32) written once, u
+    read and the final state written once; about 4 hd^2 f32 operations a
+    (step, head): r^T S (2 hd^2) and the decayed update as a multiply-add
+    (2 hd^2)."""
+    n = B * S * H * hd
+    nbytes = n * (3 * 2 + 4 + 4) + H * hd * 4 + B * H * hd * hd * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 4 * hd * hd * B * S * H / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def ring_inputs(gen, dev):
+    """One decode step of recurrentgemma-9b's local layer over the
+    engine's window-ring pool (4 slots of 128 blocks of 16, MQA 16:1, hd
+    256): two full rings (lengths 2047 = window - 1), a part-filled ring,
+    a short one, a depth-0 row and a masked row with a null table."""
+    import torch
+    Hq, Hkv, hd, bs, MB = 16, 1, 256, 16, 128
+    lens = [2047, 2047, 1500, 17, 0, -1]
+    B, NB = len(lens), 1 + 4 * MB
+    mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(
+        torch.bfloat16)
+    q, kp, vp = mk(B, Hq, hd), mk(NB, Hkv, bs, hd), mk(NB, Hkv, bs, hd)
+    perm = torch.randperm(NB - 1, generator=gen, device=dev) + 1
+    tables = torch.zeros((B, MB), dtype=torch.int32, device=dev)
+    for b, n in enumerate(lens):
+        if n >= 0:
+            tables[b] = perm[(b % 4) * MB:(b % 4 + 1) * MB].int()
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, kp, vp, tables, lengths
+
+
+def check_recurrent_kernels(dev):
+    """Phase 11: the recurrent slice's kernels against their plain
+    versions on the card, and their times at the serving shapes."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.paged_decode import ops as pd_ops
+    from repro_torch.kernels.paged_decode.ops import paged_flash_decode
+    from repro_torch.kernels.paged_decode.ref import paged_decode_ref
+    from repro_torch.kernels.rglru.ops import rglru_scan
+    from repro_torch.kernels.rglru.ref import rglru_ref_loop
+    from repro_torch.kernels.rwkv6.ops import wkv6
+    from repro_torch.kernels.rwkv6.ref import wkv6_ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    out = {}
+    worst = 0.0
+    for B, S, W, with_h0 in RGLRU_SHAPES:
+        a = torch.rand((B, S, W), generator=gen, device=dev) * 0.949 + 0.05
+        b = torch.randn((B, S, W), generator=gen, device=dev)
+        h0 = (torch.randn((B, W), generator=gen, device=dev) if with_h0
+              else None)
+        got = rglru_scan(a, b, h0)
+        torch.cuda.synchronize()
+        err = float((got - rglru_ref_loop(a, b, h0)).abs().max())
+        print(f"rglru_scan B={B} S={S} W={W} h0={with_h0}: kernel vs plain "
+              f"max abs err {err:.3e}; tolerance {REC_TOL}")
+        if not math.isfinite(err) or err > REC_TOL:
+            fail(f"rglru_scan kernel vs plain at B={B} S={S} W={W}: {err}")
+        worst = max(worst, err)
+        if (B, S, W) == RGLRU_SHAPES[0][:3]:
+            out["rglru_in"] = (a, b, h0)
+    out["rglru_err"] = worst
+    worst = 0.0
+    for B, S, H, hd in WKV_SHAPES:
+        mk = lambda: torch.randn((B, S, H, hd), generator=gen,
+                                 device=dev) * 0.5
+        r, k, v = (mk().to(torch.bfloat16) for _ in range(3))
+        logw = -torch.exp(mk() - 1.0)
+        u = torch.randn((H, hd), generator=gen, device=dev) * 0.3
+        o, sf = wkv6(r, k, v, logw, u)
+        torch.cuda.synchronize()
+        ro, rs = wkv6_ref(*(t.transpose(1, 2) for t in (r, k, v, logw)), u)
+        err = max(float((o - ro.transpose(1, 2)).abs().max()),
+                  float((sf - rs).abs().max()))
+        print(f"wkv6 B={B} S={S} H={H} hd={hd}: kernel vs plain max abs err "
+              f"{err:.3e} (output and final state); tolerance {REC_TOL}")
+        if not math.isfinite(err) or err > REC_TOL:
+            fail(f"wkv6 kernel vs plain at B={B} S={S} H={H} hd={hd}: {err}")
+        worst = max(worst, err)
+        if (B, S, H, hd) == WKV_SHAPES[0]:
+            out["wkv_in"] = (r, k, v, logw, u)
+    out["wkv_err"] = worst
+    worst = 0.0
+    for B, S, Hq, Hkv, hd, causal, window in FLASH256_SHAPES:
+        q, k, v = flash_inputs(gen, dev, B, S, Hq, Hkv, hd)
+        got = flash_attention(q, k, v, causal=causal, window=window,
+                              n_kv_heads=Hkv)
+        torch.cuda.synchronize()
+        want = flash_plain(q, k, v, causal, window)
+        err = float((got.float() - want.float()).abs().max())
+        rel = row_rel_err(got, want, Hq)
+        print(f"flash attention B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} "
+              f"causal={causal} window={window}: kernel vs plain max abs "
+              f"err {err:.3e} (tolerance {FLASH_TOL}), worst row "
+              f"{float(rel.max()):.3e} of its norm (median "
+              f"{float(rel.median()):.3e}; tolerance {FLASH_ROW_TOL})")
+        if not math.isfinite(err) or err > FLASH_TOL:
+            fail(f"flash attention kernel vs plain at hd={hd} S={S} "
+                 f"window={window}: {err}")
+        if not bool(torch.isfinite(rel).all()) or rel.max() > FLASH_ROW_TOL:
+            fail(f"flash attention kernel vs plain at hd={hd} S={S} "
+                 f"window={window}: a row off by {float(rel.max())} of "
+                 "its norm")
+        if window:
+            # the check sees the window: rows past it, without the mask
+            moved = row_rel_err(flash_plain(q, k, v, causal, 0), want,
+                                Hq)[:, window:]
+            print(f"  rows at or past the window, windowed vs not: median "
+                  f"{float(moved.median()):.3e} of the row's norm, "
+                  f"{float((moved > FLASH_ROW_TOL).float().mean()):.4f} of "
+                  f"them above the tolerance")
+            if moved.median() <= FLASH_ROW_TOL:
+                fail("flash attention: the row tolerance does not tell the "
+                     "window from no window")
+        worst = max(worst, err)
+        if (B, S) == FLASH256_SHAPES[0][:2]:
+            out["flash_in"] = (q, k, v)
+    out["flash_err"] = worst
+    pin = ring_inputs(gen, dev)
+    got = paged_flash_decode(*pin)
+    torch.cuda.synchronize()
+    err = float((got - paged_decode_ref(*pin)).abs().max())
+    print(f"paged decode, GQA 16 hd 256 over window rings (lengths "
+          f"{pin[4].tolist()}): kernel vs plain max abs err {err:.3e}; "
+          f"tolerance {PAGED_TOL}")
+    if not math.isfinite(err) or err > PAGED_TOL:
+        fail(f"paged decode kernel vs plain at GQA 16, hd 256: {err}")
+    if float(got[-1].abs().max()) != 0.0:
+        fail("paged decode at GQA 16: the masked row is not zero")
+    out["ring_in"], out["ring_err"] = pin, err
+    # the split form's chunk (tokens a block reads): each width checked and
+    # timed, the op's own restored
+    chosen, by_chunk = pd_ops.SPLIT_CHUNK, {}
+    for chunk in (16, 32, 64):
+        pd_ops.SPLIT_CHUNK = chunk
+        e = float((paged_flash_decode(*pin) - paged_decode_ref(*pin))
+                  .abs().max())
+        if not math.isfinite(e) or e > PAGED_TOL:
+            fail(f"paged decode at GQA 16 with {chunk}-token chunks: {e}")
+        by_chunk[chunk] = device_ms(lambda: paged_flash_decode(*pin)) * 1e3
+    pd_ops.SPLIT_CHUNK = chosen
+    print("paged decode at GQA 16 over the rings, us by split chunk "
+          f"(tokens a block reads; the op takes {chosen}): {by_chunk}")
+
+    # times at the serving shapes (device work per call, CUDA graph replay)
+    a, b, h0 = out["rglru_in"]
+    B, S, W = a.shape
+    bound, by = rglru_bound_ms(B, S, W, h0 is not None)
+    out["rglru"] = {"ms": device_ms(lambda: rglru_scan(a, b, h0)),
+                    "plain_ms": device_ms(lambda: rglru_ref_loop(a, b, h0),
+                                          calls=2, replays=3),
+                    "bound_ms": bound, "bound_by": by, "library_ms": None}
+    r, k, v, logw, u = out["wkv_in"]
+    B, S, H, hd = r.shape
+    bound, by = wkv6_bound_ms(B, S, H, hd)
+    out["wkv6"] = {
+        "ms": device_ms(lambda: wkv6(r, k, v, logw, u)),
+        "plain_ms": device_ms(lambda: wkv6_ref(
+            *(t.transpose(1, 2) for t in (r, k, v, logw)), u),
+            calls=2, replays=3),
+        "bound_ms": bound, "bound_by": by, "library_ms": None}
+    q, k, v = out["flash_in"]
+    B, S, Hq, hd = q.shape
+    Hkv, window = k.shape[2], FLASH256_SHAPES[0][6]
+    bound, by = flash_bound_ms(B, S, Hq, Hkv, hd, True, window)
+    qpos = torch.arange(S, device=dev)
+    wmask = ((qpos[:, None] >= qpos[None, :])
+             & (qpos[:, None] - qpos[None, :] < window))
+    out["flash256"] = {
+        "ms": device_ms(lambda: flash_attention(
+            q, k, v, causal=True, window=window, n_kv_heads=Hkv), calls=5,
+            replays=5),
+        "plain_ms": device_ms(lambda: flash_plain(q, k, v, True, window),
+                              calls=2, replays=3),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": device_ms(lambda: torch.nn.functional
+                                .scaled_dot_product_attention(
+                                    *(t.transpose(1, 2) for t in (q, k, v)),
+                                    attn_mask=wmask, enable_gqa=True),
+                                calls=5, replays=5)}
+    q, kp, vp, tables, lengths = pin
+    Bq, Hq, hd = q.shape
+    MB, bs, Hkv = tables.shape[1], kp.shape[2], kp.shape[1]
+    kg = kp[tables.long()].transpose(1, 2).reshape(
+        Bq, Hkv, MB * bs, hd).repeat_interleave(Hq // Hkv, dim=1)
+    vg = vp[tables.long()].transpose(1, 2).reshape(
+        Bq, Hkv, MB * bs, hd).repeat_interleave(Hq // Hkv, dim=1)
+    amask = (torch.arange(MB * bs, device=dev)[None, :]
+             <= lengths.clamp_min(0).long()[:, None])[:, None, None, :]
+    bound, by = paged_bound_ms(q, kp, tables, lengths, token_bytes=2 * 2 * hd)
+    out["ring"] = {
+        "ms": device_ms(lambda: paged_flash_decode(*pin)),
+        "plain_ms": device_ms(lambda: paged_decode_ref(*pin)),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": device_ms(lambda: torch.nn.functional
+                                .scaled_dot_product_attention(
+                                    q[:, :, None, :], kg, vg,
+                                    attn_mask=amask))}
+    for name in ("rglru", "wkv6", "flash256", "ring"):
+        t = out[name]
+        lib = ("none" if t["library_ms"] is None
+               else f"{t['library_ms'] * 1e3} us")
+        print(f"{name}: {t['ms'] * 1e3} us kernel, {t['plain_ms'] * 1e3} us "
+              f"plain, library {lib}, bound {t['bound_ms'] * 1e3} us "
+              f"({t['bound_by']}), {t['bound_ms'] / t['ms']:.4f} of the "
+              f"bound")
+    return out
 
 
 def check_kernels(dev):
@@ -416,7 +691,7 @@ def check_against_cpu():
           f"relative logit err {err:.3e}; tolerance {LOGIT_TOL}")
 
 
-def check_prefill_against_cpu(cfg, params):
+def check_prefill_against_cpu(cfg, params, S=256):
     """One full-width prefill (B=1, S=256: the flash branch) on the card
     vs the CPU path (plain attention, f32-accumulated GEMMs) on the same
     weights, |diff| / max(|logit|, 1) over every position's logits.
@@ -433,7 +708,8 @@ def check_prefill_against_cpu(cfg, params):
     from repro_torch.models import model as Mo
     from repro_torch.models.env import Env
 
-    tok = torch.randint(0, cfg.vocab_size, (1, 256),
+    t0 = time.perf_counter()
+    tok = torch.randint(0, cfg.vocab_size, (1, S),
                         generator=torch.Generator().manual_seed(2))
     cpu = lambda t: {k: cpu(v) for k, v in t.items()} \
         if isinstance(t, dict) else (tuple(cpu(v) for v in t)
@@ -456,12 +732,13 @@ def check_prefill_against_cpu(cfg, params):
     rel = lambda a: (a - ref).abs() / ref.abs().clamp_min(1.0)
     err, spread = rel(lg_gpu), rel(alt)
     same = float((lg_gpu.argmax(-1) == ref.argmax(-1)).float().mean())
-    print(f"full-width prefill (S=256) on the card vs the CPU path: "
+    print(f"{cfg.name} ({cfg.n_layers} layers) full-width prefill (S={S}) "
+          f"on the card vs the CPU path: "
           f"relative logit err max {float(err.max()):.3e}, mean "
           f"{float(err.mean()):.3e}; the CPU path against itself with "
           f"f64-accumulated GEMMs: max {float(spread.max()):.3e}, mean "
           f"{float(spread.mean()):.3e}; argmax equal at {same:.4f} of the "
-          f"positions")
+          f"positions; {time.perf_counter() - t0:.1f}s")
     if not (math.isfinite(float(err.max()))
             and float(err.max()) <= 2 * float(spread.max())
             and float(err.mean()) <= 2 * float(spread.mean())):
@@ -469,10 +746,11 @@ def check_prefill_against_cpu(cfg, params):
              "the spread of a reordered CPU computation")
 
 
-def profile_steps(args, cfg, params, n_steps=24, warm=4):
+def profile_steps(args, cfg, params, n_steps=24, warm=4, host_ops=0):
     """Per-step wall time, device busy time (sum of the profiler's
     device-side events; one stream, so no overlap) and the top kernels,
-    over n_steps engine steps after `warm` steps. The profiler adds host
+    over n_steps engine steps after `warm` steps; with host_ops, the
+    operators that take the most host time too. The profiler adds host
     time, so the idle share is an upper bound."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -506,12 +784,101 @@ def profile_steps(args, cfg, params, n_steps=24, warm=4):
               "wall per step; the profiler saw no device time, so device "
               "busy time and idle share are not measured")
         return
-    print(f"profile, {n_steps} greedy steps: {wall_us / n_steps:.0f} us wall "
-          f"per step, {busy_us / n_steps:.0f} us device busy per step, "
+    print(f"profile {cfg.name}, {n_steps} greedy steps: "
+          f"{wall_us / n_steps:.0f} us wall per step, "
+          f"{busy_us / n_steps:.0f} us device busy per step, "
           f"device idle share {1 - busy_us / wall_us:.3f}")
     for e in sorted(events, key=dev, reverse=True)[:8]:
         print(f"  {dev(e) / n_steps:9.1f} us/step  x{e.count / n_steps:6.1f}"
               f"  {e.key[:70]}")
+    if host_ops:
+        ops = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CPU]
+        print(f"  host: {sum(e.self_cpu_time_total for e in ops) / n_steps:.0f}"
+              f" us of operator time per step, "
+              f"{sum(e.count for e in ops) / n_steps:.0f} operator calls")
+        for e in sorted(ops, key=lambda e: e.self_cpu_time_total,
+                        reverse=True)[:host_ops]:
+            print(f"  {e.self_cpu_time_total / n_steps:9.1f} us/step host  "
+                  f"x{e.count / n_steps:6.1f}  {e.key[:60]}")
+
+
+def serve_recurrent(arch, extra, counted):
+    """Phases 12-13: serve `arch` at full width and depth (random seeded
+    weights) by classic admission, gen 32, block 16, greedy; read the
+    launch counts between the run and its verify, then hold every token to
+    the full-prefill one-shot baseline. Returns the launches of the
+    arch's recurrence kernel, of paged decode and of flash attention."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.paged_decode.ops import paged_flash_decode
+    from repro_torch.kernels.rglru.ops import rglru_scan
+    from repro_torch.kernels.rwkv6.ops import wkv6
+    from repro_torch.launch.serve import parse_args, serve, verify
+    from repro_torch.models import model as Mo
+    from repro_torch.models.env import Env
+
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = Mo.init_params(cfg, Env(), seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_par = sum(x.numel() for x in _leaves(params))
+    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_par / 1e9:.2f} B parameters on the card "
+          f"({time.perf_counter() - t0:.1f}s to draw)")
+    args = parse_args(["--arch", arch, "--gen", "32", "--rate", "16",
+                       "--block-size", "16", "--device", "cuda"] + extra)
+    for op in counted:
+        op.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    run = serve(args, cfg, params)
+    kinds = cfg.block_pattern * cfg.num_blocks + cfg.pattern_tail
+    want = {rglru_scan: args.requests * kinds.count("rglru"),
+            wkv6: args.requests * kinds.count("rwkv"),
+            flash_attention: (args.requests * kinds.count("local")
+                              if args.prompt_len > 128 else 0)}
+    got = {op: op.launches for op in counted}
+    for op, n in want.items():
+        if got[op] != n:
+            fail(f"{cfg.name}: {op.__name__} launched {got[op]} times, "
+                 f"expected {n}")
+    n_dec = got[paged_flash_decode]
+    if ("local" in kinds) != (n_dec > 0):
+        fail(f"{cfg.name}: paged decode launched {n_dec} times")
+    if run["engine"].metrics.preemptions:
+        fail(f"{cfg.name}: the serve preempted at the worst-case budget")
+    check_tokens(run, cfg)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t1 = time.perf_counter()
+    ok, line = verify(args, cfg, params, run)
+    if not ok:
+        fail(f"{cfg.name} serve: {line}")
+    print(f"{cfg.name} classic serve (prompt {args.prompt_len}, gen 32, "
+          f"{args.slots} slots): {run['tokens']} tokens in {run['steps']} "
+          f"decode steps, {run['wall_s']:.3f}s wall, "
+          f"{run['tokens'] / run['wall_s']:.1f} tokens/s wall, peak "
+          f"{peak:.1f} GiB on {card()}; launches: rglru_scan "
+          f"{got[rglru_scan]}, wkv6 {got[wkv6]}, flash attention "
+          f"{got[flash_attention]}, paged decode {n_dec}; {line} "
+          f"(baseline {time.perf_counter() - t1:.1f}s)")
+    # where a decode step's time goes: a burst fills every slot in the
+    # first step (its prefills), the next steps decode
+    profile_steps(parse_args(["--arch", arch, "--gen", "32", "--trace",
+                              "burst", "--block-size", "16", "--device",
+                              "cuda"] + extra), cfg, params, n_steps=8,
+                  warm=2, host_ops=8)
+    del params, run
+    torch.cuda.empty_cache()
+    return (got[rglru_scan] or got[wkv6]), n_dec, got[flash_attention]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
 
 
 def card():
@@ -796,6 +1163,48 @@ def main():
     print(f"slot pool: {slrun['tokens']} tokens, {slrun['wall_s']:.3f}s "
           f"wall, flash attention launches {flash_attention.launches}; "
           "tokens equal the paged classic serve's bit for bit")
+
+    # 11. the recurrent slice's kernels on the card, and their times
+    rec = check_recurrent_kernels(dev)
+
+    # 12. recurrentgemma-9b at full width and depth, classic admission
+    from repro_torch.kernels.rglru.ops import rglru_scan
+    from repro_torch.kernels.rwkv6.ops import wkv6
+    counted = counted + (rglru_scan, wkv6)
+    n_rglru, rg_dec, rg_flash = serve_recurrent(
+        "recurrentgemma-9b", ["--requests", "8", "--prompt-len", "2304",
+                              "--slots", "4"], counted)
+    # 13. rwkv6-1.6b at full width and depth
+    n_wkv, _, _ = serve_recurrent(
+        "rwkv6-1.6b", ["--requests", "16", "--prompt-len", "256",
+                       "--slots", "8"], counted)
+
+    # 14. card vs CPU at full width, cut depth
+    for arch, layers, S in (("recurrentgemma-9b", 5, 160),
+                            ("rwkv6-1.6b", 2, 128)):
+        cut = dataclasses.replace(get_config(arch), n_layers=layers)
+        cparams = Mo.init_params(cut, Env(), seed=1, device=dev)
+        check_prefill_against_cpu(cut, cparams, S)
+        del cparams
+        torch.cuda.empty_cache()
+
+    report[0]["ring"] = {k: rec["ring"][k] for k in ("ms", "plain_ms",
+                                                     "bound_ms", "bound_by",
+                                                     "library_ms")}
+    report[0]["ring"].update(max_abs_err=rec["ring_err"], launches=rg_dec)
+    report[3]["hd256"] = dict(rec["flash256"], max_abs_err=rec["flash_err"],
+                              launches=rg_flash)
+    report += [
+        {"name": "rglru_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/rglru_scan.cu",
+         "replaces": "src/repro/kernels/rglru/kernel.py:45",
+         "launches": n_rglru, "max_abs_err": rec["rglru_err"],
+         **rec["rglru"]},
+        {"name": "wkv6", "route": "cuda",
+         "source": "src/repro_torch/csrc/wkv6.cu",
+         "replaces": "src/repro/kernels/rwkv6/kernel.py:67",
+         "launches": n_wkv, "max_abs_err": rec["wkv_err"], **rec["wkv6"]},
+    ]
 
     print(json.dumps({"kernels": report}))
     print(card())

@@ -1,7 +1,9 @@
 """Architecture config registry: --arch <id> resolution.
 
-The port serves `paper-demo` only; the registry grows with each
-architecture the port learns to run."""
+The port serves `paper-demo` and the two recurrent archs
+(`recurrentgemma-9b`, `rwkv6-1.6b`); the registry grows with each
+architecture the port learns to run. Each module is a copy of the JAX
+package's (tests/test_torch_recurrent.py holds the copies equal)."""
 from __future__ import annotations
 
 import importlib
@@ -19,7 +21,12 @@ from repro_torch.configs.base import (  # noqa: F401
 # arch id -> module name
 _ARCH_MODULES: Dict[str, str] = {
     "paper-demo": "paper_demo",
+    "recurrentgemma-9b": "recurrentgemma_9b",
+    "rwkv6-1.6b": "rwkv6_1_6b",
 }
+
+
+ARCH_IDS = tuple(_ARCH_MODULES)
 
 
 def _module(arch: str):

@@ -19,11 +19,15 @@
 // (query, key) pair and head against 2 * hd bytes per token and head of
 // q, k, v and out, so from a few hundred tokens on the work, not the
 // bytes, bounds it. This first version is simple and right rather than
-// fast: one thread block of 128 threads per (64-query tile, query head,
+// fast: one thread block of 128 threads per (query tile, query head,
 // batch row) stages its query tile once and then walks its key tiles of
 // 64, each staged in shared memory as f32; both products run on CUDA
-// cores in f32 (each thread owns an 8 x 4 block of scores and an 8 x hd/16
-// block of the output), so P stays f32 as the reference keeps it. The
+// cores in f32 (each thread owns a BQ/8 x 4 block of scores and a
+// BQ/8 x hd/16 block of the output), so P stays f32 as the reference keeps
+// it. The query tile is 64 rows up to hd 128 and 32 rows at hd 256
+// (recurrentgemma's heads): there a 64-row tile would hold 8 x 16 output
+// accumulators a thread and need 215,552 bytes of shared memory, while 32
+// rows hold 4 x 16 in 173,824 bytes. The
 // tensor cores (mma/wgmma), TMA and a GQA group sharing its K/V loads are
 // work for a later speed change, with their error measured then.
 //
@@ -39,9 +43,7 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kBQ = 64;                  // queries per block
 constexpr int kBK = 64;                  // keys per tile
-constexpr int kRows = kBQ / (kThreads / 16);  // query rows per thread: 8
 constexpr int kCols = kBK / 16;          // score columns per thread: 4
 constexpr int kPStride = kBK + 2;        // P row stride: 8 rows apart = 16 banks
 constexpr float kMaskValue = -1e30f;     // the TPU kernel's NEG_INF
@@ -49,9 +51,12 @@ constexpr int kMaxDevices = 64;
 
 // Shared-memory layout in floats: Q and K tiles with rows padded by 4 (a
 // quarter warp's 16-byte loads from 8 rows hit 8 distinct bank groups),
-// the V tile, and the probabilities P [kBQ][kPStride].
+// the V tile, and the probabilities P [BQ][kPStride]. BQ: queries per
+// block.
 template <int HD>
 struct Layout {
+  static constexpr int kBQ = HD > 128 ? 32 : 64;
+  static constexpr int kRows = kBQ / (kThreads / 16);  // query rows per thread
   static constexpr int kQK = HD + 4;
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kBQ * kQK;
@@ -94,6 +99,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
     int Sq, int Sk, int Hq, int Hkv, int causal, int window, float scale) {
   using Lay = Layout<HD>;
+  constexpr int kBQ = Lay::kBQ;
+  constexpr int kRows = Lay::kRows;
   constexpr int kD = HD / 16;  // output columns per thread
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -253,7 +260,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
     }
   }
   const float scale = (float)(1.0 / sqrt((double)HD));
-  const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
+  const dim3 grid((Sq + Layout<HD>::kBQ - 1) / Layout<HD>::kBQ, Hq, B);
   flash_attention_kernel<HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
@@ -276,6 +283,7 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
     case 32: return launch<32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window, s);
     case 64: return launch<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window, s);
     case 128: return launch<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window, s);
+    case 256: return launch<256>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

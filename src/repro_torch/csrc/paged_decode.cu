@@ -13,12 +13,12 @@ extern "C" int paged_decode_bf16(const void* q, const void* k_pool,
                                  const void* v_pool, const void* tables,
                                  const void* lengths, void* out, int B,
                                  int Hq, int Hkv, int hd, int bs, int MB,
-                                 void* stream) {
+                                 int chunk, void* work, void* stream) {
   const paged_decode::Bf16Rows rows{
       static_cast<const __nv_bfloat16*>(k_pool),
       static_cast<const __nv_bfloat16*>(v_pool)};
   return paged_decode::dispatch(rows, q, tables, lengths, out, B, Hq, Hkv,
-                                hd, bs, MB, stream);
+                                hd, bs, MB, chunk, work, stream);
 }
 
 extern "C" const char* kernel_error_string(int code) {

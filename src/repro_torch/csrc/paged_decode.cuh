@@ -22,12 +22,30 @@
 // are merged through shared memory at the end. The loader is the only part
 // that differs between the two pools, so both share one softmax and one
 // merge.
+//
+// A GQA group of 16 (recurrentgemma's 16 query heads over one KV head, hd
+// 256) takes the split form below instead: one block of 16 heads would
+// hold 2 x 16 x kVec = 256 f32 values of q and accumulator a thread, past
+// the 255-register limit, and at hd 256 a warp reads one token per step,
+// so a block would walk a 2048-token ring in 512 dependent steps.
+//
+// Split form (paged_decode_split_kernel + paged_decode_merge_kernel, the
+// flash-decode partials of the TPU's kernel #5): the sequence is cut into
+// chunks of `chunk` tokens, one block per (chunk, KV head, row) holding all
+// G query heads. A block stages q and its chunk's K/V rows in shared
+// memory (each row read once, many loads in flight), scores every (head,
+// token) pair, takes the chunk's softmax per head and writes the
+// unnormalised partial (o, m, l) to a workspace; a second kernel merges a
+// row's chunks.
+// Blocks past a row's length exit at once, so the work follows the data.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace paged_decode {
 
@@ -92,6 +110,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   constexpr int kVec = Rows::kVec;
   extern __shared__ float smem[];
   const int h = blockIdx.x;  // KV head
+  const int hq0 = h * G;
   const int b = blockIdx.y;  // row
   const int tpt = hd / kVec;  // threads per token: a power of two <= 32
   const int lane = threadIdx.x & 31;
@@ -102,7 +121,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   const int c = lane % tpt;  // this thread's kVec-wide slice of hd
   const int grp = warp * per_warp + sub;
   const int len = lengths[b];
-  float* o = out + ((int64_t)b * Hq + (int64_t)h * G) * hd;
+  float* o = out + ((int64_t)b * Hq + hq0) * hd;
   if (len < 0) {
     for (int i = threadIdx.x; i < G * hd; i += kThreads) o[i] = 0.f;
     return;
@@ -113,7 +132,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
 #pragma unroll
   for (int i = 0; i < G; ++i) {
     const __nv_bfloat16* qi =
-        q + ((int64_t)b * Hq + (int64_t)h * G + i) * hd + c * kVec;
+        q + ((int64_t)b * Hq + hq0 + i) * hd + c * kVec;
 #pragma unroll
     for (int d = 0; d < kVec; d += 8) load8(qi + d, qf[i] + d);
     m[i] = -INFINITY;
@@ -208,16 +227,227 @@ int launch(const Rows& rows, const void* q, const void* tables,
   return (int)cudaGetLastError();
 }
 
-// Validates the shapes and dispatches on the GQA group size.
+constexpr int kSplitThreads = 256;
+
+template <class Rows, int G>
+__global__ void __launch_bounds__(kSplitThreads) paged_decode_split_kernel(
+    Rows rows, const __nv_bfloat16* __restrict__ q,
+    const int* __restrict__ tables, const int* __restrict__ lengths,
+    float* __restrict__ part_o, float* __restrict__ part_ml, int Hq, int Hkv,
+    int hd, int bs, int MB, int n_split, int chunk, float scale) {
+  constexpr int kVec = Rows::kVec;
+  constexpr int kLoads = 4;  // K/V slices a thread has in flight
+  extern __shared__ float smem[];
+  const int sp = blockIdx.x;  // chunk
+  const int h = blockIdx.y;   // KV head
+  const int b = blockIdx.z;   // row
+  const int len = lengths[b];
+  const int j0 = sp * chunk;
+  if (len < 0 || j0 > len) return;  // the merge reads only used chunks
+  const int n = min(chunk, len + 1 - j0);  // tokens of this chunk
+  const int hq0 = h * G;
+  const int kst = hd + 1;  // K row stride: lanes on rows t..t+31 of one
+                           // column hit 32 different banks
+  float* qs = smem;               // [G][hd]
+  float* ks = qs + G * hd;        // [chunk][hd + 1]
+  float* vs = ks + chunk * kst;   // [chunk][hd]
+  float* ps = vs + chunk * hd;    // [G][chunk]: scores, then probabilities
+  const __nv_bfloat16* qb = q + ((int64_t)b * Hq + hq0) * hd;
+  for (int i = threadIdx.x; i < G * hd; i += kSplitThreads)
+    qs[i] = __bfloat162float(qb[i]);
+
+  // stage the chunk's K and V rows, 16-byte slices (hd/kVec a row), each
+  // thread issuing kLoads loads before it stores any
+  const int tpt = hd / kVec;
+  const int n_slices = n * tpt;
+  const int* tbl = tables + (int64_t)b * MB;
+  for (int base = threadIdx.x; base < n_slices;
+       base += kSplitThreads * kLoads) {
+    float kf[kLoads][kVec], vf[kLoads][kVec];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int idx = base + u * kSplitThreads;
+      if (idx < n_slices) {
+        const int j = j0 + idx / tpt;
+        const int64_t tok = ((int64_t)tbl[j / bs] * Hkv + h) * bs + j % bs;
+        rows.load(tok, tok * hd + (idx % tpt) * kVec, kf[u], vf[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int idx = base + u * kSplitThreads;
+      if (idx < n_slices) {
+        const int t = idx / tpt;
+        const int c = (idx % tpt) * kVec;
+#pragma unroll
+        for (int d = 0; d < kVec; ++d) {
+          ks[t * kst + c + d] = kf[u][d];
+          vs[t * hd + c + d] = vf[u][d];
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // scores: a warp takes 32 tokens of one head, a lane one token's whole
+  // dot product (q broadcast), in four chains
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_tg = (n + 31) / 32;
+  for (int task = warp; task < G * n_tg; task += kSplitThreads / 32) {
+    const int i = task / n_tg;
+    const int t = (task % n_tg) * 32 + lane;
+    if (t < n) {
+      const float* qi = qs + i * hd;
+      const float* kt = ks + t * kst;
+      float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < hd; d += 4) {
+        s0 = fmaf(qi[d], kt[d], s0);
+        s1 = fmaf(qi[d + 1], kt[d + 1], s1);
+        s2 = fmaf(qi[d + 2], kt[d + 2], s2);
+        s3 = fmaf(qi[d + 3], kt[d + 3], s3);
+      }
+      ps[i * chunk + t] = ((s0 + s1) + (s2 + s3)) * scale;
+    }
+  }
+  __syncthreads();
+
+  // the chunk's softmax, one warp per head: m, l and exp(s - m) in place
+  float* ml = part_ml + (((int64_t)b * Hq + hq0) * n_split + sp) * 2;
+  for (int i = warp; i < G; i += kSplitThreads / 32) {
+    float* pi = ps + i * chunk;
+    float mx = -INFINITY;
+    for (int t = lane; t < n; t += 32) mx = fmaxf(mx, pi[t]);
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float sum = 0.f;
+    for (int t = lane; t < n; t += 32) {
+      const float p = expf(pi[t] - mx);
+      pi[t] = p;
+      sum += p;
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0) {
+      ml[(int64_t)i * n_split * 2] = mx;
+      ml[(int64_t)i * n_split * 2 + 1] = sum;
+    }
+  }
+  __syncthreads();
+
+  // P.V: a thread per output column, all G heads in registers
+  float* po = part_o + (((int64_t)b * Hq + hq0) * n_split + sp) * hd;
+  for (int d = threadIdx.x; d < hd; d += kSplitThreads) {
+    float acc[G];
+#pragma unroll
+    for (int i = 0; i < G; ++i) acc[i] = 0.f;
+    for (int t = 0; t < n; ++t) {
+      const float v = vs[t * hd + d];
+#pragma unroll
+      for (int i = 0; i < G; ++i) acc[i] = fmaf(ps[i * chunk + t], v, acc[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < G; ++i) po[(int64_t)i * n_split * hd + d] = acc[i];
+  }
+}
+
+// Merges a row's chunks per query head: the chunks' (o, l) rescaled to the
+// largest m. A block per (query head, row). Static: each .cu file that
+// includes this header keeps its own copy.
+static __global__ void __launch_bounds__(kSplitThreads) paged_decode_merge_kernel(
+    const float* __restrict__ part_o, const float* __restrict__ part_ml,
+    const int* __restrict__ lengths, float* __restrict__ out, int Hq, int hd,
+    int n_split, int chunk) {
+  const int hq = blockIdx.x;
+  const int b = blockIdx.y;
+  const int len = lengths[b];
+  float* o = out + ((int64_t)b * Hq + hq) * hd;
+  if (len < 0) {
+    for (int d = threadIdx.x; d < hd; d += kSplitThreads) o[d] = 0.f;
+    return;
+  }
+  const int used = min(len / chunk + 1, n_split);
+  const float* ml = part_ml + ((int64_t)b * Hq + hq) * n_split * 2;
+  const float* po = part_o + ((int64_t)b * Hq + hq) * n_split * hd;
+  // unrolled so that eight chunks' loads are in flight at once
+  float mx = -INFINITY;
+#pragma unroll 8
+  for (int sp = 0; sp < used; ++sp) mx = fmaxf(mx, ml[2 * sp]);
+  float sum = 0.f;
+#pragma unroll 8
+  for (int sp = 0; sp < used; ++sp)
+    sum = fmaf(ml[2 * sp + 1], expf(ml[2 * sp] - mx), sum);
+  for (int d = threadIdx.x; d < hd; d += kSplitThreads) {
+    float a = 0.f;
+#pragma unroll 8
+    for (int sp = 0; sp < used; ++sp)
+      a = fmaf(po[(int64_t)sp * hd + d], expf(ml[2 * sp] - mx), a);
+    o[d] = a / fmaxf(sum, 1e-30f);
+  }
+}
+
+// work: B * Hq * ceil(MB * bs / chunk) * (hd + 2) floats, the partial
+// outputs then the partial (m, l) pairs.
+template <class Rows, int G>
+int launch_split(const Rows& rows, const void* q, const void* tables,
+                 const void* lengths, void* out, void* work, int B, int Hq,
+                 int Hkv, int hd, int bs, int MB, int chunk,
+                 cudaStream_t stream) {
+  const int n_split = (int)(((int64_t)MB * bs + chunk - 1) / chunk);
+  float* part_o = static_cast<float*>(work);
+  float* part_ml = part_o + (int64_t)B * Hq * n_split * hd;
+  const size_t smem =
+      (size_t)(G * hd + chunk * (2 * hd + 1) + G * chunk) * sizeof(float);
+  if (smem > 48 * 1024) {
+    // the opt-in holds per device and per kernel: made by the first call
+    // that needs it (outside any CUDA graph capture), then reused
+    constexpr int kMaxDevices = 64;
+    static std::atomic<int> opted[kMaxDevices];
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+    if (opted[dev].load(std::memory_order_acquire) < (int)smem) {
+      e = cudaFuncSetAttribute(paged_decode_split_kernel<Rows, G>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+      if (e != cudaSuccess) return (int)e;
+      opted[dev].store((int)smem, std::memory_order_release);
+    }
+  }
+  const float scale = (float)(1.0 / sqrt((double)hd));
+  paged_decode_split_kernel<Rows, G>
+      <<<dim3(n_split, Hkv, B), kSplitThreads, smem, stream>>>(
+          rows, static_cast<const __nv_bfloat16*>(q),
+          static_cast<const int*>(tables), static_cast<const int*>(lengths),
+          part_o, part_ml, Hq, Hkv, hd, bs, MB, n_split, chunk, scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  paged_decode_merge_kernel<<<dim3(Hq, B), kSplitThreads, 0, stream>>>(
+      part_o, part_ml, static_cast<const int*>(lengths),
+      static_cast<float*>(out), Hq, hd, n_split, chunk);
+  return (int)cudaGetLastError();
+}
+
+// Validates the shapes and dispatches on the GQA group size: chunk == 0
+// takes a block per (row, KV head), chunk > 0 the split form (a group of
+// 16) with its workspace.
 template <class Rows>
 int dispatch(const Rows& rows, const void* q, const void* tables,
              const void* lengths, void* out, int B, int Hq, int Hkv, int hd,
-             int bs, int MB, void* stream) {
+             int bs, int MB, int chunk, void* work, void* stream) {
   const int tpt = hd / Rows::kVec;
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || hd % Rows::kVec != 0 ||
-      tpt > 32 || (tpt & (tpt - 1)) != 0 || bs <= 0 || MB <= 0 || B > 65535)
+      tpt > 32 || (tpt & (tpt - 1)) != 0 || bs <= 0 || MB <= 0 || B > 65535 ||
+      Hkv > 65535 || chunk < 0 || (chunk > 0 && work == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (chunk > 0) {
+    if (Hq / Hkv != 16) return (int)cudaErrorInvalidValue;
+    return launch_split<Rows, 16>(rows, q, tables, lengths, out, work, B, Hq,
+                                  Hkv, hd, bs, MB, chunk, s);
+  }
   switch (Hq / Hkv) {
     case 1: return launch<Rows, 1>(rows, q, tables, lengths, out, B, Hq, Hkv, hd, bs, MB, s);
     case 2: return launch<Rows, 2>(rows, q, tables, lengths, out, B, Hq, Hkv, hd, bs, MB, s);

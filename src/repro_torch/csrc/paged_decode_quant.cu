@@ -25,10 +25,10 @@ extern "C" int paged_decode_int8(const void* q, const void* k_pool,
                                  const void* v_scale, const void* tables,
                                  const void* lengths, void* out, int B,
                                  int Hq, int Hkv, int hd, int bs, int MB,
-                                 void* stream) {
+                                 int chunk, void* work, void* stream) {
   const paged_decode::Int8Rows rows{
       static_cast<const int8_t*>(k_pool), static_cast<const int8_t*>(v_pool),
       static_cast<const float*>(k_scale), static_cast<const float*>(v_scale)};
   return paged_decode::dispatch(rows, q, tables, lengths, out, B, Hq, Hkv,
-                                hd, bs, MB, stream);
+                                hd, bs, MB, chunk, work, stream);
 }

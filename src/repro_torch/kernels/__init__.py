@@ -35,10 +35,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signature of every kernel entry point in csrc/: (argtypes, restype)
 _SIGNATURES = {
-    "paged_decode_bf16": ([_P] * 6 + [_I] * 6 + [_P], _I),
-    "paged_decode_int8": ([_P] * 8 + [_I] * 6 + [_P], _I),
+    "paged_decode_bf16": ([_P] * 6 + [_I] * 7 + [_P] * 2, _I),
+    "paged_decode_int8": ([_P] * 8 + [_I] * 7 + [_P] * 2, _I),
     "topk_topp_mask_f32": ([_P] * 4 + [_I, _I, _P], _I),
     "flash_attention_bf16": ([_P] * 4 + [_I] * 8 + [_P], _I),
+    "rglru_scan_f32": ([_P] * 4 + [_I] * 3 + [_P], _I),
+    "wkv6_bf16": ([_P] * 7 + [_I] * 4 + [_P], _I),
     "kernel_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -14,7 +14,7 @@ import torch
 from repro_torch.kernels import check_launch, check_tensors, library
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128)  # the kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's instantiations
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,

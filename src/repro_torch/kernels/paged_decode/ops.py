@@ -20,6 +20,15 @@ from repro_torch.kernels import check_launch, check_tensors, library
 from repro_torch.kernels.paged_decode.ref import (paged_decode_quant_ref,
                                                   paged_decode_ref)
 
+# GQA group sizes (Hq / Hkv) the kernels are built for. A group of 16
+# (recurrentgemma-9b) takes the split form: one block per SPLIT_CHUNK
+# tokens of a row, then a merge (csrc/paged_decode.cuh); 64 tokens timed
+# fastest of 16, 32 and 64 over recurrentgemma's rings (chip_smoke.py
+# phase 11 times each)
+GROUPS = (1, 2, 3, 4, 6, 8, 16)
+SPLIT_GROUP = 16
+SPLIT_CHUNK = 64
+
 
 def quantize_kv(x, eps: float = 1e-8):
     """Symmetric int8 quantization over the last axis (head_dim): returns
@@ -43,12 +52,25 @@ def _check_shapes(name, q, k_pool, v_pool, tables, lengths, vec):
         raise ValueError(f"{name}: tables and lengths must be int32")
     if (hd_k != hd or v_pool.shape != k_pool.shape or tables.dim() != 2
             or tables.shape[0] != B or lengths.shape != (B,)
-            or Hq % Hkv or Hq // Hkv not in (1, 2, 3, 4, 6, 8)
+            or Hq % Hkv or Hq // Hkv not in GROUPS
             or hd % vec or tpt > 32 or tpt & (tpt - 1)):
         raise ValueError(
             f"{name}: unsupported shapes q {tuple(q.shape)}, pools "
             f"{tuple(k_pool.shape)}, tables {tuple(tables.shape)}, lengths "
             f"{tuple(lengths.shape)}")
+
+
+def _split_work(q, k_pool, tables):
+    """(chunk, workspace) for the kernel: (0, None) for a block per (row,
+    KV head); for a group of SPLIT_GROUP, the chunk and a workspace of
+    B * Hq * n_chunks * (hd + 2) floats for the partial (o, m, l)."""
+    B, Hq, hd = q.shape
+    Hkv, bs = k_pool.shape[1], k_pool.shape[2]
+    if Hq // Hkv != SPLIT_GROUP:
+        return 0, None
+    n_split = -(-tables.shape[1] * bs // SPLIT_CHUNK)
+    return SPLIT_CHUNK, torch.empty((B * Hq * n_split * (hd + 2),),
+                                    dtype=torch.float32, device=q.device)
 
 
 def paged_flash_decode(q, k_pool, v_pool, tables, lengths):
@@ -71,10 +93,12 @@ def paged_flash_decode(q, k_pool, v_pool, tables, lengths):
     out = torch.empty((B, Hq, hd), dtype=torch.float32, device=q.device)
     if B == 0:
         return out
+    chunk, work = _split_work(q, k_pool, tables)
     rc = library().paged_decode_bf16(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), B, Hq, Hkv, hd, bs,
-        tables.shape[1], torch.cuda.current_stream(q.device).cuda_stream)
+        tables.shape[1], chunk, None if work is None else work.data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(rc, name)
     paged_flash_decode.launches += 1
     return out
@@ -115,11 +139,13 @@ def paged_flash_decode_quant(q, k_pool, v_pool, k_scale, v_scale, tables,
     out = torch.empty((B, Hq, hd), dtype=torch.float32, device=q.device)
     if B == 0:
         return out
+    chunk, work = _split_work(q, k_pool, tables)
     rc = library().paged_decode_int8(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), tables.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), B, Hq, Hkv, hd, bs,
-        tables.shape[1], torch.cuda.current_stream(q.device).cuda_stream)
+        tables.shape[1], chunk, None if work is None else work.data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(rc, name)
     paged_flash_decode_quant.launches += 1
     return out

@@ -21,6 +21,10 @@ for classic):
 --trace oneshot runs the one-shot baseline alone (a full-prefill batch
 submitted to the cluster), as the JAX CLI's legacy path does.
 
+--arch picks the model: paper-demo (dense attention), recurrentgemma-9b
+(Griffin: RG-LRU blocks and sliding-window attention) or rwkv6-1.6b
+(attention-free RWKV-6); the two recurrent archs admit only by classic
+prefill (their prompts run through the RG-LRU-scan and WKV6 kernels).
 `--smoke` swaps in the tiny smoke config; `--device cpu` runs the kernels'
 plain versions on the CPU. Time on the cluster is simulated (a
 ManualClock advanced per step); wall time is measured around the serve.
@@ -33,7 +37,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, get_smoke
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke
 from repro_torch.core import (ClusterImage, LatencyPolicy, QueueDepthPolicy,
                               VirtualCluster)
 from repro_torch.core.clock import ManualClock
@@ -55,7 +59,9 @@ def serve_batch(cfg, params, prompts, gen_len: int, *,
     streamed_prefill=True feeds the prompts token by token through the
     contiguous-cache decode step (the fp path of chunked prefill);
     streamed_prefill=False runs one full-sequence prefill of the batch
-    (the fp path of classic admission) and grows its caches for decode.
+    (the fp path of classic admission) and grows its caches for decode
+    (window rings only to min(window, prompt + gen_len); recurrent states
+    as they are).
     The two reduce attention in another order, so greedy argmax can flip
     on a near-tie between them."""
     env = Env()
@@ -70,7 +76,7 @@ def serve_batch(cfg, params, prompts, gen_len: int, *,
     else:
         logits, caches = St.make_prefill_step(cfg, env)(
             params, {"tokens": prompts})
-        caches = Mo.grow_caches(caches, gen_len)
+        caches = Mo.grow_caches(caches, gen_len, cfg)
     V = cfg.vocab_size
     tok = torch.argmax(logits[:, :V], dim=-1).to(torch.int32)[:, None]
     out = [tok]
@@ -313,7 +319,7 @@ def run_oneshot(args, cfg, params) -> dict:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
-    ap.add_argument("--arch", default="paper-demo")
+    ap.add_argument("--arch", default="paper-demo", choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--trace", default="poisson",
                     choices=("poisson", "burst", "sysprompt", "repetitive",

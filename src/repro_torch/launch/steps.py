@@ -33,12 +33,13 @@ META_F_ROWS = 2
 
 
 def make_prefill_step(cfg: ModelConfig, env: Env):
-    """Full-sequence prefill: (last-position logits [B,Vpad], caches
-    {"k","v"} [L,B,Hkv,S,hd]) for batch {"tokens": [B,S]}."""
+    """Full-sequence prefill: (last-position logits [B,Vpad], the prompt
+    caches of Mo.forward) for batch {"tokens": [B,S]}. Only the last
+    position's row tile is unembedded (the same bits as the full logits,
+    without the [B,S,Vpad] tensor)."""
     def prefill_step(params, batch):
-        logits, caches = Mo.forward(params, batch["tokens"], cfg, env,
-                                    mode="prefill")
-        return logits[:, -1, :], caches
+        return Mo.forward(params, batch["tokens"], cfg, env, mode="prefill",
+                          last_only=True)
 
     return prefill_step
 
@@ -125,8 +126,11 @@ def make_paged_decode_step(cfg: ModelConfig, env: Env, *, prompt_len: int = 0,
     row writes its token's K/V into the physical block its table names at
     cur_len and attends at its own depth, so a prompt chunk (consecutive
     cur_len values sharing one table) prefills inside the running decode
-    batch. The sample/argmax step is fused; the [T] token vector is the
-    only per-step download."""
+    batch. tables: {"global": [T,MB]} plus {"local": [T,MBw]} for window
+    units (their rings). Recurrent units read and write state row t for
+    row t (a state pool has no lanes: T == slots); the rows padded past T
+    to whole row tiles touch no state (Mo.forward). The sample/argmax
+    step is fused; the [T] token vector is the only per-step download."""
     V = cfg.vocab_size
     sampler = make_sample_fn(cfg, prompt_len) if sample else None
 

@@ -24,13 +24,14 @@ from repro_torch.kernels.paged_decode import ops as pd_ops
 ROW_TILE = 128
 
 
-def dense_init(gen: torch.Generator, d_in: int, d_out: int) -> torch.Tensor:
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               dtype=torch.bfloat16) -> torch.Tensor:
     """The JAX package's dense_init: N(0, 1) * 1/sqrt(d_in) in f32, then
-    bf16 — drawn from a torch.Generator, so the values are not the JAX
+    `dtype` — drawn from a torch.Generator, so the values are not the JAX
     package's, but the shapes and scales are the same."""
     w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
                     device=gen.device)
-    return (w * (1.0 / math.sqrt(d_in))).to(torch.bfloat16)
+    return (w * (1.0 / math.sqrt(d_in))).to(dtype)
 
 
 def rms_norm(x, scale, eps: float = 1e-6):
@@ -79,6 +80,27 @@ def linear(x, w):
     tiles = [mm(t) for t in x.reshape(-1, x.shape[-1]).split(ROW_TILE)]
     y = tiles[0] if len(tiles) == 1 else torch.cat(tiles)
     return y.reshape(*lead, w.shape[-1])
+
+
+def linear_f32(x, w):
+    """f32 x [..., K] @ f32 w [K, N] in ROW_TILE-row tiles (batch
+    invariance, as `linear`). On the GPU in full f32: TF32 stays off
+    (torch.backends.cuda.matmul.allow_tf32 is False by default)."""
+    lead = x.shape[:-1]
+    tiles = [t @ w for t in x.reshape(-1, x.shape[-1]).split(ROW_TILE)]
+    y = tiles[0] if len(tiles) == 1 else torch.cat(tiles)
+    return y.reshape(*lead, w.shape[-1])
+
+
+def sigmoid(x):
+    """jax.nn.sigmoid as XLA expands it, 1 / (1 + exp(-x)), op by op in
+    x's dtype (torch.sigmoid rounds once and differs in bf16)."""
+    return 1 / (1 + torch.exp(-x))
+
+
+def silu(x):
+    """jax.nn.silu: x * sigmoid(x), op by op in x's dtype."""
+    return x * sigmoid(x)
 
 
 def _project_qkv(p, x, cfg: ModelConfig):
@@ -189,6 +211,5 @@ def attention_decode(q, k_cache, v_cache, cur_len, cfg: ModelConfig):
 
 def mlp(p, x):
     # jax.nn.silu(g) * u, op by op in bf16: silu(g) = g * (1 / (1 + exp(-g)))
-    g = linear(x, p["w_gate"])
-    h = g * (1 / (1 + torch.exp(-g))) * linear(x, p["w_up"])
+    h = silu(linear(x, p["w_gate"])) * linear(x, p["w_up"])
     return linear(h, p["w_down"])

@@ -1,12 +1,26 @@
 """Model assembly for serving: embed -> layers -> norm -> unembed.
 
-Port of the JAX package's models/model.py for what serving a dense
-attention-only model needs: parameter init, the contiguous and paged
-caches, the slot-pool and paged-pool helpers behind the KV backends, and
-forward in two modes: "prefill" (a whole prompt at once, emitting its K/V)
-and "decode" (one token per row over a contiguous cache or block tables).
-The JAX layer scan becomes a Python loop over the stacked `blocks` leaves
-(parameters and caches keep the JAX layout: a leading layer axis).
+Port of the JAX package's models/model.py for what serving a decoder
+needs: parameter init, the contiguous and paged caches, the slot-pool and
+paged-pool helpers behind the KV backends, and forward in two modes:
+"prefill" (a whole prompt at once, emitting its caches) and "decode" (one
+token per row over a contiguous cache or block tables).
+
+A model is `embed -> num_blocks x (the block_pattern unit) -> the
+pattern_tail blocks -> norm -> unembed`. Block kinds: "attn" (global
+attention + SwiGLU), "local" (sliding-window attention + SwiGLU, a
+window-sized ring cache), "rglru" (the Griffin recurrent block + SwiGLU,
+models/recurrent.py) and "rwkv" (RWKV-6 time and channel mix). The JAX
+layer scan becomes a Python loop; parameters and caches keep the JAX
+layout: {"blocks": one dict per pattern position with leaves stacked on a
+leading layer axis, "tail": one unstacked dict per tail block}, so the
+weight bridge (repro_torch/bridge.py) carries the JAX tree over as it is.
+
+Caches per kind: attention k/v [B,Hkv,S,hd] (a local ring holds the
+trailing min(window, S) positions, position p at p % ring length);
+recurrent state rows, rglru {"h" [B,w] f32, "conv" [B,cw-1,w] bf16} and
+rwkv {"s" [B,H,hd,hd] f32, "tm_prev", "cm_prev" [B,d] bf16}, row b being
+the state of batch row b (in a pool: of slot b).
 
 Unlike the JAX package's pure functions, the cache ops here update the
 cache tensors in place (one pool, no copy per step); they still return the
@@ -23,24 +37,44 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_decode import ops as pd_ops
 from repro_torch.models import layers as L
+from repro_torch.models import recurrent as R
 from repro_torch.models.env import Env, head_pad, kv_head_pad, vocab_pad
 
 Pytree = Any
 
-PAGEABLE_KINDS = ("attn",)
+PAGEABLE_KINDS = ("attn", "local")
+RECURRENT_KINDS = ("rglru", "rwkv")
 # prompts longer than this take the flash kernel in prefill, shorter ones
 # attention_naive: the JAX package's pallas-plan dispatch (Sq > 128)
 FLASH_MIN_LEN = 128
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves dense attention-only decoders so far."""
+    """The port serves decoders built of attn, local, rglru and rwkv
+    blocks (no MoE, M-RoPE, qk-norm, qkv bias or encoder)."""
     kinds = set(cfg.block_pattern) | set(cfg.pattern_tail)
-    if (kinds != {"attn"} or cfg.qkv_bias or cfg.qk_norm or cfg.mrope
-            or cfg.is_encdec or cfg.family == "vlm"):
+    if (not kinds <= set(PAGEABLE_KINDS + RECURRENT_KINDS) or cfg.qkv_bias
+            or cfg.qk_norm or cfg.mrope or cfg.is_encdec
+            or cfg.family == "vlm"):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense attention-only decoders "
-            f"(block kinds {sorted(kinds)})")
+            f"{cfg.name}: the port runs decoders of attn, local, rglru and "
+            f"rwkv blocks (block kinds {sorted(kinds)})")
+
+
+def _units(cfg: ModelConfig, tree):
+    """(kind, unit, stacked) for every unit of a params or cache tree: the
+    pattern positions under "blocks" (leaves stacked on a layer axis),
+    then the tail's."""
+    for kind, unit in zip(cfg.block_pattern, tree["blocks"]):
+        yield kind, unit, True
+    for kind, unit in zip(cfg.pattern_tail, tree["tail"]):
+        yield kind, unit, False
+
+
+def _layer_views(unit: dict, stacked: bool) -> dict:
+    """A cache unit's leaves with a leading layer axis (tail leaves get one
+    of length 1). Views: in-place writes land in the unit."""
+    return unit if stacked else {n: x[None] for n, x in unit.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -48,19 +82,27 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _init_attn_block(gen: torch.Generator, cfg: ModelConfig, env: Env) -> dict:
-    hq, hkv = head_pad(cfg, env), kv_head_pad(cfg, env)
-    hd, d = cfg.head_dim, cfg.d_model
-    z = torch.zeros((d,), dtype=torch.float32, device=gen.device)
-    return {"ln1": z,
-            "attn": {"wq": L.dense_init(gen, d, hq * hd),
-                     "wk": L.dense_init(gen, d, hkv * hd),
-                     "wv": L.dense_init(gen, d, hkv * hd),
-                     "wo": L.dense_init(gen, hq * hd, d)},
-            "ln2": z.clone(),
-            "mlp": {"w_gate": L.dense_init(gen, d, cfg.d_ff),
-                    "w_up": L.dense_init(gen, d, cfg.d_ff),
-                    "w_down": L.dense_init(gen, cfg.d_ff, d)}}
+def _init_block(kind: str, gen: torch.Generator, cfg: ModelConfig,
+                env: Env) -> dict:
+    d = cfg.d_model
+    z = lambda: torch.zeros((d,), dtype=torch.float32, device=gen.device)
+    mlp = lambda: {"w_gate": L.dense_init(gen, d, cfg.d_ff),
+                   "w_up": L.dense_init(gen, d, cfg.d_ff),
+                   "w_down": L.dense_init(gen, cfg.d_ff, d)}
+    if kind in PAGEABLE_KINDS:
+        hq, hkv, hd = head_pad(cfg, env), kv_head_pad(cfg, env), cfg.head_dim
+        return {"ln1": z(),
+                "attn": {"wq": L.dense_init(gen, d, hq * hd),
+                         "wk": L.dense_init(gen, d, hkv * hd),
+                         "wv": L.dense_init(gen, d, hkv * hd),
+                         "wo": L.dense_init(gen, hq * hd, d)},
+                "ln2": z(), "mlp": mlp()}
+    if kind == "rglru":
+        return {"ln1": z(), "rec": R.init_rglru_block(gen, cfg), "ln2": z(),
+                "mlp": mlp()}
+    if kind == "rwkv":
+        return {"ln1": z(), "ln2": z(), "mix": R.init_rwkv_block(gen, cfg)}
+    raise ValueError(kind)
 
 
 def _stack(trees):
@@ -72,8 +114,9 @@ def _stack(trees):
 def init_params(cfg: ModelConfig, env: Env, *, seed: int = 0,
                 device="cuda") -> Pytree:
     """Seeded random parameters with the JAX package's shapes, dtypes and
-    scales (Mo.init_params): `blocks` leaves stacked on a leading layer
-    axis, vocabulary padded to vocab_pad. Drawn from a torch.Generator on
+    scales (Mo.init_params): one entry of `blocks` per pattern position,
+    its leaves stacked on a leading layer axis, the tail unstacked,
+    vocabulary padded to vocab_pad. Drawn from a torch.Generator on
     `device`, so the values are not jax's; tests that compare the two
     packages bridge jax's parameters instead (repro_torch/bridge.py)."""
     check_supported(cfg)
@@ -82,9 +125,11 @@ def init_params(cfg: ModelConfig, env: Env, *, seed: int = 0,
     d, vp = cfg.d_model, vocab_pad(cfg, env)
     return {
         "embed": L.dense_init(gen, vp, d),
-        "blocks": (_stack([_init_attn_block(gen, cfg, env)
-                           for _ in range(cfg.num_blocks)]),),
-        "tail": (),
+        "blocks": tuple(_stack([_init_block(kind, gen, cfg, env)
+                                for _ in range(cfg.num_blocks)])
+                        for kind in cfg.block_pattern),
+        "tail": tuple(_init_block(kind, gen, cfg, env)
+                      for kind in cfg.pattern_tail),
         "final_norm": torch.zeros((d,), dtype=torch.float32, device=device),
         "unembed": L.dense_init(gen, d, vp),
     }
@@ -95,70 +140,122 @@ def init_params(cfg: ModelConfig, env: Env, *, seed: int = 0,
 # ---------------------------------------------------------------------------
 
 
+def _state_cache(kind: str, cfg: ModelConfig, rows: int, device) -> dict:
+    if kind == "rglru":
+        return R.rglru_init_state(cfg, rows, device)
+    return R.rwkv_init_state(cfg, rows, device)
+
+
+def _tree_of(cfg: ModelConfig, unit_of) -> Pytree:
+    """A cache tree from unit_of(kind) (one unit's zero leaves): stacked
+    num_blocks deep under "blocks", once per tail block."""
+    def stacked(kind):
+        return {n: x.new_zeros((cfg.num_blocks,) + tuple(x.shape))
+                for n, x in unit_of(kind).items()}
+
+    return {"blocks": tuple(stacked(k) for k in cfg.block_pattern),
+            "tail": tuple(unit_of(k) for k in cfg.pattern_tail)}
+
+
 def init_cache(cfg: ModelConfig, env: Env, batch: int, max_len: int, *,
                device="cuda") -> Pytree:
-    """Contiguous decode cache: k/v [L, B, Hkv, max_len, hd] bf16."""
-    shape = (cfg.num_blocks, batch, kv_head_pad(cfg, env), max_len,
-             cfg.head_dim)
-    return {"blocks": ({"k": torch.zeros(shape, dtype=torch.bfloat16,
-                                         device=device),
-                        "v": torch.zeros(shape, dtype=torch.bfloat16,
-                                         device=device)},),
-            "tail": ()}
+    """Contiguous decode cache: attention k/v [L, B, Hkv, max_len, hd]
+    bf16 (local rings min(window, max_len) long), recurrent state rows
+    [L, B, ...]."""
+    hkv, hd = kv_head_pad(cfg, env), cfg.head_dim
+
+    def unit(kind):
+        if kind in RECURRENT_KINDS:
+            return _state_cache(kind, cfg, batch, device)
+        n = min(cfg.local_window, max_len) if kind == "local" else max_len
+        z = lambda: torch.zeros((batch, hkv, n, hd), dtype=torch.bfloat16,
+                                device=device)
+        return {"k": z(), "v": z()}
+
+    return _tree_of(cfg, unit)
 
 
 def init_paged_cache(cfg: ModelConfig, env: Env, num_blocks: int,
-                     block_size: int, *, quant: bool = False,
-                     device="cuda") -> Pytree:
-    """Block-pooled decode cache: k/v [L, NB, Hkv, bs, hd] bf16, shared by
-    every request through per-request block tables; physical block 0 is
-    the null block that absorbs masked rows' writes.
+                     block_size: int, *, num_rows: int = 0,
+                     quant: bool = False, device="cuda") -> Pytree:
+    """Block-pooled decode cache: attention k/v [L, NB, Hkv, bs, hd] bf16,
+    shared by every request through per-request block tables (global and
+    local units alike; a local unit's table names its ring's blocks);
+    physical block 0 is the null block that absorbs masked rows' writes.
+    Recurrent state leaves have no sequence axis and stay row-addressed,
+    [L, num_rows, ...], as in the slot pool.
 
     With quant=True, k/v store int8 values plus per-row f32 dequant scales
     k_scale/v_scale [L, NB, Hkv, bs] (one scale per (block, head, token)
     over the head dim): (hd + 4) / (2 hd) of the bf16 pool's bytes. The
     decode path dispatches on the presence of "k_scale"."""
-    if not quant:
-        return init_cache(cfg, env, num_blocks, block_size, device=device)
-    shape = (cfg.num_blocks, num_blocks, kv_head_pad(cfg, env), block_size,
-             cfg.head_dim)
+    hkv, hd = kv_head_pad(cfg, env), cfg.head_dim
+    shape = (num_blocks, hkv, block_size, hd)
     z = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)
-    return {"blocks": ({"k": z(shape, torch.int8),
-                        "v": z(shape, torch.int8),
-                        "k_scale": z(shape[:-1], torch.float32),
-                        "v_scale": z(shape[:-1], torch.float32)},),
-            "tail": ()}
+
+    def unit(kind):
+        if kind in RECURRENT_KINDS:
+            return _state_cache(kind, cfg, num_rows, device)
+        if not quant:
+            return {"k": z(shape, torch.bfloat16), "v": z(shape, torch.bfloat16)}
+        return {"k": z(shape, torch.int8), "v": z(shape, torch.int8),
+                "k_scale": z(shape[:-1], torch.float32),
+                "v_scale": z(shape[:-1], torch.float32)}
+
+    return _tree_of(cfg, unit)
 
 
-def grow_caches(caches: Pytree, extra: int) -> Pytree:
+def grow_caches(caches: Pytree, extra: int, cfg: ModelConfig) -> Pytree:
     """Extend prefill-emitted KV caches ([L,B,Hkv,S,hd], length == prompt)
-    by `extra` zero positions so decode can append (attention units only:
-    the port has no window rings or recurrent state)."""
-    def grow(d):
-        return {n: F.pad(x, (0, 0, 0, extra)) if n in ("k", "v")
-                and x.dtype == torch.bfloat16 else x for n, x in d.items()}
+    by `extra` zero positions so decode can append. Recurrent states have
+    no sequence axis and pass through. Sliding-window ('local') rings grow
+    only to min(window, prompt + extra): a full ring is never padded, or
+    the slot = pos % window alignment breaks."""
+    def grow(kind, d):
+        out = {}
+        for n, x in d.items():
+            pad_n = extra if (n in ("k", "v")
+                              and x.dtype == torch.bfloat16) else 0
+            if pad_n and kind == "local":
+                cur = x.shape[-2]
+                pad_n = max(min(cfg.local_window, cur + extra) - cur, 0)
+            out[n] = F.pad(x, (0, 0, 0, pad_n)) if pad_n else x
+        return out
 
-    return {"blocks": tuple(grow(d) for d in caches["blocks"]),
-            "tail": caches["tail"]}
+    return {"blocks": tuple(grow(k, d) for k, d in
+                            zip(cfg.block_pattern, caches["blocks"])),
+            "tail": tuple(grow(k, d) for k, d in
+                          zip(cfg.pattern_tail, caches["tail"]))}
 
 
 # Slot-pool cache ops (serve/slots.py). A pooled cache is an init_cache()
-# cache whose batch axis is the slot axis: leaves [L, num_slots, H, S, hd].
-# They work in place and return the pool.
+# cache whose batch axis is the slot axis: leaves [L, num_slots, ...]
+# under "blocks", [num_slots, ...] in the tail. Attention k/v and
+# recurrent state rows alike. They work in place and return the pool.
+
+
+def _all_views(tree):
+    """Every leaf of a cache tree with a leading layer axis (views)."""
+    out = []
+    for unit in tree["blocks"]:
+        out.extend(unit.values())
+    for unit in tree["tail"]:
+        out.extend(x[None] for x in unit.values())
+    return out
 
 
 def cache_insert_slot(pool: Pytree, request: Pytree, slot: int) -> Pytree:
     """Write a batch-1 cache (grown to the pool's length with grow_caches)
-    into `slot`; every leaf of the slot is overwritten, so freed slots need
-    no zeroing before reuse."""
-    for dst, src in zip(_kv_leaves(pool), _kv_leaves(request)):
+    into `slot`; every leaf of the slot is overwritten (state rows
+    included), so freed slots need no zeroing before reuse."""
+    for dst, src in zip(_all_views(pool), _all_views(request)):
         dst[:, slot] = src[:, 0].to(dst.dtype)
     return pool
 
 
 def cache_evict_slot(pool: Pytree, slot: int) -> Pytree:
     """Zero `slot` (hygiene and tests: insert overwrites the whole slot)."""
-    for leaf in _kv_leaves(pool):
+    for leaf in _all_views(pool):
         leaf[:, slot] = 0
     return pool
 
@@ -168,68 +265,82 @@ def cache_read_slot(pool: Pytree, slot: int) -> Pytree:
     return {"blocks": tuple({n: x[:, slot:slot + 1].clone()
                              for n, x in unit.items()}
                             for unit in pool["blocks"]),
-            "tail": ()}
+            "tail": tuple({n: x[slot:slot + 1].clone()
+                           for n, x in unit.items()}
+                          for unit in pool["tail"])}
 
 
 # Paged-pool helpers (serve/blocks.py). The JAX package builds them as
 # closures to jit; here they work in place on the pool's leaves: k/v
 # [L,NB,H,bs,hd] and, in a quant pool, the scales [L,NB,H,bs] (no head-dim
-# axis). The port's pools hold global-attention blocks only, so there are
-# no window tables and no row-addressed recurrent state.
-
-
-def _kv_leaves(pool: Pytree):
-    return [leaf for unit in pool["blocks"] for leaf in unit.values()]
-
-
-def _seq_axis_last(leaf) -> bool:
-    """Scale leaves [L,NB,H,bs] end on the token axis; k/v on head_dim."""
-    return leaf.dim() == 4
+# axis), addressed through the global table or, for local units, the
+# ring table; recurrent state rows [L,rows,...] addressed by slot.
 
 
 def make_paged_insert(cfg: ModelConfig, block_size: int):
-    """Scatter a batch-1 cache ([L,1,Hkv,S,hd] leaves; a quant request from
+    """Scatter a batch-1 cache ([L,1,Hkv,S,hd] k/v; a quant request from
     quantize_paged_request adds [L,1,Hkv,S] scales) into the blocks its
-    table names, block_size positions per block (unallocated entries are 0:
-    padding lands in the null block)."""
+    tables name, block_size positions per block (unallocated entries are
+    0: padding lands in the null block); local rings go through
+    `tables_local` in their ring order, state leaves land at row `slot`."""
     bs = block_size
 
-    def insert(pool, request, tables):
-        for dst, src in zip(_kv_leaves(pool), _kv_leaves(request)):
-            if _seq_axis_last(dst):  # [L,1,H,S] -> chunks [L,nb,H,bs]
-                Lyr, _, H, S = src.shape
-                nb = -(-S // bs)
-                src = F.pad(src, (0, nb * bs - S)).to(dst.dtype)
-                chunks = src.reshape(Lyr, H, nb, bs).transpose(1, 2)
-            else:  # [L,1,H,S,hd] -> chunks [L,nb,H,bs,hd]
-                Lyr, _, H, S, hd = src.shape
-                nb = -(-S // bs)
-                src = F.pad(src, (0, 0, 0, nb * bs - S)).to(dst.dtype)
-                chunks = src.reshape(Lyr, H, nb, bs, hd).transpose(1, 2)
-            dst[:, tables[:nb].long()] = chunks
+    def insert(pool, request, tables, slot: int = 0, tables_local=None):
+        for (kind, dst_u, st), (_, src_u, _) in zip(_units(cfg, pool),
+                                                   _units(cfg, request)):
+            dst_u, src_u = _layer_views(dst_u, st), _layer_views(src_u, st)
+            tbl = tables_local if kind == "local" else tables
+            for name, dst in dst_u.items():
+                src = src_u[name]
+                if kind in RECURRENT_KINDS:
+                    dst[:, slot] = src[:, 0].to(dst.dtype)
+                elif name.endswith("_scale"):  # [L,1,H,S] -> [L,nb,H,bs]
+                    Lyr, _, H, S = src.shape
+                    nb = -(-S // bs)
+                    src = F.pad(src, (0, nb * bs - S)).to(dst.dtype)
+                    chunks = src.reshape(Lyr, H, nb, bs).transpose(1, 2)
+                    dst[:, tbl[:nb].long()] = chunks
+                else:  # [L,1,H,S,hd] -> chunks [L,nb,H,bs,hd]
+                    Lyr, _, H, S, hd = src.shape
+                    nb = -(-S // bs)
+                    src = F.pad(src, (0, 0, 0, nb * bs - S)).to(dst.dtype)
+                    chunks = src.reshape(Lyr, H, nb, bs, hd).transpose(1, 2)
+                    dst[:, tbl[:nb].long()] = chunks
         return pool
 
     return insert
 
 
 def make_paged_copy(cfg: ModelConfig):
-    """Copy one physical block's K/V (and scales; every layer) from `src`
-    to `dst` — the copy-on-write step behind prefix sharing
-    (serve/blocks.py)."""
+    """Copy one physical block's K/V (and scales; every layer, global and
+    local units alike) from `src` to `dst` — the copy-on-write step behind
+    prefix sharing (serve/blocks.py). State rows have no blocks and are
+    untouched."""
     def copy(pool, src: int, dst: int):
-        for leaf in _kv_leaves(pool):
-            leaf[:, dst] = leaf[:, src]
+        for kind, unit, st in _units(cfg, pool):
+            if kind in RECURRENT_KINDS:
+                continue
+            for leaf in _layer_views(unit, st).values():
+                leaf[:, dst] = leaf[:, src]
         return pool
 
     return copy
 
 
 def make_paged_evict(cfg: ModelConfig):
-    """Zero the blocks a table names — hygiene only; allocation hygiene
-    lives in the BlockManager free list."""
-    def evict(pool, tables):
-        for leaf in _kv_leaves(pool):
-            leaf[:, tables.long()] = 0
+    """Zero the blocks the tables name (and, given `slot`, its state row)
+    — hygiene only; allocation hygiene lives in the BlockManager free
+    list."""
+    def evict(pool, tables, slot=None, tables_local=None):
+        for kind, unit, st in _units(cfg, pool):
+            for leaf in _layer_views(unit, st).values():
+                if kind in RECURRENT_KINDS:
+                    if slot is not None:
+                        leaf[:, slot] = 0
+                    continue
+                tbl = tables_local if kind == "local" else tables
+                if tbl is not None:
+                    leaf[:, tbl.long()] = 0
         return pool
 
     return evict
@@ -237,37 +348,54 @@ def make_paged_evict(cfg: ModelConfig):
 
 def make_paged_read(cfg: ModelConfig):
     """Gather one slot back out of a pool as a batch-1 cache (inverse of
-    insert). `valid` masks unallocated table entries, so a freed slot
-    reads as zeros whatever masked rows left in the null block."""
-    def read(pool, tables, valid):
-        units = []
-        for unit in pool["blocks"]:
+    insert). `valid` / `valid_local` mask unallocated table entries, so a
+    freed slot reads as zeros whatever masked rows left in the null
+    block; state leaves read row `slot`."""
+    def read(pool, tables, valid, slot: int = 0, tables_local=None,
+             valid_local=None):
+        blocks, tail = [], []
+        for kind, unit, st in _units(cfg, pool):
             out = {}
-            for name, leaf in unit.items():
-                g = leaf[:, tables.long()]  # [L,MB,H,bs(,hd)]
-                ok = valid.to(leaf.dtype).reshape(
-                    (1, -1) + (1,) * (g.dim() - 2))
-                g = (g * ok).transpose(1, 2)
-                Lyr, H, MB, bs = g.shape[:4]
-                out[name] = g.reshape(Lyr, 1, H, MB * bs, *g.shape[4:])
-            units.append(out)
-        return {"blocks": tuple(units), "tail": ()}
+            for name, leaf in _layer_views(unit, st).items():
+                if kind in RECURRENT_KINDS:
+                    g = leaf[:, slot:slot + 1].clone()
+                else:
+                    tbl, ok = ((tables_local, valid_local) if kind == "local"
+                               else (tables, valid))
+                    g = leaf[:, tbl.long()]  # [L,MB,H,bs(,hd)]
+                    ok = ok.to(leaf.dtype).reshape(
+                        (1, -1) + (1,) * (g.dim() - 2))
+                    g = (g * ok).transpose(1, 2)
+                    Lyr, H, MB, bs = g.shape[:4]
+                    g = g.reshape(Lyr, 1, H, MB * bs, *g.shape[4:])
+                out[name] = g if st else g[0]
+            (blocks if st else tail).append(out)
+        return {"blocks": tuple(blocks), "tail": tuple(tail)}
 
     return read
 
 
+def _map_pageable(cfg: ModelConfig, request: Pytree, fn) -> Pytree:
+    """fn applied to every attention unit of a cache; state units as
+    they are."""
+    out = {"blocks": [], "tail": []}
+    for kind, unit, st in _units(cfg, request):
+        out["blocks" if st else "tail"].append(
+            unit if kind in RECURRENT_KINDS else fn(unit))
+    return {k: tuple(v) for k, v in out.items()}
+
+
 def quantize_paged_request(cfg: ModelConfig, request: Pytree) -> Pytree:
-    """Expand a batch-1 fp cache ({"k","v"} per unit) into the quant pool's
-    structure ({"k","v","k_scale","v_scale"}): symmetric int8 over the
-    head dim, one f32 scale per (head, position) — insertable into a quant
-    pool with make_paged_insert."""
+    """Expand a batch-1 fp cache ({"k","v"} per attention unit) into the
+    quant pool's structure ({"k","v","k_scale","v_scale"}): symmetric int8
+    over the head dim, one f32 scale per (head, position) — insertable
+    into a quant pool with make_paged_insert."""
     def unit(d):
         kq, ks = pd_ops.quantize_kv(d["k"])
         vq, vs = pd_ops.quantize_kv(d["v"])
         return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
 
-    return {"blocks": tuple(unit(d) for d in request["blocks"]),
-            "tail": ()}
+    return _map_pageable(cfg, request, unit)
 
 
 def dequantize_paged_request(cfg: ModelConfig, request: Pytree) -> Pytree:
@@ -278,8 +406,7 @@ def dequantize_paged_request(cfg: ModelConfig, request: Pytree) -> Pytree:
         return {n: (d[n].float() * d[f"{n}_scale"][..., None]).to(
             torch.bfloat16) for n in ("k", "v")}
 
-    return {"blocks": tuple(unit(d) for d in request["blocks"]),
-            "tail": ()}
+    return _map_pageable(cfg, request, unit)
 
 
 # ---------------------------------------------------------------------------
@@ -293,36 +420,45 @@ def _layer(tree, i: int):
     return tree[i]
 
 
-def _attn_prefill(p, h, cfg: ModelConfig, S: int, rope):
+def _attn_prefill(p, h, cfg: ModelConfig, S: int, rope, window: int = 0):
     """Prefill attention over the first S (real) positions of the
-    row-padded h [B,Sp,d]: causal, global (window 0, no cross-attention).
+    row-padded h [B,Sp,d]: causal, global (window 0) or sliding-window.
     Prompts longer than FLASH_MIN_LEN go through the flash kernel, shorter
     ones through attention_naive, as the JAX package's pallas plan
     dispatches; padding positions never enter attention (their output rows
     are zeros). rope: (cos, sin) of positions 0..S-1. Returns (out
-    [B,Sp,d], {"k","v"} [B,Hkv,S,hd] after rope)."""
+    [B,Sp,d], {"k","v"} [B,Hkv,S,hd] after rope; a window unit keeps the
+    trailing min(window, S) positions, ring-aligned: position p at
+    p % that length)."""
     q, k, v = L._project_qkv(p, h, cfg)  # [B,Sp,H,hd]
     q = L.rotate(q[:, :S], *rope)
     k = L.rotate(k[:, :S], *rope)
     v = v[:, :S]
     if S > FLASH_MIN_LEN:
         o = fa_ops.flash_attention(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), causal=True,
+                                   v.contiguous(), causal=True, window=window,
                                    n_kv_heads=k.shape[2])
     else:
-        o = L.attention_naive(q, k, v, cfg, causal=True)
+        o = L.attention_naive(q, k, v, cfg, causal=True, window=window)
     o = F.pad(o, (0, 0, 0, h.shape[1] - S))
-    return L.linear(o, p["wo"]), {"k": k.transpose(1, 2),
-                                  "v": v.transpose(1, 2)}
+    kc, vc = k.transpose(1, 2), v.transpose(1, 2)
+    if window > 0:
+        w = min(window, S)
+        kc = torch.roll(kc[:, :, S - w:], (S - w) % w, dims=2)
+        vc = torch.roll(vc[:, :, S - w:], (S - w) % w, dims=2)
+    return L.linear(o, p["wo"]), {"k": kc, "v": vc}
 
 
 def _attn_sublayer(p, h, cfg: ModelConfig, n_rows: int, cur_len, rope,
-                   cache, tables):
+                   cache, tables, window: int = 0):
     """Decode attention for the first n_rows rows of the row-padded h: each
-    row writes its token's K/V at cur_len (through its block table, or at
-    its own row of a contiguous cache) and attends at its own depth. rope:
-    the rows' (cos, sin) from layers.rope_cos_sin. cache: this layer's
-    leaves ({"k","v"}, plus "k_scale"/"v_scale" in a quant pool)."""
+    row writes its token's K/V (through its block table, or at its own row
+    of a contiguous cache) and attends at its own depth. A window unit
+    writes at cur_len % (ring length) and attends over min(cur_len, ring
+    length - 1) + 1 ring entries (the ring holds exactly the window, in
+    ring order: softmax does not care). rope: the rows' (cos, sin) from
+    layers.rope_cos_sin. cache: this layer's leaves ({"k","v"}, plus
+    "k_scale"/"v_scale" in a quant pool)."""
     q, k, v = L._project_qkv(p, h, cfg)  # [Bp,1,H,hd]
     q = L.rotate(q, *rope)[:n_rows]
     k = L.rotate(k, *rope)[:n_rows, 0]
@@ -330,9 +466,11 @@ def _attn_sublayer(p, h, cfg: ModelConfig, n_rows: int, cur_len, rope,
     ck, cv = cache["k"], cache["v"]
     if tables is not None:
         bs = ck.shape[-2]
-        phys = torch.gather(tables, 1, (cur_len // bs)[:, None])[:, 0].long()
-        off = cur_len % bs
-        lengths = cur_len.to(torch.int32)
+        idx = cur_len % window if window else cur_len
+        phys = torch.gather(tables, 1, (idx // bs)[:, None])[:, 0].long()
+        off = idx % bs
+        lengths = (torch.clamp_max(cur_len, window - 1) if window
+                   else cur_len).to(torch.int32)
         if "k_scale" in cache:
             # quant pool: quantize-on-insert (this token's K/V row goes in
             # as int8 + per-row scale), dequant fused into the read
@@ -350,75 +488,171 @@ def _attn_sublayer(p, h, cfg: ModelConfig, n_rows: int, cur_len, rope,
             cv[phys, :, off] = v.to(cv.dtype)
             o = L.attention_paged_decode(q, ck, cv, tables, lengths, cfg)
     else:
+        Sc = ck.shape[-2]
+        idx = cur_len % Sc if window else cur_len
         rows = torch.arange(n_rows, device=h.device)
-        ck[rows, :, cur_len] = k.to(ck.dtype)
-        cv[rows, :, cur_len] = v.to(cv.dtype)
-        o = L.attention_decode(q, ck, cv, cur_len, cfg)
+        ck[rows, :, idx] = k.to(ck.dtype)
+        cv[rows, :, idx] = v.to(cv.dtype)
+        lengths = torch.clamp_max(cur_len, Sc - 1) if window else cur_len
+        o = L.attention_decode(q, ck, cv, lengths, cfg)
     o = F.pad(o, (0, 0, 0, 0, 0, h.shape[0] - n_rows))
     return L.linear(o, p["wo"])
 
 
-def _block(p, h, eps: float, attn):
-    """One attention unit: h + attn(norm(h)), then h + mlp(norm(h)).
-    attn(x) returns (out, cache entries or None)."""
-    a, kv = attn(L.rms_norm(h, p["ln1"], eps))
-    # the reference (XLA) fuses this residual add into the next norm: the
+# state leaves read only by row-wise ops (the WKV step): they stay at the
+# real rows, the others are padded with the step to whole row tiles
+_UNPADDED_STATE = ("s",)
+
+
+def _rows_state(state: dict, n_rows: int, Bp: int) -> dict:
+    """The decode step's state: row b is the state of batch row b. Leaves
+    that feed the padded rows' GEMMs (conv and token-shift inputs, the
+    RG-LRU's h) are padded to the step's Bp rows with zeros; rows past
+    n_rows are never written back."""
+    for n, x in state.items():
+        if x.shape[0] != n_rows:
+            raise ValueError(f"decode with {n_rows} rows over {x.shape[0]} "
+                             f"recurrent state rows ({n!r}): row b is the "
+                             "state of batch row b")
+    return {n: x if n in _UNPADDED_STATE
+            else F.pad(x, (0, 0) * (x.dim() - 1) + (0, Bp - n_rows))
+            for n, x in state.items()}
+
+
+def _write_rows(cache: dict, new: dict, n_rows: int) -> None:
+    for n, x in new.items():
+        cache[n].copy_(x[:n_rows].to(cache[n].dtype))
+
+
+def _apply_block(kind: str, p, h, hf, cfg: ModelConfig, *, S=None, rope=None,
+                 n_rows=None, cur_len=None, cache=None, tables=None):
+    """One block: h + first(norm(h)), then + second(norm(.)). Prefill when
+    `cache` is None (S real positions of the row-padded h; returns the
+    block's prompt cache), decode otherwise (updates `cache` in place; the
+    first n_rows rows are real).
+
+    hf: the f32 value of h where the reference reads it unrounded into the
+    first norm (the previous block's last residual sum inside the same
+    pattern unit or the tail: XLA drops the bf16 round trip into the
+    norm's f32 cast), else None. Returns (h bf16, its f32 sum, cache)."""
+    eps = cfg.norm_eps
+    decode = cache is not None
+    prefill_kw = {} if decode else {"S": S, "return_state": True}
+    if kind in PAGEABLE_KINDS:
+        window = cfg.local_window if kind == "local" else 0
+        if decode:
+            tbl = (None if tables is None
+                   else tables["local" if window else "global"])
+            first = lambda x: (_attn_sublayer(p["attn"], x, cfg, n_rows,
+                                              cur_len, rope, cache, tbl,
+                                              window), None)
+        else:
+            first = lambda x: _attn_prefill(p["attn"], x, cfg, S, rope,
+                                            window)
+        second = lambda x: (L.mlp(p["mlp"], x), None)
+    elif kind == "rglru":
+        st = _rows_state(cache, n_rows, h.shape[0]) if decode else None
+        first = lambda x: R.rglru_block(p["rec"], x, cfg, st, **prefill_kw)
+        second = lambda x: (L.mlp(p["mlp"], x), None)
+    else:  # rwkv
+        st = _rows_state(cache, n_rows, h.shape[0]) if decode else None
+        first = lambda x: R.rwkv_time_mix(p["mix"], x, cfg, st, **prefill_kw)
+        second = lambda x: R.rwkv_channel_mix(p["mix"], x, cfg, st,
+                                              **prefill_kw)
+    a, c1 = first(L.rms_norm(h if hf is None else hf, p["ln1"], eps)
+                  .to(torch.bfloat16))
+    # the reference (XLA) fuses the residual add into the next norm: the
     # norm reads the f32 sum, the residual stream its bf16 rounding
     hf = h.float() + a.float()
     h = hf.to(torch.bfloat16)
-    hn = L.rms_norm(hf, p["ln2"], eps).to(torch.bfloat16)
-    return h + L.mlp(p["mlp"], hn), kv
+    y, c2 = second(L.rms_norm(hf, p["ln2"], eps).to(torch.bfloat16))
+    hf = h.float() + y.float()
+    new = c1 if kind != "rwkv" else {**c1, "cm_prev": c2}
+    if decode and kind in RECURRENT_KINDS:
+        _write_rows(cache, new, n_rows)
+    return hf.to(torch.bfloat16), hf, new
 
 
-def _prefill(params, tokens, cfg: ModelConfig):
-    """forward(mode="prefill"): tokens [B,S] -> (logits [B,S,Vpad], caches
-    {"k","v"} [L,B,Hkv,S,hd]).
+def _run_blocks(params, h, cfg: ModelConfig, caches=None, **kw):
+    """Every block in order: num_blocks units of the pattern, then the
+    tail. Returns (final-norm input, prompt caches or None). A unit
+    boundary rounds the residual to bf16 (the reference's layer scan
+    carries it in bf16); inside a unit and through the tail the next norm
+    reads the f32 sum (see _apply_block)."""
+    pattern, tail = cfg.block_pattern, cfg.pattern_tail
+    out_blocks = [[] for _ in pattern]
+    for i in range(cfg.num_blocks):
+        hf = None
+        for j, kind in enumerate(pattern):
+            c = None if caches is None else _layer(caches["blocks"][j], i)
+            h, hf, new = _apply_block(kind, _layer(params["blocks"][j], i),
+                                      h, hf, cfg, cache=c, **kw)
+            out_blocks[j].append(new)
+    hf = None
+    out_tail = []
+    for j, kind in enumerate(tail):
+        c = None if caches is None else caches["tail"][j]
+        h, hf, new = _apply_block(kind, params["tail"][j], h, hf, cfg,
+                                  cache=c, **kw)
+        out_tail.append(new)
+    x = h if hf is None else hf
+    if caches is not None:
+        return x, None
+    return x, {"blocks": tuple(_stack(u) for u in out_blocks),
+               "tail": tuple(out_tail)}
+
+
+def _prefill(params, tokens, cfg: ModelConfig, last_only: bool = False):
+    """forward(mode="prefill"): tokens [B,S] -> (logits [B,S,Vpad] — or
+    [B,Vpad] of position S-1 with last_only — and the prompt caches).
 
     Each sequence is padded to a multiple of layers.ROW_TILE positions, so
     every `linear` tile holds rows of one sequence only and a prompt's rows
     do not depend on the batch around it (B=1 and B=16 prefills of the same
-    prompt give bit-identical rows); attention reads the real S positions
-    only."""
+    prompt give bit-identical rows); attention and the recurrences read the
+    real S positions only. last_only multiplies the unembedding on the
+    row tile holding position S-1 alone: the same tile, so the same bits
+    as the full product, without the [B,S,Vpad] logits."""
     B, S = tokens.shape
     Sp = -(-S // L.ROW_TILE) * L.ROW_TILE
     tok = F.pad(tokens.long(), (0, Sp - S))
     h = params["embed"][tok].to(torch.bfloat16)  # [B,Sp,d]
     rope = L.rope_cos_sin(torch.arange(S, device=tokens.device),
                           cfg.head_dim, cfg.rope_theta)  # [S,1,hd/2] each
-    blocks, eps = params["blocks"][0], cfg.norm_eps
-    ks, vs = [], []
-    for i in range(cfg.num_blocks):
-        p = _layer(blocks, i)
-        h, kv = _block(p, h, eps, lambda x: _attn_prefill(
-            p["attn"], x, cfg, S, rope))
-        ks.append(kv["k"])
-        vs.append(kv["v"])
-    h = L.rms_norm(h, params["final_norm"], eps)
-    logits = L.linear(h, params["unembed"])[:, :S]
-    return logits, {"blocks": ({"k": torch.stack(ks),
-                                "v": torch.stack(vs)},), "tail": ()}
+    x, caches = _run_blocks(params, h, cfg, S=S, rope=rope)
+    h = L.rms_norm(x, params["final_norm"], cfg.norm_eps).to(torch.bfloat16)
+    if last_only:
+        t0 = (S - 1) // L.ROW_TILE * L.ROW_TILE
+        tile = L.linear(h[:, t0:t0 + L.ROW_TILE], params["unembed"])
+        return tile[:, S - 1 - t0], caches
+    return L.linear(h, params["unembed"])[:, :S], caches
 
 
 def forward(params, tokens, cfg: ModelConfig, env: Env, mode: str = "decode",
-            caches=None, cur_len=None, block_tables=None):
+            caches=None, cur_len=None, block_tables=None,
+            last_only: bool = False):
     """mode="prefill": tokens [B,S] (whole prompts); returns (logits
-    [B,S,Vpad] bf16, caches {"blocks": ({"k","v"} [L,B,Hkv,S,hd],),
-    "tail": ()}), the K/V after rope, ready for grow_caches or a pool
-    insert.
+    [B,S,Vpad] bf16 — [B,Vpad] of the last position with last_only —,
+    caches in the init_cache layout at the prompt's length: attention k/v
+    after rope, local rings ring-aligned, post-prompt recurrent states),
+    ready for grow_caches or a pool insert.
 
     mode="decode": tokens [B,1] int (one token per row). cur_len: [B] int
     (or a scalar) KV write position == attention depth of each row.
-    block_tables (paged cache): {"global": [B,MB] int32} block tables into
-    caches from init_paged_cache (bf16 or quant); without it, caches is a
-    contiguous init_cache cache with one row per batch row. The caches are
-    updated in place. Returns (logits [B,1,Vpad] bf16, caches).
+    block_tables (paged cache): {"global": [B,MB] int32, "local":
+    [B,MBw] int32 (window units)} block tables into caches from
+    init_paged_cache (bf16 or quant); without it, caches is a contiguous
+    init_cache cache with one row per batch row. Recurrent state rows:
+    row b of the cache is batch row b's, so the cache holds exactly B
+    rows. The caches are updated in place. Returns (logits [B,1,Vpad]
+    bf16, caches).
 
     Every row-wise op runs on rows padded to a multiple of layers.ROW_TILE
     (batch invariance, see models/layers.py); the padding rows never touch
     the cache. mode="train" waits for the training slice."""
     check_supported(cfg)
     if mode == "prefill":
-        return _prefill(params, tokens, cfg)
+        return _prefill(params, tokens, cfg, last_only)
     if mode != "decode":
         raise NotImplementedError(
             f"mode={mode!r}: the port runs prefill and decode (training "
@@ -431,13 +665,8 @@ def forward(params, tokens, cfg: ModelConfig, env: Env, mode: str = "decode",
                           cfg.rope_theta)  # [Bp,1,1,hd/2] each
     tok = F.pad(tokens[:, 0].long(), (0, Bp - B))
     h = params["embed"][tok][:, None, :].to(torch.bfloat16)  # [Bp,1,d]
-    tables = None if block_tables is None else block_tables["global"]
-    eps = cfg.norm_eps
-    blocks, cache = params["blocks"][0], caches["blocks"][0]
-    for i in range(cfg.num_blocks):
-        p = _layer(blocks, i)
-        h, _ = _block(p, h, eps, lambda x: (_attn_sublayer(
-            p["attn"], x, cfg, B, cl, rope, _layer(cache, i), tables), None))
-    h = L.rms_norm(h, params["final_norm"], eps)
+    x, _ = _run_blocks(params, h, cfg, caches, rope=rope, n_rows=B,
+                       cur_len=cl, tables=block_tables)
+    h = L.rms_norm(x, params["final_norm"], cfg.norm_eps).to(torch.bfloat16)
     logits = L.linear(h, params["unembed"])[:B]
     return logits, caches

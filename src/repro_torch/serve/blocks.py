@@ -1,6 +1,6 @@
 """BlockManager — a paged KV cache: global block pool + per-request tables.
 
-Port of the JAX package's serve/blocks.py for attention-only models. The
+Port of the JAX package's serve/blocks.py. The
 BlockManager owns a global pool of fixed-size KV blocks
 (Mo.init_paged_cache) on the serving device and a host-side
 [num_slots, MB] block table per request; blocks are allocated on demand as
@@ -34,11 +34,21 @@ Two ways in: chunked prefill streams a prompt through lane rows of the
 decode step (admit(prefilling=True) ... finish_prefill); classic admission
 scatters a batch-1 prefill's K/V into the slot's blocks (insert).
 
-QuantBlockManager (`--kv quant`) is the same bookkeeping over an int8
-pool with per-row f32 scales.
+Hybrid and recurrent archs: sliding-window ('local') units keep a ring of
+the trailing window in a second, window-sized table per request
+(table_local, ceil(min(window, prompt + gen) / block_size) blocks,
+allocated on demand like the global table and freed at release);
+recurrent units (rglru, rwkv) keep their state in pool rows pinned to the
+slot (decode row == slot). Both admit only by classic prefill + insert:
+recurrent state is sequential over the prompt and ring writes would wrap
+onto each other within a chunk, so chunk_prefill_ok is False there, and
+the prefix cache (global blocks only) is off.
 
-Left out of the port so far: the host swap tier (HostSwapPool),
-sliding-window ring tables and recurrent-state rows.
+QuantBlockManager (`--kv quant`) is the same bookkeeping over an int8
+pool with per-row f32 scales, for attention-only archs.
+
+Left out of the port so far: the host swap tier (HostSwapPool) and the
+int8 pool for window or recurrent archs.
 """
 from __future__ import annotations
 
@@ -74,6 +84,7 @@ class PagedSlot:
     plen: int = 0  # the request's own prompt length (0: engine prompt_len)
     prefilling: bool = False  # still consuming prompt chunks (lane rows)
     alloc_g: int = 0  # table entries bound so far (shared + private)
+    alloc_l: int = 0  # window-ring table entries bound so far
     reserved: int = 0  # blocks reserved but not yet allocated
     cached_len: int = 0  # prompt tokens served from the prefix cache
     shared_g: int = 0  # leading table entries referencing shared blocks
@@ -83,8 +94,6 @@ class PagedSlot:
 class BlockManager:
     kind = "paged"
     _quant = False  # int8 pool + scales (QuantBlockManager)
-    # attention-only pools: prompts may stream through decode lane rows
-    chunk_prefill_ok = True
 
     def __init__(self, cfg: ModelConfig, env: Env, *, num_slots: int,
                  prompt_len: int, max_gen: int, block_size: int = 16,
@@ -100,19 +109,36 @@ class BlockManager:
         self.prompt_len = prompt_len
         self.max_gen = max_gen
         self.block_size = block_size
+        kinds = set(cfg.block_pattern) | set(cfg.pattern_tail)
+        self.window = cfg.local_window
+        self.has_global = "attn" in kinds
+        self.has_local = "local" in kinds
+        # recurrent state rows pin the decode batch to slot == row
+        self.has_state = bool(kinds & set(Mo.RECURRENT_KINDS))
+        # recurrent state cannot parallelize a prompt chunk inside one
+        # step, and ring writes would wrap onto each other within a chunk
+        # (rows p and p + w share ring slot p % w): both admit by batch-1
+        # prefill + insert instead
+        self.chunk_prefill_ok = not self.has_state and not self.has_local
         bs = block_size
-        self.mb_global = _ceil_div(prompt_len + max_gen, bs)
+        max_kv = prompt_len + max_gen  # last written pos < prompt+gen-1
+        self.mb_global = _ceil_div(max_kv, bs) if self.has_global else 0
+        self.mb_local = (_ceil_div(min(self.window, max_kv), bs)
+                         if self.has_local else 0)
+        worst = num_slots * (self.mb_global + self.mb_local)
         self.num_blocks = (num_blocks if num_blocks is not None
-                           else num_slots * self.mb_global + 1)  # + null
-        if self.num_blocks < 1 + self.mb_global:
+                           else worst + 1)  # + null
+        if self.num_blocks < 1 + self.mb_global + self.mb_local:
             raise ValueError(
                 f"num_blocks={self.num_blocks} cannot hold even one request "
-                f"({self.mb_global} blocks + null)")
+                f"({self.mb_global}+{self.mb_local} blocks + null)")
         self.caches: Pytree = Mo.init_paged_cache(
-            cfg, env, self.num_blocks, bs, quant=self._quant,
-            device=self.device)
+            cfg, env, self.num_blocks, bs, num_rows=num_slots,
+            quant=self._quant, device=self.device)
         # host-side tables: row per slot, 0 = unallocated (null block)
-        self.table = np.zeros((num_slots, self.mb_global), np.int32)
+        self.table = np.zeros((num_slots, max(self.mb_global, 1)), np.int32)
+        self.table_local = np.zeros((num_slots, max(self.mb_local, 1)),
+                                    np.int32)
         self._slots: List[Optional[PagedSlot]] = [None] * num_slots
         self._free_slots: Deque[int] = deque(range(num_slots))
         self._free_blocks: Deque[int] = deque(range(1, self.num_blocks))
@@ -121,7 +147,10 @@ class BlockManager:
         # two requests, silently cross-writing their KV
         self._free_block_set: Set[int] = set(self._free_blocks)
         self._reserved_total = 0  # blocks promised to admitted requests
-        self.prefix_cache = bool(prefix_cache)
+        # sharing applies to global tables only: a window ring rewrites
+        # positions in place and recurrent state is not content-addressable
+        self.prefix_cache = (bool(prefix_cache) and self.has_global
+                             and self.chunk_prefill_ok)
         if not 0.0 <= max_shared_fraction <= 1.0:
             raise ValueError(f"max_shared_fraction must be in [0, 1], got "
                              f"{max_shared_fraction}")
@@ -156,7 +185,10 @@ class BlockManager:
         """Physical blocks a request with this gen_len can ever touch (its
         KV spans positions [0, plen + gen_len - 1))."""
         kv = max((plen or self.prompt_len) + gen_len - 1, 1)
-        return _ceil_div(kv, self.block_size)
+        n = _ceil_div(kv, self.block_size) if self.has_global else 0
+        if self.has_local:
+            n += _ceil_div(min(self.window, kv), self.block_size)
+        return n
 
     @property
     def usable_blocks(self) -> int:
@@ -229,6 +261,8 @@ class BlockManager:
         s = self._slots[slot]
         assert s is not None
         vblocks = {int(self.table[slot, j]) for j in range(s.alloc_g)}
+        vblocks |= {int(self.table_local[slot, j])
+                    for j in range(s.alloc_l)}
         freed = s.reserved + sum(  # replint: ignore[R001] -- order-insensitive reduction: sum over the set is the same for any iteration order
             1 for b in vblocks if self._ref[b] == 1)
         hashes, shared, _, cow = self._probe(prompt)
@@ -358,12 +392,16 @@ class BlockManager:
         self._free_block_set.add(bid)
         return True
 
-    def _alloc(self, slot: int) -> None:
+    def _alloc(self, slot: int, local: bool = False) -> None:
         s = self._slots[slot]
         bid = self._take_block()
         self._ref[bid] = 1
-        self.table[slot, s.alloc_g] = bid
-        s.alloc_g += 1
+        if local:
+            self.table_local[slot, s.alloc_l] = bid
+            s.alloc_l += 1
+        else:
+            self.table[slot, s.alloc_g] = bid
+            s.alloc_g += 1
         s.reserved -= 1
         self._reserved_total -= 1
         assert s.reserved >= 0, "request outgrew its reservation"
@@ -387,16 +425,22 @@ class BlockManager:
 
     def ensure(self, slot: int, pos: int) -> None:
         """Allocate blocks so `slot` can write KV at logical position
-        `pos`. Writes are strictly sequential from cached_len, so the only
-        write that can land in a shared block is the first one past a
-        partially-cached boundary — the copy-on-write trigger."""
+        `pos` (and its window-ring position). Writes are strictly
+        sequential from cached_len, so the only write that can land in a
+        shared block is the first one past a partially-cached boundary —
+        the copy-on-write trigger."""
         s = self._slots[slot]
         assert s is not None
         bs = self.block_size
-        if s.shared_g * bs > s.cached_len and pos >= s.cached_len:
-            self._cow(slot, s.shared_g - 1)
-        while s.alloc_g < pos // bs + 1:
-            self._alloc(slot)
+        if self.has_global:
+            if s.shared_g * bs > s.cached_len and pos >= s.cached_len:
+                self._cow(slot, s.shared_g - 1)
+            while s.alloc_g < pos // bs + 1:
+                self._alloc(slot)
+        if self.has_local:
+            ring_hi = min(pos, self.window - 1)
+            while s.alloc_l < ring_hi // bs + 1:
+                self._alloc(slot, local=True)
 
     def truncate(self, slot: int, n: int) -> None:
         """Roll `slot`'s committed KV back to its first `n` positions:
@@ -418,7 +462,9 @@ class BlockManager:
                gen_len: int) -> None:
         """Classic admission: bind `rid` to `slot` (taken by admit, or
         claimed here for direct pool use) and scatter the batch-1 prefill
-        cache ({"k","v"} [L,1,Hkv,prompt_len,hd]) into the slot's blocks."""
+        cache into the slot's blocks: global k/v ([L,1,Hkv,prompt_len,hd])
+        through its table, window rings through its ring table, recurrent
+        state into the slot's rows."""
         if self._slots[slot] is None:
             # direct pool use (tests): take this specific slot
             assert self.can_admit(gen_len), "block pool exhausted"
@@ -434,12 +480,16 @@ class BlockManager:
         s.rid = rid
         s.plen = self.prompt_len  # classic prefill scatters the full shape
         self.ensure(slot, self.prompt_len - 1)
-        self.caches = self._insert(
-            self.caches, prefill_caches,
-            torch.as_tensor(self.table[slot], device=self.device))
+        tg, tl = self._tables_of(slot)
+        self.caches = self._insert(self.caches, prefill_caches, tg, slot, tl)
         s.cur_len = self.prompt_len
         s.tokens_done = 1
         s.prefilling = False
+
+    def _tables_of(self, slot: int):
+        dev = self.device
+        return (torch.as_tensor(self.table[slot], device=dev),
+                torch.as_tensor(self.table_local[slot], device=dev))
 
     def finish_prefill(self, slot: int) -> PagedSlot:
         """Chunked prefill consumed the whole prompt: the slot joins the
@@ -482,6 +532,9 @@ class BlockManager:
         dev = self.device
         tables = {"global": torch.as_tensor(
             np.where(live, self.table[safe], 0), device=dev)}
+        if self.has_local:
+            tables["local"] = torch.as_tensor(
+                np.where(live, self.table_local[safe], 0), device=dev)
         nxt, self.caches = self._decode[sample](
             params, self.caches, prev_tok, torch.as_tensor(meta_i, device=dev),
             torch.as_tensor(meta_f, device=dev), tables)
@@ -510,7 +563,10 @@ class BlockManager:
             raise RuntimeError(
                 f"double free: slot {slot} is already free (its block "
                 "table was returned to the pool once)")
-        freeing = [int(self.table[slot, j]) for j in range(s.alloc_g)]
+        freeing_g = [int(self.table[slot, j]) for j in range(s.alloc_g)]
+        freeing_l = [int(self.table_local[slot, j])
+                     for j in range(s.alloc_l)]
+        freeing = freeing_g + freeing_l
         dup = [b for b in freeing
                if b in self._free_block_set or self._ref[b] <= 0]
         if len(set(freeing)) != len(freeing):  # within-table alias
@@ -523,14 +579,18 @@ class BlockManager:
         if zero:
             # only blocks this eviction returns to the free list may be
             # zeroed; shared or cache-retained blocks keep their KV
-            dropping = [b for b in freeing
-                        if self._ref[b] == 1 and b not in self._hash_of]
-            if dropping:
-                self.caches = self._evict(
-                    self.caches, torch.as_tensor(dropping, device=self.device))
+            dropping = {b for b in freeing
+                        if self._ref[b] == 1 and b not in self._hash_of}
+            dev = self.device
+            keep = lambda ids: torch.as_tensor(
+                [b for b in ids if b in dropping], dtype=torch.int64,
+                device=dev)
+            self.caches = self._evict(self.caches, keep(freeing_g), slot,
+                                      keep(freeing_l))
         for b in freeing:
             self._release(b)
         self.table[slot, :] = 0
+        self.table_local[slot, :] = 0
         self._reserved_total -= s.reserved
         self._slots[slot] = None
         self._free_slots.append(slot)
@@ -613,11 +673,14 @@ class BlockManager:
         read as zeros (the null block may hold masked-row junk)."""
         s = self._slots[slot]
         ag = 0 if s is None else s.alloc_g
-        valid = torch.as_tensor(np.arange(self.mb_global) < ag,
-                                device=self.device)
-        return self._read(self.caches,
-                          torch.as_tensor(self.table[slot], device=self.device),
-                          valid)
+        al = 0 if s is None else s.alloc_l
+        dev = self.device
+        valid = torch.as_tensor(np.arange(self.table.shape[1]) < ag,
+                                device=dev)
+        valid_l = torch.as_tensor(np.arange(self.table_local.shape[1]) < al,
+                                  device=dev)
+        tg, tl = self._tables_of(slot)
+        return self._read(self.caches, tg, valid, slot, tl, valid_l)
 
 
 class QuantBlockManager(BlockManager):
@@ -643,11 +706,17 @@ class QuantBlockManager(BlockManager):
     kind = "quant"
     _quant = True
 
-    def __init__(self, *args, **kw):
-        super().__init__(*args, **kw)
+    def __init__(self, cfg: ModelConfig, *args, **kw):
+        kinds = set(cfg.block_pattern) | set(cfg.pattern_tail)
+        if kinds != {"attn"}:
+            raise NotImplementedError(
+                f"--kv quant for {cfg.name} (block kinds {sorted(kinds)}): "
+                "the int8 pool beside window rings and recurrent-state rows "
+                "comes with a later slice of the port")
+        super().__init__(cfg, *args, **kw)
         cfg, base_insert = self.cfg, self._insert
-        self._insert = lambda pool, request, tables: base_insert(
-            pool, Mo.quantize_paged_request(cfg, request), tables)
+        self._insert = lambda pool, request, *tables: base_insert(
+            pool, Mo.quantize_paged_request(cfg, request), *tables)
         # calibrated divergence: relative RMS error of the int8 scheme on a
         # seeded unit-normal sample (a per-write measurement would sync the
         # hot path; tests pin the end-to-end bound)

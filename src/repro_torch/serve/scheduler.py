@@ -118,8 +118,9 @@ class ReplicaEngine:
         if prefill_chunk and not self.pool.chunk_prefill_ok:
             raise ValueError(
                 f"{cfg.name}: chunked prefill is not supported by the "
-                f"'{self.pool.kind}' backend (the slot pool has no per-row "
-                "tables)")
+                f"'{self.pool.kind}' backend for this arch (recurrent "
+                "state is sequential over the prompt; ring writes wrap "
+                "within a chunk; the slot pool has no per-row tables)")
         self.prefill_chunk = int(prefill_chunk)
         self.metrics = ServingMetrics(window_s=metrics_window_s)
         self._prefill = St.make_prefill_step(cfg, self.env)

@@ -12,7 +12,10 @@ paged BlockManager. It cannot stream prompts through decode lane rows
 a chunk onto), so admission is always classic batch-1 prefill + insert.
 Decode reads the contiguous cache through the paged-decode kernel with the
 identity table (one block of prompt_len + max_gen tokens per slot), so a
-slot row and a paged row attend with the same arithmetic.
+slot row and a paged row attend with the same arithmetic. Recurrent archs
+(rwkv) keep their state in the pool's rows, row == slot, written whole by
+insert; sliding-window ('local') archs are refused, as the JAX package's
+slot pool refuses them.
 
 The cache ops work in place on the pool's tensors. Speculative verify rows
 (the row-indirected step) come with the speculative-decoding slice.
@@ -50,6 +53,14 @@ class SlotPool:
     def __init__(self, cfg: ModelConfig, env: Env, *, num_slots: int,
                  prompt_len: int, max_gen: int, device="cuda"):
         Mo.check_supported(cfg)
+        if "local" in cfg.block_pattern + cfg.pattern_tail:
+            # sliding-window blocks keep a ring-aligned cache of size
+            # min(window, seq); growing a prompt-sized ring to the pool's
+            # ring size would scramble the slot = pos % w alignment
+            raise ValueError(
+                f"{cfg.name}: sliding-window ('local') blocks are not "
+                "supported by the slot pool (ring-buffer caches cannot be "
+                "grown after prefill)")
         self.cfg = cfg
         self.env = env
         self.device = torch.device(device)
@@ -141,7 +152,8 @@ class SlotPool:
         if slot in self._free:  # direct pool use (tests): claim this slot
             self._free.remove(slot)
         self.caches = Mo.cache_insert_slot(
-            self.caches, Mo.grow_caches(prefill_caches, self.max_gen), slot)
+            self.caches, Mo.grow_caches(prefill_caches, self.max_gen,
+                                        self.cfg), slot)
         self._slots[slot] = SlotInfo(rid=rid, cur_len=self.prompt_len,
                                      tokens_done=1, gen_len=gen_len)
 

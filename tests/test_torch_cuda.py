@@ -13,7 +13,9 @@ a kernel rounding its probabilities to bf16 reads above 1e-3), the
 top-k/top-p mask exactly (same keep-set, kept logits equal), flash
 attention within 2e-2 on its bf16 output (the JAX package's bound for its
 kernel, tests/test_kernels.py: one bf16 rounding of values of a few units
-is up to 1.6e-2).
+is up to 1.6e-2), the RG-LRU scan bit for bit (the kernel rounds each
+product and sum as the plain version does) and the WKV6 recurrence within
+2e-3 on its f32 outputs (the JAX package's bound, tests/test_kernels.py).
 """
 import numpy as np
 import pytest
@@ -28,6 +30,10 @@ from repro_torch.kernels.paged_decode.ops import (paged_flash_decode,
                                                   quantize_kv)
 from repro_torch.kernels.paged_decode.ref import (paged_decode_quant_ref,
                                                   paged_decode_ref)
+from repro_torch.kernels.rglru.ops import rglru_scan
+from repro_torch.kernels.rglru.ref import rglru_ref_loop
+from repro_torch.kernels.rwkv6.ops import wkv6
+from repro_torch.kernels.rwkv6.ref import wkv6_ref
 from repro_torch.kernels.sampling.ops import MAX_VOCAB, topk_topp_mask
 from repro_torch.kernels.sampling.ref import topk_topp_mask_ref
 from repro_torch.launch.serve import serve_batch
@@ -49,7 +55,7 @@ def cuda():
 
 @pytest.mark.parametrize("B,Hq,Hkv,hd,bs,MB", [
     (2, 4, 2, 32, 16, 4), (3, 8, 8, 64, 8, 3), (1, 4, 1, 128, 32, 2),
-    (9, 12, 4, 64, 16, 6)])
+    (9, 12, 4, 64, 16, 6), (5, 16, 1, 256, 16, 9), (3, 32, 2, 256, 8, 4)])
 def test_paged_decode_kernel_matches_plain(B, Hq, Hkv, hd, bs, MB, cuda):
     rng = np.random.default_rng(B + hd)
     NB = 1 + B * MB + 3
@@ -72,11 +78,12 @@ def test_paged_decode_kernel_matches_plain(B, Hq, Hkv, hd, bs, MB, cuda):
 
 @pytest.mark.parametrize("B,Hq,Hkv,hd,bs,MB", [
     (2, 4, 2, 32, 16, 4), (3, 8, 8, 64, 8, 3), (1, 4, 1, 128, 32, 2),
-    (9, 12, 4, 64, 16, 6)])
+    (9, 12, 4, 64, 16, 6), (4, 16, 1, 256, 16, 5)])
 def test_quant_paged_decode_kernel_matches_plain(B, Hq, Hkv, hd, bs, MB,
                                                  cuda):
-    """The sweep shapes put 2, 4 and 8 threads on a token row (hd 32, 64,
-    128 at 16 int8 values a load); rows 0-2 are the masks: fully masked,
+    """The sweep shapes put 2, 4, 8 and 16 threads on a token row (hd 32,
+    64, 128, 256 at 16 int8 values a load; hd 256 with a GQA group of 16,
+    run in the split form); rows 0-2 are the masks: fully masked,
     depth 0, the whole table."""
     rng = np.random.default_rng(B + hd + 1)
     NB = 1 + B * MB + 3
@@ -98,6 +105,41 @@ def test_quant_paged_decode_kernel_matches_plain(B, Hq, Hkv, hd, bs, MB,
     want = paged_decode_quant_ref(q, kq, vq, ks, vs, tables, lengths)
     assert float((got - want).abs().max()) < 1e-5
     assert float(got[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_split_paged_decode_over_long_rings_matches_plain(quant, cuda):
+    """The split form (GQA 16, hd 256) over recurrentgemma-9b's window
+    rings: full rings (2047), lengths at and around the 64-token chunk
+    edges, depth 0 and a masked row, so rows end in every part of a
+    chunk and use from one to all 32 chunks."""
+    rng = np.random.default_rng(31 + quant)
+    Hq, Hkv, hd, bs, MB = 16, 1, 256, 16, 128
+    lens = [2047, 1500, 64, 63, 65, 127, 128, 0, -1]
+    B, NB = len(lens), 1 + 3 * MB
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(cuda)
+    q = mk(B, Hq, hd).to(torch.bfloat16)
+    ids = rng.permutation(np.arange(1, NB))
+    tables = torch.from_numpy(np.stack([ids[(i % 3) * MB:(i % 3 + 1) * MB]
+                                        for i in range(B)]).astype(
+        np.int32)).to(cuda)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    if quant:
+        kq, ks = quantize_kv(mk(NB, Hkv, bs, hd))
+        vq, vs = quantize_kv(mk(NB, Hkv, bs, hd))
+        args = (q, kq, vq, ks, vs, tables, lengths)
+        op, ref = paged_flash_decode_quant, paged_decode_quant_ref
+    else:
+        args = (q, mk(NB, Hkv, bs, hd).to(torch.bfloat16),
+                mk(NB, Hkv, bs, hd).to(torch.bfloat16), tables, lengths)
+        op, ref = paged_flash_decode, paged_decode_ref
+    before = op.launches
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert op.launches == before + 1
+    assert float((got - ref(*args)).abs().max()) < 1e-5
+    assert float(got[-1].abs().max()) == 0.0
 
 
 @pytest.mark.parametrize("T,V", [(4, 128), (3, 200), (72, 32000),
@@ -170,6 +212,9 @@ FLASH_SHAPES = [
     dict(B=1, S=256, Hq=12, Hkv=4, hd=64, causal=False, window=0),
     dict(B=1, S=256, Hq=12, Hkv=1, hd=64, causal=True, window=0),
     dict(B=2, S=130, Hq=4, Hkv=2, hd=16, causal=True, window=0),
+    # recurrentgemma-9b's local attention: MQA 16:1 at hd 256, window
+    dict(B=1, S=300, Hq=16, Hkv=1, hd=256, causal=True, window=256),
+    dict(B=2, S=200, Hq=16, Hkv=1, hd=256, causal=True, window=0),
 ]
 
 
@@ -223,3 +268,82 @@ def test_classic_engine_on_the_card_matches_the_full_prefill_baseline(cuda):
                        streamed_prefill=False, device=cuda)
     assert all(out[i] == list(base[i]) for i in range(6))
     assert run(kv="slot") == out
+
+
+@pytest.mark.parametrize("B,S,W,with_h0", [
+    (1, 2304, 512, False), (2, 200, 4096, True), (3, 1, 96, True),
+    (2, 37, 130, False)])
+def test_rglru_scan_kernel_matches_plain(B, S, W, with_h0, cuda):
+    """Ragged S and W, a one-step scan, a carried h0: bit-equal to the
+    plain version (same product, same sum, each rounded once)."""
+    rng = np.random.default_rng(S + W)
+    a = torch.from_numpy(rng.uniform(0.05, 0.999, (B, S, W)).astype(
+        np.float32)).to(cuda)
+    b = torch.from_numpy(rng.standard_normal((B, S, W)).astype(
+        np.float32)).to(cuda)
+    h0 = (torch.from_numpy(rng.standard_normal((B, W)).astype(np.float32))
+          .to(cuda) if with_h0 else None)
+    before = rglru_scan.launches
+    got = rglru_scan(a, b, h0)
+    torch.cuda.synchronize()
+    assert rglru_scan.launches == before + 1
+    assert torch.equal(got, rglru_ref_loop(a, b, h0))
+
+
+@pytest.mark.parametrize("B,S,H,hd", [
+    (1, 256, 32, 64), (3, 100, 4, 64), (2, 70, 3, 16), (1, 33, 2, 32)])
+def test_wkv6_kernel_matches_plain(B, S, H, hd, cuda):
+    """rwkv6-1.6b's heads, ragged S, narrow heads: output and final state
+    within 2e-3 of the plain version."""
+    rng = np.random.default_rng(S + hd)
+    mk = lambda: torch.from_numpy((rng.standard_normal(
+        (B, S, H, hd)) * 0.5).astype(np.float32)).to(cuda)
+    r, k, v = (mk().to(torch.bfloat16) for _ in range(3))
+    logw = -torch.exp(mk() - 1.0)
+    u = torch.from_numpy((rng.standard_normal((H, hd)) * 0.3).astype(
+        np.float32)).to(cuda)
+    before = wkv6.launches
+    o, s_fin = wkv6(r, k, v, logw, u)
+    torch.cuda.synchronize()
+    assert wkv6.launches == before + 1
+    o_ref, s_ref = wkv6_ref(*(t.transpose(1, 2) for t in (r, k, v, logw)),
+                            u)
+    assert o.shape == (B, S, H, hd) and s_fin.shape == (B, H, hd, hd)
+    assert float((o - o_ref.transpose(1, 2)).abs().max()) < 2e-3
+    assert float((s_fin - s_ref).abs().max()) < 2e-3
+
+
+def test_recurrent_kernels_refuse_what_they_do_not_take(cuda):
+    a = torch.zeros((1, 4, 8), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="f32"):
+        rglru_scan(a, a)
+    r = torch.zeros((1, 4, 2, 48), dtype=torch.bfloat16, device=cuda)
+    lw = torch.zeros((1, 4, 2, 48), device=cuda)
+    with pytest.raises(ValueError, match="unsupported"):
+        wkv6(r, r, r, lw, torch.zeros((2, 48), device=cuda))
+    with pytest.raises(ValueError, match="bf16"):
+        wkv6(lw, lw, lw, lw, torch.zeros((2, 48), device=cuda))
+
+
+@pytest.mark.parametrize("arch,P", [("recurrentgemma-9b", 160),
+                                    ("recurrentgemma-9b", 24),
+                                    ("rwkv6-1.6b", 40)])
+def test_recurrent_engines_on_the_card_match_the_full_prefill_baseline(
+        arch, P, cuda):
+    """Smoke configs on the card, classic admission (the only way in for
+    these archs): every token equals the full-prefill one-shot batch's,
+    and the prefills went through the recurrence kernels."""
+    cfg = get_smoke(arch)
+    params = Mo.init_params(cfg, Env(), seed=0, device=cuda)
+    mk = lambda: poisson_trace(5, 16.0, prompt_len=P,
+                               vocab_size=cfg.vocab_size, gen_len=8, seed=1)
+    kinds = cfg.block_pattern * cfg.num_blocks + cfg.pattern_tail
+    before = (rglru_scan.launches, wkv6.launches)
+    out = run_to_completion(make_serving_engine(
+        cfg, params, num_slots=2, prompt_len=P, max_gen=8,
+        clock=ManualClock(), device=cuda), mk(), dt=0.05)
+    assert (rglru_scan.launches - before[0], wkv6.launches - before[1]) == (
+        5 * kinds.count("rglru"), 5 * kinds.count("rwkv"))
+    base = serve_batch(cfg, params, np.stack([r.prompt for r in mk()]), 8,
+                       streamed_prefill=False, device=cuda)
+    assert all(out[i] == list(base[i]) for i in range(5))

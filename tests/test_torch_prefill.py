@@ -110,7 +110,7 @@ def test_prefill_step_takes_the_last_real_position_and_grows_caches():
     last, caches = St.make_prefill_step(CFG, Env())(
         PARAMS, {"tokens": torch.from_numpy(tok)})
     assert torch.equal(last, full[:, S - 1])
-    grown = Mo.grow_caches(caches, extra)
+    grown = Mo.grow_caches(caches, extra, CFG)
     jc = {"blocks": ({n: jnp.asarray(_f32(caches["blocks"][0][n])).astype(
         jnp.bfloat16) for n in ("k", "v")},), "tail": ()}
     jg = JMo.grow_caches(jc, extra, JCFG)
@@ -134,7 +134,7 @@ def test_slot_cache_ops_match_jax():
         x.shape).astype(np.float32)).astype(x.dtype), jpool)
     tok = _tokens(1, S, seed=4)
     _, req = _port_prefill(tok)
-    req = Mo.grow_caches(req, Smax - S)
+    req = Mo.grow_caches(req, Smax - S, CFG)
     jreq = {"blocks": ({n: jnp.asarray(_f32(req["blocks"][0][n])).astype(
         jnp.bfloat16) for n in ("k", "v")},), "tail": ()}
     pool = bridge.to_torch(jax.tree.map(np.asarray, jpool), "cpu")
