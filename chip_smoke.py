@@ -58,7 +58,19 @@ Phases, any failure exits non-zero before the result line:
      (rglru, rglru, local) unit plus the tail of recurrentgemma-9b (5
      layers) at prompt 160 (the flash branch), 2 layers of rwkv6-1.6b at
      prompt 128, each within twice the CPU path's own spread under
-     f64-accumulated GEMMs (phase 2's method).
+     f64-accumulated GEMMs (phase 2's method);
+ 15. the flash-decoding path (kernel #5) at full width: flash_decode and
+     flash_decode_seq_sharded (over a one-rank NCCL group from a file
+     store) at paper-demo-110m's attention over a 32768-token contiguous
+     cache (B=8, Hq 12, Hkv 4, hd 64) and recurrentgemma-9b's local layer
+     over its window (B=4, Hq 16, Hkv 1, hd 256, S=2048), bf16 and f32,
+     counts read after; the partials against the plain version at
+     cur_len -1, 0, ragged and S-1, eight slices merged against the whole
+     cache, times beside SDPA; the mask kernel on rows of 57857, 65536 and
+     256000 logits (split over a cluster of blocks) against the plain
+     version;
+     a seeded top-k/top-p serve of rwkv6-1.6b (vocab 65536) at full
+     width and depth, bit-identical at 8 and 4 slots.
 Phase 2 also holds the quant kernel to its plain version and to the bf16
 kernel on the same pool (relative RMS), the flash-attention kernel to its
 plain version at six shapes, and one full-width 256-token prefill on the
@@ -132,6 +144,23 @@ FLASH256_SHAPES = [(1, 2304, 16, 1, 256, True, 2048),
 # 2^-8..2^-7 of it, ~4e-4 of a row's norm per flip). A kernel that drops
 # or repeats one key of 2048 moves a row by ~1/sqrt(2048) ~ 2e-2.
 FLASH_ROW_TOL = 5e-3
+# flash-decoding (phase 15): the kernel's partials (o, m, l) against its
+# plain version, both in f32 from the same inputs (bf16 or f32), so they
+# differ by summation order only, as paged decode's (PAGED_TOL): o and m
+# absolute, l relative (a sum of up to S terms near 1). An all-masked
+# slice must read m = -1e30, l = 0, o = 0 exactly.
+FD_TOL = 1e-5
+# eight slices merged against the whole cache: the JAX package's bound
+# for 8 shards (tests/test_multidevice.py)
+FD_MERGE_TOL = 1e-3
+# (name, B, Hq, Hkv, hd, S): paper-demo-110m's attention over a 32k
+# contiguous cache (268 MB of bf16 K/V), recurrentgemma-9b's local layer
+# over its 2048-token window
+FD_SHAPES = [("paper-demo-110m", 8, 12, 4, 64, 32768),
+             ("recurrentgemma-9b local", 4, 16, 1, 256, 2048)]
+# the mask's rows past shared memory: one past MAX_VOCAB, rwkv6-1.6b's
+# and recurrentgemma-9b's vocabularies; 8 rows, the sampled step of 8 slots
+MASK_WIDE = (57857, 65536, 256000)
 
 
 def fail(msg):
@@ -873,6 +902,218 @@ def serve_recurrent(arch, extra, counted):
     return (got[rglru_scan] or got[wkv6]), n_dec, got[flash_attention]
 
 
+def fd_bound_ms(B, Hq, Hkv, hd, n_tok, itemsize):
+    """Least time for one call: the K/V rows up to cur_len and q read once,
+    o (f32) and m, l written once, at the card's memory rate; against 4 hd
+    operations (two products, a multiply and an add each) per (query head,
+    valid key), at the rate of the inputs' type."""
+    nbytes = (2 * B * Hkv * n_tok * hd * itemsize + B * Hq * hd * itemsize
+              + B * Hq * (hd + 2) * 4)
+    flops = 4 * hd * n_tok * Hq * B
+    rate = BF16_FLOPS if itemsize == 2 else F32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_flash_decode(dev):
+    """Phase 15: the flash-decoding path at full width. The entry points a
+    caller uses (flash_decode on one card, flash_decode_seq_sharded over a
+    one-rank NCCL group) driven once per shape and dtype with the launch
+    count zeroed before and read after; then kernel #5 against its plain
+    version at cur_len -1, 0, a ragged value and S-1, eight slices merged
+    against the whole cache, the sharded op against the unsharded one, and
+    the times at cur_len = S-1."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.flash_decode.ops import (
+        flash_decode, flash_decode_partials, flash_decode_seq_sharded,
+        merge_partials_stacked)
+    from repro_torch.kernels.flash_decode.ref import (
+        flash_decode_partials_ref)
+
+    store = tempfile.mkdtemp()
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            rank=0, world_size=1)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    cases = []
+    for name, B, Hq, Hkv, hd, S in FD_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(dtype)
+            q, k, v = mk(B, Hq, hd), mk(B, Hkv, S, hd), mk(B, Hkv, S, hd)
+            cases.append((name, dtype, q, k, v, S * 5 // 8 + 3))
+    try:
+        # the path: each entry point once per case, counts zeroed before
+        flash_decode_partials.launches = 0
+        for name, dtype, q, k, v, ragged in cases:
+            cur = torch.tensor([ragged], dtype=torch.int32, device=dev)
+            whole = flash_decode(q, k, v, cur)
+            sharded = flash_decode_seq_sharded(q, k, v, cur)
+            torch.cuda.synchronize()
+            # one rank merges o * l / l: one f32 rounding, at most one
+            # rounding step of q's dtype after the cast
+            eps = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -22
+            if not bool(((sharded.float() - whole.float()).abs()
+                         <= eps * whole.float().abs() + 1e-30).all()):
+                fail(f"flash_decode_seq_sharded over one NCCL rank differs "
+                     f"from flash_decode ({name}, {dtype})")
+        launches = flash_decode_partials.launches
+        if launches != 2 * len(cases):
+            fail(f"the flash-decoding path launched kernel #5 {launches} "
+                 f"times, expected {2 * len(cases)}")
+        print(f"flash-decoding entry points (flash_decode, and "
+              f"flash_decode_seq_sharded over a one-rank NCCL group, equal "
+              f"to it within one rounding of q's dtype) at "
+              f"{[c[0] for c in FD_SHAPES]} x (bf16, f32): kernel #5 "
+              f"launched {launches} times")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+    worst, rows = 0.0, []
+    for name, dtype, q, k, v, ragged in cases:
+        B, Hq, hd = q.shape
+        Hkv, S = k.shape[1], k.shape[2]
+        tag = f"{name} B={B} Hq={Hq} Hkv={Hkv} hd={hd} S={S} {dtype}"
+        for c in (-1, 0, ragged, S - 1):
+            cur = torch.tensor([c], dtype=torch.int32, device=dev)
+            o, m, l = flash_decode_partials(q, k, v, cur)
+            torch.cuda.synchronize()
+            if c < 0:
+                if (o.any() or l.any()
+                        or not bool((m == -1e30).all())):
+                    fail(f"flash decode, all-masked slice ({tag}): not m = "
+                         "-1e30, l = 0, o = 0")
+                continue
+            ro, rm, rl = flash_decode_partials_ref(q, k, v, cur)
+            errs = (float((o - ro).abs().max()), float((m - rm).abs().max()),
+                    float(((l - rl).abs() / rl).max()))
+            if not all(math.isfinite(e) and e <= FD_TOL for e in errs):
+                fail(f"flash decode kernel vs plain ({tag}, cur_len {c}): "
+                     f"o {errs[0]}, m {errs[1]}, l relative {errs[2]}")
+            worst = max(worst, errs[0])
+        n = 8
+        s = S // n
+        merged = {}
+        for c in (ragged, S - 1):
+            parts = [flash_decode_partials(
+                q, k[:, :, i * s:(i + 1) * s].contiguous(),
+                v[:, :, i * s:(i + 1) * s].contiguous(),
+                min(max(c - i * s, -1), s - 1)) for i in range(n)]
+            got = merge_partials_stacked(*(torch.stack(x) for x in
+                                           zip(*parts)))
+            merged[c] = float((got - flash_decode_partials(
+                q, k, v, c)[0]).abs().max())
+            if not math.isfinite(merged[c]) or merged[c] > FD_MERGE_TOL:
+                fail(f"flash decode, 8 slices merged vs the whole cache "
+                     f"({tag}, cur_len {c}): {merged[c]}")
+        print(f"flash decode {tag}: kernel vs plain (o, m, l relative) "
+              f"within {FD_TOL} at cur_len -1 (exact), 0, {ragged}, {S - 1}; "
+              f"8 slices merged vs the whole: {merged} (tolerance "
+              f"{FD_MERGE_TOL})")
+        # times at cur_len = S - 1, the cache full
+        cur = torch.tensor([S - 1], dtype=torch.int32, device=dev)
+        qs = q[:, :, None, :]
+        bound, by = fd_bound_ms(B, Hq, Hkv, hd, S, q.element_size())
+        row = {"shape": tag, "cur_len": S - 1,
+               "ms": device_ms(lambda: flash_decode_partials(q, k, v, cur)),
+               "plain_ms": device_ms(lambda: flash_decode_partials_ref(
+                   q, k, v, cur), calls=5, replays=5),
+               "library_ms": device_ms(
+                   lambda: torch.nn.functional.scaled_dot_product_attention(
+                       qs, k, v, enable_gqa=True)),
+               "bound_ms": bound, "bound_by": by}
+        print(f"  {row['ms'] * 1e3} us kernel, {row['plain_ms'] * 1e3} us "
+              f"plain, {row['library_ms'] * 1e3} us SDPA, bound "
+              f"{bound * 1e3} us ({by}), {bound / row['ms']:.4f} of the "
+              f"bound")
+        rows.append(row)
+    return launches, worst, rows
+
+
+def check_wide_mask(dev):
+    """Phase 15: the mask kernel on rows wider than one block's shared
+    memory (split over a cluster of blocks) against the plain version,
+    and its times."""
+    import torch
+    from repro_torch.kernels.sampling.ops import topk_topp_mask
+    from repro_torch.kernels.sampling.ref import topk_topp_mask_ref
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    rows = []
+    for V in MASK_WIDE:
+        T = 8
+        logits = torch.randn((T, V), generator=gen, device=dev) * 3.0
+        logits[2, :8] = logits[2].max() + 1.0  # 8 tied values, top_k 5
+        ks = torch.tensor([0, 50, 5, 1, V, 0, 40, 50], dtype=torch.int32,
+                          device=dev)
+        ps = torch.tensor([0.9, 1.0, 0.95, 0.5, 0.999, 1e-3, 0.25, 0.9],
+                          device=dev)
+        got = topk_topp_mask(logits, ks, ps)
+        torch.cuda.synchronize()
+        if not bool(torch.equal(got, topk_topp_mask_ref(logits, ks, ps))):
+            fail(f"top-k/top-p mask at V={V}: differs from the plain version")
+        bound, by = mask_bound_ms(T, V)
+        row = {"T": T, "V": V,
+               "ms": device_ms(lambda: topk_topp_mask(logits, ks, ps),
+                               calls=5, replays=5),
+               "plain_ms": device_ms(lambda: topk_topp_mask_ref(
+                   logits, ks, ps), calls=5, replays=5),
+               "library_ms": device_ms(lambda: torch.sort(
+                   logits, dim=-1, descending=True), calls=5, replays=5),
+               "bound_ms": bound, "bound_by": by}
+        print(f"top-k/top-p mask T={T} V={V} (rows split over a cluster "
+              f"of blocks): equal to the plain version; "
+              f"{row['ms'] * 1e3} us kernel, "
+              f"{row['plain_ms'] * 1e3} us plain, {row['library_ms'] * 1e3}"
+              f" us torch.sort, bound {bound * 1e3} us ({by})")
+        rows.append(row)
+    return rows
+
+
+def serve_seeded_rwkv():
+    """Phase 15: a seeded top-k/top-p serve of rwkv6-1.6b (vocab 65536, so
+    every sampled row takes the mask's wide-row path) at full width
+    and depth on phase 13's trace, counts zeroed before and read after the
+    run; seeded tokens bit-identical at another slot count (phase 4's
+    rule). Returns the mask's launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.sampling.ops import topk_topp_mask
+    from repro_torch.kernels.rwkv6.ops import wkv6
+    from repro_torch.launch.serve import parse_args, serve, verify
+    from repro_torch.models import model as Mo
+    from repro_torch.models.env import Env
+
+    cfg = get_config("rwkv6-1.6b")
+    params = Mo.init_params(cfg, Env(), seed=0, device="cuda")
+    args = parse_args(["--arch", "rwkv6-1.6b", "--requests", "16",
+                       "--prompt-len", "256", "--slots", "8", "--gen", "32",
+                       "--rate", "16", "--block-size", "16", "--device",
+                       "cuda", "--temperature", "0.8", "--top-k", "50",
+                       "--top-p", "0.9", "--sample-seed", "7"])
+    topk_topp_mask.launches = wkv6.launches = 0
+    run = serve(args, cfg, params)
+    n_mask, n_wkv = topk_topp_mask.launches, wkv6.launches
+    if n_mask <= 0 or n_wkv != args.requests * cfg.n_layers:
+        fail(f"seeded rwkv6 serve: mask launched {n_mask} times, wkv6 "
+             f"{n_wkv}")
+    check_tokens(run, cfg)
+    ok, line = verify(args, cfg, params, run)
+    if not ok:
+        fail(f"seeded rwkv6 serve: {line}")
+    print(f"{cfg.name} seeded serve (vocab {cfg.vocab_size}, temperature "
+          f"0.8, top-k 50, top-p 0.9): {run['tokens']} tokens, "
+          f"{run['wall_s']:.3f}s wall, "
+          f"{run['tokens'] / run['wall_s']:.1f} tokens/s wall, mask "
+          f"launches {n_mask}, wkv6 launches {n_wkv}; {line}")
+    del params, run
+    torch.cuda.empty_cache()
+    return n_mask
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -1188,6 +1429,12 @@ def main():
         del cparams
         torch.cuda.empty_cache()
 
+    # 15. the flash-decoding path (kernel #5) at full width; the mask's
+    # rows past shared memory and a seeded serve of a 65536-token vocab
+    fd_launches, fd_err, fd_rows = check_flash_decode(dev)
+    wide = check_wide_mask(dev)
+    n_mask_wide = serve_seeded_rwkv()
+
     report[0]["ring"] = {k: rec["ring"][k] for k in ("ms", "plain_ms",
                                                      "bound_ms", "bound_by",
                                                      "library_ms")}
@@ -1204,7 +1451,16 @@ def main():
          "source": "src/repro_torch/csrc/wkv6.cu",
          "replaces": "src/repro/kernels/rwkv6/kernel.py:67",
          "launches": n_wkv, "max_abs_err": rec["wkv_err"], **rec["wkv6"]},
+        {"name": "flash_decode", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_decode.cu",
+         "replaces": "src/repro/kernels/flash_decode/kernel.py:67",
+         "launches": fd_launches, "max_abs_err": fd_err,
+         **{k: fd_rows[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")},
+         "shapes": fd_rows},
     ]
+    report[1]["wide"] = wide
+    report[1]["wide_launches"] = n_mask_wide
 
     print(json.dumps({"kernels": report}))
     print(card())

@@ -41,6 +41,7 @@ _SIGNATURES = {
     "flash_attention_bf16": ([_P] * 4 + [_I] * 8 + [_P], _I),
     "rglru_scan_f32": ([_P] * 4 + [_I] * 3 + [_P], _I),
     "wkv6_bf16": ([_P] * 7 + [_I] * 4 + [_P], _I),
+    "flash_decode_partials": ([_P] * 8 + [_I] * 8 + [_P], _I),
     "kernel_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -1,6 +1,10 @@
 """Public fused top-k/top-p mask op: the CUDA kernel on the GPU, the
 sort-based plain version on the CPU — the same keep-set either way, so
-seeded sampling means the same thing on both devices."""
+seeded sampling means the same thing on both devices. Rows of any width:
+up to MAX_VOCAB logits the kernel stages a row in one block's shared
+memory, up to CLUSTER * MAX_VOCAB it splits the row over a cluster of
+CLUSTER blocks' shared memory, past that one block reads the row from
+global memory on each pass (csrc/topk_topp_mask.cu picks by V)."""
 from __future__ import annotations
 
 import torch
@@ -8,8 +12,10 @@ import torch
 from repro_torch.kernels import check_launch, check_tensors, library
 from repro_torch.kernels.sampling.ref import topk_topp_mask_ref
 
-# widest row the kernel holds in shared memory (csrc kMaxRowBytes / 4)
+# widest row one block stages in shared memory (csrc kMaxRowBytes / 4),
+# and the blocks of a cluster a wider row is split over (csrc kCluster)
 MAX_VOCAB = (227 * 1024 - 1024) // 4
+CLUSTER = 8
 
 
 def topk_topp_mask(logits, top_k, top_p):
@@ -30,9 +36,6 @@ def topk_topp_mask(logits, top_k, top_p):
         raise ValueError(f"{name}: logits {tuple(logits.shape)}, top_k "
                          f"{tuple(top_k.shape)}, top_p {tuple(top_p.shape)}")
     T, V = logits.shape
-    if V > MAX_VOCAB:
-        raise ValueError(f"{name}: a row of {V} logits does not fit in "
-                         f"shared memory (at most {MAX_VOCAB})")
     out = torch.empty_like(logits)
     if T == 0 or V == 0:
         return out

@@ -10,7 +10,9 @@ Each kernel is held to its plain version on the same inputs: paged decode
 over the bf16 and the int8 pool within 1e-5 (both sides compute in f32
 from the same bf16 or int8-and-scale inputs; sound runs read below 1e-6,
 a kernel rounding its probabilities to bf16 reads above 1e-3), the
-top-k/top-p mask exactly (same keep-set, kept logits equal), flash
+top-k/top-p mask exactly (same keep-set, kept logits equal; rows wider
+than shared memory too), flash-decoding's partials within 1e-5 in f32 and
+bf16 (l relative: a sum of up to S terms), flash
 attention within 2e-2 on its bf16 output (the JAX package's bound for its
 kernel, tests/test_kernels.py: one bf16 rounding of values of a few units
 is up to 1.6e-2), the RG-LRU scan bit for bit (the kernel rounds each
@@ -25,6 +27,10 @@ from repro_torch.configs import get_smoke
 from repro_torch.core.clock import ManualClock
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_decode.ops import (flash_decode,
+                                                  flash_decode_partials,
+                                                  merge_partials_stacked)
+from repro_torch.kernels.flash_decode.ref import flash_decode_partials_ref
 from repro_torch.kernels.paged_decode.ops import (paged_flash_decode,
                                                   paged_flash_decode_quant,
                                                   quantize_kv)
@@ -34,7 +40,8 @@ from repro_torch.kernels.rglru.ops import rglru_scan
 from repro_torch.kernels.rglru.ref import rglru_ref_loop
 from repro_torch.kernels.rwkv6.ops import wkv6
 from repro_torch.kernels.rwkv6.ref import wkv6_ref
-from repro_torch.kernels.sampling.ops import MAX_VOCAB, topk_topp_mask
+from repro_torch.kernels.sampling.ops import (CLUSTER, MAX_VOCAB,
+                                              topk_topp_mask)
 from repro_torch.kernels.sampling.ref import topk_topp_mask_ref
 from repro_torch.launch.serve import serve_batch
 from repro_torch.models import model as Mo
@@ -157,11 +164,25 @@ def test_mask_kernel_matches_plain(T, V, cuda):
     assert torch.equal(got, topk_topp_mask_ref(logits, top_k, top_p))
 
 
-def test_mask_kernel_refuses_rows_wider_than_shared_memory(cuda):
-    logits = torch.zeros((1, MAX_VOCAB + 1), device=cuda)
-    k = torch.zeros((1,), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        topk_topp_mask(logits, k, torch.ones((1,), device=cuda))
+@pytest.mark.parametrize("V", [MAX_VOCAB + 1, 65536, 256000,
+                               CLUSTER * MAX_VOCAB + 1])
+def test_mask_kernel_takes_rows_wider_than_shared_memory(V, cuda):
+    """Rows past MAX_VOCAB (rwkv6-1.6b's 65536, recurrentgemma-9b's 256000
+    logits) split over a cluster of blocks; past CLUSTER * MAX_VOCAB one
+    block reads the row from global memory. The same keep-mask as the
+    plain version, with tied values and a nucleus near 1."""
+    gen = torch.Generator(device=cuda).manual_seed(V)
+    T = 6
+    logits = torch.randn((T, V), generator=gen, device=cuda) * 3.0
+    logits[2, :8] = logits[2].max() + 1.0  # 8 tied values, top_k 5
+    top_k = torch.tensor([0, 50, 5, 1, V, 0], dtype=torch.int32,
+                         device=cuda)
+    top_p = torch.tensor([0.9, 1.0, 0.95, 0.5, 0.999, 1e-3], device=cuda)
+    before = topk_topp_mask.launches
+    got = topk_topp_mask(logits, top_k, top_p)
+    torch.cuda.synchronize()
+    assert topk_topp_mask.launches == before + 1
+    assert torch.equal(got, topk_topp_mask_ref(logits, top_k, top_p))
 
 
 def test_engine_on_the_card_is_exact_and_lane_invariant(cuda):
@@ -347,3 +368,65 @@ def test_recurrent_engines_on_the_card_match_the_full_prefill_baseline(
     base = serve_batch(cfg, params, np.stack([r.prompt for r in mk()]), 8,
                        streamed_prefill=False, device=cuda)
     assert all(out[i] == list(base[i]) for i in range(5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,Hq,Hkv,S,hd,curs", [
+    (2, 8, 2, 512, 64, (-1, 0, 17, 255, 511)),
+    (8, 12, 4, 4096, 64, (0, 1000, 4095, 9999)),
+    (4, 16, 1, 2048, 256, (-1, 63, 2047)),
+    (3, 4, 4, 700, 32, (0, 650, 699))])
+def test_flash_decode_kernel_matches_plain(B, Hq, Hkv, S, hd, curs, dtype,
+                                           cuda):
+    """The partials (o, m, l) against the plain version: o and m within
+    1e-5, l within 1e-5 of itself (a sum of up to S terms; both sides
+    compute in f32 from the same inputs, in another order); an
+    all-masked slice exactly (m = -1e30, l = 0, o = 0). cur_len as a
+    device tensor and past S. Eight slices merged equal the whole."""
+    rng = np.random.default_rng(S + hd)
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(cuda).to(dtype)
+    q, k, v = mk(B, Hq, hd), mk(B, Hkv, S, hd), mk(B, Hkv, S, hd)
+    for cur in curs:
+        cur_t = torch.tensor([cur], dtype=torch.int32, device=cuda)
+        before = flash_decode_partials.launches
+        o, m, l = flash_decode_partials(q, k, v, cur_t)
+        torch.cuda.synchronize()
+        assert flash_decode_partials.launches == before + 1
+        ro, rm, rl = flash_decode_partials_ref(q, k, v, cur_t)
+        if cur < 0:
+            assert not bool(o.any()) and not bool(l.any())
+            assert bool((m == np.float32(-1e30)).all())
+            continue
+        assert float((o - ro).abs().max()) < 1e-5
+        assert float((m - rm).abs().max()) < 1e-5
+        assert float(((l - rl).abs() / rl).max()) < 1e-5
+        assert flash_decode(q, k, v, cur).dtype == dtype
+    n = 8
+    if S % n == 0:
+        cur = curs[-1]
+        s = S // n
+        parts = [flash_decode_partials(
+            q, k[:, :, i * s:(i + 1) * s].contiguous(),
+            v[:, :, i * s:(i + 1) * s].contiguous(),
+            min(max(cur - i * s, -1), s - 1)) for i in range(n)]
+        merged = merge_partials_stacked(*(torch.stack(x) for x in
+                                          zip(*parts)))
+        whole = flash_decode_partials(q, k, v, cur)[0]
+        assert float((merged - whole).abs().max()) < 1e-3
+
+
+def test_flash_decode_refuses_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros((1, 4, 64), dtype=torch.bfloat16, device=cuda)
+    kv = torch.zeros((1, 2, 32, 64), device=cuda)
+    with pytest.raises(ValueError, match="all f32 or all bf16"):
+        flash_decode_partials(q, kv, kv, 3)
+    q12 = torch.zeros((1, 4, 12), device=cuda)
+    kv12 = torch.zeros((1, 2, 32, 12), device=cuda)
+    with pytest.raises(ValueError, match="unsupported"):
+        flash_decode_partials(q12, kv12, kv12, 3)
+    with pytest.raises(ValueError, match="one scalar"):
+        flash_decode_partials(q.float(), kv, kv,
+                              torch.zeros((2,), dtype=torch.int32,
+                                          device=cuda))

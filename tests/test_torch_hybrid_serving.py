@@ -13,6 +13,7 @@ sizes and frees ring tables and state rows, `--kv quant` raises, and the
 CLI serves and verifies both archs.
 """
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -20,6 +21,7 @@ import torch
 from repro.configs import get_smoke
 from repro.configs.base import ParallelPlan
 from repro.core.clock import ManualClock as JaxClock
+from repro.launch import steps as JSt
 from repro.models import model as JMo
 from repro.models.env import Env as JEnv
 from repro.serve import ServingEngine as JaxEngine
@@ -85,21 +87,80 @@ def _engine(arch, prompt_len, gen, **kw):
 PARITY = [(RG, 24, 6, 3, 4), (RG, 8, 10, 3, 4), (RW, 16, 8, 4, 0)]
 
 
+def _record_jax_logits(jeng, cfg):
+    """Wrap the JAX engine's greedy paged step so that every decode step
+    also records, per (request id, token index), the logits row it took
+    the argmax of: a jitted copy of the step that returns the logits runs
+    on the same arguments first (the step donates its caches)."""
+    pool = jeng.replica.pool
+    step = pool._decode[False]
+    env = JEnv(mesh=None, plan=PALLAS)
+    logits_of = jax.jit(lambda p, c, prev, mi, mf, tb: JMo.forward(
+        p, JSt._select_tokens(prev, mi)[:, None], cfg, env, mode="decode",
+        caches=c, cur_len=mi[JSt.ROW_CUR_LEN], block_tables=tb)[0][
+            :, 0, :cfg.vocab_size].astype(jnp.float32))
+    seen = {}
+
+    def logged(p, c, prev, mi, mf, tb):
+        lg = np.asarray(logits_of(p, c, prev, mi, mf, tb))
+        nxt, new = step(p, c, prev, mi, mf, tb)
+        for row, s in enumerate(pool._slots):
+            if s is not None and not s.prefilling:
+                assert int(lg[row].argmax()) == int(nxt[row])
+                seen[(s.rid, s.tokens_done)] = lg[row]
+        return nxt, new
+
+    pool._decode[False] = logged
+    return seen
+
+
+def _bf16_ulp(x):
+    return 2.0 ** (np.floor(np.log2(abs(x))) - 7)
+
+
 @pytest.mark.parametrize("arch,prompt_len,gen,n,seed", PARITY,
                          ids=["rg-ring-rolled", "rg-ring-short", "rwkv"])
 def test_engine_greedy_tokens_equal_the_jax_engine(arch, prompt_len, gen, n,
                                                    seed):
-    jeng = JaxEngine(get_smoke(arch), _params(arch)[0], num_slots=2,
+    """Each request's tokens equal JAX's up to the first position where
+    they differ, if any; there JAX's own logits must hold a near-tie: its
+    top two within one bf16 ulp, and the port's token one of them. The
+    two packages' f32 transcendentals round apart in the last bit on some
+    CPUs (PyTorch's vectorised exp on AVX-512, see
+    tests/test_torch_recurrent.py), which can flip such a tie: rg-ring-
+    short's request 0 at its second token on such a CPU. A difference at
+    any other position fails."""
+    jcfg = get_smoke(arch)
+    jeng = JaxEngine(jcfg, _params(arch)[0], num_slots=2,
                      prompt_len=prompt_len, max_gen=gen, block_size=8,
                      clock=JaxClock(), plan=PALLAS)
     assert jeng.prefill_chunk == 0
+    seen = _record_jax_logits(jeng, jcfg)
     jout = jax_run(jeng, _requests(jax_request, arch, n, prompt_len, gen,
                                    seed), dt=0.05)
     eng = _engine(arch, prompt_len, gen)
     assert eng.prefill_chunk == 0, "recurrent state => classic admission"
-    out = run_to_completion(eng, _requests(torch_request, arch, n,
-                                           prompt_len, gen, seed), dt=0.05)
-    assert out == jout
+    reqs = _requests(torch_request, arch, n, prompt_len, gen, seed)
+    out = run_to_completion(eng, reqs, dt=0.05)
+    assert sorted(out) == sorted(jout)
+    for r in reqs:
+        mine, ref = out[r.rid], jout[r.rid]
+        assert len(mine) == len(ref)
+        d = next((i for i, (a, b) in enumerate(zip(mine, ref)) if a != b),
+                 None)
+        if d is None:
+            continue
+        if d == 0:  # the first token: JAX's batch-1 prefill logits
+            lg, _ = jeng.replica._prefill(
+                jeng.params, {"tokens": jnp.asarray(r.prompt)[None]})
+            lg = np.asarray(lg[0, :jcfg.vocab_size].astype(jnp.float32))
+        else:
+            lg = seen[(r.rid, d)]
+        assert int(lg.argmax()) == ref[d]
+        top = np.sort(lg)[::-1]
+        ulp = _bf16_ulp(top[0])
+        assert top[0] - top[1] <= ulp, (r.rid, d, top[:2])
+        assert lg[mine[d]] >= top[0] - ulp, (r.rid, d, lg[mine[d]], top[0])
     eng.pool.release()
 
 

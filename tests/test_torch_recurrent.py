@@ -283,12 +283,41 @@ PREFILLS = [("recurrentgemma-9b", 24, LOGIT_TOL, STATE_TOL),
             ("recurrentgemma-9b", 256, 1 / 16, 2e-2)]
 
 
+def _rglru_gates_f64_transcendentals(p, u):
+    """R._rglru_gates with each exp and log1p taken in f64 and rounded
+    once to f32 (products, sums and sqrt as in the port)."""
+    ex = lambda x: torch.exp(x.double()).float()
+    sig = lambda z: 1 / (1 + ex(-z))
+    r = sig(R._block_diag_matmul(u, p["w_rgate"].float()))
+    i = sig(R._block_diag_matmul(u, p["w_igate"].float()))
+    lam = p["lam"]
+    softplus = torch.clamp_min(lam, 0.0) + torch.log1p(
+        torch.exp(-lam.abs().double())).float()
+    log_a = -R._RGLRU_C * softplus * r
+    mult = torch.sqrt(torch.clamp_min(1.0 - ex(2.0 * log_a), 1e-12))
+    return ex(log_a), mult * (i * u)
+
+
 @pytest.mark.parametrize("arch,S,tol,state_tol", PREFILLS,
                          ids=["rg-24", "rg-8", "rwkv-24", "rg-256-flash"])
-def test_prefill_logits_and_caches_match_jax(arch, S, tol, state_tol):
+def test_prefill_logits_and_caches_match_jax(arch, S, tol, state_tol,
+                                             monkeypatch):
     """S=24 rolls the 16-token window ring, S=8 keeps a short ring, S=256
     takes the flash branch (JAX's Pallas kernel in interpret mode, with
-    the window)."""
+    the window).
+
+    The f32 state leaves are held to max(state_tol, twice a spread
+    measured here): the port's own states with the RG-LRU gates' exp and
+    log1p taken in f64 and rounded once, against the port as it stands.
+    PyTorch's vectorised f32 exp is not correctly rounded on every CPU
+    (on AVX-512, exp(-0.11358591) gives 0.89262754 where XLA and the f64
+    value round to 0.8926275), and 1 - exp(2 log_a) in the gates turns a
+    last-bit difference into a few ulps of b. At S=8 that moves one bf16
+    rounding of gate * h in the tail's first block, and the last block's
+    state by 3.158e-4 against JAX's; the f64 gates move it by the same
+    3.158e-4 (so the tolerance reads 6.3e-4) and land within 1.5e-7 of
+    JAX's. On a CPU where the two exps agree the spread is ~5e-7 and
+    state_tol holds."""
     jcfg, cfg = get_smoke(arch), torch_smoke(arch)
     jp, tp = _params(arch)
     B = 1 if S > 128 else 2
@@ -298,11 +327,18 @@ def test_prefill_logits_and_caches_match_jax(arch, S, tol, state_tol):
         p, t, jcfg, PALLAS, mode="prefill"))(jp, tok)
     tl, tc = Mo.forward(tp, torch.from_numpy(tok), cfg, Env(),
                         mode="prefill")
+    with monkeypatch.context() as m:
+        m.setattr(R, "_rglru_gates", _rglru_gates_f64_transcendentals)
+        _, tc64 = Mo.forward(tp, torch.from_numpy(tok), cfg, Env(),
+                             mode="prefill")
     assert tl.shape == jl.shape and tl.dtype == torch.bfloat16
     assert _maxdiff(tl, jl) < tol
-    for path, a, b in _leaf_pairs(jc, tc):
+    for (path, a, b), b64 in zip(_leaf_pairs(jc, tc), jax.tree.leaves(tc64)):
         assert tuple(b.shape) == a.shape, path
-        leaf_tol = state_tol if b.dtype == torch.float32 else BF16_TOL
+        if b.dtype == torch.float32:
+            leaf_tol = max(state_tol, 2 * _maxdiff(b64, b))
+        else:
+            leaf_tol = BF16_TOL
         assert _maxdiff(b, a) <= leaf_tol, path
     last, _ = Mo.forward(tp, torch.from_numpy(tok), cfg, Env(),
                          mode="prefill", last_only=True)
