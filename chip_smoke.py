@@ -4,7 +4,9 @@
   python3 chip_smoke.py
 
 Phases, any failure exits non-zero before the result line:
-  1. build the CUDA kernels from src/repro_torch/csrc (nvcc, sm_90a);
+  1. build the CUDA kernels from src/repro_torch/csrc (nvcc, sm_90a) and
+     print what -Xptxas -v reports for kernels #4 and #5 (registers,
+     spills, with each one's dynamic shared memory); a spill fails;
   2. hold each kernel against its plain PyTorch version on the card, at the
      shapes the serving path gives it (paper-demo-110m: Hq 12, Hkv 4,
      hd 64, block 16; vocabulary 32000), with adversarial rows, and one
@@ -66,7 +68,9 @@ Phases, any failure exits non-zero before the result line:
      over its window (B=4, Hq 16, Hkv 1, hd 256, S=2048), bf16 and f32,
      counts read after; the partials against the plain version at
      cur_len -1, 0, ragged and S-1, eight slices merged against the whole
-     cache, times beside SDPA; the mask kernel on rows of 57857, 65536 and
+     cache, times beside SDPA, and each setting of the op's split knobs
+     (BLOCKS_PER_SM, the bf16 tile) checked and timed; the mask kernel on
+     rows of 57857, 65536 and
      256000 logits (split over a cluster of blocks) against the plain
      version;
      a seeded top-k/top-p serve of rwkv6-1.6b (vocab 65536) at full
@@ -74,8 +78,11 @@ Phases, any failure exits non-zero before the result line:
 Phase 2 also holds the quant kernel to its plain version and to the bf16
 kernel on the same pool (relative RMS), the flash-attention kernel to its
 plain version at six shapes, and one full-width 256-token prefill on the
-card to the CPU path; phase 5 times the first four kernels, phase 11 the
-recurrent ones.
+card to the CPU path; phase 5 times the first four kernels (flash
+attention at three shapes, all in its JSON row), phase 11 the recurrent
+ones. Each error line of kernels #4 and #5 gives the output's (P.V's)
+max abs error and worst row against the plain version, beside the plain
+version with its probabilities rounded to one bf16.
 Prints the kernel report as one JSON line, the card's name and power
 limit, and last {"ok": true, "device": {...}}. Needs no network; the
 kernel build lands in build/ (git-ignored).
@@ -166,6 +173,47 @@ MASK_WIDE = (57857, 65536, 256000)
 def fail(msg):
     print(f"FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def attention_build_report(kernels):
+    """Phase 1: what -Xptxas -v reported for kernels #4 and #5 (registers,
+    stack, spills) and each instantiation's dynamic shared memory at the
+    shapes the script runs; fails on a spill."""
+    entries, section = [], None
+    for line in kernels.build_log.splitlines():
+        if line.startswith("== "):
+            section = line[3:].strip()
+        elif section not in ("flash_attention.cu", "flash_decode.cu"):
+            continue
+        elif "entry function" in line:
+            entries.append((demangle(line.split("'")[1]), []))
+        elif entries and ("registers" in line or "spill" in line
+                          or "smem" in line):
+            entries[-1][1].append(line.replace("ptxas info    :", "")
+                                  .strip())
+    if not entries:
+        fail("no -Xptxas -v report for kernels #4 and #5 in the build log")
+    print("kernels #4 and #5, -Xptxas -v:")
+    spilled = []
+    for name, lines in entries:
+        short = name.replace("(anonymous namespace)::", "").split("(")[0]
+        print(f"  {short}: {'; '.join(lines)}")
+        if any(" 0 bytes spill stores" not in x for x in lines
+               if "spill stores" in x):
+            spilled.append(name)
+    from repro_torch.kernels.flash_decode.ops import TILE_BY_HD
+    lib = kernels.library()
+    fd_smem = lambda Hq, Hkv, hd, bf16: lib.flash_decode_smem_bytes(
+        Hq, Hkv, hd, next(t for h, t in TILE_BY_HD if hd <= h), bf16)
+    print("  dynamic shared memory a block: flash attention "
+          + ", ".join(f"hd {hd} {lib.flash_attention_smem_bytes(hd)} B"
+                      for hd in (16, 32, 64, 128, 256))
+          + "; flash decode " + ", ".join(
+              f"{name} {'bf16' if bf16 else 'f32'} "
+              f"{fd_smem(Hq, Hkv, hd, bf16)} B"
+              for name, _, Hq, Hkv, hd, _ in FD_SHAPES for bf16 in (1, 0)))
+    if spilled:
+        fail(f"kernels #4/#5 spill registers: {spilled}")
 
 
 def demangle(name):
@@ -316,6 +364,29 @@ def flash_plain(q, k, v, causal=True, window=0):
     return o.transpose(1, 2).reshape(B, S, Hq * hd)
 
 
+def flash_plain_bf16_probs(q, k, v, causal=True, window=0):
+    """The plain version with its probabilities rounded to one bf16 before
+    P.V: the error the kernel's hi/lo split of P avoids."""
+    import torch
+    B, S, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    qf = q.float().transpose(1, 2).reshape(B, Hkv, Hq // Hkv, S, hd)
+    kf = k.float().transpose(1, 2)[:, :, None]
+    vf = v.float().transpose(1, 2)[:, :, None]
+    sc = qf @ kf.transpose(-1, -2) / math.sqrt(hd)
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    ok = torch.ones((S, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= qpos >= kpos
+    if window > 0:
+        ok &= (qpos - kpos) < window
+    a = torch.softmax(sc.masked_fill(~ok, float("-inf")), -1)
+    o = a.to(torch.bfloat16).float() @ vf
+    return o.reshape(B, Hq, S, hd).transpose(1, 2).reshape(
+        B, S, Hq * hd).to(q.dtype)
+
+
 def row_rel_err(got, want, Hq):
     """|got - want| / |want| per (row, position, head), L2 over hd, of two
     [B,S,Hq*hd] outputs: [B,S,Hq] f32."""
@@ -442,11 +513,16 @@ def check_recurrent_kernels(dev):
         want = flash_plain(q, k, v, causal, window)
         err = float((got.float() - want.float()).abs().max())
         rel = row_rel_err(got, want, Hq)
+        ref16 = flash_plain_bf16_probs(q, k, v, causal, window)
         print(f"flash attention B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} "
               f"causal={causal} window={window}: kernel vs plain max abs "
               f"err {err:.3e} (tolerance {FLASH_TOL}), worst row "
               f"{float(rel.max()):.3e} of its norm (median "
-              f"{float(rel.median()):.3e}; tolerance {FLASH_ROW_TOL})")
+              f"{float(rel.median()):.3e}; tolerance {FLASH_ROW_TOL}); the "
+              f"plain version with P rounded to one bf16: "
+              f"{float((ref16.float() - want.float()).abs().max()):.3e}, "
+              f"worst row {float(row_rel_err(ref16, want, Hq).max()):.3e}")
+        del ref16
         if not math.isfinite(err) or err > FLASH_TOL:
             fail(f"flash attention kernel vs plain at hd={hd} S={S} "
                  f"window={window}: {err}")
@@ -655,11 +731,16 @@ def check_kernels(dev):
         got = flash_attention(q, k, v, causal=causal, window=window,
                               n_kv_heads=Hkv)
         torch.cuda.synchronize()
-        err = float((got.float() - flash_plain(q, k, v, causal, window)
-                     .float()).abs().max())
+        want = flash_plain(q, k, v, causal, window)
+        err = float((got.float() - want.float()).abs().max())
+        rel = float(row_rel_err(got, want, Hq).max())
+        ref16 = flash_plain_bf16_probs(q, k, v, causal, window)
         print(f"flash attention B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} "
               f"causal={causal} window={window}: kernel vs plain max abs "
-              f"err {err:.3e}; tolerance {FLASH_TOL}")
+              f"err {err:.3e} (tolerance {FLASH_TOL}), worst row {rel:.3e} "
+              f"of its norm; the plain version with P rounded to one bf16: "
+              f"{float((ref16.float() - want.float()).abs().max()):.3e}, "
+              f"worst row {float(row_rel_err(ref16, want, Hq).max()):.3e}")
         if not math.isfinite(err) or err > FLASH_TOL:
             fail(f"flash attention kernel vs plain at B={B} S={S} "
                  f"Hkv={Hkv} hd={hd} causal={causal} window={window}: {err}")
@@ -915,6 +996,22 @@ def fd_bound_ms(B, Hq, Hkv, hd, n_tok, itemsize):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def fd_plain_bf16_probs(q, k, v, cur_len):
+    """The plain partials' o with the probabilities rounded to one bf16
+    before P.V: the error the kernel's hi/lo split of P avoids."""
+    import torch
+    B, Hq, hd = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    s = q.float().reshape(B, Hkv, Hq // Hkv, hd) @ k.float().transpose(
+        -1, -2) / math.sqrt(hd)
+    ok = torch.arange(S, device=q.device) <= cur_len
+    m = torch.where(ok, s, torch.full_like(s, -1e30)).amax(-1, keepdim=True)
+    p = torch.where(ok, torch.exp(s - m), torch.zeros_like(s))
+    o = (p.to(torch.bfloat16).float() @ v.float()) / torch.clamp_min(
+        p.sum(-1, keepdim=True), 1e-30)
+    return o.reshape(B, Hq, hd)
+
+
 def check_flash_decode(dev):
     """Phase 15: the flash-decoding path at full width. The entry points a
     caller uses (flash_decode on one card, flash_decode_seq_sharded over a
@@ -927,6 +1024,7 @@ def check_flash_decode(dev):
     import tempfile
     import torch
     import torch.distributed as dist
+    from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.flash_decode.ops import (
         flash_decode, flash_decode_partials, flash_decode_seq_sharded,
         merge_partials_stacked)
@@ -994,6 +1092,15 @@ def check_flash_decode(dev):
                 fail(f"flash decode kernel vs plain ({tag}, cur_len {c}): "
                      f"o {errs[0]}, m {errs[1]}, l relative {errs[2]}")
             worst = max(worst, errs[0])
+            row = lambda x: float(((x - ro).norm(dim=-1)
+                                   / ro.norm(dim=-1).clamp_min(1e-30)).max())
+            o16 = fd_plain_bf16_probs(q, k, v, c)
+            print(f"  cur_len {c}: o (P.V) max abs err {errs[0]:.3e}, worst "
+                  f"row {row(o):.3e} of its norm; m {errs[1]:.3e}, l "
+                  f"relative {errs[2]:.3e}; the plain version with P "
+                  f"rounded to one bf16: o {float((o16 - ro).abs().max()):.3e}"
+                  f", worst row {row(o16):.3e}")
+            del o16
         n = 8
         s = S // n
         merged = {}
@@ -1030,6 +1137,27 @@ def check_flash_decode(dev):
               f"{bound * 1e3} us ({by}), {bound / row['ms']:.4f} of the "
               f"bound")
         rows.append(row)
+        # the op's split knobs: each setting checked and timed, the op's
+        # own restored
+        ro = flash_decode_partials_ref(q, k, v, cur)[0]
+        chosen = (fd_ops.BLOCKS_PER_SM, fd_ops.BF16_TILE)
+        by_knob = {}
+        try:
+            for bps in (4, 8):
+                for tile in ((32, 64) if dtype == torch.bfloat16 else
+                             (chosen[1],)):
+                    fd_ops.BLOCKS_PER_SM, fd_ops.BF16_TILE = bps, tile
+                    e = float((flash_decode_partials(q, k, v, cur)[0]
+                               - ro).abs().max())
+                    if not math.isfinite(e) or e > FD_TOL:
+                        fail(f"flash decode ({tag}) at BLOCKS_PER_SM {bps}, "
+                             f"tile {tile}: o off by {e}")
+                    by_knob[(bps, tile)] = device_ms(
+                        lambda: flash_decode_partials(q, k, v, cur)) * 1e3
+        finally:
+            fd_ops.BLOCKS_PER_SM, fd_ops.BF16_TILE = chosen
+        print(f"  us by (BLOCKS_PER_SM, bf16 tile) (the op takes {chosen}; "
+              f"f32 keeps its tile of TILE_BY_HD): {by_knob}")
     return launches, worst, rows
 
 
@@ -1162,6 +1290,7 @@ def main():
             print("  entry " + demangle(line.split("'")[1]))
         elif "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip())
+    attention_build_report(kernels)
 
     # 2. kernels vs plain versions; one decode step and one full-width
     # prefill, card vs CPU
@@ -1300,7 +1429,11 @@ def main():
          "launches": None,  # the classic serve's, phase 9
          "max_abs_err": checked["flash"],
          **{k: flash[0][k] for k in ("ms", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms")}},
+                                     "bound_by", "library_ms")},
+         "shapes": [{k: row[k] for k in ("B", "S", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms")}
+                    for row in flash[1:]]},
     ]
     for k in report:
         print(f"{k['name']}: {k['ms'] * 1e3:.1f} us kernel, "

@@ -39,15 +39,17 @@ _SIGNATURES = {
     "paged_decode_int8": ([_P] * 8 + [_I] * 7 + [_P] * 2, _I),
     "topk_topp_mask_f32": ([_P] * 4 + [_I, _I, _P], _I),
     "flash_attention_bf16": ([_P] * 4 + [_I] * 8 + [_P], _I),
+    "flash_attention_smem_bytes": ([_I], _I),
     "rglru_scan_f32": ([_P] * 4 + [_I] * 3 + [_P], _I),
     "wkv6_bf16": ([_P] * 7 + [_I] * 4 + [_P], _I),
     "flash_decode_partials": ([_P] * 8 + [_I] * 8 + [_P], _I),
+    "flash_decode_smem_bytes": ([_I] * 5, _I),
     "kernel_error_string": ([_I], ctypes.c_char_p),
 }
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-build_log = ""  # nvcc's -Xptxas -v report from the last build in-process
+build_log = ""  # nvcc's -Xptxas -v report of the loaded library's build
 
 
 def _nvcc() -> str:
@@ -103,9 +105,13 @@ def library() -> ctypes.CDLL:
             h.update(src.name.encode())
             h.update(src.read_bytes())
         lib_path = BUILD_DIR / f"libreprokernels-{h.hexdigest()[:16]}.so"
+        log_path = lib_path.with_suffix(".log")
         if not lib_path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             build_log = _build(lib_path)
+            log_path.write_text(build_log)
+        elif log_path.exists():
+            build_log = log_path.read_text()
         lib = ctypes.CDLL(str(lib_path))
         for name, (argtypes, restype) in _SIGNATURES.items():
             fn = getattr(lib, name)

@@ -44,6 +44,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}, "
                          f"window {window}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name}: q, k and v must start on 16 bytes (the "
+                         "kernel copies 16-byte slices of their rows)")
     out = torch.empty((B, Sq, Hq * hd), dtype=q.dtype, device=q.device)
     if B == 0 or Sq == 0:
         return out

@@ -23,13 +23,17 @@ import torch.distributed as dist
 from repro_torch.kernels import check_launch, check_tensors, library
 from repro_torch.kernels.flash_decode.ref import flash_decode_partials_ref
 
-# the kernel's token tile (keys staged in shared memory at a time), by
-# head_dim: 64 up to hd 128, 32 past it (hd 256 with a GQA group of 16
-# then takes ~100 KB of shared memory, two blocks an SM)
+# the kernel's token tile (a span is a whole number of them), by head_dim.
+# f32 stages one tile in shared memory at a time: 64 keys up to hd 128, 32
+# past it (hd 256 with a GQA group of 16 then takes ~100 KB of shared
+# memory). bf16 takes 64 at every hd: its 4 warps walk 32-token chunks (16
+# at hd 256), so a 32-token span would leave half of them idle.
 TILE_BY_HD = ((128, 64), (256, 32))
-# splits of the sequence per (row, KV head): enough blocks for about four
-# a streaming multiprocessor (a block takes 35-100 KB of shared memory)
-BLOCKS_PER_SM = 4
+BF16_TILE = 64
+# splits of the sequence per (row, KV head): enough blocks for about eight
+# a streaming multiprocessor, two to three waves of them, which even out
+# the last one (chip_smoke.py phase 15 times the alternatives)
+BLOCKS_PER_SM = 8
 
 
 def _cur_len_tensor(cur_len, device):
@@ -43,9 +47,10 @@ def _cur_len_tensor(cur_len, device):
     return torch.tensor([int(cur_len)], dtype=torch.int32, device=device)
 
 
-def _split(B, Hkv, S, hd, device):
+def _split(B, Hkv, S, hd, dtype, device):
     """(tile, n_split) for the kernel."""
-    tile = next(t for h, t in TILE_BY_HD if hd <= h)
+    tile = BF16_TILE if dtype == torch.bfloat16 else next(
+        t for h, t in TILE_BY_HD if hd <= h)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     want = -(-BLOCKS_PER_SM * sms // (B * Hkv))
     return tile, max(1, min(want, -(-S // tile)))
@@ -83,7 +88,7 @@ def flash_decode_partials(q, k, v, cur_len):
     l = torch.empty((B, Hq, 1), dtype=torch.float32, device=q.device)
     if B == 0:
         return o, m, l
-    tile, n_split = _split(B, Hkv, S, hd, q.device)
+    tile, n_split = _split(B, Hkv, S, hd, q.dtype, q.device)
     work = torch.empty((B * Hq * n_split * (hd + 2),), dtype=torch.float32,
                        device=q.device)
     rc = library().flash_decode_partials(

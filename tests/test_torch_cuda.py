@@ -236,7 +236,34 @@ FLASH_SHAPES = [
     # recurrentgemma-9b's local attention: MQA 16:1 at hd 256, window
     dict(B=1, S=300, Hq=16, Hkv=1, hd=256, causal=True, window=256),
     dict(B=2, S=200, Hq=16, Hkv=1, hd=256, causal=True, window=0),
+] + [
+    # one short of, at and one past the 64-row tile
+    dict(B=2, S=S, Hq=12, Hkv=4, hd=64, causal=True, window=0)
+    for S in (63, 64, 65)
+] + [
+    # every instantiation (HEAD_DIMS), causal, windowed and bidirectional
+    dict(B=2, S=150, Hq=8, Hkv=2, hd=hd, causal=causal, window=window)
+    for hd in (16, 32, 64, 128, 256)
+    for causal, window in ((True, 0), (True, 48), (False, 0))
 ]
+
+
+def _flash_case(rng, B, Sq, Sk, Hq, Hkv, hd, device):
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(device).to(torch.bfloat16)
+    return mk(B, Sq, Hq, hd), mk(B, Sk, Hkv, hd), mk(B, Sk, Hkv, hd)
+
+
+def _flash_vs_plain(q, k, v, causal, window):
+    B, Sq, Hq, hd = q.shape
+    got = flash_attention(q, k, v, causal=causal, window=window,
+                          n_kv_heads=k.shape[2])
+    torch.cuda.synchronize()
+    want = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), causal=causal, window=window)
+    want = want.transpose(1, 2).reshape(B, Sq, Hq * hd)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    return float((got.float() - want.float()).abs().max())
 
 
 @pytest.mark.parametrize("shape", FLASH_SHAPES,
@@ -245,20 +272,45 @@ FLASH_SHAPES = [
 def test_flash_attention_kernel_matches_plain(shape, cuda):
     B, S, Hq, Hkv, hd = (shape[k] for k in ("B", "S", "Hq", "Hkv", "hd"))
     rng = np.random.default_rng(S + hd + Hkv)
-    mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
-        np.float32)).to(cuda).to(torch.bfloat16)
-    q, k, v = mk(B, S, Hq, hd), mk(B, S, Hkv, hd), mk(B, S, Hkv, hd)
+    q, k, v = _flash_case(rng, B, S, S, Hq, Hkv, hd, cuda)
     before = flash_attention.launches
-    got = flash_attention(q, k, v, causal=shape["causal"],
-                          window=shape["window"], n_kv_heads=Hkv)
-    torch.cuda.synchronize()
+    err = _flash_vs_plain(q, k, v, shape["causal"], shape["window"])
     assert flash_attention.launches == before + 1
-    want = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                         v.transpose(1, 2), causal=shape["causal"],
-                         window=shape["window"])
-    want = want.transpose(1, 2).reshape(B, S, Hq * hd)
-    assert got.shape == want.shape and got.dtype == torch.bfloat16
-    assert float((got.float() - want.float()).abs().max()) < 2e-2
+    assert err < 2e-2
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd,window", [
+    (16, 256, 12, 4, 64, 0), (8, 2304, 16, 1, 256, 2048)])
+def test_flash_attention_rows_are_batch_independent(B, S, Hq, Hkv, hd,
+                                                    window, cuda):
+    """Each row of a batched call equals, bit for bit, the same row
+    computed alone: a row's arithmetic depends on its query tile, head
+    and row only (no split over keys, no atomics). Classic admission
+    relies on it: a batch-1 prefill must emit what the one-shot batch's
+    prefill emits, token for token."""
+    rng = np.random.default_rng(B * S + hd)
+    q, k, v = _flash_case(rng, B, S, S, Hq, Hkv, hd, cuda)
+    whole = flash_attention(q, k, v, causal=True, window=window,
+                            n_kv_heads=Hkv)
+    for b in range(B):
+        alone = flash_attention(q[b:b + 1].contiguous(),
+                                k[b:b + 1].contiguous(),
+                                v[b:b + 1].contiguous(), causal=True,
+                                window=window, n_kv_heads=Hkv)
+        assert torch.equal(whole[b:b + 1], alone), f"row {b}"
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,window", [
+    (65, 200, False, 0), (200, 63, True, 0), (64, 200, False, 65),
+    (65, 200, True, 64)])
+def test_flash_attention_takes_unequal_query_and_key_counts(
+        Sq, Sk, causal, window, cuda):
+    """Sq != Sk, each ragged against the 64-row tile: missing rows staged
+    as zeros, their keys masked, their queries never stored; within the
+    bf16 output's 2e-2."""
+    rng = np.random.default_rng(Sq * 1000 + Sk)
+    q, k, v = _flash_case(rng, 2, Sq, Sk, 12, 4, 64, cuda)
+    assert _flash_vs_plain(q, k, v, causal, window) < 2e-2
 
 
 def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
@@ -376,7 +428,13 @@ def test_recurrent_engines_on_the_card_match_the_full_prefill_baseline(
     (2, 8, 2, 512, 64, (-1, 0, 17, 255, 511)),
     (8, 12, 4, 4096, 64, (0, 1000, 4095, 9999)),
     (4, 16, 1, 2048, 256, (-1, 63, 2047)),
-    (3, 4, 4, 700, 32, (0, 650, 699))])
+    (3, 4, 4, 700, 32, (0, 650, 699))] + [
+    # GQA groups of 1-17 (17 takes two 16-row tensor-core tiles in bf16)
+    # at head_dims not a multiple of 16 (zero-padded to the next k-step);
+    # S = 3 x 64 + 5, cur_len at -1, 0, either side of the 64-token tile
+    # and S - 1
+    (2, 2 * G, 2, 197, hd, (-1, 0, 63, 64, 196))
+    for G in (1, 3, 5, 8, 16, 17) for hd in (8, 24, 64, 256)])
 def test_flash_decode_kernel_matches_plain(B, Hq, Hkv, S, hd, curs, dtype,
                                            cuda):
     """The partials (o, m, l) against the plain version: o and m within
