@@ -5,8 +5,9 @@
 
 Phases, any failure exits non-zero before the result line:
   1. build the CUDA kernels from src/repro_torch/csrc (nvcc, sm_90a) and
-     print what -Xptxas -v reports for kernels #4 and #5 (registers,
-     spills, with each one's dynamic shared memory); a spill fails;
+     print what -Xptxas -v reports for the redesigned kernels #4-#7
+     (registers, spills; #4 and #5's dynamic shared memory); a spill
+     fails;
   2. hold each kernel against its plain PyTorch version on the card, at the
      shapes the serving path gives it (paper-demo-110m: Hq 12, Hkv 4,
      hd 64, block 16; vocabulary 32000), with adversarial rows, and one
@@ -40,11 +41,15 @@ Phases, any failure exits non-zero before the result line:
      phase 9, bit for bit;
  11. the recurrent slice's kernels against their plain versions on the
      card at recurrentgemma-9b's and rwkv6-1.6b's shapes: the RG-LRU scan
-     (B=1 S=2304 W=4096; B=2 S=200 with h0; S=1), WKV6 (B=1 S=256 H=32
-     hd=64; B=3 S=100; hd 16), flash attention at hd 256 (MQA 16:1,
-     S=2304 with window 2048; B=2 S=200) and paged decode at GQA 16, hd
-     256 over window-ring tables (full rings, shorter ones, a null row);
-     each timed beside its plain version, with its bound;
+     bit-equal (B=1 S=2304 W=4096; B=2 S=200 with h0; S=1; ragged W),
+     WKV6 (B=1 S=256 H=32 hd=64; B=3 S=100; hd 16 and 32; at the serve's
+     shape with decays from exp(-2981) to 1), flash attention at hd 256
+     (MQA 16:1, S=2304 with window 2048; B=2 S=200) and paged decode at
+     GQA 16, hd 256 over window-ring tables (full rings, shorter ones, a
+     null row); each timed beside its plain version, with its bound; the
+     RG-LRU scan's and WKV6's rows of one B=16 call bit-equal to batch-1
+     calls, and both timed at the one-shot baselines' shapes too (B=8
+     S=2304; B=16 S=256);
  12. recurrentgemma-9b at full width and depth (38 layers, random seeded
      weights): 8 Poisson requests of 2304-token prompts (past the
      2048-token window: prefill rolls the ring, the flash kernel masks by
@@ -134,11 +139,19 @@ FLASH_TIMED = [(1, 256), (16, 256), (1, 2048)]
 # the recurrent slice (phase 11). RG-LRU scan and WKV6 against their plain
 # versions, max abs error of the f32 outputs: the JAX package's bound for
 # its kernels (tests/test_kernels.py). The RG-LRU kernel rounds each
-# product and sum as the plain version does, so it reads 0.
+# product and sum as the plain version does, so it must equal it bit for
+# bit (it reads 0).
 REC_TOL = 2e-3
 RGLRU_SHAPES = [(1, 2304, 4096, False), (2, 200, 4096, True),
-                (3, 1, 4096, True)]  # (B, S, W, with h0)
-WKV_SHAPES = [(1, 256, 32, 64), (3, 100, 32, 64), (2, 70, 4, 16)]
+                (3, 1, 4096, True), (3, 101, 4100, True),
+                (2, 77, 1001, True)]  # (B, S, W, with h0)
+WKV_SHAPES = [(1, 256, 32, 64), (3, 100, 32, 64), (2, 70, 4, 16),
+              (1, 33, 2, 32)]
+# ... and the one-shot baselines' prefill shapes, where each kernel's rows
+# are held bit-equal to batch-1 calls and timed beside the serve's:
+# recurrentgemma-9b's B=8 (held at B=16), rwkv6-1.6b's B=16
+RGLRU_BASELINE = (8, 2304, 4096)
+WKV_BASELINE = (16, 256, 32, 64)
 # flash attention at recurrentgemma-9b's heads: (B, S, Hq, Hkv, hd,
 # causal, window); the first is the classic admission's prefill of phase 12
 FLASH256_SHAPES = [(1, 2304, 16, 1, 256, True, 2048),
@@ -175,15 +188,20 @@ def fail(msg):
     sys.exit(1)
 
 
-def attention_build_report(kernels):
-    """Phase 1: what -Xptxas -v reported for kernels #4 and #5 (registers,
-    stack, spills) and each instantiation's dynamic shared memory at the
-    shapes the script runs; fails on a spill."""
+# the redesigned kernels (#4, #5, #6, #7): phase 1 fails if one spills
+REDESIGNED = ("flash_attention.cu", "flash_decode.cu", "rglru_scan.cu",
+              "wkv6.cu")
+
+
+def redesigned_build_report(kernels):
+    """Phase 1: what -Xptxas -v reported for the redesigned kernels #4-#7
+    (registers, stack, spills) and #4 and #5's dynamic shared memory at
+    the shapes the script runs; fails on a spill."""
     entries, section = [], None
     for line in kernels.build_log.splitlines():
         if line.startswith("== "):
             section = line[3:].strip()
-        elif section not in ("flash_attention.cu", "flash_decode.cu"):
+        elif section not in REDESIGNED:
             continue
         elif "entry function" in line:
             entries.append((demangle(line.split("'")[1]), []))
@@ -192,8 +210,8 @@ def attention_build_report(kernels):
             entries[-1][1].append(line.replace("ptxas info    :", "")
                                   .strip())
     if not entries:
-        fail("no -Xptxas -v report for kernels #4 and #5 in the build log")
-    print("kernels #4 and #5, -Xptxas -v:")
+        fail("no -Xptxas -v report for kernels #4-#7 in the build log")
+    print("kernels #4-#7, -Xptxas -v:")
     spilled = []
     for name, lines in entries:
         short = name.replace("(anonymous namespace)::", "").split("(")[0]
@@ -213,7 +231,7 @@ def attention_build_report(kernels):
               f"{fd_smem(Hq, Hkv, hd, bf16)} B"
               for name, _, Hq, Hkv, hd, _ in FD_SHAPES for bf16 in (1, 0)))
     if spilled:
-        fail(f"kernels #4/#5 spill registers: {spilled}")
+        fail(f"kernels #4-#7 spill registers: {spilled}")
 
 
 def demangle(name):
@@ -451,6 +469,84 @@ def ring_inputs(gen, dev):
     return q, kp, vp, tables, lengths
 
 
+def check_wkv6_decay_range(gen, dev):
+    """WKV6 at the serve's shape with strong and weak decays mixed: logw =
+    -exp(x), x per (head, channel) uniform in [-20, 8] (the model's
+    rwkv_decay clamp: w from exp(-2981) = 0 to 1 - 2e-9) plus a per-step
+    jitter. Finite and within REC_TOL of the plain version; returns the
+    error."""
+    import torch
+    from repro_torch.kernels.rwkv6.ops import wkv6
+    from repro_torch.kernels.rwkv6.ref import wkv6_ref
+    B, S, H, hd = WKV_SHAPES[0]
+    mk = lambda: torch.randn((B, S, H, hd), generator=gen, device=dev) * 0.5
+    r, k, v = (mk().to(torch.bfloat16) for _ in range(3))
+    x = torch.rand((H, hd), generator=gen, device=dev) * 28.0 - 20.0 + mk()
+    logw = -torch.exp(x.clamp(-20.0, 8.0))
+    u = torch.randn((H, hd), generator=gen, device=dev) * 0.3
+    o, sf = wkv6(r, k, v, logw, u)
+    torch.cuda.synchronize()
+    ro, rs = wkv6_ref(*(t.transpose(1, 2) for t in (r, k, v, logw)), u)
+    err = max(float((o - ro.transpose(1, 2)).abs().max()),
+              float((sf - rs).abs().max()))
+    w = torch.exp(logw)
+    print(f"wkv6 B={B} S={S} H={H} hd={hd}, decays mixed (w from "
+          f"{float(w.min()):.3e} to {float(w.max()):.9f}, "
+          f"{float((w < 1e-3).float().mean()):.3f} of them below 1e-3): "
+          f"kernel vs plain max abs err {err:.3e}; tolerance {REC_TOL}")
+    if (not bool(torch.isfinite(o).all()) or not bool(torch.isfinite(sf)
+                                                       .all())):
+        fail("wkv6 across the decay range: a value is not finite")
+    if not math.isfinite(err) or err > REC_TOL:
+        fail(f"wkv6 kernel vs plain across the decay range: {err}")
+    return err
+
+
+def check_batch_rows(gen, dev):
+    """Each recurrent kernel's rows of one call at the one-shot baseline's
+    batch against batch-1 calls, bit for bit (the engine's batch-1
+    prefill is held to the baseline's token for token), and its time at
+    the baseline's shape (device work per call)."""
+    import torch
+    from repro_torch.kernels.rglru.ops import rglru_scan
+    from repro_torch.kernels.rwkv6.ops import wkv6
+    out = {}
+    _, S, W = RGLRU_BASELINE
+    a = torch.rand((16, S, W), generator=gen, device=dev) * 0.949 + 0.05
+    b = torch.randn((16, S, W), generator=gen, device=dev)
+    h = rglru_scan(a, b)
+    for i in range(16):
+        if not torch.equal(h[i:i + 1], rglru_scan(a[i:i + 1], b[i:i + 1])):
+            fail(f"rglru_scan: row {i} of a B=16 call differs from its B=1 "
+                 "call")
+    B = RGLRU_BASELINE[0]
+    a, b = a[:B], b[:B]
+    bound, by = rglru_bound_ms(B, S, W, False)
+    out["rglru"] = {"shape": [B, S, W], "bound_ms": bound, "bound_by": by,
+                    "ms": device_ms(lambda: rglru_scan(a, b), calls=5,
+                                    replays=5)}
+    del a, b, h
+    B, S, H, hd = WKV_BASELINE
+    mk = lambda: torch.randn((B, S, H, hd), generator=gen, device=dev) * 0.5
+    r, k, v = (mk().to(torch.bfloat16) for _ in range(3))
+    logw = -torch.exp(mk() - 1.0)
+    u = torch.randn((H, hd), generator=gen, device=dev) * 0.3
+    o, sf = wkv6(r, k, v, logw, u)
+    for i in range(B):
+        oi, si = wkv6(*(t[i:i + 1] for t in (r, k, v, logw)), u)
+        if not (torch.equal(o[i:i + 1], oi) and torch.equal(sf[i:i + 1],
+                                                              si)):
+            fail(f"wkv6: row {i} of a B={B} call differs from its B=1 call")
+    bound, by = wkv6_bound_ms(B, S, H, hd)
+    out["wkv6"] = {"shape": [B, S, H, hd], "bound_ms": bound,
+                   "bound_by": by,
+                   "ms": device_ms(lambda: wkv6(r, k, v, logw, u), calls=5,
+                                   replays=5)}
+    print("rglru_scan (B=16, S=2304, W=4096) and wkv6 (B=16, S=256, H=32, "
+          "hd=64): every row of one call bit-equal to its batch-1 call")
+    return out
+
+
 def check_recurrent_kernels(dev):
     """Phase 11: the recurrent slice's kernels against their plain
     versions on the card, and their times at the serving shapes."""
@@ -475,11 +571,13 @@ def check_recurrent_kernels(dev):
               else None)
         got = rglru_scan(a, b, h0)
         torch.cuda.synchronize()
-        err = float((got - rglru_ref_loop(a, b, h0)).abs().max())
+        want = rglru_ref_loop(a, b, h0)
+        err = float((got - want).abs().max())
         print(f"rglru_scan B={B} S={S} W={W} h0={with_h0}: kernel vs plain "
-              f"max abs err {err:.3e}; tolerance {REC_TOL}")
-        if not math.isfinite(err) or err > REC_TOL:
-            fail(f"rglru_scan kernel vs plain at B={B} S={S} W={W}: {err}")
+              f"max abs err {err:.3e}; must be bit-equal")
+        if not torch.equal(got, want):
+            fail(f"rglru_scan kernel vs plain at B={B} S={S} W={W}: not "
+                 f"bit-equal, max abs err {err}")
         worst = max(worst, err)
         if (B, S, W) == RGLRU_SHAPES[0][:3]:
             out["rglru_in"] = (a, b, h0)
@@ -503,7 +601,9 @@ def check_recurrent_kernels(dev):
         worst = max(worst, err)
         if (B, S, H, hd) == WKV_SHAPES[0]:
             out["wkv_in"] = (r, k, v, logw, u)
+    worst = max(worst, check_wkv6_decay_range(gen, dev))
     out["wkv_err"] = worst
+    out["baseline"] = check_batch_rows(gen, dev)
     worst = 0.0
     for B, S, Hq, Hkv, hd, causal, window in FLASH256_SHAPES:
         q, k, v = flash_inputs(gen, dev, B, S, Hq, Hkv, hd)
@@ -625,6 +725,12 @@ def check_recurrent_kernels(dev):
                                 .scaled_dot_product_attention(
                                     q[:, :, None, :], kg, vg,
                                     attn_mask=amask))}
+    for name, t in out.pop("baseline").items():
+        out[name]["baseline"] = t
+        print(f"{name} at the one-shot baseline's {t['shape']}: "
+              f"{t['ms'] * 1e3} us kernel, bound {t['bound_ms'] * 1e3} us "
+              f"({t['bound_by']}), {t['bound_ms'] / t['ms']:.4f} of the "
+              f"bound")
     for name in ("rglru", "wkv6", "flash256", "ring"):
         t = out[name]
         lib = ("none" if t["library_ms"] is None
@@ -1290,7 +1396,7 @@ def main():
             print("  entry " + demangle(line.split("'")[1]))
         elif "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip())
-    attention_build_report(kernels)
+    redesigned_build_report(kernels)
 
     # 2. kernels vs plain versions; one decode step and one full-width
     # prefill, card vs CPU

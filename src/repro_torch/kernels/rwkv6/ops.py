@@ -47,6 +47,10 @@ def wkv6(r, k, v, logw, u):
         return o, s
     if S == 0:
         return o, s.zero_()
+    # the kernel stages 16-byte pieces: an input at an odd offset into its
+    # storage is copied to a fresh (aligned) allocation first
+    r, k, v, logw = (t if t.data_ptr() % 16 == 0 else t.clone()
+                     for t in (r, k, v, logw))
     rc = library().wkv6_bf16(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
         u.data_ptr(), o.data_ptr(), s.data_ptr(), B, S, H, hd,

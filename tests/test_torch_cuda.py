@@ -345,9 +345,10 @@ def test_classic_engine_on_the_card_matches_the_full_prefill_baseline(cuda):
 
 @pytest.mark.parametrize("B,S,W,with_h0", [
     (1, 2304, 512, False), (2, 200, 4096, True), (3, 1, 96, True),
-    (2, 37, 130, False)])
+    (2, 37, 130, False), (3, 101, 4100, True), (2, 77, 1001, True)])
 def test_rglru_scan_kernel_matches_plain(B, S, W, with_h0, cuda):
-    """Ragged S and W, a one-step scan, a carried h0: bit-equal to the
+    """Ragged S and W (a last channel group of 4, 2 or 9 lanes; W % 4 != 0
+    takes 4-byte copies), a one-step scan, a carried h0: bit-equal to the
     plain version (same product, same sum, each rounded once)."""
     rng = np.random.default_rng(S + W)
     a = torch.from_numpy(rng.uniform(0.05, 0.999, (B, S, W)).astype(
@@ -382,6 +383,92 @@ def test_wkv6_kernel_matches_plain(B, S, H, hd, cuda):
     o_ref, s_ref = wkv6_ref(*(t.transpose(1, 2) for t in (r, k, v, logw)),
                             u)
     assert o.shape == (B, S, H, hd) and s_fin.shape == (B, H, hd, hd)
+    assert float((o - o_ref.transpose(1, 2)).abs().max()) < 2e-3
+    assert float((s_fin - s_ref).abs().max()) < 2e-3
+
+
+@pytest.mark.parametrize("B,S,H,hd", [
+    (1, 256, 32, 64), (2, 77, 4, 32), (3, 45, 2, 16)])
+def test_wkv6_kernel_across_the_decay_range(B, S, H, hd, cuda):
+    """Strong and weak decays mixed: logw = -exp(x), x per (head, channel)
+    uniform in [-20, 8] (the model's rwkv_decay clamp: w from exp(-2981) =
+    0 to 1 - 2e-9) plus a per-step jitter. Finite, and within 2e-3 of the
+    plain version."""
+    rng = np.random.default_rng(7 * S + hd)
+    mk = lambda: torch.from_numpy((rng.standard_normal(
+        (B, S, H, hd)) * 0.5).astype(np.float32)).to(cuda)
+    r, k, v = (mk().to(torch.bfloat16) for _ in range(3))
+    x = torch.from_numpy(rng.uniform(-20.0, 8.0, (H, hd)).astype(
+        np.float32)).to(cuda) + mk()
+    logw = -torch.exp(x.clamp(-20.0, 8.0))
+    u = torch.from_numpy((rng.standard_normal((H, hd)) * 0.3).astype(
+        np.float32)).to(cuda)
+    o, s_fin = wkv6(r, k, v, logw, u)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(s_fin).all())
+    o_ref, s_ref = wkv6_ref(*(t.transpose(1, 2) for t in (r, k, v, logw)),
+                            u)
+    assert float((o - o_ref.transpose(1, 2)).abs().max()) < 2e-3
+    assert float((s_fin - s_ref).abs().max()) < 2e-3
+
+
+def test_recurrent_kernel_rows_do_not_depend_on_the_batch(cuda):
+    """One B=16 call against sixteen B=1 calls at the same S, bit for
+    bit: a row's arithmetic depends on its own inputs alone (the engine's
+    batch-1 prefill is held to the one-shot baseline's B=16 token for
+    token)."""
+    rng = np.random.default_rng(16)
+    B, S, W = 16, 230, 4096
+    a = torch.from_numpy(rng.uniform(0.05, 0.999, (B, S, W)).astype(
+        np.float32)).to(cuda)
+    b = torch.from_numpy(rng.standard_normal((B, S, W)).astype(
+        np.float32)).to(cuda)
+    h0 = torch.from_numpy(rng.standard_normal((B, W)).astype(
+        np.float32)).to(cuda)
+    whole = rglru_scan(a, b, h0)
+    for i in range(B):
+        assert torch.equal(whole[i:i + 1], rglru_scan(
+            a[i:i + 1], b[i:i + 1], h0[i:i + 1])), i
+    S, H, hd = 256, 32, 64
+    mk = lambda: torch.from_numpy((rng.standard_normal(
+        (B, S, H, hd)) * 0.5).astype(np.float32)).to(cuda)
+    r, k, v = (mk().to(torch.bfloat16) for _ in range(3))
+    logw = -torch.exp(mk() - 1.0)
+    u = torch.from_numpy((rng.standard_normal((H, hd)) * 0.3).astype(
+        np.float32)).to(cuda)
+    o, s_fin = wkv6(r, k, v, logw, u)
+    for i in range(B):
+        oi, si = wkv6(*(t[i:i + 1] for t in (r, k, v, logw)), u)
+        assert torch.equal(o[i:i + 1], oi) and torch.equal(
+            s_fin[i:i + 1], si), i
+
+
+def test_recurrent_kernels_take_inputs_at_an_odd_storage_offset(cuda):
+    """Contiguous views 4 bytes into their storage: the RG-LRU scan takes
+    4-byte copies (still bit-equal), the WKV6 op copies such an input to
+    an aligned allocation."""
+    rng = np.random.default_rng(3)
+    B, S, W = 2, 70, 256
+    n = B * S * W
+    a = torch.from_numpy(rng.uniform(0.05, 0.999, n + 1).astype(
+        np.float32)).to(cuda)[1:].view(B, S, W)
+    b = torch.from_numpy(rng.standard_normal(n + 1).astype(
+        np.float32)).to(cuda)[1:].view(B, S, W)
+    assert a.data_ptr() % 16 and a.is_contiguous()
+    assert torch.equal(rglru_scan(a, b), rglru_ref_loop(a, b))
+    B, S, H, hd = 1, 40, 4, 32
+    n = B * S * H * hd
+    mk = lambda: torch.from_numpy((rng.standard_normal(n + 2) * 0.5).astype(
+        np.float32)).to(cuda)
+    r, k, v = (mk().to(torch.bfloat16)[2:].view(B, S, H, hd)
+               for _ in range(3))
+    logw = -torch.exp(mk()[1:n + 1].view(B, S, H, hd) - 1.0)
+    lw_odd = torch.empty(n + 1, device=cuda)[1:].view(B, S, H, hd)
+    lw_odd.copy_(logw)
+    u = torch.zeros((H, hd), device=cuda)
+    o, s_fin = wkv6(r, k, v, lw_odd, u)
+    o_ref, s_ref = wkv6_ref(*(t.transpose(1, 2) for t in (r, k, v, logw)),
+                            u)
     assert float((o - o_ref.transpose(1, 2)).abs().max()) < 2e-3
     assert float((s_fin - s_ref).abs().max()) < 2e-3
 
