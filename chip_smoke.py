@@ -5,9 +5,9 @@
 
 Phases, any failure exits non-zero before the result line:
   1. build the CUDA kernels from src/repro_torch/csrc (nvcc, sm_90a) and
-     print what -Xptxas -v reports for the redesigned kernels #4-#7
-     (registers, spills; #4 and #5's dynamic shared memory); a spill
-     fails;
+     print what -Xptxas -v reports for the redesigned kernels #1 and
+     #3-#7 (registers, spills; #4 and #5's dynamic shared memory); a
+     spill fails;
   2. hold each kernel against its plain PyTorch version on the card, at the
      shapes the serving path gives it (paper-demo-110m: Hq 12, Hkv 4,
      hd 64, block 16; vocabulary 32000), with adversarial rows, and one
@@ -46,7 +46,11 @@ Phases, any failure exits non-zero before the result line:
      shape with decays from exp(-2981) to 1), flash attention at hd 256
      (MQA 16:1, S=2304 with window 2048; B=2 S=200) and paged decode at
      GQA 16, hd 256 over window-ring tables (full rings, shorter ones, a
-     null row); each timed beside its plain version, with its bound; the
+     null row; each span of 32-256 tokens checked and timed, and the span
+     kernel's and the merge's device time, overlapping), and at up to 8
+     heads over phases 9 and 10's 288-token tables and their baseline's
+     contiguous cache (spans of 256-512 tokens checked and timed); each
+     timed beside its plain version, with its bound; the
      RG-LRU scan's and WKV6's rows of one B=16 call bit-equal to batch-1
      calls, and both timed at the one-shot baselines' shapes too (B=8
      S=2304; B=16 S=256);
@@ -188,13 +192,15 @@ def fail(msg):
     sys.exit(1)
 
 
-# the redesigned kernels (#4, #5, #6, #7): phase 1 fails if one spills
-REDESIGNED = ("flash_attention.cu", "flash_decode.cu", "rglru_scan.cu",
+# the redesigned kernels (#1, #3, #4, #5, #6, #7): phase 1 fails if one
+# spills
+REDESIGNED = ("paged_decode.cu", "paged_decode_quant.cu",
+              "flash_attention.cu", "flash_decode.cu", "rglru_scan.cu",
               "wkv6.cu")
 
 
 def redesigned_build_report(kernels):
-    """Phase 1: what -Xptxas -v reported for the redesigned kernels #4-#7
+    """Phase 1: what -Xptxas -v reported for the redesigned kernels #1, #3-#7
     (registers, stack, spills) and #4 and #5's dynamic shared memory at
     the shapes the script runs; fails on a spill."""
     entries, section = [], None
@@ -210,8 +216,8 @@ def redesigned_build_report(kernels):
             entries[-1][1].append(line.replace("ptxas info    :", "")
                                   .strip())
     if not entries:
-        fail("no -Xptxas -v report for kernels #4-#7 in the build log")
-    print("kernels #4-#7, -Xptxas -v:")
+        fail("no -Xptxas -v report for kernels #1, #3-#7 in the build log")
+    print("kernels #1, #3-#7, -Xptxas -v:")
     spilled = []
     for name, lines in entries:
         short = name.replace("(anonymous namespace)::", "").split("(")[0]
@@ -231,7 +237,7 @@ def redesigned_build_report(kernels):
               f"{fd_smem(Hq, Hkv, hd, bf16)} B"
               for name, _, Hq, Hkv, hd, _ in FD_SHAPES for bf16 in (1, 0)))
     if spilled:
-        fail(f"kernels #4-#7 spill registers: {spilled}")
+        fail(f"kernels #1, #3-#7 spill registers: {spilled}")
 
 
 def demangle(name):
@@ -469,6 +475,26 @@ def ring_inputs(gen, dev):
     return q, kp, vp, tables, lengths
 
 
+def classic_table_inputs(gen, dev, bs, B):
+    """A decode step of paper-demo-110m's attention (Hq 12, Hkv 4, hd 64)
+    over 288-token tables: classic admission's and the slot pool's at
+    prompt 256, gen 32 (bs 16, 18 blocks a row), or the one-shot
+    baseline's contiguous cache (bs = S = 288, a block a row); B rows at
+    depths 256..287."""
+    import torch
+    Hq, Hkv, hd, MB = 12, 4, 64, 288 // bs
+    NB = 1 + B * MB
+    mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(
+        torch.bfloat16)
+    q, kp, vp = mk(B, Hq, hd), mk(NB, Hkv, bs, hd), mk(NB, Hkv, bs, hd)
+    perm = torch.randperm(NB - 1, generator=gen, device=dev) + 1
+    tables = perm.view(B, MB).int().contiguous()
+    lengths = torch.tensor([256 + (b * 31) // max(B - 1, 1)
+                            for b in range(B)], dtype=torch.int32,
+                           device=dev)
+    return q, kp, vp, tables, lengths
+
+
 def check_wkv6_decay_range(gen, dev):
     """WKV6 at the serve's shape with strong and weak decays mixed: logw =
     -exp(x), x per (head, channel) uniform in [-20, 8] (the model's
@@ -657,19 +683,53 @@ def check_recurrent_kernels(dev):
     if float(got[-1].abs().max()) != 0.0:
         fail("paged decode at GQA 16: the masked row is not zero")
     out["ring_in"], out["ring_err"] = pin, err
-    # the split form's chunk (tokens a block reads): each width checked and
-    # timed, the op's own restored
-    chosen, by_chunk = pd_ops.SPLIT_CHUNK, {}
-    for chunk in (16, 32, 64):
-        pd_ops.SPLIT_CHUNK = chunk
+    # the GQA-16 span (tokens a block reads): each width checked and timed,
+    # the op's own restored
+    chosen, by_span = pd_ops.SPAN_GQA16, {}
+    for span in (32, 64, 128, 256):
+        pd_ops.SPAN_GQA16 = span
         e = float((paged_flash_decode(*pin) - paged_decode_ref(*pin))
                   .abs().max())
         if not math.isfinite(e) or e > PAGED_TOL:
-            fail(f"paged decode at GQA 16 with {chunk}-token chunks: {e}")
-        by_chunk[chunk] = device_ms(lambda: paged_flash_decode(*pin)) * 1e3
-    pd_ops.SPLIT_CHUNK = chosen
-    print("paged decode at GQA 16 over the rings, us by split chunk "
-          f"(tokens a block reads; the op takes {chosen}): {by_chunk}")
+            fail(f"paged decode at GQA 16 with {span}-token spans: {e}")
+        by_span[span] = device_ms(lambda: paged_flash_decode(*pin)) * 1e3
+    pd_ops.SPAN_GQA16 = chosen
+    print("paged decode at GQA 16 over the rings, us by span (tokens a "
+          f"block reads; the op takes {chosen}): {by_span}")
+    # ... and its two launches (the spans, then their merge: a programmatic
+    # dependent launch, whose blocks start while the span kernel runs and
+    # wait for it, so the two times overlap and do not add)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            paged_flash_decode(*pin)
+        torch.cuda.synchronize()
+    per_launch = {e.key.split("<")[0].split("(")[0].split("::")[-1]:
+                  e.device_time_total / e.count
+                  for e in prof.key_averages()
+                  if "paged_decode" in e.key and e.count}
+    print("paged decode over the rings, device us a launch (the merge's "
+          f"overlaps the span kernel's): {per_launch}")
+    # up to 8 heads: the span over classic admission's and the slot pool's
+    # 288-token tables (phases 9 and 10) and their one-shot baseline's
+    # contiguous cache, each checked and timed, the op's own restored
+    chosen, by_span = pd_ops.SPAN, {}
+    wide = {bs: classic_table_inputs(gen, dev, bs, B)
+            for bs, B in ((16, 8), (288, 16))}
+    for span in (256, 320, 384, 512):
+        pd_ops.SPAN = span
+        for bs, win in wide.items():
+            e = float((paged_flash_decode(*win) - paged_decode_ref(*win))
+                      .abs().max())
+            if not math.isfinite(e) or e > PAGED_TOL:
+                fail(f"paged decode over 288-token tables (bs {bs}) with "
+                     f"{span}-token spans: {e}")
+            by_span[f"bs {bs}, span {span}"] = device_ms(
+                lambda: paged_flash_decode(*win)) * 1e3
+    pd_ops.SPAN = chosen
+    print("paged decode, Hq 12 Hkv 4 hd 64 over 288-token tables (8 rows at "
+          "bs 16, 16 at bs = S), depths 256-287, us by span (the op takes "
+          f"{chosen}): {by_span}")
 
     # times at the serving shapes (device work per call, CUDA graph replay)
     a, b, h0 = out["rglru_in"]

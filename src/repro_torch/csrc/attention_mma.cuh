@@ -1,8 +1,9 @@
 // Warp-level pieces of attention on the tensor cores (sm_80+ mma.sync,
-// built for sm_90a), shared by flash attention (flash_attention.cu) and
-// the bf16 flash-decoding kernel (flash_decode.cu).
+// built for sm_90a), shared by flash attention (flash_attention.cu), the
+// bf16 flash-decoding kernel (flash_decode.cu) and paged decode
+// (paged_decode.cuh).
 //
-// Both kernels keep the reference's arithmetic (the TPU kernels take q, k
+// The kernels keep the reference's arithmetic (the TPU kernels take q, k
 // and v to f32 and keep the probabilities in f32 through P.V):
 //
 // - Q.K^T runs as mma.m16n8k16 with bf16 operands and f32 accumulation.
@@ -54,6 +55,16 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// ... 4 bytes, through L1 (cp.async.cg takes only 16): paged decode's
+// per-token int8 scales
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
 

@@ -20,14 +20,35 @@ from repro_torch.kernels import check_launch, check_tensors, library
 from repro_torch.kernels.paged_decode.ref import (paged_decode_quant_ref,
                                                   paged_decode_ref)
 
-# GQA group sizes (Hq / Hkv) the kernels are built for. A group of 16
-# (recurrentgemma-9b) takes the split form: one block per SPLIT_CHUNK
-# tokens of a row, then a merge (csrc/paged_decode.cuh); 64 tokens timed
-# fastest of 16, 32 and 64 over recurrentgemma's rings (chip_smoke.py
-# phase 11 times each)
+# GQA group sizes (Hq / Hkv) the kernels are built for: up to 8 heads sit
+# on the N of the kernel's MMAs, a group of 16 (recurrentgemma-9b) on its M
+# (csrc/paged_decode.cuh)
 GROUPS = (1, 2, 3, 4, 6, 8, 16)
-SPLIT_GROUP = 16
-SPLIT_CHUNK = 64
+# Tokens of a row that one block reads, its span: a longer row is split
+# over blocks whose partials a second launch merges in span order. Spans
+# sit on logical positions, so a row's output does not depend on bs or on
+# the other rows. Up to 8 heads: the span covers every table of the
+# serving path (96 tokens chunked; 288 at prompt 256, gen 32 in classic
+# admission, the slot pool and the one-shot baseline), so none of its rows
+# is split; tools/time_paged_decode.py times 256-512 at those tables. A
+# group of 16: chip_smoke.py phase 11 times 32, 64, 128 and 256 over
+# recurrentgemma-9b's 2048-token rings.
+SPAN = 512
+SPAN_GQA16 = 64
+
+
+def span_plan(hd: int, group: int, width: int):
+    """(span, n_spans, floats) for rows of head_dim `hd` and a GQA group
+    of `group` over tables of `width` logical tokens (MB x bs). The span
+    is the group's SPAN, or the width where that is narrower (one span
+    then covers the table, and the block's ring is sized to it); n_spans
+    = ceil(width / span) covers every span a row can use, and `floats` is
+    the workspace one (row, KV head) needs for its partials, group x
+    n_spans x (hd + 2) (P.V, then m and l), or 0 when a row is never
+    longer than one span. None of them depends on B or on bs."""
+    span = min(SPAN_GQA16 if group == 16 else SPAN, width)
+    n_spans = -(-width // span)
+    return span, n_spans, 0 if n_spans == 1 else group * n_spans * (hd + 2)
 
 
 def quantize_kv(x, eps: float = 1e-8):
@@ -44,7 +65,8 @@ def quantize_kv(x, eps: float = 1e-8):
 def _check_shapes(name, q, k_pool, v_pool, tables, lengths, vec):
     """Shapes both kernels take: GQA group sizes the kernels are built for,
     hd a multiple of the 16-byte load width `vec` with hd/vec a power of
-    two up to a warp."""
+    two up to a warp; pools that start on 16 bytes (the kernel copies
+    16-byte slices of their rows)."""
     B, Hq, hd = q.shape
     NB, Hkv, bs, hd_k = k_pool.shape
     tpt = hd // vec
@@ -58,19 +80,29 @@ def _check_shapes(name, q, k_pool, v_pool, tables, lengths, vec):
             f"{name}: unsupported shapes q {tuple(q.shape)}, pools "
             f"{tuple(k_pool.shape)}, tables {tuple(tables.shape)}, lengths "
             f"{tuple(lengths.shape)}")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError(f"{name}: the pools must start on 16 bytes (the "
+                         "kernel copies 16-byte slices of their rows)")
 
 
-def _split_work(q, k_pool, tables):
-    """(chunk, workspace) for the kernel: (0, None) for a block per (row,
-    KV head); for a group of SPLIT_GROUP, the chunk and a workspace of
-    B * Hq * n_chunks * (hd + 2) floats for the partial (o, m, l)."""
+def _aligned(q):
+    """q, or a copy in a fresh (16-byte aligned) allocation when a view
+    starts elsewhere: the kernel reads 16-byte slices of its rows. (The
+    int8 pool's f32 scales are read 4 bytes at a time.)"""
+    return q if q.data_ptr() % 16 == 0 else q.clone()
+
+
+def _workspace(q, k_pool, tables):
+    """(span, workspace) for the kernel: the span_plan of these shapes and
+    a workspace of B x Hkv times its floats (None when no row can be
+    longer than one span)."""
     B, Hq, hd = q.shape
     Hkv, bs = k_pool.shape[1], k_pool.shape[2]
-    if Hq // Hkv != SPLIT_GROUP:
-        return 0, None
-    n_split = -(-tables.shape[1] * bs // SPLIT_CHUNK)
-    return SPLIT_CHUNK, torch.empty((B * Hq * n_split * (hd + 2),),
-                                    dtype=torch.float32, device=q.device)
+    span, _, floats = span_plan(hd, Hq // Hkv, tables.shape[1] * bs)
+    if floats == 0:
+        return span, None
+    return span, torch.empty((B * Hkv * floats,), dtype=torch.float32,
+                             device=q.device)
 
 
 def paged_flash_decode(q, k_pool, v_pool, tables, lengths):
@@ -88,16 +120,17 @@ def paged_flash_decode(q, k_pool, v_pool, tables, lengths):
     if (q.dtype, k_pool.dtype, v_pool.dtype) != (torch.bfloat16,) * 3:
         raise ValueError(f"{name}: q and pools must be bf16")
     _check_shapes(name, q, k_pool, v_pool, tables, lengths, vec=8)
+    q = _aligned(q)
     B, Hq, hd = q.shape
     _, Hkv, bs, _ = k_pool.shape
     out = torch.empty((B, Hq, hd), dtype=torch.float32, device=q.device)
     if B == 0:
         return out
-    chunk, work = _split_work(q, k_pool, tables)
+    span, work = _workspace(q, k_pool, tables)
     rc = library().paged_decode_bf16(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), B, Hq, Hkv, hd, bs,
-        tables.shape[1], chunk, None if work is None else work.data_ptr(),
+        tables.shape[1], span, None if work is None else work.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(rc, name)
     paged_flash_decode.launches += 1
@@ -134,17 +167,18 @@ def paged_flash_decode_quant(q, k_pool, v_pool, k_scale, v_scale, tables,
         raise ValueError(f"{name}: scales {tuple(k_scale.shape)} and "
                          f"{tuple(v_scale.shape)} do not match pools "
                          f"{tuple(k_pool.shape)}")
+    q = _aligned(q)
     B, Hq, hd = q.shape
     _, Hkv, bs, _ = k_pool.shape
     out = torch.empty((B, Hq, hd), dtype=torch.float32, device=q.device)
     if B == 0:
         return out
-    chunk, work = _split_work(q, k_pool, tables)
+    span, work = _workspace(q, k_pool, tables)
     rc = library().paged_decode_int8(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), tables.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), B, Hq, Hkv, hd, bs,
-        tables.shape[1], chunk, None if work is None else work.data_ptr(),
+        tables.shape[1], span, None if work is None else work.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(rc, name)
     paged_flash_decode_quant.launches += 1

@@ -9,7 +9,8 @@ PyTorch is installed; tests/conftest.py imports jax, hence:
 Each kernel is held to its plain version on the same inputs: paged decode
 over the bf16 and the int8 pool within 1e-5 (both sides compute in f32
 from the same bf16 or int8-and-scale inputs; sound runs read below 1e-6,
-a kernel rounding its probabilities to bf16 reads above 1e-3), the
+a kernel rounding its probabilities to bf16 reads above 1e-3; a row's
+output bit-equal across batch composition and block size), the
 top-k/top-p mask exactly (same keep-set, kept logits equal; rows wider
 than shared memory too), flash-decoding's partials within 1e-5 in f32 and
 bf16 (l relative: a sum of up to S terms), flash
@@ -31,7 +32,7 @@ from repro_torch.kernels.flash_decode.ops import (flash_decode,
                                                   flash_decode_partials,
                                                   merge_partials_stacked)
 from repro_torch.kernels.flash_decode.ref import flash_decode_partials_ref
-from repro_torch.kernels.paged_decode.ops import (paged_flash_decode,
+from repro_torch.kernels.paged_decode.ops import (SPAN, paged_flash_decode,
                                                   paged_flash_decode_quant,
                                                   quantize_kv)
 from repro_torch.kernels.paged_decode.ref import (paged_decode_quant_ref,
@@ -62,7 +63,8 @@ def cuda():
 
 @pytest.mark.parametrize("B,Hq,Hkv,hd,bs,MB", [
     (2, 4, 2, 32, 16, 4), (3, 8, 8, 64, 8, 3), (1, 4, 1, 128, 32, 2),
-    (9, 12, 4, 64, 16, 6), (5, 16, 1, 256, 16, 9), (3, 32, 2, 256, 8, 4)])
+    (9, 12, 4, 64, 16, 6), (5, 16, 1, 256, 16, 9), (3, 32, 2, 256, 8, 4),
+    (4, 12, 2, 128, 16, 5), (4, 16, 2, 128, 8, 9)])
 def test_paged_decode_kernel_matches_plain(B, Hq, Hkv, hd, bs, MB, cuda):
     rng = np.random.default_rng(B + hd)
     NB = 1 + B * MB + 3
@@ -85,13 +87,14 @@ def test_paged_decode_kernel_matches_plain(B, Hq, Hkv, hd, bs, MB, cuda):
 
 @pytest.mark.parametrize("B,Hq,Hkv,hd,bs,MB", [
     (2, 4, 2, 32, 16, 4), (3, 8, 8, 64, 8, 3), (1, 4, 1, 128, 32, 2),
-    (9, 12, 4, 64, 16, 6), (4, 16, 1, 256, 16, 5)])
+    (9, 12, 4, 64, 16, 6), (4, 16, 1, 256, 16, 5), (4, 12, 2, 128, 16, 5),
+    (4, 16, 2, 128, 8, 9)])
 def test_quant_paged_decode_kernel_matches_plain(B, Hq, Hkv, hd, bs, MB,
                                                  cuda):
-    """The sweep shapes put 2, 4, 8 and 16 threads on a token row (hd 32,
-    64, 128, 256 at 16 int8 values a load; hd 256 with a GQA group of 16,
-    run in the split form); rows 0-2 are the masks: fully masked,
-    depth 0, the whole table."""
+    """The sweep shapes cover hd 32 to 256, the heads on the MMA's N
+    (groups 1, 2, 3, 6 and 8; 6 and 8 at hd 128, the widest int8 forms
+    below hd 256) and on its M (16); rows 0-2 are the masks: fully
+    masked, depth 0, the whole table."""
     rng = np.random.default_rng(B + hd + 1)
     NB = 1 + B * MB + 3
     mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
@@ -116,10 +119,10 @@ def test_quant_paged_decode_kernel_matches_plain(B, Hq, Hkv, hd, bs, MB,
 
 @pytest.mark.parametrize("quant", [False, True])
 def test_split_paged_decode_over_long_rings_matches_plain(quant, cuda):
-    """The split form (GQA 16, hd 256) over recurrentgemma-9b's window
-    rings: full rings (2047), lengths at and around the 64-token chunk
-    edges, depth 0 and a masked row, so rows end in every part of a
-    chunk and use from one to all 32 chunks."""
+    """GQA 16, hd 256 over recurrentgemma-9b's window rings: full rings
+    (2047), lengths at and around the 64-token span edges, depth 0 and a
+    masked row, so rows end in every part of a span and use from one to
+    all 32 spans (merged by the second launch past one)."""
     rng = np.random.default_rng(31 + quant)
     Hq, Hkv, hd, bs, MB = 16, 1, 256, 16, 128
     lens = [2047, 1500, 64, 63, 65, 127, 128, 0, -1]
@@ -147,6 +150,130 @@ def test_split_paged_decode_over_long_rings_matches_plain(quant, cuda):
     assert op.launches == before + 1
     assert float((got - ref(*args)).abs().max()) < 1e-5
     assert float(got[-1].abs().max()) == 0.0
+
+
+def _paged_copies(k, v, ks, vs, bs, rng, cuda):
+    """The contiguous per-row K/V [B,Hkv,S,hd] (and int8 scales [B,Hkv,S])
+    paged into a pool of blocks of bs tokens at shuffled physical ids,
+    with tables [B,S/bs]; bs = S is the one-shot baseline's layout."""
+    B, Hkv, S, hd = k.shape
+    MB = S // bs
+    NB = 1 + B * MB
+    ids = torch.from_numpy(rng.permutation(np.arange(1, NB)).reshape(
+        B, MB).astype(np.int32)).to(cuda)
+    pools = []
+    for x in (k, v, ks, vs):
+        if x is None:
+            pools.append(None)
+            continue
+        pool = torch.zeros((NB, Hkv, bs) + x.shape[3:], dtype=x.dtype,
+                           device=cuda)
+        pool[ids.long().reshape(-1)] = x.reshape(
+            (B, Hkv, MB, bs) + x.shape[3:]).transpose(1, 2).reshape(
+            (B * MB, Hkv, bs) + x.shape[3:])
+        pools.append(pool)
+    return pools, ids
+
+
+# (G, hd, Hkv, S, lengths): rows over several spans (span_plan: SPAN at
+# G 3, SPAN_GQA16 at G 16), one span, depth 0 and masked; the serving
+# path's 288-token tables, one span narrower than SPAN
+EQUAL_CASES = [(3, 64, 2, 1152, [1151, 600, 512, 511, 300, 17, 0, -1]),
+               (16, 256, 1, 320, [319, 200, 128, 64, 63, 0, -1]),
+               (3, 64, 2, 288, [287, 256, 255, 100, 0, -1])]
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("G,hd,Hkv,S,lens", EQUAL_CASES)
+def test_paged_decode_rows_are_bit_equal_across_batch_and_block_size(
+        G, hd, Hkv, S, lens, quant, cuda):
+    """A row's output depends only on its q, its tokens' K and V in logical
+    order and its length: torch.equal for the row alone, among the others
+    in shuffled order, with the same logical K/V paged at bs 8 and 16 and
+    as one contiguous block of S tokens (the baseline's layout), and in
+    tables SPAN tokens wider (null blocks past every row)."""
+    rng = np.random.default_rng(G * 1000 + hd + quant)
+    B = len(lens)
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(cuda)
+    q = mk(B, G * Hkv, hd).to(torch.bfloat16)
+    k, v = mk(B, Hkv, S, hd), mk(B, Hkv, S, hd)
+    if quant:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        op, ref = paged_flash_decode_quant, paged_decode_quant_ref
+    else:
+        k, v, ks, vs = k.to(torch.bfloat16), v.to(torch.bfloat16), None, None
+        op, ref = paged_flash_decode, paged_decode_ref
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    order = rng.permutation(B)
+    outs = []
+    for bs in (8, 16, S):
+        (kp, vp, ksp, vsp), tables = _paged_copies(k, v, ks, vs, bs, rng,
+                                                   cuda)
+        pools = (kp, vp, ksp, vsp) if quant else (kp, vp)
+        before = op.launches
+        full = op(q, *pools, tables, lengths)
+        shuffled = op(q[order].contiguous(), *pools,
+                      tables[order].contiguous(), lengths[order].contiguous())
+        alone = [op(q[b:b + 1].contiguous(), *pools,
+                    tables[b:b + 1].contiguous(),
+                    lengths[b:b + 1].contiguous()) for b in range(B)]
+        torch.cuda.synchronize()
+        assert op.launches == before + 2 + B
+        assert float((full - ref(q, *pools, tables, lengths)).abs().max()) \
+            < 1e-5
+        assert torch.equal(shuffled, full[order])
+        for b in range(B):
+            assert torch.equal(alone[b][0], full[b]), (bs, b)
+        assert float(full[-1].abs().max()) == 0.0
+        if bs < S:
+            wide = torch.cat([tables, torch.zeros(
+                (B, -(-SPAN // bs)), dtype=torch.int32, device=cuda)], 1)
+            assert torch.equal(op(q, *pools, wide, lengths), full), bs
+        outs.append(full)
+    for bs, got in zip((16, S), outs[1:]):
+        assert torch.equal(got, outs[0]), bs
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("G,hd,Hkv", [(3, 64, 2), (16, 256, 1)])
+def test_paged_decode_takes_q_at_an_odd_storage_offset(G, hd, Hkv, quant,
+                                                       cuda):
+    """A contiguous q view one element into its storage is copied to an
+    aligned allocation first: the output is torch.equal to the aligned
+    call's, with the heads on the MMA's N (G 3) and on its M (G 16). A
+    pool view that does not start on 16 bytes is refused before any
+    launch."""
+    rng = np.random.default_rng(G + hd + quant)
+    B, bs, MB = 3, 16, 5
+    NB = 1 + B * MB
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(cuda)
+    q = mk(B, G * Hkv, hd).to(torch.bfloat16)
+    q_odd = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:].view(
+        q.shape)
+    q_odd.copy_(q)
+    if quant:
+        (kp, ks), (vp, vs) = (quantize_kv(mk(NB, Hkv, bs, hd))
+                              for _ in range(2))
+        op, scales = paged_flash_decode_quant, (ks, vs)
+    else:
+        kp, vp = (mk(NB, Hkv, bs, hd).to(torch.bfloat16) for _ in range(2))
+        op, scales = paged_flash_decode, ()
+    tables = torch.from_numpy(rng.permutation(np.arange(1, NB)).reshape(
+        B, MB).astype(np.int32)).to(cuda)
+    lengths = torch.tensor([MB * bs - 1, 40, -1], dtype=torch.int32,
+                           device=cuda)
+    assert q_odd.data_ptr() % 16 and q_odd.is_contiguous()
+    assert torch.equal(op(q_odd, kp, vp, *scales, tables, lengths),
+                       op(q, kp, vp, *scales, tables, lengths))
+    k_odd = torch.empty(kp.numel() + 1, dtype=kp.dtype, device=cuda)[1:].view(
+        kp.shape)
+    k_odd.copy_(kp)
+    before = op.launches
+    with pytest.raises(ValueError, match="16 bytes"):
+        op(q, k_odd, vp, *scales, tables, lengths)
+    assert op.launches == before
 
 
 @pytest.mark.parametrize("T,V", [(4, 128), (3, 200), (72, 32000),

@@ -14,6 +14,7 @@ import torch
 from repro.kernels.flash_decode.ref import decode_ref
 from repro.kernels.paged_decode.ops import paged_flash_decode as jax_paged
 from repro.kernels.paged_decode.ref import paged_decode_ref as jax_ref
+from repro_torch.kernels.paged_decode import ops as pd_ops
 from repro_torch.kernels.paged_decode.ops import paged_flash_decode
 
 SWEEP = [(2, 4, 2, 32, 16, 4),
@@ -144,3 +145,45 @@ def test_no_silent_fallback_on_other_devices():
     n = torch.zeros((1,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         paged_flash_decode(q, kp, kp, t, n)
+
+
+@pytest.mark.parametrize("hd,group", [(64, 3), (256, 16), (128, 6),
+                                      (128, 8), (256, 2), (16, 1)])
+def test_span_plan_follows_head_dim_group_and_width_alone(hd, group):
+    """The kernel's span plan (csrc/paged_decode.cuh): the span, the number
+    of spans and the workspace of a (row, KV head) follow hd, the group
+    and the table's logical width alone. The same width at bs 8, 16 and
+    as one block (the one-shot baseline's layout) gives the same plan at
+    B 1 and 5, the workspace scales with B x Hkv only, and its spans
+    cover every token of the table."""
+    Hkv = 2
+    Hq = group * Hkv
+    full = pd_ops.SPAN_GQA16 if group == 16 else pd_ops.SPAN
+    for S in (96, 288, 640, 2048):
+        span, n_spans, floats = pd_ops.span_plan(hd, group, S)
+        assert span == min(full, S)
+        assert (n_spans - 1) * span < S <= n_spans * span
+        assert floats == (0 if n_spans == 1 else group * n_spans * (hd + 2))
+        for B in (1, 5):
+            for bs in (8, 16, S):
+                q = torch.empty((B, Hq, hd), dtype=torch.bfloat16)
+                kp = torch.empty((1, Hkv, bs, hd), dtype=torch.bfloat16)
+                tables = torch.zeros((B, S // bs), dtype=torch.int32)
+                got, work = pd_ops._workspace(q, kp, tables)
+                assert got == span
+                assert (0 if work is None else work.numel()) == \
+                    B * Hkv * floats
+
+
+def test_every_row_of_the_serving_tables_is_one_span():
+    """The serving path's paged decode (paper-demo-110m: hd 64, GQA 3) and
+    its int8 pool never split a row: chunked admission's 96-token tables
+    (6 blocks of 16), classic admission's and the slot pool's 288-token
+    tables at prompt 256, gen 32 (18 blocks of 16) and their one-shot
+    baseline's contiguous cache (one block of 288) each take one launch
+    and no workspace. recurrentgemma-9b's 2048-token rings (GQA 16, hd
+    256) split over SPAN_GQA16-token spans."""
+    for width in (6 * 16, 18 * 16, 288):
+        assert pd_ops.span_plan(64, 3, width)[1:] == (1, 0)
+    span, n_spans, _ = pd_ops.span_plan(256, 16, 128 * 16)
+    assert span == pd_ops.SPAN_GQA16 and n_spans == -(-2048 // span)
