@@ -5,14 +5,20 @@
 
 Phases, any failure exits non-zero before the result line:
   1. build the CUDA kernels from src/repro_torch/csrc (nvcc, sm_90a) and
-     print what -Xptxas -v reports for the redesigned kernels #1 and
-     #3-#7 (registers, spills; #4 and #5's dynamic shared memory); a
-     spill fails;
+     print what -Xptxas -v reports for the redesigned kernels #1-#7
+     (registers, spills; #4 and #5's dynamic shared memory); a spill
+     fails;
   2. hold each kernel against its plain PyTorch version on the card, at the
      shapes the serving path gives it (paper-demo-110m: Hq 12, Hkv 4,
      hd 64, block 16; vocabulary 32000), with adversarial rows, and one
      decode step on the card against the CPU path on the smoke config
-     (same weights, same cache) within a stated tolerance;
+     (same weights, same cache) within a stated tolerance; the mask at
+     72 x 32000 torch.equal to its plain version under the phase-2 mix,
+     the timed settings (tools/time_mask.py) and a batch of adversarial
+     rows (top_p 0, 0.9999999 and an exact prefix mass, all-equal rows,
+     more ties than the kernel lists, top_k V - 1, V and V + 7, greedy
+     rows scaled by 1/1e-6, rows with nothing to mask), two calls
+     bit-equal and every row equal to a call on that row alone;
   3. serve a Poisson trace through ServingEngine on paper-demo-110m at full
      width (16 requests, prompt 64, gen 32, 8 slots, greedy, prefix cache
      on) with the launch counts zeroed before and read after, then check
@@ -21,6 +27,8 @@ Phases, any failure exits non-zero before the result line:
      before the first) and require bit-identical tokens;
   5. time each kernel beside its plain version and a PyTorch yardstick at
      the phase-2 shapes (CUDA events), with its bound from those inputs;
+     the mask under four settings (the phase-2 mix; top_k 50, top_p 0.9;
+     top_p 0.9 alone; nothing to mask) beside one torch.sort;
   6. profile 24 steps of the greedy serve (torch.profiler): wall time per
      step, device busy time and idle share, the kernels that take it;
   7. the paper's loop at full width: run_trace on paper-demo-110m with an
@@ -79,9 +87,10 @@ Phases, any failure exits non-zero before the result line:
      cur_len -1, 0, ragged and S-1, eight slices merged against the whole
      cache, times beside SDPA, and each setting of the op's split knobs
      (BLOCKS_PER_SM, the bf16 tile) checked and timed; the mask kernel on
-     rows of 57857, 65536 and
-     256000 logits (split over a cluster of blocks) against the plain
-     version;
+     8 rows of 57857, 65536 and 256000 logits (split over a cluster of
+     blocks) and 462849 (a cluster reading device memory) torch.equal to
+     the plain version and timed beside it and one torch.sort under phase
+     5's four settings;
      a seeded top-k/top-p serve of rwkv6-1.6b (vocab 65536) at full
      width and depth, bit-identical at 8 and 4 slots.
 Phase 2 also holds the quant kernel to its plain version and to the bf16
@@ -106,6 +115,9 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
+sys.path.insert(0, os.path.join(HERE, "tools"))
+
+import time_mask  # noqa: E402  the mask's timed shapes and settings
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 rate, the
 # bf16 tensor-core rate (paged decode's products take bf16 inputs) and the
@@ -182,9 +194,10 @@ FD_MERGE_TOL = 1e-3
 # over its 2048-token window
 FD_SHAPES = [("paper-demo-110m", 8, 12, 4, 64, 32768),
              ("recurrentgemma-9b local", 4, 16, 1, 256, 2048)]
-# the mask's rows past shared memory: one past MAX_VOCAB, rwkv6-1.6b's
-# and recurrentgemma-9b's vocabularies; 8 rows, the sampled step of 8 slots
-MASK_WIDE = (57857, 65536, 256000)
+# the mask's rows past shared memory (8 rows, the sampled step of 8
+# slots): the first design's widest one-block row plus one, rwkv6-1.6b's
+# and recurrentgemma-9b's vocabularies, and one past the widest cluster
+MASK_WIDE = tuple(V for T, V in time_mask.SHAPES if T == 8)
 
 
 def fail(msg):
@@ -192,15 +205,14 @@ def fail(msg):
     sys.exit(1)
 
 
-# the redesigned kernels (#1, #3, #4, #5, #6, #7): phase 1 fails if one
-# spills
-REDESIGNED = ("paged_decode.cu", "paged_decode_quant.cu",
+# the redesigned kernels (#1-#7): phase 1 fails if one spills
+REDESIGNED = ("paged_decode.cu", "topk_topp_mask.cu", "paged_decode_quant.cu",
               "flash_attention.cu", "flash_decode.cu", "rglru_scan.cu",
               "wkv6.cu")
 
 
 def redesigned_build_report(kernels):
-    """Phase 1: what -Xptxas -v reported for the redesigned kernels #1, #3-#7
+    """Phase 1: what -Xptxas -v reported for the redesigned kernels #1-#7
     (registers, stack, spills) and #4 and #5's dynamic shared memory at
     the shapes the script runs; fails on a spill."""
     entries, section = [], None
@@ -216,8 +228,8 @@ def redesigned_build_report(kernels):
             entries[-1][1].append(line.replace("ptxas info    :", "")
                                   .strip())
     if not entries:
-        fail("no -Xptxas -v report for kernels #1, #3-#7 in the build log")
-    print("kernels #1, #3-#7, -Xptxas -v:")
+        fail("no -Xptxas -v report for kernels #1-#7 in the build log")
+    print("kernels #1-#7, -Xptxas -v:")
     spilled = []
     for name, lines in entries:
         short = name.replace("(anonymous namespace)::", "").split("(")[0]
@@ -237,7 +249,7 @@ def redesigned_build_report(kernels):
               f"{fd_smem(Hq, Hkv, hd, bf16)} B"
               for name, _, Hq, Hkv, hd, _ in FD_SHAPES for bf16 in (1, 0)))
     if spilled:
-        fail(f"kernels #1, #3-#7 spill registers: {spilled}")
+        fail(f"kernels #1-#7 spill registers: {spilled}")
 
 
 def demangle(name):
@@ -351,6 +363,34 @@ def mask_bound_ms(T, V):
     nbytes = 2 * T * V * 4 + T * 8
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 7 * T * V / F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def mask_adversarial(gen, dev, T, V):
+    """Phase 2's adversarial rows for the mask (T >= 21, V >= 3000): top_p
+    0 and below, top_p 0.9999999 (the nucleus ends deep in the tail),
+    top_p equal to a prefix mass (probabilities 0.5, 0.25, 0.25, then 0s),
+    all-equal rows, 3000 logits tied at the top (more candidates than the
+    kernel lists), top_k V - 1, V and V + 7, greedy rows (logits / 1e-6:
+    every probability but the max's is 0), rows with nothing to mask; the
+    other rows at the serves' settings."""
+    import torch
+    x = torch.randn((T, V), generator=gen, device=dev) * 3.0
+    rows = [(0, 0.0), (50, 0.0), (0, -1.0), (0, 0.9999999), (50, 0.9999999),
+            (0, 0.5), (0, 0.75), (2, 0.75),  # exact prefix masses
+            (5, 1.0), (5, 0.9),  # all equal
+            (5, 0.9), (2999, 0.9999999),  # 3000 ties at the top
+            (V - 1, 1.0), (V, 0.9), (V + 7, 0.5),
+            (0, 0.9), (50, 0.9), (0, 0.9999999),  # greedy rows
+            (0, 1.0), (-3, 1.5), (1, 0.9)]
+    x[5:8, :3] = torch.tensor([0.5, 0.25, 0.25], device=dev).log()
+    x[5:8, 3:] = -1e4
+    x[8:10] = 0.5
+    x[10:12, :3000] = x[10:12].max(dim=1, keepdim=True).values + 1.0
+    x[15:18] /= 1e-6
+    rows += [(50, 0.9)] * (T - len(rows))
+    ks = torch.tensor([r[0] for r in rows], dtype=torch.int32, device=dev)
+    ps = torch.tensor([r[1] for r in rows], device=dev)
+    return x, ks, ps
 
 
 def paged_decode_bf16_probs(q, k_pool, v_pool, tables, lengths):
@@ -867,26 +907,37 @@ def check_kernels(dev):
           f"tolerance {PAGED_TOL}; relative RMS against the bf16 kernel on "
           f"the unquantized pool {rms:.3e} (bound {QUANT_RMS_TOL})")
 
-    # top-k/top-p mask at the sampled step's shapes: 72 rows x 32000
+    # top-k/top-p mask at the sampled step's shapes: 72 rows x 32000,
+    # under the phase-2 mix, the other timed settings and adversarial rows
     T, V = 72, 32000
-    logits = torch.randn((T, V), generator=gen, device=dev) * 3.0
-    logits[2, :8] = logits[2].max() + 1.0  # 8 tied values, top_k 5
-    ks = torch.tensor([0, 1, 5, 40, 50, V, V + 7, 8], dtype=torch.int32,
-                      device=dev).repeat(T // 8)
-    ps = torch.tensor([1.0, 0.9, 0.5, 0.25, 1e-3, 0.95, 1.0, 0.999],
-                      device=dev).repeat_interleave(T // 8)
-    got = topk_topp_mask(logits, ks, ps)
-    torch.cuda.synchronize()
-    want = topk_topp_mask_ref(logits, ks, ps)
-    keep_g, keep_w = got > NEG_INF / 2, want > NEG_INF / 2
-    if not bool(torch.equal(keep_g, keep_w)):
-        bad = int((keep_g != keep_w).sum())
-        fail(f"top-k/top-p mask: keep-sets differ in {bad} entries")
-    if not bool(torch.equal(got, want)):
-        fail("top-k/top-p mask: kept logits changed")
-    out["mask"] = ((logits, ks, ps), float((got - want).abs().max()))
-    print(f"top-k/top-p mask: keep-sets equal over {T}x{V} "
-          f"({int(keep_g.sum())} kept), kept logits bit-equal")
+    cases = {st: time_mask.mask_inputs(st, T, V, gen, dev)
+             for st in time_mask.SETTINGS}
+    cases["adversarial"] = mask_adversarial(gen, dev, T, V)
+    for name, (logits, ks, ps) in cases.items():
+        got = topk_topp_mask(logits, ks, ps)
+        torch.cuda.synchronize()
+        want = topk_topp_mask_ref(logits, ks, ps)
+        keep_g, keep_w = got > NEG_INF / 2, want > NEG_INF / 2
+        if not bool(torch.equal(keep_g, keep_w)):
+            bad = int((keep_g != keep_w).sum())
+            fail(f"top-k/top-p mask ({name}): keep-sets differ in {bad} "
+                 f"entries")
+        if not bool(torch.equal(got, want)):
+            fail(f"top-k/top-p mask ({name}): kept logits changed")
+        print(f"top-k/top-p mask ({name}): keep-sets equal over {T}x{V} "
+              f"({int(keep_g.sum())} kept), kept logits bit-equal")
+    if not bool(torch.equal(topk_topp_mask(logits, ks, ps), got)):
+        fail("top-k/top-p mask: two calls differ")
+    for t in range(T):
+        if not bool(torch.equal(topk_topp_mask(
+                logits[t:t + 1], ks[t:t + 1], ps[t:t + 1])[0], got[t])):
+            fail(f"top-k/top-p mask: row {t} alone differs from the batch")
+    print("top-k/top-p mask: two calls bit-equal, every adversarial row "
+          "alone equal to the batch's")
+    logits, ks, ps = cases["mix"]
+    out["mask"] = (cases, float((topk_topp_mask(logits, ks, ps)
+                                 - topk_topp_mask_ref(logits, ks, ps))
+                                .abs().max()))
 
     # flash attention at the phase-2 shapes (a ragged tile, a window,
     # bidirectional, MQA, narrow heads)
@@ -1328,9 +1379,10 @@ def check_flash_decode(dev):
 
 
 def check_wide_mask(dev):
-    """Phase 15: the mask kernel on rows wider than one block's shared
-    memory (split over a cluster of blocks) against the plain version,
-    and its times."""
+    """Phase 15: the mask kernel on 8 rows wider than one block's shared
+    memory (a cluster of blocks a row, each staging its share; past the
+    widest such cluster, one reading device memory) torch.equal to the
+    plain version under phase 5's settings, and their times."""
     import torch
     from repro_torch.kernels.sampling.ops import topk_topp_mask
     from repro_torch.kernels.sampling.ref import topk_topp_mask_ref
@@ -1339,31 +1391,27 @@ def check_wide_mask(dev):
     rows = []
     for V in MASK_WIDE:
         T = 8
-        logits = torch.randn((T, V), generator=gen, device=dev) * 3.0
-        logits[2, :8] = logits[2].max() + 1.0  # 8 tied values, top_k 5
-        ks = torch.tensor([0, 50, 5, 1, V, 0, 40, 50], dtype=torch.int32,
-                          device=dev)
-        ps = torch.tensor([0.9, 1.0, 0.95, 0.5, 0.999, 1e-3, 0.25, 0.9],
-                          device=dev)
-        got = topk_topp_mask(logits, ks, ps)
-        torch.cuda.synchronize()
-        if not bool(torch.equal(got, topk_topp_mask_ref(logits, ks, ps))):
-            fail(f"top-k/top-p mask at V={V}: differs from the plain version")
         bound, by = mask_bound_ms(T, V)
-        row = {"T": T, "V": V,
-               "ms": device_ms(lambda: topk_topp_mask(logits, ks, ps),
-                               calls=5, replays=5),
-               "plain_ms": device_ms(lambda: topk_topp_mask_ref(
-                   logits, ks, ps), calls=5, replays=5),
-               "library_ms": device_ms(lambda: torch.sort(
-                   logits, dim=-1, descending=True), calls=5, replays=5),
-               "bound_ms": bound, "bound_by": by}
-        print(f"top-k/top-p mask T={T} V={V} (rows split over a cluster "
-              f"of blocks): equal to the plain version; "
-              f"{row['ms'] * 1e3} us kernel, "
-              f"{row['plain_ms'] * 1e3} us plain, {row['library_ms'] * 1e3}"
-              f" us torch.sort, bound {bound * 1e3} us ({by})")
-        rows.append(row)
+        for setting in time_mask.SETTINGS:
+            logits, ks, ps = time_mask.mask_inputs(setting, T, V, gen, dev)
+            got = topk_topp_mask(logits, ks, ps)
+            torch.cuda.synchronize()
+            if not bool(torch.equal(got, topk_topp_mask_ref(logits, ks, ps))):
+                fail(f"top-k/top-p mask at V={V} ({setting}): differs from "
+                     f"the plain version")
+            row = {"T": T, "V": V, "setting": setting,
+                   "ms": device_ms(lambda: topk_topp_mask(logits, ks, ps)),
+                   "plain_ms": device_ms(lambda: topk_topp_mask_ref(
+                       logits, ks, ps), calls=5, replays=5),
+                   "library_ms": device_ms(lambda: torch.sort(
+                       logits, dim=-1, descending=True), calls=5, replays=5),
+                   "bound_ms": bound, "bound_by": by}
+            print(f"top-k/top-p mask T={T} V={V} {setting}: equal to the "
+                  f"plain version; {row['ms'] * 1e3} us kernel, "
+                  f"{row['plain_ms'] * 1e3} us plain, "
+                  f"{row['library_ms'] * 1e3} us torch.sort, bound "
+                  f"{bound * 1e3} us ({by})")
+            rows.append(row)
     return rows
 
 
@@ -1529,7 +1577,8 @@ def main():
         q[:, :, None, :], kgq, vgq, attn_mask=amask)
     quant_bound, quant_by = paged_bound_ms(q, kq, tables, lengths,
                                            token_bytes=2 * (hd + 4))
-    (logits, ks, ps), mask_err = checked["mask"]
+    mask_cases, mask_err = checked["mask"]
+    logits, ks, ps = mask_cases["mix"]
     mask_bound, mask_by = mask_bound_ms(*logits.shape)
     # flash attention at paper-demo's heads, causal: the classic
     # admission's batch-1 prefill (the JSON line's shape), the one-shot
@@ -1562,6 +1611,20 @@ def main():
                  lambda: paged_flash_decode_quant(*qin),
              "flash_attention": lambda: flash_attention(
                  *flash[0]["fin"], causal=True, n_kv_heads=4)}
+    # the mask under the other settings, at the same shape and bound
+    mask_settings = {}
+    for setting in time_mask.SETTINGS[1:]:
+        x, k, p = mask_cases[setting]
+        mask_settings[setting] = {
+            "ms": device_ms(lambda: topk_topp_mask(x, k, p)),
+            "plain_ms": device_ms(lambda: topk_topp_mask_ref(x, k, p)),
+            "library_ms": device_ms(lambda: torch.sort(x, dim=-1,
+                                                       descending=True))}
+        print(f"top-k/top-p mask 72x32000 {setting}: "
+              f"{mask_settings[setting]['ms'] * 1e3} us kernel, "
+              f"{mask_settings[setting]['plain_ms'] * 1e3} us plain, "
+              f"{mask_settings[setting]['library_ms'] * 1e3} us torch.sort, "
+              f"bound {mask_bound * 1e3} us ({mask_by})")
     report = [
         {"name": "paged_flash_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_decode.cu",
@@ -1579,7 +1642,8 @@ def main():
          "plain_ms": device_ms(lambda: topk_topp_mask_ref(logits, ks, ps)),
          "bound_ms": mask_bound, "bound_by": mask_by,
          "library_ms": device_ms(lambda: torch.sort(logits, dim=-1,
-                                                    descending=True))},
+                                                    descending=True)),
+         "settings": mask_settings},
         {"name": "paged_flash_decode_quant", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_decode_quant.cu",
          "replaces": "src/repro/kernels/paged_decode/kernel.py:170",

@@ -1,10 +1,14 @@
 """Public fused top-k/top-p mask op: the CUDA kernel on the GPU, the
 sort-based plain version on the CPU — the same keep-set either way, so
-seeded sampling means the same thing on both devices. Rows of any width:
-up to MAX_VOCAB logits the kernel stages a row in one block's shared
-memory, up to CLUSTER * MAX_VOCAB it splits the row over a cluster of
-CLUSTER blocks' shared memory, past that one block reads the row from
-global memory on each pass (csrc/topk_topp_mask.cu picks by V)."""
+seeded sampling means the same thing on both devices. The kernel finds
+both thresholds by a radix select over the row held on chip
+(csrc/topk_topp_mask.cu). Rows of any width: up to MAX_VOCAB logits one
+block stages a row in shared memory, up to CLUSTER * MAX_SHARE a cluster
+of 2, 4 or CLUSTER blocks each stages a share of at most MAX_SHARE, past
+that a cluster of CLUSTER blocks reads its shares from device memory on
+each pass (the kernel picks by V alone, so a row's bits never depend on
+how many rows share the call). A row of any alignment is taken: the kernel copies 16 bytes at a
+time where the row starts on 16 bytes, 4 bytes at its ragged ends."""
 from __future__ import annotations
 
 import torch
@@ -12,9 +16,13 @@ import torch
 from repro_torch.kernels import check_launch, check_tensors, library
 from repro_torch.kernels.sampling.ref import topk_topp_mask_ref
 
-# widest row one block stages in shared memory (csrc kMaxRowBytes / 4),
-# and the blocks of a cluster a wider row is split over (csrc kCluster)
-MAX_VOCAB = (227 * 1024 - 1024) // 4
+# widest row one block stages in shared memory (csrc kMaxShared: 227 KB
+# less 3 KB of static scratch, two histograms of 2 x 2080 32-bit words and
+# the 4 KB candidate list, in f32, less 8 of slack), a cluster block's
+# widest share (a third histogram: csrc kMaxShare), and the largest
+# cluster (csrc kMaxCluster)
+MAX_VOCAB = (227 * 1024 - 3072 - 2 * 16640 - 4096) // 4 - 8
+MAX_SHARE = (227 * 1024 - 3072 - 3 * 16640 - 4096) // 4 - 8
 CLUSTER = 8
 
 

@@ -11,8 +11,9 @@ over the bf16 and the int8 pool within 1e-5 (both sides compute in f32
 from the same bf16 or int8-and-scale inputs; sound runs read below 1e-6,
 a kernel rounding its probabilities to bf16 reads above 1e-3; a row's
 output bit-equal across batch composition and block size), the
-top-k/top-p mask exactly (same keep-set, kept logits equal; rows wider
-than shared memory too), flash-decoding's partials within 1e-5 in f32 and
+top-k/top-p mask exactly (torch.equal, at the edges of its semantics
+and on rows wider than shared memory; two calls bit-equal, a row alone
+equal to the same row in a batch), flash-decoding's partials within 1e-5 in f32 and
 bf16 (l relative: a sum of up to S terms), flash
 attention within 2e-2 on its bf16 output (the JAX package's bound for its
 kernel, tests/test_kernels.py: one bf16 rounding of values of a few units
@@ -41,8 +42,8 @@ from repro_torch.kernels.rglru.ops import rglru_scan
 from repro_torch.kernels.rglru.ref import rglru_ref_loop
 from repro_torch.kernels.rwkv6.ops import wkv6
 from repro_torch.kernels.rwkv6.ref import wkv6_ref
-from repro_torch.kernels.sampling.ops import (CLUSTER, MAX_VOCAB,
-                                              topk_topp_mask)
+from repro_torch.kernels.sampling.ops import (CLUSTER, MAX_SHARE,
+                                              MAX_VOCAB, topk_topp_mask)
 from repro_torch.kernels.sampling.ref import topk_topp_mask_ref
 from repro_torch.launch.serve import serve_batch
 from repro_torch.models import model as Mo
@@ -276,40 +277,113 @@ def test_paged_decode_takes_q_at_an_odd_storage_offset(G, hd, Hkv, quant,
     assert op.launches == before
 
 
-@pytest.mark.parametrize("T,V", [(4, 128), (3, 200), (72, 32000),
-                                 (2, MAX_VOCAB)])
-def test_mask_kernel_matches_plain(T, V, cuda):
+def _mask_rows(case, T, V, gen, dev):
+    """logits [T, V], top_k [T], top_p [T] of one case of the mask tests;
+    settings cycle over the rows."""
+    logits = torch.randn((T, V), generator=gen, device=dev) * 3.0
+    if case == "mix":
+        ks, ps = [0, 5, 1, 40], [1.0, 0.9, 0.5, 0.25]
+    elif case == "mix_wide":  # tied values and a nucleus near 1
+        logits[2, :8] = logits[2].max() + 1.0  # 8 tied values, top_k 5
+        ks, ps = [0, 50, 5, 1, V, 0], [0.9, 1.0, 0.95, 0.5, 0.999, 1e-3]
+    elif case == "serve":  # the seeded serves' settings, and top-p alone
+        ks, ps = [50, 0], [0.9, 0.9]
+    elif case == "p_zero":  # the max alone, with its ties
+        logits[1, :3] = logits[1].max() + 1.0
+        ks, ps = [0, 0, 50, 5], [0.0, 0.0, 0.0, -1.0]
+    elif case == "p_near_one":  # the nucleus ends deep in the tail
+        ks, ps = [0, 50, 1, 40000], [0.9999999] * 4
+    elif case == "exact_prefix":  # probs 0.5, 0.25, 0.25, then 0s
+        logits[:, :3] = torch.tensor([0.5, 0.25, 0.25], device=dev).log()
+        logits[:, 3:] = -1e4
+        ks, ps = [0, 0, 0, 2], [0.5, 0.75, 0.25, 0.75]
+    elif case == "all_equal":
+        logits.fill_(0.5)
+        ks, ps = [5, 5, 5, 0], [1.0, 0.9, 0.0, 0.5]
+    elif case == "ties_past_list":  # more ties at the k-th value than the
+        logits[:, :3000] = logits.max() + 1.0  # kernel lists (1024)
+        ks, ps = [5, 2999, 3001, 0, 5], [0.9, 1.0, 0.5, 0.9, 0.9999999]
+    elif case == "k_edges":
+        ks, ps = [V - 1, V, V + 7, V - 1, V], [1.0, 1.0, 0.5, 0.9, 0.9]
+    elif case == "greedy":  # scaled by 1/1e-6: all probs but one are 0
+        logits = logits / 1e-6
+        ks, ps = [0, 50, 0, 1], [0.9, 0.9, 0.9999999, 1.0]
+    elif case == "copy":  # nothing to mask
+        ks, ps = [0, -3, V, V + 1], [1.0, 1.5, 1.0, 2.0]
+    else:  # "edges": one row of each kind above
+        logits[4, :3000] = logits[4].max() + 1.0
+        logits[3] = logits[3] / 1e-6
+        logits[7].fill_(0.5)
+        ks, ps = ([0, 0, 50, 0, 5, V - 1, V, 5, 0, 50],
+                  [0.0, 0.9999999, 0.9999999, 0.9, 0.9, 1.0, 0.9, 0.9, 1.0,
+                   0.9])
+    ks = torch.tensor([ks[i % len(ks)] for i in range(T)],
+                      dtype=torch.int32, device=dev)
+    ps = torch.tensor([ps[i % len(ps)] for i in range(T)], device=dev)
+    return logits.contiguous(), ks, ps
+
+
+def _mask_checked(logits, top_k, top_p):
+    """One launch of the kernel, equal to the plain version."""
+    before = topk_topp_mask.launches
+    got = topk_topp_mask(logits, top_k, top_p)
+    torch.cuda.synchronize()
+    assert topk_topp_mask.launches == before + 1
+    assert torch.equal(got, topk_topp_mask_ref(logits, top_k, top_p))
+    return got
+
+
+@pytest.mark.parametrize("T,V,case", [
+    (4, 128, "mix"), (3, 200, "mix"), (72, 32000, "mix"),
+    (2, MAX_VOCAB, "mix"), (72, 32000, "serve"), (8, 32000, "p_zero"),
+    (8, 32000, "p_near_one"), (4, 3, "exact_prefix"),
+    (4, 128, "exact_prefix"), (6, 1000, "all_equal"),
+    (5, 32000, "ties_past_list"), (5, MAX_VOCAB, "ties_past_list"),
+    (6, 32000, "k_edges"), (8, 32000, "greedy"), (3, 1, "mix"),
+    (3, 3, "mix"), (6, 32001, "mix"), (10, 32001, "edges"),
+    (8, 32000, "copy"), (10, 32000, "edges"), (6, 32000, "mix_wide")])
+def test_mask_kernel_matches_plain(T, V, case, cuda):
+    """One block a row: the kernel's output equals the plain version's
+    (torch.equal) at the mix of settings, at the serves' settings, and at
+    the edges: top_p 0 and 0.9999999, a top_p equal to a prefix mass, an
+    all-equal row, more ties at the k-th value than the kernel lists,
+    top_k V - 1, V and past V, greedy rows (logits / 1e-6), 1, 3 and an
+    odd number of logits (rows off 16 bytes), rows with nothing to mask,
+    top_p 0.999 alone (more candidates than shared memory lists)."""
     gen = torch.Generator(device=cuda).manual_seed(T * V)
-    logits = torch.randn((T, V), generator=gen, device=cuda) * 3.0
-    top_k = torch.tensor([0, 5, 1, 40] * T, dtype=torch.int32,
-                         device=cuda)[:T]
-    top_p = torch.tensor([1.0, 0.9, 0.5, 0.25] * T, device=cuda)[:T]
-    before = topk_topp_mask.launches
-    got = topk_topp_mask(logits, top_k, top_p)
-    torch.cuda.synchronize()
-    assert topk_topp_mask.launches == before + 1
-    assert torch.equal(got, topk_topp_mask_ref(logits, top_k, top_p))
+    _mask_checked(*_mask_rows(case, T, V, gen, cuda))
 
 
-@pytest.mark.parametrize("V", [MAX_VOCAB + 1, 65536, 256000,
+@pytest.mark.parametrize("case", ["mix_wide", "serve", "edges"])
+@pytest.mark.parametrize("V", [MAX_VOCAB + 1, 57857, 65536, 256000,
+                               CLUSTER * MAX_SHARE, CLUSTER * MAX_SHARE + 1,
                                CLUSTER * MAX_VOCAB + 1])
-def test_mask_kernel_takes_rows_wider_than_shared_memory(V, cuda):
+def test_mask_kernel_takes_rows_wider_than_shared_memory(V, case, cuda):
     """Rows past MAX_VOCAB (rwkv6-1.6b's 65536, recurrentgemma-9b's 256000
-    logits) split over a cluster of blocks; past CLUSTER * MAX_VOCAB one
-    block reads the row from global memory. The same keep-mask as the
-    plain version, with tied values and a nucleus near 1."""
+    logits) split over a cluster of 2-8 blocks, each holding at most
+    MAX_SHARE; past CLUSTER * MAX_SHARE a cluster of CLUSTER blocks reads
+    its shares from device memory on every pass. Equal to the plain
+    version at every case."""
     gen = torch.Generator(device=cuda).manual_seed(V)
-    T = 6
-    logits = torch.randn((T, V), generator=gen, device=cuda) * 3.0
-    logits[2, :8] = logits[2].max() + 1.0  # 8 tied values, top_k 5
-    top_k = torch.tensor([0, 50, 5, 1, V, 0], dtype=torch.int32,
-                         device=cuda)
-    top_p = torch.tensor([0.9, 1.0, 0.95, 0.5, 0.999, 1e-3], device=cuda)
-    before = topk_topp_mask.launches
-    got = topk_topp_mask(logits, top_k, top_p)
-    torch.cuda.synchronize()
-    assert topk_topp_mask.launches == before + 1
-    assert torch.equal(got, topk_topp_mask_ref(logits, top_k, top_p))
+    _mask_checked(*_mask_rows(case, 10, V, gen, cuda))
+
+
+@pytest.mark.parametrize("V", [32000, 32001, 65536])
+def test_mask_kernel_is_deterministic_and_row_independent(V, cuda):
+    """Two calls give the same bits; each row of a 72-row call equals a
+    call on that row alone; a logits view that starts 4 bytes past 16 is
+    taken (4-byte copies) with the same result and one launch."""
+    gen = torch.Generator(device=cuda).manual_seed(V + 1)
+    logits, ks, ps = _mask_rows("edges", 72, V, gen, cuda)
+    got = _mask_checked(logits, ks, ps)
+    assert torch.equal(topk_topp_mask(logits, ks, ps), got)
+    for t in range(72):
+        assert torch.equal(topk_topp_mask(logits[t:t + 1], ks[t:t + 1],
+                                          ps[t:t + 1])[0], got[t]), t
+    odd = torch.empty(logits.numel() + 1, device=cuda)[1:].view(72, V)
+    odd.copy_(logits)
+    assert odd.data_ptr() % 16 == 4
+    assert torch.equal(_mask_checked(odd, ks, ps), got)
 
 
 def test_engine_on_the_card_is_exact_and_lane_invariant(cuda):

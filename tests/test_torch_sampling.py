@@ -1,7 +1,9 @@
 """Seeded sampling in the PyTorch port against the JAX package.
 
 * the top-k/top-p mask (plain version on the CPU) yields the JAX oracle's
-  keep-set with kept logits bit-equal, on the JAX kernel tests' cases;
+  keep-set with kept logits bit-equal, on the JAX kernel tests' cases and
+  at the edges of its semantics (top_p 0, an exact prefix mass, an
+  all-equal row, top_k >= V, rows of one nonzero probability);
 * the counter-based generator (repro_torch/random.py) reproduces jax's
   threefry2x32 keys and bits bit for bit (jax_threefry_partitionable, the
   default of this tree's jax), its uniforms bit for bit, and each of the
@@ -73,6 +75,57 @@ def test_mask_keeps_value_ties_at_the_top_k_edge():
                          torch.tensor([1.0]))
     assert [bool(b) for b in (out[0, :5] > NEG_INF / 2)] == \
         [False, True, True, False, False]
+
+
+def _edge_rows(case):
+    """Four rows of 300 logits, top_k, top_p at one edge of the semantics
+    (the CUDA kernel is held to the same edges in test_torch_cuda.py)."""
+    x = (np.random.default_rng(7).standard_normal((4, 300)) * 3.0).astype(
+        np.float32)
+    if case == "p_zero":  # the max alone survives, with its ties
+        x[1, :3] = x[1].max() + 1.0
+        k, p = [0, 0, 5, 50], [0.0, 0.0, 0.0, -1.0]
+    elif case == "exact_prefix_mass":  # probs 0.5, 0.25, 0.25, then 0s
+        x[:, :3] = np.log(np.float32([0.5, 0.25, 0.25]))
+        x[:, 3:] = -1e4
+        k, p = [0, 0, 0, 2], [0.5, 0.75, 0.25, 0.75]
+    elif case == "all_equal":
+        x[:] = 0.5
+        k, p = [5, 5, 0, 1], [1.0, 0.9, 0.5, 0.0]
+    elif case == "k_at_least_v":
+        k, p = [299, 300, 307, 2**31 - 1], [1.0, 1.0, 0.9, 0.5]
+    else:  # greedy rows, scaled by 1/1e-6: every prob but the max's is 0
+        x = x / np.float32(1e-6)
+        k, p = [0, 50, 0, 1], [0.9, 0.9, 0.9999999, 1.0]
+    return x, np.asarray(k, np.int32), np.asarray(p, np.float32)
+
+
+@pytest.mark.parametrize("case", ["p_zero", "exact_prefix_mass", "all_equal",
+                                  "k_at_least_v", "greedy_scaled"])
+def test_mask_edges_match_jax_oracle(case):
+    """The plain version (the kernel's oracle) against JAX's at the edges
+    of the semantics: top_p 0 and below, top_p equal to a prefix mass
+    (the first prefix that reaches it ends the nucleus), an all-equal row,
+    top_k >= V, rows whose probabilities all but one underflow."""
+    x, k, p = _edge_rows(case)
+    got = topk_topp_mask(torch.from_numpy(x), torch.from_numpy(k),
+                         torch.from_numpy(p)).numpy()
+    want = np.asarray(jax_mask_ref(jnp.asarray(x), jnp.asarray(k),
+                                   jnp.asarray(p)))
+    assert np.array_equal(got, want)
+    keep = got > NEG_INF / 2
+    if case == "exact_prefix_mass":
+        assert keep[:, :3].tolist() == [[True, False, False],
+                                        [True, True, True],
+                                        [True, False, False],
+                                        [True, True, True]]
+        assert not keep[:, 3:].any()
+    elif case == "p_zero":
+        assert keep.sum(1).tolist() == [1, 3, 1, 1]
+    elif case == "all_equal":
+        assert keep.all()
+    elif case == "greedy_scaled":
+        assert keep.sum(1).tolist()[::2] == [1, 1]
 
 
 # ---------------------------------------------------------------------------
