@@ -92,7 +92,27 @@ Phases, any failure exits non-zero before the result line:
      the plain version and timed beside it and one torch.sort under phase
      5's four settings;
      a seeded top-k/top-p serve of rwkv6-1.6b (vocab 65536) at full
-     width and depth, bit-identical at 8 and 4 slots.
+     width and depth, bit-identical at 8 and 4 slots;
+ 16. the host swap tier at full width: an EDF-preemptive engine with one
+     slot swaps a seeded (k 50 / p 0.9) victim (prompt 64, gen 32) out
+     to pinned host memory for an urgent request and back, on the bf16
+     and the int8 pools of paper-demo-110m: its tokens equal an
+     unpreempted run's, nothing is recomputed, the bytes out equal the
+     bytes in, and one swap-out's and one swap-in's wall time is
+     printed; phase 7's autoscaled int8 fleet again with --drain preempt
+     --swap on (tokens equal one engine's, nothing recomputed, the host
+     pool empty and every pool released with its leak checks); the same
+     victim on recurrentgemma-9b at full width and phase 14's cut depth
+     (5 layers, prompt 160: flash attention and the RG-LRU scan in its
+     prefill), swapping its window-ring blocks and state rows;
+ 17. speculative decoding at full width: n-gram and model drafters at
+     spec_k 4 and auto, greedy and seeded (k 50 / p 0.9), on the paged,
+     int8 and slot pools over a repetitive trace (8 requests, prompt 64,
+     gen 32, 8 slots), each bit-identical to --spec off on the same pool
+     with the launches of #1 / #3 and #2 counted between the run and its
+     verify, and n-gram k 4 at 4 slots bit-identical to the 8-slot runs;
+     accepted tokens per step, and wall tokens/s of n-gram k 4 and the
+     model drafter against --spec off, three runs each.
 Phase 2 also holds the quant kernel to its plain version and to the bf16
 kernel on the same pool (relative RMS), the flash-attention kernel to its
 plain version at six shapes, and one full-width 256-token prefill on the
@@ -1456,6 +1476,219 @@ def serve_seeded_rwkv():
     return n_mask
 
 
+def _timed(obj, name, acc):
+    """Wrap obj.name to append the wall time of each call, the card
+    synchronised before and after, to `acc`."""
+    import torch
+    fn = getattr(obj, name)
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        acc.append(time.perf_counter() - t0)
+        return out
+
+    setattr(obj, name, timed)
+
+
+def swap_victim(cfg, params, kv, prompt_len, counted, label):
+    """An EDF-preemptive engine with one slot: a seeded (k 50 / p 0.9)
+    deadline-free victim of 32 tokens is preempted at t = 0.12 s by an
+    urgent 4-token request (deadline 0.4 s), swapped out to the host tier
+    and swapped back in. Its tokens must equal an unpreempted run's, with
+    nothing recomputed and the bytes out equal to the bytes in. Returns
+    the launches of `counted` in the swap run."""
+    import numpy as np
+    import torch
+    from repro_torch.core.clock import ManualClock
+    from repro_torch.serve import (EDFPolicy, Request, SamplingParams,
+                                   ServingEngine, run_to_completion)
+
+    rng = np.random.default_rng(5)
+    prompts = rng.integers(0, cfg.vocab_size, (2, prompt_len),
+                           dtype=np.int32)
+    sp = SamplingParams(temperature=0.8, top_k=50, top_p=0.9, seed=7)
+    reqs = lambda: [
+        Request(rid=0, prompt=prompts[0], gen_len=32, sampling=sp),
+        Request(rid=1, prompt=prompts[1], gen_len=4, arrival_t=0.12,
+                deadline_s=0.4)]
+    mk = lambda **kw: ServingEngine(
+        cfg, params, num_slots=1, prompt_len=prompt_len, max_gen=32, kv=kv,
+        block_size=16, clock=ManualClock(), device="cuda", **kw)
+    solo = run_to_completion(mk(), reqs()[:1], dt=0.05)
+    for op in counted:
+        op.launches = 0
+    eng = mk(swap=True, policy=EDFPolicy(preemptive=True, min_slack_s=1.0))
+    t_out, t_in = [], []
+    _timed(eng.pool, "swap_out", t_out)
+    _timed(eng.pool, "swap_in", t_in)
+    t0 = time.perf_counter()
+    out = run_to_completion(eng, reqs(), dt=0.05)
+    wall = time.perf_counter() - t0
+    launches = {op.__name__: op.launches for op in counted}
+    m, pm = eng.metrics, eng.pool.metrics()
+    if not (m.preemptions >= 1 and t_out and t_in):
+        fail(f"{label}: the victim was never swapped out and back in")
+    if out[0] != solo[0]:
+        fail(f"{label}: the swap-resumed victim's tokens differ from an "
+             f"unpreempted run's")
+    if m.recomputed_tokens != 0 or not (
+            pm["swap_out_bytes"] == pm["swap_in_bytes"] > 0):
+        fail(f"{label}: recomputed {m.recomputed_tokens} tokens, swapped "
+             f"{pm['swap_out_bytes']} bytes out and {pm['swap_in_bytes']} "
+             "in")
+    eng.pool.release()
+    print(f"{label}: victim swapped out and resumed, tokens equal the "
+          f"unpreempted run's, recomputed 0; {pm['swapped_blocks']:.0f} "
+          f"blocks, {pm['swap_out_bytes']:.0f} bytes out = "
+          f"{pm['swap_in_bytes']:.0f} in; swap-out {t_out[0] * 1e3:.3f} ms,"
+          f" swap-in {t_in[0] * 1e3:.3f} ms wall on {card()}; serve "
+          f"{wall:.3f}s wall; launches {launches}")
+    return launches
+
+
+def check_swap_tier(cfg, params, counted):
+    """Phase 16: the host swap tier at full width. The EDF victim on the
+    bf16 and the int8 pools of paper-demo-110m; the autoscaled int8 fleet
+    of phase 7 with --drain preempt --swap on (tokens equal one engine's,
+    nothing recomputed, every pool released with its leak checks, the
+    shared host pool empty); recurrentgemma-9b at full width and phase
+    14's cut depth (5 layers, prompt 160: the flash branch), one swap of
+    its ring blocks and state rows. Returns launches by kernel name."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import run_trace, verify
+    from repro_torch.models import model as Mo
+    from repro_torch.models.env import Env
+
+    launches = {}
+    for kv in ("paged", "quant"):
+        got = swap_victim(cfg, params, kv, 64, counted,
+                          f"swap tier, {cfg.name} {kv} pool")
+        for n, c in got.items():
+            launches[n] = launches.get(n, 0) + c
+    fargs = serve_args(["--trace", "burst", "--kv", "quant", "--replicas",
+                        "2", "--max-nodes", "4", "--drain", "preempt",
+                        "--swap", "on"])
+    for op in counted:
+        op.launches = 0
+    frun = run_trace(fargs, cfg, params)
+    n_quant = sum(op.launches for op in counted
+                  if op.__name__ == "paged_flash_decode_quant")
+    check_tokens(frun, cfg)
+    snap, fleet = frun["snapshot"], frun["engine"]
+    if not fleet.released:
+        fail("swap fleet: no replica was drained and released")
+    if snap["recomputed_tokens"] != 0 or snap.get(
+            "swap_out_bytes", 0.0) != snap.get("swap_in_bytes", 0.0):
+        fail(f"swap fleet: recomputed {snap['recomputed_tokens']} tokens, "
+             f"{snap.get('swap_out_bytes')} bytes out, "
+             f"{snap.get('swap_in_bytes')} in")
+    host = fleet.replicas[0].pool.swap_pool
+    if host is None or host.blocks_resident:
+        fail("swap fleet: requests left on the host tier")
+    ok, line = verify(fargs, cfg, params, frun)
+    if not ok:
+        fail(f"swap fleet: {line}")
+    for r in list(fleet.replicas):
+        r.release()  # the last detach leak-checks the shared host pool
+    print(f"swap fleet (--drain preempt --swap on): timeline "
+          f"{frun['sizes']}, released {fleet.released} (leak-checked), "
+          f"preemptions {snap['preemptions']:.0f}, "
+          f"{snap.get('swapped_blocks', 0.0):.0f} blocks and "
+          f"{snap.get('swap_out_bytes', 0.0):.0f} bytes swapped out and "
+          f"back, recomputed 0, quant decode launches {n_quant}; {line}")
+    launches["paged_flash_decode_quant"] += n_quant
+    cut = dataclasses.replace(get_config("recurrentgemma-9b"), n_layers=5)
+    rparams = Mo.init_params(cut, Env(), seed=1, device="cuda")
+    got = swap_victim(cut, rparams, "paged", 160, counted,
+                      f"swap tier, {cut.name} at 5 layers (rings, state "
+                      "rows)")
+    for n, c in got.items():
+        launches[n] = launches.get(n, 0) + c
+    if not (got["rglru_scan"] and got["flash_attention"]
+            and got["paged_flash_decode"]):
+        fail(f"recurrent swap: launches {got}")
+    del rparams
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_spec(cfg, params, counted):
+    """Phase 17: speculative decoding at full width. n-gram and model
+    drafters at spec_k 4 and auto, greedy and seeded (k 50 / p 0.9), on
+    the paged, int8 and slot pools, over a repetitive trace (8 requests,
+    prompt 64, gen 32, 8 slots): every run's tokens bit-identical to
+    --spec off on the same pool, launches read between the run and its
+    verify, and n-gram k 4 at 4 slots equal to them. Then wall tokens/s
+    of n-gram k 4 and of the model drafter against --spec off on the
+    paged pool, three runs each. Returns the launches by kernel name."""
+    import statistics
+    from repro_torch.launch.serve import serve, verify
+
+    base = ["--trace", "repetitive", "--requests", "8"]
+    seeded = ["--temperature", "0.8", "--top-k", "50", "--top-p", "0.9",
+              "--sample-seed", "7"]
+    launches = {}
+    for kv in ("paged", "quant", "slot"):
+        for samp in ([], seeded):
+            outs = []
+            for drafter in ("ngram", "model"):
+                for k in ("4", "auto"):
+                    args = serve_args(base + ["--kv", kv, "--spec", drafter,
+                                              "--spec-k", k] + samp)
+                    for op in counted:
+                        op.launches = 0
+                    run = serve(args, cfg, params)
+                    got = {op.__name__: op.launches for op in counted}
+                    check_tokens(run, cfg)
+                    dec = ("paged_flash_decode_quant" if kv == "quant"
+                           else "paged_flash_decode")
+                    if got[dec] <= 0 or (got["topk_topp_mask"] > 0) != \
+                            bool(samp):
+                        fail(f"spec {drafter} k={k} {kv} "
+                             f"{'seeded' if samp else 'greedy'}: launches "
+                             f"{got}")
+                    for n, c in got.items():
+                        launches[n] = launches.get(n, 0) + c
+                    ok, line = verify(args, cfg, params, run)
+                    if not ok:
+                        fail(f"spec {drafter} k={k} {kv}: {line}")
+                    outs.append(run["out"])
+                    snap = run["engine"].snapshot()
+                    print(f"spec {drafter} k={k} {kv} "
+                          f"{'seeded' if samp else 'greedy'}: accepted/step "
+                          f"{snap['accepted_per_step']:.3f}, acceptance "
+                          f"{snap['spec_acceptance_rate']:.3f}, "
+                          f"{run['steps']} steps, "
+                          f"{run['tokens'] / run['wall_s']:.1f} tokens/s "
+                          f"wall; launches {got}; {line}")
+            # a row's output does not depend on the batch around it: the
+            # n-gram run at 4 slots emits the 8-slot runs' tokens
+            run4 = serve(serve_args(base + ["--kv", kv, "--spec", "ngram",
+                                            "--slots", "4"] + samp),
+                         cfg, params)
+            if any(o != run4["out"] for o in outs):
+                fail(f"spec ngram {kv}: 4 slots differ from 8")
+            print(f"spec ngram k=4 {kv} {'seeded' if samp else 'greedy'} "
+                  "at 4 slots: the tokens of the 8-slot runs, bit for bit")
+    rates = {}
+    for name, extra in (("off", []), ("ngram k=4", ["--spec", "ngram"]),
+                        ("model k=4", ["--spec", "model"])):
+        args = serve_args(base + extra)
+        rates[name] = []
+        for _ in range(3):
+            run = serve(args, cfg, params)
+            rates[name].append(run["tokens"] / run["wall_s"])
+        r = rates[name]
+        print(f"wall tokens/s, paged greedy, {name}: {r} (mean "
+              f"{statistics.mean(r):.1f}, spread {max(r) - min(r):.1f}); "
+              f"{run['steps']} steps on {card()}")
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -1491,6 +1724,7 @@ def main():
     from repro_torch.models.env import Env
 
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
@@ -1825,6 +2059,20 @@ def main():
     report[1]["wide"] = wide
     report[1]["wide_launches"] = n_mask_wide
 
+    # 16. the host swap tier at full width; 17. speculative decoding
+    t0 = time.perf_counter()
+    swap_launches = check_swap_tier(cfg, params, counted)
+    print(f"phase 16: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    spec_launches = check_spec(cfg, params, counted)
+    print(f"phase 17: {time.perf_counter() - t0:.1f}s")
+    for k in report:
+        if k["name"] in swap_launches:
+            k["swap_launches"] = swap_launches[k["name"]]
+        if k["name"] in spec_launches:
+            k["spec_launches"] = spec_launches[k["name"]]
+
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": report}))
     print(card())
     print(json.dumps({"ok": True, "device": {

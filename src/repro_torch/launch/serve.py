@@ -10,8 +10,13 @@ every scale-down drains one and releases its pool with a leak check.
 kernel), --kv slot from contiguous per-request slots. --prefill-chunk 0
 (and always --kv slot) admits by classic prefill: one batch-1 prefill of
 the whole prompt (the flash-attention kernel past 128 tokens) inserted
-into the cache. --verify checks the tokens (against one engine for a
-fleet, at another slot count for quant or seeded runs, else against the
+into the cache. --swap on gives the paged pools a host swap tier:
+preemptions (EDF with --edf-preempt, --drain preempt) copy the victim's
+blocks to host memory and resume it with nothing recomputed. --spec
+ngram|model verifies --spec-k drafted tokens a slot per step (auto: a
+depth per request from its own acceptance). --verify checks the tokens
+(against one engine for a fleet, against --spec off for a speculative
+run, at another slot count for quant or seeded runs, else against the
 one-shot baseline: streamed prefill for chunked admission, full prefill
 for classic):
 
@@ -121,16 +126,11 @@ def make_policy(args):
 
 
 def make_engine(args, cfg, params, *, num_slots=None, replicas=None,
-                clock=None):
+                clock=None, spec=None):
     """A ServingEngine (replicas == 1) or a Router + ReplicaSet data
     plane. --kv-blocks is per replica; --prefill-chunk 0 admits by classic
-    prefill. --swap on and --spec raise: the swap tier and speculative
-    decoding come with later slices."""
-    if args.spec != "off":
-        raise NotImplementedError(
-            f"--spec {args.spec}: speculative decoding (drafters, verify "
-            "rows) is not ported yet; it comes with the speculative-"
-            "decoding slice")
+    prefill. `spec` overrides --spec (the --verify re-serve passes
+    "off")."""
     sched = {"preemptive": True} if (args.sched == "edf"
                                      and args.edf_preempt) else {}
     return make_serving_engine(
@@ -141,7 +141,9 @@ def make_engine(args, cfg, params, *, num_slots=None, replicas=None,
         prompt_len=args.prompt_len, max_gen=args.gen_max,
         kv=args.kv, block_size=args.block_size, kv_blocks=args.kv_blocks,
         prefix_cache=args.prefix_cache == "on",
-        prefill_chunk=args.prefill_chunk, swap=args.swap == "on",
+        prefill_chunk=args.prefill_chunk,
+        spec=args.spec if spec is None else spec, spec_k=args.spec_k,
+        swap=args.swap == "on", swap_budget_blocks=args.swap_budget_blocks,
         policy=make_scheduler_policy(args.sched, **sched),
         clock=clock or ManualClock(), device=args.device)
 
@@ -164,11 +166,14 @@ def serve(args, cfg, params) -> dict:
 def verify(args, cfg, params, run) -> tuple:
     """(ok, line): the acceptance bar of the run, in the JAX package's
     order. A fleet emits bit-identically what one zero-router engine
-    emits; a greedy quant run (bounded divergence, so the fp one-shot is
-    no oracle) and a seeded run emit bit-identically what a fresh engine
-    at another slot count emits; a greedy fp run equals the streamed
-    one-shot baseline token for token: the streamed-prefill one under
-    chunked admission, the full-prefill one under classic admission."""
+    emits; a speculative run what a fresh engine with --spec off emits
+    (drafters and verify rows are invisible in the output, greedy and
+    seeded); a greedy quant run (bounded divergence, so the fp one-shot is
+    no oracle) and a seeded run what a fresh engine at another slot count
+    emits; a greedy fp run equals the one-shot baseline token for token:
+    the streamed-prefill one under chunked admission, the full-prefill one
+    under classic admission. Swap and preemption events are invisible in
+    every one of these."""
     out, trace, engine = run["out"], run["trace"], run["engine"]
     alt = args.slots // 2 if args.slots > 1 else args.slots + 1
     again = lambda **kw: run_to_completion(
@@ -179,6 +184,10 @@ def verify(args, cfg, params, run) -> tuple:
         ok = out == again(replicas=1)
         return ok, (f"verify {args.replicas} replicas "
                     f"({engine.routing.name} routing) vs 1: {match(ok)}")
+    if args.spec != "off":
+        ok = out == again(spec="off")
+        return ok, (f"verify --spec {args.spec} (k={args.spec_k}) vs "
+                    f"--spec off: {match(ok)}")
     if args.kv == "quant" and args.temperature <= 0:
         ok = out == again(num_slots=alt)
         return ok, (f"verify quant KV ({args.slots} vs {alt} slots): "
@@ -217,9 +226,11 @@ def run_trace(args, cfg, params) -> dict:
     engine = make_engine(args, cfg, params, clock=cluster.clock)
     multi = args.replicas > 1
     plane = engine.describe() if multi else engine.pool.describe()
+    spec_tag = ("off" if args.spec == "off"
+                else f"{args.spec} k={args.spec_k}")
     print(f"{cfg.name} on {args.device}: {plane}, chunked prefill="
           f"{engine.prefill_chunk or 'off (classic)'}, scheduler={engine.policy.name}, "
-          f"sampling="
+          f"spec={spec_tag}, sampling="
           f"{'greedy' if args.temperature <= 0 else _sampling_of(args)}")
     trace = make_trace(args, cfg)
 
@@ -273,6 +284,15 @@ def run_trace(args, cfg, params) -> dict:
               f"{snap['prefix_hit_rate']:.2f}, prefill tokens computed "
               f"{snap['prefill_tokens']:.0f}, shared occupancy "
               f"{snap['kv_shared_occupancy']:.2f}")
+    if "accepted_per_step" in snap:
+        print(f"speculative ({spec_tag}): accepted/step "
+              f"{snap['accepted_per_step']:.2f}, acceptance rate "
+              f"{snap['spec_acceptance_rate']:.2f}")
+    if args.swap == "on":
+        print(f"swap tier: {snap.get('swapped_blocks', 0.0):.0f} blocks "
+              f"out ({snap.get('swap_out_bytes', 0.0):.0f}B), "
+              f"{snap.get('swap_in_bytes', 0.0):.0f}B restored, "
+              f"recomputed tokens {snap.get('recomputed_tokens', 0.0):.0f}")
     if "kv_quant_divergence" in snap:
         print(f"quant KV: calibrated divergence "
               f"{snap['kv_quant_divergence']:.4f} relative RMS")
@@ -356,10 +376,24 @@ def build_parser() -> argparse.ArgumentParser:
                     "cache (~2x blocks per byte, bounded divergence), or "
                     "contiguous worst-case slots (classic prefill only)")
     ap.add_argument("--swap", default="off", choices=("on", "off"),
-                    help="host swap tier (comes with a later slice)")
+                    help="host swap tier for paged/quant KV: preemptions "
+                    "copy victim blocks to host memory and resume "
+                    "bit-identically with zero recompute")
+    ap.add_argument("--swap-budget-blocks", type=int, default=None,
+                    help="host swap residency cap in blocks (default: "
+                    "unbounded); a full budget falls back to restart "
+                    "preemption")
     ap.add_argument("--spec", default="off",
                     choices=("off", "ngram", "model"),
-                    help="speculative decoding (comes with a later slice)")
+                    help="speculative decoding drafter: prompt-lookup "
+                    "self-drafting (ngram) or a tiny draft model; the "
+                    "target verifies k drafts per slot in one fused step "
+                    "and output stays bit-identical to --spec off "
+                    "(attention archs)")
+    ap.add_argument("--spec-k", default="4",
+                    help="draft tokens proposed per slot per step, or "
+                    "'auto': adapt each request's draft depth from its own "
+                    "acceptance (AIMD, floor 1)")
     ap.add_argument("--block-size", type=int, default=16,
                     help="paged KV: tokens per block")
     ap.add_argument("--kv-blocks", type=int, default=None,
@@ -411,6 +445,8 @@ def build_parser() -> argparse.ArgumentParser:
 def parse_args(argv=None) -> argparse.Namespace:
     """Parse the CLI and fill the defaults that depend on other flags."""
     args = build_parser().parse_args(argv)
+    if args.spec_k != "auto":
+        args.spec_k = int(args.spec_k)
     if args.gen_max is None:
         args.gen_max = args.gen
     if args.prefix_len is None:

@@ -98,16 +98,25 @@ def make_sample_fn(cfg: ModelConfig, prompt_len: int):
 def make_fused_decode_step(cfg: ModelConfig, env: Env, *, prompt_len: int = 0,
                            sample: bool = False):
     """Contiguous-cache (slot pool) decode with the sample step fused:
-    (next tokens [T] int32, caches), row t == slot t. sample=False is the
-    pure-argmax variant an all-greedy batch runs."""
+    (next tokens [T] int32, caches). sample=False is the pure-argmax
+    variant an all-greedy batch runs.
+
+    Without row_slots, row t is slot t. Given row_slots ([T] int32), row i
+    writes its K/V into slot row_slots[i] at cur_len[i] and attends over
+    that slot at its own depth; rows with row_slots[i] < 0 are masked
+    (their write lands at the cache's never-attended tail position). This
+    is the slot pool's analogue of the paged step's block tables: it lets
+    speculative verify rows (several rows sharing one slot at consecutive
+    depths) ride the fused step, and a drafter step one row over a pool
+    of many slots."""
     V = cfg.vocab_size
     sampler = make_sample_fn(cfg, prompt_len) if sample else None
 
-    def step(params, caches, prev_tok, meta_i, meta_f):
+    def step(params, caches, prev_tok, meta_i, meta_f, row_slots=None):
         tok = _select_tokens(prev_tok, meta_i)
         logits, new_caches = Mo.forward(
             params, tok[:, None], cfg, env, mode="decode", caches=caches,
-            cur_len=meta_i[ROW_CUR_LEN])
+            cur_len=meta_i[ROW_CUR_LEN], row_slots=row_slots)
         lg = logits[:, 0, :]
         if sampler is None:
             nxt = torch.argmax(lg[:, :V], dim=-1).to(torch.int32)
@@ -116,6 +125,10 @@ def make_fused_decode_step(cfg: ModelConfig, env: Env, *, prompt_len: int = 0,
         return nxt, new_caches
 
     return step
+
+
+# the JAX package's name for the row-indirected form of the same step
+make_spec_decode_step = make_fused_decode_step
 
 
 def make_paged_decode_step(cfg: ModelConfig, env: Env, *, prompt_len: int = 0,

@@ -104,13 +104,16 @@ def silu(x):
 
 
 def _project_qkv(p, x, cfg: ModelConfig):
-    """Returns q [B,S,Hq,hd], k/v [B,S,Hkv,hd] (no rope yet)."""
+    """Returns q [B,S,Hq,hd], k/v [B,S,Hkv,hd] (no rope yet). With
+    cfg.qkv_bias the bf16 biases bq/bk/bv are added to the bf16 products,
+    as the JAX package adds them (one more bf16 rounding)."""
     hd = cfg.head_dim
     B, S = x.shape[0], x.shape[1]
-    q = linear(x, p["wq"]).reshape(B, S, -1, hd)
-    k = linear(x, p["wk"]).reshape(B, S, -1, hd)
-    v = linear(x, p["wv"]).reshape(B, S, -1, hd)
-    return q, k, v
+    q, k, v = (linear(x, p[w]) for w in ("wq", "wk", "wv"))
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return (q.reshape(B, S, -1, hd), k.reshape(B, S, -1, hd),
+            v.reshape(B, S, -1, hd))
 
 
 def _group(q, hkv: int):
@@ -194,17 +197,24 @@ def attention_paged_decode_quant(q, k_pool, v_pool, k_scale, v_scale, tables,
     return o.reshape(B, 1, -1).to(q.dtype)
 
 
-def attention_decode(q, k_cache, v_cache, cur_len, cfg: ModelConfig):
-    """Single-token attention over a contiguous cache [B,Hkv,Smax,hd].
+def attention_decode(q, k_cache, v_cache, cur_len, cfg: ModelConfig, *,
+                     slots=None):
+    """Single-token attention over a contiguous cache [N,Hkv,Smax,hd].
 
     cur_len: [B] int32 write position == last attended position per row.
-    A contiguous cache is a block pool of B blocks of Smax tokens, so this
-    is attention_paged_decode through the identity table. Unlike the JAX
-    package's attention_decode it keeps the probabilities in f32 (that one
-    rounds them to bf16 before P·V), so the one-shot baseline and the
-    paged engine compute the same function."""
-    B = q.shape[0]
-    tables = torch.arange(B, dtype=torch.int32, device=q.device)[:, None]
+    A contiguous cache is a block pool of N blocks of Smax tokens, so this
+    is attention_paged_decode through a one-entry table per row: row b
+    reads slot b (the identity table, N == B), or slots[b] when given
+    (row -> slot indirection: verify rows share their slot, and rows may
+    be fewer or more than the slots). Unlike the JAX package's
+    attention_decode it keeps the probabilities in f32 (that one rounds
+    them to bf16 before P·V), so the one-shot baseline and the paged
+    engine compute the same function."""
+    if slots is None:
+        tables = torch.arange(q.shape[0], dtype=torch.int32,
+                              device=q.device)[:, None]
+    else:
+        tables = slots.to(torch.int32)[:, None]
     return attention_paged_decode(q, k_cache, v_cache, tables,
                                   cur_len.to(torch.int32), cfg)
 

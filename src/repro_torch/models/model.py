@@ -51,9 +51,10 @@ FLASH_MIN_LEN = 128
 
 def check_supported(cfg: ModelConfig) -> None:
     """The port serves decoders built of attn, local, rglru and rwkv
-    blocks (no MoE, M-RoPE, qk-norm, qkv bias or encoder)."""
+    blocks, with or without a qkv bias (no MoE, M-RoPE, qk-norm or
+    encoder)."""
     kinds = set(cfg.block_pattern) | set(cfg.pattern_tail)
-    if (not kinds <= set(PAGEABLE_KINDS + RECURRENT_KINDS) or cfg.qkv_bias
+    if (not kinds <= set(PAGEABLE_KINDS + RECURRENT_KINDS)
             or cfg.qk_norm or cfg.mrope or cfg.is_encdec
             or cfg.family == "vlm"):
         raise NotImplementedError(
@@ -91,12 +92,15 @@ def _init_block(kind: str, gen: torch.Generator, cfg: ModelConfig,
                    "w_down": L.dense_init(gen, cfg.d_ff, d)}
     if kind in PAGEABLE_KINDS:
         hq, hkv, hd = head_pad(cfg, env), kv_head_pad(cfg, env), cfg.head_dim
-        return {"ln1": z(),
-                "attn": {"wq": L.dense_init(gen, d, hq * hd),
-                         "wk": L.dense_init(gen, d, hkv * hd),
-                         "wv": L.dense_init(gen, d, hkv * hd),
-                         "wo": L.dense_init(gen, hq * hd, d)},
-                "ln2": z(), "mlp": mlp()}
+        attn = {"wq": L.dense_init(gen, d, hq * hd),
+                "wk": L.dense_init(gen, d, hkv * hd),
+                "wv": L.dense_init(gen, d, hkv * hd),
+                "wo": L.dense_init(gen, hq * hd, d)}
+        if cfg.qkv_bias:  # zeros, as the JAX package's init_attention
+            b = lambda n: torch.zeros((n,), dtype=torch.bfloat16,
+                                      device=gen.device)
+            attn.update(bq=b(hq * hd), bk=b(hkv * hd), bv=b(hkv * hd))
+        return {"ln1": z(), "attn": attn, "ln2": z(), "mlp": mlp()}
     if kind == "rglru":
         return {"ln1": z(), "rec": R.init_rglru_block(gen, cfg), "ln2": z(),
                 "mlp": mlp()}
@@ -450,7 +454,7 @@ def _attn_prefill(p, h, cfg: ModelConfig, S: int, rope, window: int = 0):
 
 
 def _attn_sublayer(p, h, cfg: ModelConfig, n_rows: int, cur_len, rope,
-                   cache, tables, window: int = 0):
+                   cache, tables, window: int = 0, row_slots=None):
     """Decode attention for the first n_rows rows of the row-padded h: each
     row writes its token's K/V (through its block table, or at its own row
     of a contiguous cache) and attends at its own depth. A window unit
@@ -458,7 +462,10 @@ def _attn_sublayer(p, h, cfg: ModelConfig, n_rows: int, cur_len, rope,
     length - 1) + 1 ring entries (the ring holds exactly the window, in
     ring order: softmax does not care). rope: the rows' (cos, sin) from
     layers.rope_cos_sin. cache: this layer's leaves ({"k","v"}, plus
-    "k_scale"/"v_scale" in a quant pool)."""
+    "k_scale"/"v_scale" in a quant pool). row_slots ([n_rows] slot of each
+    row, -1 masked) addresses a contiguous cache through its slots instead
+    of row == slot. Every row's K/V is written before any row attends, so
+    a row sees the rows of its slot at lower depths in the same step."""
     q, k, v = L._project_qkv(p, h, cfg)  # [Bp,1,H,hd]
     q = L.rotate(q, *rope)[:n_rows]
     k = L.rotate(k, *rope)[:n_rows, 0]
@@ -487,6 +494,23 @@ def _attn_sublayer(p, h, cfg: ModelConfig, n_rows: int, cur_len, rope,
             ck[phys, :, off] = k.to(ck.dtype)
             cv[phys, :, off] = v.to(cv.dtype)
             o = L.attention_paged_decode(q, ck, cv, tables, lengths, cfg)
+    elif row_slots is not None:
+        # row -> slot indirection over the contiguous cache: several rows
+        # may share a slot at distinct depths (speculative verify rows),
+        # and rows may be fewer or more than the slots. A masked row
+        # (slot < 0) writes at (slot 0, Sc - 1): a live request's last
+        # write is at Sc - 2 and no depth reaches Sc - 1, so the tail
+        # position is the contiguous analogue of the paged null block
+        if window:
+            raise NotImplementedError(
+                "row-slot indirection over a windowed ring cache")
+        Sc = ck.shape[-2]
+        live = row_slots >= 0
+        slot = torch.where(live, row_slots, 0).long()
+        idx = torch.where(live, cur_len, Sc - 1)
+        ck[slot, :, idx] = k.to(ck.dtype)
+        cv[slot, :, idx] = v.to(cv.dtype)
+        o = L.attention_decode(q, ck, cv, cur_len, cfg, slots=slot)
     else:
         Sc = ck.shape[-2]
         idx = cur_len % Sc if window else cur_len
@@ -525,7 +549,8 @@ def _write_rows(cache: dict, new: dict, n_rows: int) -> None:
 
 
 def _apply_block(kind: str, p, h, hf, cfg: ModelConfig, *, S=None, rope=None,
-                 n_rows=None, cur_len=None, cache=None, tables=None):
+                 n_rows=None, cur_len=None, cache=None, tables=None,
+                 row_slots=None):
     """One block: h + first(norm(h)), then + second(norm(.)). Prefill when
     `cache` is None (S real positions of the row-padded h; returns the
     block's prompt cache), decode otherwise (updates `cache` in place; the
@@ -545,7 +570,7 @@ def _apply_block(kind: str, p, h, hf, cfg: ModelConfig, *, S=None, rope=None,
                    else tables["local" if window else "global"])
             first = lambda x: (_attn_sublayer(p["attn"], x, cfg, n_rows,
                                               cur_len, rope, cache, tbl,
-                                              window), None)
+                                              window, row_slots), None)
         else:
             first = lambda x: _attn_prefill(p["attn"], x, cfg, S, rope,
                                             window)
@@ -629,7 +654,7 @@ def _prefill(params, tokens, cfg: ModelConfig, last_only: bool = False):
 
 
 def forward(params, tokens, cfg: ModelConfig, env: Env, mode: str = "decode",
-            caches=None, cur_len=None, block_tables=None,
+            caches=None, cur_len=None, block_tables=None, row_slots=None,
             last_only: bool = False):
     """mode="prefill": tokens [B,S] (whole prompts); returns (logits
     [B,S,Vpad] bf16 — [B,Vpad] of the last position with last_only —,
@@ -642,10 +667,11 @@ def forward(params, tokens, cfg: ModelConfig, env: Env, mode: str = "decode",
     block_tables (paged cache): {"global": [B,MB] int32, "local":
     [B,MBw] int32 (window units)} block tables into caches from
     init_paged_cache (bf16 or quant); without it, caches is a contiguous
-    init_cache cache with one row per batch row. Recurrent state rows:
-    row b of the cache is batch row b's, so the cache holds exactly B
-    rows. The caches are updated in place. Returns (logits [B,1,Vpad]
-    bf16, caches).
+    init_cache cache with one row per batch row, or, given row_slots ([B]
+    int, -1 masked), with row b addressing slot row_slots[b] (attention
+    archs only). Recurrent state rows: row b of the cache is batch row
+    b's, so the cache holds exactly B rows. The caches are updated in
+    place. Returns (logits [B,1,Vpad] bf16, caches).
 
     Every row-wise op runs on rows padded to a multiple of layers.ROW_TILE
     (batch invariance, see models/layers.py); the padding rows never touch
@@ -666,7 +692,7 @@ def forward(params, tokens, cfg: ModelConfig, env: Env, mode: str = "decode",
     tok = F.pad(tokens[:, 0].long(), (0, Bp - B))
     h = params["embed"][tok][:, None, :].to(torch.bfloat16)  # [Bp,1,d]
     x, _ = _run_blocks(params, h, cfg, caches, rope=rope, n_rows=B,
-                       cur_len=cl, tables=block_tables)
+                       cur_len=cl, tables=block_tables, row_slots=row_slots)
     h = L.rms_norm(x, params["final_norm"], cfg.norm_eps).to(torch.bfloat16)
     logits = L.linear(h, params["unembed"])[:B]
     return logits, caches

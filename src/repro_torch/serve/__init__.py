@@ -3,14 +3,16 @@
 Request (with a SamplingParams contract) -> RequestQueue -> ServingEngine
 (SchedulerPolicy picks admission order + preemption verdicts; a KVBackend
 — the paged BlockManager, its int8 QuantBlockManager, or the contiguous
-SlotPool — owns the cache
-and the fused decode/sample step) -> ServingMetrics -> registry KV ->
+SlotPool — owns the cache and the fused decode/sample step; a
+HostSwapPool under the paged pools keeps preempted requests' KV; a
+Drafter feeds speculative verify rows) -> ServingMetrics -> registry KV ->
 AutoScaler policies -> cluster size. A ReplicaSet (serve/router.py) is
 the multi-replica data plane behind the same surface.
 """
 from repro_torch.models.env import SERVE_PLAN  # noqa: F401
 from repro_torch.serve.blocks import (  # noqa: F401
     BlockManager,
+    HostSwapPool,
     QuantBlockManager,
 )
 from repro_torch.serve.kv import KVBackend, make_kv_backend  # noqa: F401
@@ -44,3 +46,11 @@ from repro_torch.serve.scheduler import (  # noqa: F401
     run_to_completion,
 )
 from repro_torch.serve.slots import SlotPool  # noqa: F401
+from repro_torch.serve.spec import (  # noqa: F401
+    AdaptiveSpecK,
+    Drafter,
+    ModelDrafter,
+    NgramDrafter,
+    draft_config,
+    make_drafter,
+)

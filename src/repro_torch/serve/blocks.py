@@ -47,8 +47,16 @@ the prefix cache (global blocks only) is off.
 QuantBlockManager (`--kv quant`) is the same bookkeeping over an int8
 pool with per-row f32 scales, for attention-only archs.
 
-Left out of the port so far: the host swap tier (HostSwapPool) and the
-int8 pool for window or recurrent archs.
+The host swap tier (HostSwapPool, `swap=True`): preemption copies a
+victim's blocks (global and ring tables, the int8 pool's scales, the
+recurrent state row) into CPU tensors — pinned where the pool is on the
+card, through a synchronising copy — and evicts the slot; re-admission
+scatters them into fresh blocks and a free slot's state row, and decoding
+resumes where it stopped with nothing recomputed. One host pool may serve
+a whole fleet (serve/router.py), so a request drained off one replica
+resumes on another.
+
+Left out of the port so far: the int8 pool for window or recurrent archs.
 """
 from __future__ import annotations
 
@@ -91,6 +99,130 @@ class PagedSlot:
     hashes: Tuple[bytes, ...] = ()  # prompt block hash chain (full blocks)
 
 
+@dataclass
+class SwapRecord:
+    """One swapped-out request: its blocks' KV pulled into host tensors
+    plus the PagedSlot bookkeeping that rebuilds the slot on swap-in."""
+    rid: int
+    payload: Any  # CPU tensor tree congruent to the pool, block dim = n
+    n_blocks: int
+    nbytes: int
+    cur_len: int
+    tokens_done: int
+    gen_len: int
+    reserved: int
+    cached_len: int
+    alloc_g: int
+    alloc_l: int
+    plen: int = 0
+
+
+class HostSwapPool:
+    """Host-side KV block pool — the swap tier under the device pool.
+    Preemption copies a victim's blocks out instead of discarding them;
+    re-admission scatters them back and decoding resumes from the swap
+    point bit-identically (no recompute). One pool may be shared across a
+    ReplicaSet's replicas (host RAM is node-local), so a request drained
+    off one replica can restore on another.
+
+    `budget_blocks` caps host residency (a full budget makes swap_out
+    decline, and the engine restart-preempts); the last backend to detach
+    leak-checks that every swapped request was restored or dropped."""
+
+    def __init__(self, budget_blocks: Optional[int] = None):
+        if budget_blocks is not None and budget_blocks < 0:
+            raise ValueError(f"budget_blocks must be >= 0 or None, got "
+                             f"{budget_blocks}")
+        self.budget_blocks = budget_blocks  # None = unbounded
+        self._records: Dict[int, SwapRecord] = {}
+        self._attached = 0
+        # resume-plan ownership: at most one backend fleet-wide holds a
+        # standing re-admission reservation for a swapped rid (two
+        # replicas reserving one victim's footprint would double-commit
+        # fleet capacity for one resume)
+        self._planned: Dict[int, Any] = {}
+
+    @property
+    def blocks_resident(self) -> int:
+        return sum(r.n_blocks for r in self._records.values())
+
+    @property
+    def bytes_resident(self) -> int:
+        return sum(r.nbytes for r in self._records.values())
+
+    def can_store(self, n_blocks: int) -> bool:
+        return (self.budget_blocks is None
+                or self.blocks_resident + n_blocks <= self.budget_blocks)
+
+    def store(self, rec: SwapRecord) -> None:
+        assert rec.rid not in self._records, \
+            f"rid {rec.rid} is already swapped out"
+        assert self.can_store(rec.n_blocks), "host swap budget exhausted"
+        self._records[rec.rid] = rec
+
+    def has(self, rid: int) -> bool:
+        return rid in self._records
+
+    def peek(self, rid: int) -> SwapRecord:
+        return self._records[rid]
+
+    def take(self, rid: int) -> SwapRecord:
+        """Remove and return `rid`'s record (swap-in frees host residency)."""
+        self._planned.pop(rid, None)
+        return self._records.pop(rid)
+
+    def drop(self, rid: int) -> None:
+        """Discard a swapped request (cancelled / restarted): its host
+        blocks free without a restore."""
+        self._planned.pop(rid, None)
+        self._records.pop(rid, None)
+
+    # -- resume-plan ownership ------------------------------------------------
+    def plan(self, rid: int, owner: Any) -> None:
+        cur = self._planned.get(rid)
+        assert cur is None or cur is owner, \
+            f"rid {rid} already has a resume plan on another backend"
+        self._planned[rid] = owner
+
+    def planner(self, rid: int) -> Optional[Any]:
+        return self._planned.get(rid)
+
+    def unplan(self, rid: int) -> None:
+        self._planned.pop(rid, None)
+
+    def attach(self) -> None:
+        self._attached += 1
+
+    def detach(self) -> None:
+        """A backend released its device pool. When the last one detaches
+        the host pool must be empty: a swapped request nobody can restore
+        is a leak, as a lost device block is."""
+        self._attached -= 1
+        if self._attached <= 0 and self._records:
+            held = sorted(self._records)
+            raise RuntimeError(
+                f"host swap pool leaked {len(held)} swapped request(s) "
+                f"{held} ({self.blocks_resident} blocks) at last detach")
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of `t`: pinned memory filled by a synchronising copy
+    from the card (the copy has landed when this returns; a non-blocking
+    copy read early would be silent corruption), a plain clone on the
+    CPU."""
+    if t.device.type != "cuda":
+        return t.clone()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    return host
+
+
+def _tree_nbytes(tree) -> int:
+    return sum(x.numel() * x.element_size()
+               for unit in tree["blocks"] + tree["tail"]
+               for x in unit.values())
+
+
 class BlockManager:
     kind = "paged"
     _quant = False  # int8 pool + scales (QuantBlockManager)
@@ -100,6 +232,7 @@ class BlockManager:
                  num_blocks: Optional[int] = None,
                  prefix_cache: bool = True,
                  max_shared_fraction: float = 1.0,
+                 swap_pool: Optional[HostSwapPool] = None,
                  device="cuda"):
         Mo.check_supported(cfg)
         self.cfg = cfg
@@ -135,6 +268,17 @@ class BlockManager:
         self.caches: Pytree = Mo.init_paged_cache(
             cfg, env, self.num_blocks, bs, num_rows=num_slots,
             quant=self._quant, device=self.device)
+        # the host swap tier (may be shared fleet-wide); its counters are
+        # this backend's own traffic, so a fleet rollup can sum them
+        self.swap_pool = swap_pool
+        if swap_pool is not None:
+            swap_pool.attach()
+        self._swap_out_bytes = 0
+        self._swap_in_bytes = 0
+        self._swapped_blocks = 0
+        # rid -> blocks held reserved here for its planned swap-in
+        # (counted in _reserved_total)
+        self._resume_plans: Dict[int, int] = {}
         # host-side tables: row per slot, 0 = unallocated (null block)
         self.table = np.zeros((num_slots, max(self.mb_global, 1)), np.int32)
         self.table_local = np.zeros((num_slots, max(self.mb_local, 1)),
@@ -595,6 +739,160 @@ class BlockManager:
         self._slots[slot] = None
         self._free_slots.append(slot)
 
+    # -- host swap tier ------------------------------------------------------
+    def _swap_gather(self, slot: int, gids, lids) -> Pytree:
+        """`slot`'s named blocks (global table ids `gids`, ring ids
+        `lids`; quant scales alongside) and its state rows, copied into
+        host tensors: a tree congruent to the pool with the block dim
+        shrunk to n and the row dim to 1."""
+        dev = self.device
+        gi = torch.as_tensor(np.asarray(gids, np.int64), device=dev)
+        li = torch.as_tensor(np.asarray(lids, np.int64), device=dev)
+        out = {"blocks": [], "tail": []}
+        for kind, unit, st in Mo._units(self.cfg, self.caches):
+            d = {}
+            for name, leaf in Mo._layer_views(unit, st).items():
+                if kind in Mo.RECURRENT_KINDS:
+                    g = leaf[:, slot:slot + 1]
+                else:
+                    g = leaf[:, li if kind == "local" else gi]
+                d[name] = _to_host(g if st else g[0])
+            out["blocks" if st else "tail"].append(d)
+        return {k: tuple(v) for k, v in out.items()}
+
+    def _swap_scatter(self, slot: int, gids, lids, payload: Pytree) -> None:
+        """Write a host payload into the blocks `gids` / `lids` and the
+        state rows of `slot` (the inverse of _swap_gather, at new physical
+        ids and possibly another slot)."""
+        dev = self.device
+        gi = torch.as_tensor(np.asarray(gids, np.int64), device=dev)
+        li = torch.as_tensor(np.asarray(lids, np.int64), device=dev)
+        for (kind, unit, st), (_, src_u, _) in zip(
+                Mo._units(self.cfg, self.caches),
+                Mo._units(self.cfg, payload)):
+            for name, leaf in Mo._layer_views(unit, st).items():
+                src = src_u[name].to(dev)
+                src = src if st else src[None]
+                if kind in Mo.RECURRENT_KINDS:
+                    leaf[:, slot:slot + 1] = src
+                else:
+                    leaf[:, li if kind == "local" else gi] = src
+
+    def swap_out(self, slot: int) -> bool:
+        """Copy `slot`'s live KV (every allocated block, its state rows)
+        to the host pool, then evict the slot. Returns False — the caller
+        restart-preempts — when no host pool is attached, the budget is
+        exhausted, or the slot is still prefilling (partial-prompt lane
+        state does not restore). Shared prefix blocks are copied too: the
+        restore allocates private blocks, trading dedup for zero
+        recompute (the index keeps the originals)."""
+        if self.swap_pool is None:
+            return False
+        s = self._slots[slot]
+        assert s is not None
+        if s.prefilling:
+            return False
+        n_blocks = s.alloc_g + s.alloc_l
+        if not self.swap_pool.can_store(n_blocks):
+            return False
+        payload = self._swap_gather(slot, self.table[slot, :s.alloc_g],
+                                    self.table_local[slot, :s.alloc_l])
+        nbytes = _tree_nbytes(payload)
+        self.swap_pool.store(SwapRecord(
+            rid=s.rid, payload=payload, n_blocks=n_blocks, nbytes=nbytes,
+            cur_len=s.cur_len, tokens_done=s.tokens_done, gen_len=s.gen_len,
+            reserved=s.reserved, cached_len=s.cached_len,
+            alloc_g=s.alloc_g, alloc_l=s.alloc_l, plen=s.plen))
+        self.evict(slot)
+        self._swap_out_bytes += nbytes
+        self._swapped_blocks += n_blocks
+        return True
+
+    def has_swapped(self, rid: int) -> bool:
+        return self.swap_pool is not None and self.swap_pool.has(rid)
+
+    def plan_resume(self, rid: int) -> bool:
+        """Reserve `rid`'s swap-in footprint ahead of fresh admissions: a
+        standing reservation (counted in _reserved_total) taken the moment
+        capacity exists, so fresh arrivals with tighter deadlines queue
+        behind the victim instead of starving it. One backend fleet-wide
+        may hold the plan (the HostSwapPool arbitrates); swap_in consumes
+        it. Returns True iff this backend holds the plan. Idempotent."""
+        if not self.has_swapped(rid):
+            return False
+        if rid in self._resume_plans:
+            return True
+        if self.swap_pool.planner(rid) is not None:
+            return False  # another replica already reserved the resume
+        rec = self.swap_pool.peek(rid)
+        need = rec.n_blocks + rec.reserved
+        if need > self.free_unreserved:
+            return False
+        self._resume_plans[rid] = need
+        self._reserved_total += need
+        self.swap_pool.plan(rid, self)
+        return True
+
+    def cancel_resume_plans(self) -> None:
+        """Release every standing resume reservation (drain / release: a
+        retiring backend must not pin capacity for resumes it will never
+        run; the records stay in the shared pool for a live peer)."""
+        for rid, need in list(self._resume_plans.items()):
+            self._reserved_total -= need
+            self.swap_pool.unplan(rid)
+        self._resume_plans.clear()
+
+    def can_resume(self, rid: int) -> bool:
+        """Swap-in admission: a free slot plus the request's allocated
+        blocks and its unspent reservation (it must still be able to
+        finish its gen_len). With a standing plan here the blocks are
+        already reserved; a plan held by another backend makes the rid
+        theirs to resume."""
+        if not self.has_swapped(rid) or not self._free_slots:
+            return False
+        planner = self.swap_pool.planner(rid)
+        if planner is not None:
+            return planner is self
+        rec = self.swap_pool.peek(rid)
+        return rec.n_blocks + rec.reserved <= self.free_unreserved
+
+    def swap_in(self, rid: int) -> int:
+        """Restore a swapped request: allocate fresh blocks, scatter the
+        host payload back (into a free slot's state row too), rebuild the
+        PagedSlot at its swap-point cursor. The restored KV is
+        byte-identical to what swap_out pulled, so decoding resumes
+        bit-identically; restored blocks are private (no hashes:
+        re-registering would alias the index's live originals)."""
+        assert self.can_resume(rid), f"cannot resume swapped rid {rid}"
+        planned = self._resume_plans.pop(rid, None)
+        if planned is not None:  # consume the standing reservation
+            self._reserved_total -= planned
+        rec = self.swap_pool.take(rid)
+        slot = self._free_slots.popleft()
+        need = rec.reserved + rec.alloc_g + rec.alloc_l
+        s = PagedSlot(rid=rid, cur_len=rec.cur_len,
+                      tokens_done=rec.tokens_done, gen_len=rec.gen_len,
+                      plen=rec.plen, reserved=need, cached_len=rec.cached_len)
+        self._slots[slot] = s
+        self._reserved_total += need
+        for _ in range(rec.alloc_g):  # _alloc draws the reservation down
+            self._alloc(slot)
+        for _ in range(rec.alloc_l):
+            self._alloc(slot, local=True)
+        self._swap_scatter(slot, self.table[slot, :rec.alloc_g],
+                           self.table_local[slot, :rec.alloc_l], rec.payload)
+        self._swap_in_bytes += rec.nbytes
+        return slot
+
+    def drop_swapped(self, rid: int) -> None:
+        """Discard `rid`'s host copy (restart fallback / cancellation) and
+        any standing resume reservation held for it here."""
+        if self.swap_pool is not None:
+            planned = self._resume_plans.pop(rid, None)
+            if planned is not None:
+                self._reserved_total -= planned
+            self.swap_pool.drop(rid)
+
     def cached_prefix_len(self, slot: int) -> int:
         """Prompt positions this slot serves from the prefix cache."""
         s = self._slots[slot]
@@ -616,6 +914,10 @@ class BlockManager:
         live = [i for i, s in enumerate(self._slots) if s is not None]
         if live:
             raise RuntimeError(f"release with occupied slots {live}")
+        if self.swap_pool is not None:
+            # standing resume reservations are not leaks: the records stay
+            # in the shared pool for a live peer to plan next tick
+            self.cancel_resume_plans()
         if self._reserved_total:
             raise RuntimeError(f"release leaked {self._reserved_total} "
                                "reserved blocks")
@@ -629,6 +931,10 @@ class BlockManager:
             held = np.flatnonzero(self._ref).tolist()
             raise RuntimeError(f"release with referenced blocks {held}")
         self.caches = None
+        if self.swap_pool is not None:
+            # the last backend off a shared pool leak-checks host residency
+            pool, self.swap_pool = self.swap_pool, None
+            pool.detach()
 
     # -- reporting ----------------------------------------------------------
     @property
@@ -657,15 +963,23 @@ class BlockManager:
                 / max(self.usable_blocks, 1))
 
     def metrics(self) -> Dict[str, float]:
-        """Backend load signals merged into the engine snapshot."""
-        return {"kv_block_occupancy": self.block_occupancy,
-                "prefix_hit_rate": self.prefix_hit_rate,
-                "kv_shared_occupancy": self.shared_occupancy}
+        """Backend load signals merged into the engine snapshot; with a
+        swap tier, this backend's cumulative swap traffic too (its own,
+        even over a shared host pool, so a fleet rollup sums them)."""
+        m = {"kv_block_occupancy": self.block_occupancy,
+             "prefix_hit_rate": self.prefix_hit_rate,
+             "kv_shared_occupancy": self.shared_occupancy}
+        if self.swap_pool is not None:
+            m.update(swapped_blocks=float(self._swapped_blocks),
+                     swap_out_bytes=float(self._swap_out_bytes),
+                     swap_in_bytes=float(self._swap_in_bytes))
+        return m
 
     def describe(self) -> str:
+        swap = "" if self.swap_pool is None else ", host swap on"
         return (f"paged KV: {self.num_blocks} blocks x "
                 f"{self.block_size} tokens, prefix cache "
-                f"{'on' if self.prefix_cache else 'off'}")
+                f"{'on' if self.prefix_cache else 'off'}{swap}")
 
     # -- introspection (tests) ----------------------------------------------
     def read_slot(self, slot: int) -> Pytree:
@@ -689,7 +1003,8 @@ class QuantBlockManager(BlockManager):
     per (block, head, token) across the head dim).
 
     Everything host-side (tables, refcounts, prefix hashing, reservation
-    math) is inherited unchanged; the deltas are on the device: the pool
+    math, the host swap tier, whose payloads carry the scale leaves) is
+    inherited unchanged; the deltas are on the device: the pool
     layout (Mo.init_paged_cache quant=True), quantize-on-insert (the fused
     decode step quantizes each new token's K/V row in models/model.py,
     dispatching on the "k_scale" cache leaf; prompt rows arrive the same

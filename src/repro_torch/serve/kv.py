@@ -30,6 +30,13 @@ Lifecycle of one request through a backend:
     finished(slot)          declared gen budget consumed?
     evict(slot)             return capacity (double-free is an error;
                             refcounted backends drop one reference)
+
+The host swap tier (paged and int8 pools, `swap=True`): preemption calls
+swap_out(slot), which copies the slot's blocks (and recurrent state rows)
+to a HostSwapPool and evicts it; re-admission calls swap_in(rid), which
+scatters them into fresh blocks, and decoding resumes where it stopped.
+The slot pool has no host tier: its swap_out returns False and the engine
+restart-preempts.
 """
 from __future__ import annotations
 
@@ -87,6 +94,29 @@ class KVBackend(Protocol):
     def finished(self, slot: int) -> bool: ...
     def evict(self, slot: int, *, zero: bool = False) -> None: ...
 
+    # -- host swap tier (the slot pool declines) -----------------------------
+    def swap_out(self, slot: int) -> bool:
+        """Copy the slot's live KV to the host pool and evict it. False
+        means the backend cannot swap (no pool / budget full /
+        mid-prefill): the caller restart-preempts instead."""
+        ...
+    def has_swapped(self, rid: int) -> bool: ...
+    def can_resume(self, rid: int) -> bool: ...
+    def plan_resume(self, rid: int) -> bool:
+        """Take (or confirm) a standing reservation for `rid`'s swap-in
+        footprint, so fresh admissions queue behind the victim. At most
+        one backend fleet-wide holds the plan; swap_in consumes it."""
+        ...
+    def cancel_resume_plans(self) -> None:
+        """Release every standing resume reservation (drain / release: the
+        swapped records stay in the shared pool for a live peer)."""
+        ...
+    def swap_in(self, rid: int) -> int:
+        """Restore a swapped request into a fresh slot (inverse of
+        swap_out); decoding resumes from the swap point bit-identically."""
+        ...
+    def drop_swapped(self, rid: int) -> None: ...
+
     # -- introspection ------------------------------------------------------
     def info(self, slot: int) -> Any: ...
     def rid_of(self, slot: int) -> int: ...
@@ -116,19 +146,33 @@ def make_kv_backend(kind: str, cfg: ModelConfig, env: Env, *, num_slots: int,
                     kv_blocks: Optional[int] = None,
                     prefix_cache: bool = True,
                     max_shared_fraction: float = 1.0,
+                    swap: bool = False,
+                    swap_budget_blocks: Optional[int] = None,
+                    swap_pool=None,
                     device="cuda") -> KVBackend:
     """The one cache-kind dispatch in the serving plane: "paged" (bf16
     block pool), "quant" (int8 block pool + per-row scales) or "slot" (a
-    contiguous worst-case slot per request)."""
-    from repro_torch.serve.blocks import BlockManager, QuantBlockManager
+    contiguous worst-case slot per request).
+
+    swap=True attaches a host swap tier (serve/blocks.py HostSwapPool):
+    pass a prebuilt `swap_pool` to share one across a fleet's replicas
+    (ReplicaSet does), else a private pool is made with
+    `swap_budget_blocks` capacity (None = unbounded)."""
+    from repro_torch.serve.blocks import (BlockManager, HostSwapPool,
+                                          QuantBlockManager)
     from repro_torch.serve.slots import SlotPool
 
+    if swap and swap_pool is None:
+        swap_pool = HostSwapPool(swap_budget_blocks)
+    elif not swap:
+        swap_pool = None
     if kind in ("paged", "quant"):
         cls = QuantBlockManager if kind == "quant" else BlockManager
         return cls(cfg, env, num_slots=num_slots, prompt_len=prompt_len,
                    max_gen=max_gen, block_size=block_size,
                    num_blocks=kv_blocks, prefix_cache=prefix_cache,
-                   max_shared_fraction=max_shared_fraction, device=device)
+                   max_shared_fraction=max_shared_fraction,
+                   swap_pool=swap_pool, device=device)
     if kind == "slot":
         return SlotPool(cfg, env, num_slots=num_slots, prompt_len=prompt_len,
                         max_gen=max_gen, device=device)

@@ -39,8 +39,12 @@ fleet percentiles over the union of the replicas' latency windows) and
 source (queue depth, live count, warmups) for per-source registry
 publication.
 
-Left out of the port so far, with the swap tier and speculative decoding:
-the fleet-shared host swap pool and the speculative acceptance roll-up.
+With swap=True the fleet shares ONE host swap pool: a request
+swap-preempted off a draining replica (drain_mode "preempt") resumes on
+whichever replica the router re-routes it to, with nothing recomputed;
+swapped victims get a standing resume reservation on one live replica
+before fresh requests may claim the capacity. The rollup sums the swap
+counters and computes speculative acceptance from summed counts.
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Protocol, Sequence, runtime_checkable
 
 from repro_torch.core.clock import Clock, ManualClock
+from repro_torch.serve.blocks import HostSwapPool
 from repro_torch.serve.metrics import percentile
 from repro_torch.serve.policy import FIFOPolicy, SchedulerPolicy
 from repro_torch.serve.request import Request, RequestQueue
@@ -128,9 +133,24 @@ class _RetiredCounters:
     prefix_hit_tokens: int = 0
     prefix_lookup_tokens: int = 0
     decode_steps: int = 0
+    swapped_blocks: float = 0.0
+    swap_out_bytes: float = 0.0
+    swap_in_bytes: float = 0.0
+    spec_steps: int = 0
+    spec_proposed: int = 0
+    spec_accepted: int = 0
+    spec_emitted: int = 0
 
     def absorb(self, replica) -> None:
         m = replica.metrics
+        pm = replica.pool.metrics()  # absorb runs before release()
+        self.swapped_blocks += pm.get("swapped_blocks", 0.0)
+        self.swap_out_bytes += pm.get("swap_out_bytes", 0.0)
+        self.swap_in_bytes += pm.get("swap_in_bytes", 0.0)
+        self.spec_steps += m.spec_steps
+        self.spec_proposed += m.spec_proposed
+        self.spec_accepted += m.spec_accepted
+        self.spec_emitted += m.spec_emitted
         self.deadline_misses += m.deadline_misses
         self.preemptions += m.preemptions
         self.prefill_tokens += m.prefill_tokens
@@ -157,9 +177,11 @@ class ReplicaSet:
                  **replica_kw):
         """`replica_kw` is forwarded to every ReplicaEngine (num_slots,
         prompt_len, max_gen, kv, block_size, kv_blocks, prefix_cache,
-        max_shared_fraction, prefill_chunk, device) — and kv_blocks
-        is PER REPLICA: a fleet at an equal total KV budget to a single
-        engine passes total/N here."""
+        max_shared_fraction, prefill_chunk, spec, spec_k, swap,
+        swap_budget_blocks, device) — each replica builds its own drafter,
+        but swap=True builds ONE HostSwapPool shared fleet-wide — and
+        kv_blocks is PER REPLICA: a fleet at an equal total KV budget to a
+        single engine passes total/N here."""
         if replicas < 1:
             raise ValueError(f"need at least one replica, got {replicas}")
         if drain_mode not in ("finish", "preempt"):
@@ -175,6 +197,13 @@ class ReplicaSet:
                                        else routing)
         self.drain_mode = drain_mode
         self._replica_kw = dict(replica_kw)
+        if self._replica_kw.get("swap") and \
+                self._replica_kw.get("swap_pool") is None:
+            # ONE host pool for the whole fleet (host RAM is node-local): a
+            # request swap-preempted off a draining replica must be
+            # restorable by whichever replica the router re-routes it to
+            self._replica_kw["swap_pool"] = HostSwapPool(
+                self._replica_kw.get("swap_budget_blocks"))
         self._window_s = metrics_window_s
         self._next_id = 0
         self.replicas: List[ReplicaEngine] = []
@@ -288,6 +317,21 @@ class ReplicaSet:
         the policy may issue one fleet-wide preemption verdict per tick
         (the victim's replica must actually free enough — same rules as
         the single-engine loop); otherwise the queue holds backpressure."""
+        # swap-aware admission, fleet edition: every arrived swapped-out
+        # victim gets a standing resume reservation on ONE replica (least
+        # loaded first; the shared HostSwapPool arbitrates ownership)
+        # before fresh requests can claim the capacity. A draining owner
+        # cancels its plans, so the records re-plan onto a live peer
+        arrived = self.queue.ready(now)
+        if any(r.pool.has_swapped(q.rid)
+               for q in arrived for r in self.replicas):
+            by_load = sorted(self.live_replicas(),
+                             key=lambda r: r.load_score())
+            for q in arrived:
+                for rep in by_load:
+                    if rep.pool.has_swapped(q.rid) \
+                            and rep.pool.plan_resume(q.rid):
+                        break
         preempted = False
         ready = None
         while True:
@@ -303,6 +347,24 @@ class ReplicaSet:
                 return
             target = self.routing.route(live, req, now)
             if target is None:
+                # resume-first: the pick may be blocked by a victim's
+                # standing reservation; resuming the victim (pre-reserved,
+                # it needs only a slot) makes progress where returning
+                # would deadlock the admission loop
+                resumed = False
+                for q in ready:
+                    if q is req or not any(r.pool.has_swapped(q.rid)
+                                           for r in live):
+                        continue
+                    rep = next((r for r in live if r.can_accept(q)), None)
+                    if rep is not None:
+                        self.queue.remove(q)
+                        ready.remove(q)
+                        rep.admit(q, now)
+                        resumed = True
+                        break
+                if resumed:
+                    continue
                 if preempted:
                     return
                 target, victim, vslot = self._preemption_target(live, req,
@@ -376,6 +438,23 @@ class ReplicaSet:
                      "recomputed_tokens"):
             out[name] = (sum(s.get(name, 0.0) for s in snaps)
                          + getattr(self._retired, name))
+        # swap traffic (per-backend cumulative counters, summable over a
+        # shared host pool); published only where a swap tier exists
+        for name in ("swapped_blocks", "swap_out_bytes", "swap_in_bytes"):
+            if any(name in s for s in snaps) or getattr(self._retired,
+                                                        name):
+                out[name] = (sum(s.get(name, 0.0) for s in snaps)
+                             + getattr(self._retired, name))
+        # speculative acceptance from summed COUNTS, as the hit rate
+        rt = self._retired
+        steps = rt.spec_steps + sum(r.metrics.spec_steps
+                                    for r in self.replicas)
+        if steps:
+            total = lambda n: getattr(rt, n) + sum(
+                getattr(r.metrics, n) for r in self.replicas)
+            out["accepted_per_step"] = total("spec_emitted") / steps
+            out["spec_acceptance_rate"] = (total("spec_accepted")
+                                           / max(total("spec_proposed"), 1))
         lats: List[float] = []
         ttfts: List[float] = []
         for r in self.replicas:
@@ -434,16 +513,9 @@ class ReplicaSet:
 
 def make_serving_engine(cfg, params, *, replicas: int = 1,
                         routing="occupancy", drain_mode: str = "finish",
-                        policy=None, clock=None, swap: bool = False,
-                        **replica_kw):
+                        policy=None, clock=None, **replica_kw):
     """One constructor for both data planes: a plain ServingEngine when
-    replicas == 1 (the zero-router path), a Router + ReplicaSet beyond.
-    swap=True raises: the host swap tier is not ported yet."""
-    if swap:
-        raise NotImplementedError(
-            "swap=True: the host swap tier (HostSwapPool, swap-out "
-            "preemption) is not ported yet; it comes with the swap-tier "
-            "slice")
+    replicas == 1 (the zero-router path), a Router + ReplicaSet beyond."""
     if replicas == 1:
         return ServingEngine(cfg, params, policy=policy, clock=clock,
                              **replica_kw)

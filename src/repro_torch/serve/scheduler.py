@@ -1,7 +1,8 @@
 """ReplicaEngine + ServingEngine — continuous batching over a KVBackend.
 
 Port of the JAX package's serve/scheduler.py: chunked-prefill and
-classic admission.
+classic admission, swap-out preemption over a host tier, and speculative
+verify rows.
 
 `ReplicaEngine` is ONE serving replica: a KVBackend (its own block pool,
 its own prefix cache), the in-flight lane/slot bookkeeping, the fused
@@ -21,31 +22,36 @@ One scheduler iteration (ServingEngine.step()):
   1. admit: the SchedulerPolicy picks which arrived request admits next
      while the KVBackend can reserve its worst case (exhaustion = queue
      backpressure, not an OOM mid-decode). If the backend is full, the
-     policy may issue a preemption verdict: the engine evicts the victim,
-     clears its progress, and re-queues it at its original arrival time —
-     restart-preemption is safe because sampling is position-keyed, so the
-     victim regenerates identical tokens. With prefill_chunk > 0 the
+     policy may issue a preemption verdict: with a host swap tier the
+     victim's blocks are copied out and it later resumes where it stopped
+     (swapped victims get standing resume reservations and admit first);
+     otherwise the engine evicts the victim, clears its progress, and
+     re-queues it at its original arrival time — restart-preemption is
+     safe because sampling is position-keyed, so the victim regenerates
+     identical tokens. With prefill_chunk > 0 the
      prompt is not prefilled in a separate batch-1 call: it streams
      through `prefill_chunk` piggybacked lane rows of the regular decode
      step (chunked prefill). With prefill_chunk == 0 (and always on the
      slot pool) admission is classic: a batch-1 prefill of the whole
      prompt (the flash-attention kernel past 128 tokens), its K/V inserted
      into the backend, the first token taken from the prefill logits.
-  2. decode: one fused step over decode rows (+ lane rows), run by the
-     backend: every row writes K/V where its table says and attends at its
-     own depth; the sample step happens on the device and the [T] int32
-     token vector is the only per-step host download.
+  2. decode: one fused step over decode rows (+ lane rows, + with a
+     drafter num_slots * spec_k verify rows), run by the backend: every
+     row writes K/V where its table says and attends at its own depth; the
+     sample step happens on the device and the [T] int32 token vector is
+     the only per-step host download. A slot emits its row's token plus
+     every verify row's token while the drafts match the target's own
+     outputs; the rejected positions' capacity is rolled back.
   3. retire: finished slots (gen budget spent, or a stop token emitted)
      return their capacity to the backend.
 
 Greedy decoding keeps output token-for-token equal to the one-shot
 serve_batch baseline (launch/serve.py; streamed prefill for chunked
 admission, full prefill for classic); seeded sampling is reproducible
-and lane-placement-invariant. The clock is injected: tests and the CLI
-drive a ManualClock; nothing here sleeps.
-
-Left out of the port so far: speculative verify rows and the host swap
-tier (make_serving_engine(swap=True) raises).
+and lane-placement-invariant; speculative serving emits bit for bit what
+non-speculative serving emits, and a swap-resumed request what an
+unpreempted one emits. The clock is injected: tests and the CLI drive a
+ManualClock; nothing here sleeps.
 """
 from __future__ import annotations
 
@@ -63,6 +69,7 @@ from repro_torch.serve.kv import KVBackend, make_kv_backend
 from repro_torch.serve.metrics import ServingMetrics
 from repro_torch.serve.policy import FIFOPolicy, SchedulerPolicy
 from repro_torch.serve.request import Request, RequestQueue
+from repro_torch.serve.spec import AdaptiveSpecK, Drafter, make_drafter
 
 Pytree = Any
 
@@ -93,6 +100,10 @@ class ReplicaEngine:
                  prefix_cache: bool = True,
                  max_shared_fraction: float = 1.0,
                  prefill_chunk: Optional[int] = None,
+                 spec=None, spec_k=4,
+                 swap: bool = False,
+                 swap_budget_blocks: Optional[int] = None,
+                 swap_pool=None,
                  clock: Optional[Clock] = None,
                  metrics_window_s: float = 10.0,
                  device="cuda"):
@@ -108,7 +119,9 @@ class ReplicaEngine:
             kv, cfg, self.env, num_slots=num_slots, prompt_len=prompt_len,
             max_gen=max_gen, block_size=block_size, kv_blocks=kv_blocks,
             prefix_cache=prefix_cache,
-            max_shared_fraction=max_shared_fraction, device=self.device)
+            max_shared_fraction=max_shared_fraction, swap=swap,
+            swap_budget_blocks=swap_budget_blocks, swap_pool=swap_pool,
+            device=self.device)
         self.kv = self.pool.kind
         if prefill_chunk is None:
             prefill_chunk = prompt_len if self.pool.chunk_prefill_ok else 0
@@ -122,6 +135,36 @@ class ReplicaEngine:
                 "state is sequential over the prompt; ring writes wrap "
                 "within a chunk; the slot pool has no per-row tables)")
         self.prefill_chunk = int(prefill_chunk)
+        # -- speculative decoding (serve/spec.py): verify rows ride the step
+        # like lane rows, several rows sharing one slot at consecutive
+        # depths. That needs per-row attention over a write-then-read
+        # cache: window rings wrap within a draft and recurrent state is
+        # sequential, so both are refused. spec_k="auto": the verify block
+        # stays cap rows wide per slot; each request's live depth follows
+        # its own acceptance (AdaptiveSpecK)
+        if spec_k == "auto":
+            self.spec_k = 4
+            self._spec_ctl: Optional[AdaptiveSpecK] = AdaptiveSpecK(
+                cap=self.spec_k)
+        else:
+            self.spec_k = int(spec_k)
+            self._spec_ctl = None
+        if isinstance(spec, str) or spec is None:
+            self.drafter: Optional[Drafter] = make_drafter(
+                spec, cfg, self.env, num_slots=self.pool.num_slots,
+                prompt_len=prompt_len, max_gen=max_gen, spec_k=self.spec_k,
+                device=self.device)
+        else:  # a pre-built Drafter (tests plug deterministic ones in)
+            self.drafter = spec
+        if self.drafter is not None:
+            kinds = set(cfg.block_pattern) | set(cfg.pattern_tail)
+            if not kinds <= {"attn", "moe"}:
+                raise ValueError(
+                    f"{cfg.name}: speculative decoding needs per-row "
+                    "attention blocks (sliding-window rings wrap within a "
+                    "draft; recurrent state is sequential)")
+            if self.spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {spec_k}")
         self.metrics = ServingMetrics(window_s=metrics_window_s)
         self._prefill = St.make_prefill_step(cfg, self.env)
         # classic admissions sample their first token from the prefill
@@ -161,7 +204,12 @@ class ReplicaEngine:
                 < self.prefill_chunk)
 
     def can_take(self, req: Request) -> bool:
-        """Capacity predicate only: can the backend hold `req` right now?"""
+        """Capacity predicate only: can the backend hold `req` right now?
+        A swapped-out request resumes instead of re-admitting: its gate is
+        can_resume (a free slot, its allocated blocks and its unspent
+        reservation), not the fresh-admission math."""
+        if self.pool.has_swapped(req.rid):
+            return self.pool.can_resume(req.rid)
         return self.pool.can_admit(req.eff_gen_len,
                                    prompt=self.prompt_arg(req))
 
@@ -177,6 +225,18 @@ class ReplicaEngine:
         """Commit one admission (caller already took it off its queue)."""
         req.t_admit = now
         self._inflight[req.rid] = req
+        if self.pool.has_swapped(req.rid):
+            # swap-in resume: the host tier holds the request's KV at its
+            # preemption cursor. Restore it and feed the last emitted token
+            # (the one swap-out never fed back) to the next step: decoding
+            # continues bit-identically, with no prefill and no recompute
+            slot = self.pool.swap_in(req.rid)
+            self._fresh[slot] = req.tokens[-1]
+            if self.drafter is not None:
+                self.drafter.admit(req)
+            return
+        if self.drafter is not None:
+            self.drafter.admit(req)
         if not self.prefill_chunk:
             self._admit_classic(
                 self.pool.admit(req.rid, req.eff_gen_len), req, now)
@@ -219,7 +279,7 @@ class ReplicaEngine:
         if self.pool.finished(slot) or first in req.sampling.stop_set:
             self._retire(slot, now)  # gen_len == 1 / instant stop token
 
-    # -- preemption (restart-style) ------------------------------------------
+    # -- preemption (swap-out, else restart) ---------------------------------
     def running(self) -> List[Request]:
         """Decoding (preemptible) requests, for the policy's verdict."""
         return [self._inflight[self.pool.info(s).rid]
@@ -234,21 +294,33 @@ class ReplicaEngine:
         return any(ln.slot == slot for ln in self._lanes)
 
     def preempt(self, victim: Request, slot: int, now: float) -> Request:
-        """Restart preemption: return the victim's KV capacity and clear
-        its progress; the caller re-queues it at its original arrival time.
+        """Preemption: return the victim's KV capacity; the caller re-queues
+        it at its original arrival time.
+
+        Swap-out first: a backend with a host tier copies the victim's
+        blocks out, so its tokens survive and re-admission resumes it
+        bit-identically with nothing recomputed. Restart otherwise (no
+        host tier, budget full, mid-prefill): clear the victim's progress.
         Safe because sampling is position-keyed — on re-admission the
         victim regenerates bit-identical tokens — but the re-prefill is
         paid compute, booked into recomputed_tokens via `restarts`."""
         assert not self.lane_open(slot), \
             f"preempting slot {slot} with an open prefill lane"
-        self.pool.evict(slot)
+        swapped = self.pool.swap_out(slot)
+        if not swapped:
+            self.pool.evict(slot)
         self._row_src.pop(slot, None)
         self._fresh.pop(slot, None)
+        if self.drafter is not None:
+            self.drafter.retire(victim.rid)
+        if self._spec_ctl is not None:
+            self._spec_ctl.retire(victim.rid)
         del self._inflight[victim.rid]
         victim.t_admit = None
-        victim.tokens.clear()
-        victim.t_first_token = None
-        victim.restarts += 1
+        if not swapped:
+            victim.tokens.clear()
+            victim.t_first_token = None
+            victim.restarts += 1
         self.metrics.record_preempt(now)
         return victim
 
@@ -257,10 +329,13 @@ class ReplicaEngine:
         """Enter drain mode: no new admissions (can_accept goes False).
         With preempt=False the replica finishes what it holds; with
         preempt=True every in-flight request — decoding or mid-prefill —
-        is restart-preempted and returned for the caller to re-queue
-        (bit-identical regeneration is the position-keyed sampling
-        guarantee, so a drain can be immediate without changing output)."""
+        is preempted (swapped out where the backend can, else restarted)
+        and returned for the caller to re-queue (bit-identical either way,
+        so a drain can be immediate without changing output)."""
         self.draining = True
+        # a draining replica will never run its planned swap-ins: free the
+        # standing reservations so a live peer can take them over
+        self.pool.cancel_resume_plans()
         if not preempt:
             return []
         now = self.clock.now()
@@ -310,12 +385,34 @@ class ReplicaEngine:
         self.metrics.record_prefill_tokens(
             sum(ln.take for ln in lanes if ln.req.restarts > 0),
             recompute=True)
-        T = N + (self.prefill_chunk if lanes else 0)
+        lane_rows = self.prefill_chunk if lanes else 0
+        # speculative verify rows: a block of num_slots * spec_k rows after
+        # the lane rows (slot s's candidates at spec_base + s * spec_k + j),
+        # present whenever a drafter is configured; unused ones stay masked
+        spec_rows = N * self.spec_k if self.drafter is not None else 0
+        spec_base = N + lane_rows
+        T = N + lane_rows + spec_rows
         meta_i = np.zeros((St.META_I_ROWS, T), np.int32)
         meta_f = np.zeros((St.META_F_ROWS, T), np.float32)
         meta_i[St.ROW_TOK_SRC, :] = -1
         row_slots = np.full((T,), -1, np.int32)
         sample = False
+        # draft proposals per decoding slot, k capped so the last verify
+        # row writes inside the request's budget: at most gen_len -
+        # tokens_done tokens may still be emitted
+        drafts: Dict[int, List[int]] = {}
+        if self.drafter is not None:
+            for slot in active:
+                info = self.pool.info(slot)
+                req = self._inflight[info.rid]
+                k_live = (self.spec_k if self._spec_ctl is None
+                          else self._spec_ctl.k(req.rid))
+                k_eff = min(k_live, info.gen_len - info.tokens_done - 1)
+                if k_eff <= 0:
+                    continue
+                d = self.drafter.propose(req, k_eff)[:k_eff]
+                if d:
+                    drafts[slot] = d
         for slot in active:
             info = self.pool.info(slot)
             req = self._inflight[info.rid]
@@ -328,6 +425,20 @@ class ReplicaEngine:
                 meta_i[St.ROW_FRESH, slot] = self._fresh.pop(slot)
             else:
                 meta_i[St.ROW_TOK_SRC, slot] = self._row_src.pop(slot, slot)
+        for slot, d in drafts.items():
+            info = self.pool.info(slot)
+            req = self._inflight[info.rid]
+            # capacity for every candidate write position (rolled back on
+            # rejection by truncate); every row's K/V lands before any row
+            # attends, so verify row j sees rows 0..j-1 of its slot
+            self.pool.ensure(slot, info.cur_len + len(d))
+            base = spec_base + slot * self.spec_k
+            for j, tok in enumerate(d):
+                r = base + j
+                row_slots[r] = slot
+                meta_i[St.ROW_FRESH, r] = tok
+                meta_i[St.ROW_CUR_LEN, r] = info.cur_len + 1 + j
+                sample |= self._fill_sampling(meta_i, meta_f, r, req)
         row = N
         for lane in lanes:
             if lane.take <= 0:
@@ -353,12 +464,40 @@ class ReplicaEngine:
         for slot in active:
             info = self.pool.info(slot)
             req = self._inflight[info.rid]
-            tok = int(nxt[slot])
-            self._row_src[slot] = slot
-            self.pool.advance(slot)
-            req.tokens.append(tok)
-            emitted += 1
-            if self.pool.finished(slot) or tok in req.sampling.stop_set:
+            cur = info.cur_len
+            d = drafts.get(slot, [])
+            base = spec_base + slot * self.spec_k
+            outs = [int(nxt[slot])] + [int(nxt[base + j])
+                                       for j in range(len(d))]
+            # accept the longest prefix where draft j equals the target's
+            # own output for that position (o_{j-1}): verify row j's
+            # logits, and seeded its fold_in(seed, position) draw, equal
+            # sequential decode's exactly while every earlier draft matched
+            a = 0
+            while a < len(d) and d[a] == outs[a]:
+                a += 1
+            emit = outs[:a + 1]
+            stop = req.sampling.stop_set
+            cut = next((i for i, t in enumerate(emit) if t in stop), None)
+            if cut is not None:
+                emit = emit[:cut + 1]
+            if d:
+                # roll the rejected suffix's capacity back (a no-op when
+                # every draft was accepted) and record acceptance
+                self.pool.truncate(slot, cur + len(emit))
+                self.metrics.record_spec(len(d), len(emit) - 1, len(emit))
+                if self._spec_ctl is not None:
+                    self._spec_ctl.update(req.rid, len(d), len(emit) - 1)
+            # next step's input token (the last emitted) sits at the row
+            # that produced it: the slot's row for a = 0, else verify row
+            # a - 1
+            self._row_src[slot] = (slot if len(emit) == 1
+                                   else base + len(emit) - 2)
+            for tok in emit:
+                self.pool.advance(slot)
+                req.tokens.append(tok)
+                emitted += 1
+            if self.pool.finished(slot) or emit[-1] in stop:
                 self._retire(slot, now)
         still_open: List[_Lane] = []
         for lane in lanes:
@@ -405,6 +544,10 @@ class ReplicaEngine:
         self.pool.evict(slot)
         self._row_src.pop(slot, None)
         self._fresh.pop(slot, None)
+        if self.drafter is not None:
+            self.drafter.retire(rid)
+        if self._spec_ctl is not None:
+            self._spec_ctl.retire(rid)
 
     # -- reporting ----------------------------------------------------------------
     def load_score(self):
@@ -436,6 +579,10 @@ class ServingEngine:
                  prefix_cache: bool = True,
                  max_shared_fraction: float = 1.0,
                  prefill_chunk: Optional[int] = None,
+                 spec=None, spec_k=4,
+                 swap: bool = False,
+                 swap_budget_blocks: Optional[int] = None,
+                 swap_pool=None,
                  policy: Optional[SchedulerPolicy] = None,
                  clock: Optional[Clock] = None,
                  metrics_window_s: float = 10.0,
@@ -445,7 +592,9 @@ class ServingEngine:
             max_gen=max_gen, kv=kv, block_size=block_size,
             kv_blocks=kv_blocks, prefix_cache=prefix_cache,
             max_shared_fraction=max_shared_fraction,
-            prefill_chunk=prefill_chunk, clock=clock,
+            prefill_chunk=prefill_chunk, spec=spec, spec_k=spec_k,
+            swap=swap, swap_budget_blocks=swap_budget_blocks,
+            swap_pool=swap_pool, clock=clock,
             metrics_window_s=metrics_window_s, device=device)
         self.policy: SchedulerPolicy = policy or FIFOPolicy()
         self.queue = RequestQueue()
@@ -482,6 +631,14 @@ class ServingEngine:
     @property
     def prefill_chunk(self) -> int:
         return self.replica.prefill_chunk
+
+    @property
+    def drafter(self):
+        return self.replica.drafter
+
+    @property
+    def spec_k(self) -> int:
+        return self.replica.spec_k
 
     @property
     def metrics(self) -> ServingMetrics:
@@ -525,6 +682,13 @@ class ServingEngine:
 
     def _admit_ready(self, now: float) -> None:
         rep = self.replica
+        # swap-aware admission: before any fresh request can claim blocks,
+        # every arrived swapped-out victim gets a resume plan — a standing
+        # reservation for its footprint that swap_in consumes — so fresh
+        # admissions see the shrunk capacity and queue behind it
+        for r in self.queue.ready(now):
+            if rep.pool.has_swapped(r.rid):
+                rep.pool.plan_resume(r.rid)
         preempted = False  # at most one restart per iteration (no thrash)
         ready = None  # built lazily, invalidated when the queue changes
         while True:
@@ -539,6 +703,19 @@ class ServingEngine:
                 return
             prompt = rep.prompt_arg(req)
             if not rep.can_take(req):
+                # resume-first: the pick may be blocked by a victim's
+                # standing reservation; resuming that victim (its blocks
+                # are reserved, it needs only a slot) makes progress where
+                # returning would deadlock the admission loop
+                swapped = next(
+                    (r for r in ready if r is not req
+                     and rep.pool.has_swapped(r.rid) and rep.can_take(r)),
+                    None)
+                if swapped is not None:
+                    self.queue.remove(swapped)
+                    ready.remove(swapped)
+                    rep.admit(swapped, now)
+                    continue
                 victim = None if preempted else \
                     self.policy.victim(rep.running(), req, now)
                 if victim is None:
@@ -553,7 +730,7 @@ class ServingEngine:
                 preempted = True
                 ready = None  # the victim re-joined the arrived set
                 if not rep.can_take(req):
-                    return
+                    return  # a swap-resume's can_resume gate may disagree
             self.queue.remove(req)
             if ready is not None:
                 ready.remove(req)

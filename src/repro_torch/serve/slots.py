@@ -17,8 +17,11 @@ slot row and a paged row attend with the same arithmetic. Recurrent archs
 insert; sliding-window ('local') archs are refused, as the JAX package's
 slot pool refuses them.
 
-The cache ops work in place on the pool's tensors. Speculative verify rows
-(the row-indirected step) come with the speculative-decoding slice.
+The cache ops work in place on the pool's tensors. A step of more or
+fewer rows than slots (speculative verify rows stacked past the slots; a
+draft model's one row) runs the row-indirected step, which reads each
+row's slot through a one-entry table of the same kernel. The pool has no
+host swap tier: swap_out declines, and the engine restart-preempts.
 """
 from __future__ import annotations
 
@@ -177,21 +180,45 @@ class SlotPool:
         if zero:
             self.caches = Mo.cache_evict_slot(self.caches, slot)
 
+    # -- host swap tier: none (a worst-case reservation has no partial
+    # progress worth keeping at block granularity); the engine's swap path
+    # falls back to restart preemption on False -------------------------------
+    def swap_out(self, slot: int) -> bool:
+        return False
+
+    def has_swapped(self, rid: int) -> bool:
+        return False
+
+    def can_resume(self, rid: int) -> bool:
+        return False
+
+    def plan_resume(self, rid: int) -> bool:
+        return False
+
+    def cancel_resume_plans(self) -> None:
+        pass
+
+    def swap_in(self, rid: int) -> int:
+        raise NotImplementedError("slot pool has no host swap tier")
+
+    def drop_swapped(self, rid: int) -> None:
+        pass
+
     # -- the fused step -------------------------------------------------------
     def decode(self, params, prev_tok, meta_i, meta_f, row_slots, *,
                sample: bool):
-        """One fused step over the contiguous pool: row t is slot t (free
-        slots decode junk into their own, unattended rows), so row_slots
-        is not read. Rows past the slots (speculative verify rows) come
-        with the speculative-decoding slice."""
-        if meta_i.shape[1] != self.num_slots:
-            raise NotImplementedError(
-                "slot pool: rows beyond the slots (speculative verify rows) "
-                "come with the speculative-decoding slice")
+        """One fused step over the contiguous pool. With T == num_slots
+        rows, row t is slot t (free slots decode junk into their own,
+        unattended rows) and row_slots is not read; any other T (verify
+        rows past the slots, a drafter's one row) runs the row-indirected
+        step, row_slots mapping each row onto its slot (-1 masks)."""
         dev = self.device
-        nxt, self.caches = self._decode[sample](
-            params, self.caches, prev_tok, torch.as_tensor(meta_i, device=dev),
-            torch.as_tensor(meta_f, device=dev))
+        mi = torch.as_tensor(meta_i, device=dev)
+        mf = torch.as_tensor(meta_f, device=dev)
+        rs = (None if meta_i.shape[1] == self.num_slots else
+              torch.as_tensor(row_slots, device=dev))
+        nxt, self.caches = self._decode[sample](params, self.caches,
+                                                prev_tok, mi, mf, rs)
         return nxt
 
     # -- decode-batch views ---------------------------------------------------

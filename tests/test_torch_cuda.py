@@ -20,6 +20,9 @@ kernel, tests/test_kernels.py: one bf16 rounding of values of a few units
 is up to 1.6e-2), the RG-LRU scan bit for bit (the kernel rounds each
 product and sum as the plain version does) and the WKV6 recurrence within
 2e-3 on its f32 outputs (the JAX package's bound, tests/test_kernels.py).
+On the serving path: the host swap tier restores a bf16 and an int8 pool
+byte for byte, and speculative verify rows on the paged, int8 and slot
+pools emit the non-speculative tokens bit for bit.
 """
 import numpy as np
 import pytest
@@ -48,8 +51,10 @@ from repro_torch.kernels.sampling.ref import topk_topp_mask_ref
 from repro_torch.launch.serve import serve_batch
 from repro_torch.models import model as Mo
 from repro_torch.models.env import Env
-from repro_torch.serve import (SamplingParams, ServingEngine,
-                               make_serving_engine, poisson_trace,
+from repro_torch.serve import (BlockManager, EDFPolicy, Request,
+                               SamplingParams, ServingEngine,
+                               make_kv_backend, make_serving_engine,
+                               poisson_trace, repetitive_trace,
                                run_to_completion)
 
 pytestmark = pytest.mark.gpu
@@ -423,6 +428,89 @@ def test_quant_fleet_on_the_card_is_lane_and_fleet_invariant(cuda):
     assert paged_flash_decode.launches == before
     assert run(num_slots=2) == out
     assert run(num_slots=2, replicas=2) == out
+
+
+@pytest.mark.parametrize("kv", ["paged", "quant"])
+def test_swap_round_trip_on_the_card_is_byte_equal(kv, cuda):
+    """The host swap tier on the card: swap_out copies a slot's blocks
+    (int8 values and f32 scales in the quant pool) into pinned host
+    tensors; swap_in scatters them into fresh blocks of another slot,
+    which read back byte-equal. An EDF-preempted victim then resumes
+    from the host tier with the tokens of an unpreempted run and nothing
+    recomputed."""
+    cfg = get_smoke("paper-demo")
+    pool = make_kv_backend(kv, cfg, Env(), num_slots=3, prompt_len=16,
+                           max_gen=8, block_size=4, swap=True, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for leaf in pool.caches["blocks"][0].values():
+        leaf.copy_((torch.randn(leaf.shape, generator=gen, device=cuda)
+                    * 20).to(leaf.dtype))
+    a, b = pool.admit(0, 8), pool.admit(1, 8)
+    for pos in range(19):
+        pool.ensure(a, pos)
+    before = BlockManager.read_slot(pool, a)
+    assert pool.swap_out(a)
+    payload = pool.swap_pool.peek(0).payload
+    assert all(x.device.type == "cpu" and x.is_pinned()
+               for x in payload["blocks"][0].values())
+    new = pool.swap_in(0)
+    assert new not in (a, b)
+    after = BlockManager.read_slot(pool, new)
+    for n, x in before["blocks"][0].items():
+        assert torch.equal(x.view(torch.uint8),
+                           after["blocks"][0][n].view(torch.uint8)), n
+    pool.evict(new)
+    pool.evict(b)
+    pool.release()
+    params = Mo.init_params(cfg, Env(), seed=0, device=cuda)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, (16,), dtype=np.int32)
+               for _ in range(2)]
+    sp = SamplingParams(temperature=0.9, top_k=40, top_p=0.95, seed=7)
+    reqs = lambda: [Request(rid=0, prompt=prompts[0], gen_len=8,
+                            sampling=sp),
+                    Request(rid=1, prompt=prompts[1], gen_len=2,
+                            arrival_t=0.12, deadline_s=0.4)]
+    eng = lambda **kw: ServingEngine(cfg, params, num_slots=1, prompt_len=16,
+                                     max_gen=8, kv=kv, block_size=4,
+                                     clock=ManualClock(), device=cuda, **kw)
+    solo = run_to_completion(eng(), reqs()[:1], dt=0.05)
+    swp = eng(swap=True, policy=EDFPolicy(preemptive=True, min_slack_s=1.0))
+    out = run_to_completion(swp, reqs(), dt=0.05)
+    assert out[0] == solo[0] and swp.metrics.preemptions >= 1
+    assert swp.metrics.recomputed_tokens == 0
+    m = swp.pool.metrics()
+    assert m["swap_out_bytes"] == m["swap_in_bytes"] > 0
+
+
+@pytest.mark.parametrize("kv", ["paged", "quant", "slot"])
+def test_verify_rows_on_the_card_equal_the_non_spec_step(kv, cuda):
+    """Speculative verify rows on the card (n-gram drafts on a repetitive
+    trace, k 4 and 8): the tokens of serving with --spec off, bit for
+    bit, greedy and seeded; the rows go through the paged-decode kernels
+    (the slot pool's through one-entry row -> slot tables) and the seeded
+    ones through the mask kernel."""
+    cfg = get_smoke("paper-demo")
+    params = Mo.init_params(cfg, Env(), seed=0, device=cuda)
+    kernel = paged_flash_decode_quant if kv == "quant" else \
+        paged_flash_decode
+    sp = SamplingParams(temperature=0.9, top_k=40, top_p=0.95, seed=7)
+    for sampling in (None, sp):
+        mk = lambda: repetitive_trace(8, 48.0, prompt_len=16,
+                                      vocab_size=cfg.vocab_size, gen_len=8,
+                                      motif_len=2, sampling=sampling,
+                                      seed=0)
+        run = lambda **kw: run_to_completion(ServingEngine(
+            cfg, params, num_slots=3, prompt_len=16, max_gen=8, kv=kv,
+            block_size=4, clock=ManualClock(), device=cuda, **kw), mk(),
+            dt=0.05)
+        base = run()
+        for k in (4, 8):
+            n_dec, n_mask = kernel.launches, topk_topp_mask.launches
+            assert run(spec="ngram", spec_k=k) == base
+            assert kernel.launches > n_dec
+            assert (topk_topp_mask.launches > n_mask) == (sampling
+                                                          is not None)
 
 
 # the phase-2 shapes of chip_smoke.py: paper-demo's heads causal at B=1,

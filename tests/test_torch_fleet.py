@@ -1,7 +1,7 @@
 """The port's multi-replica data plane (serve/router.py) on the CPU.
 
 Inside the port, as tests/test_replicas.py holds the JAX package (the
-tests that need no swap tier and no speculative decoding): routing
+fleet's swap tier is in tests/test_torch_swap.py): routing
 policies, the fleet bit-identical to one engine (greedy and seeded, bf16
 and int8 KV), scale-up and drain mid-serve under both drain modes, warm
 undrain before a cold spawn, backpressure, the cluster-driven lifecycle
@@ -31,7 +31,8 @@ from repro_torch.configs import get_smoke
 from repro_torch.core import QueueDepthPolicy, VirtualCluster
 from repro_torch.core.clock import ManualClock
 from repro_torch.launch.serve import parse_args, run_trace
-from repro_torch.serve import (LeastOccupancyRouting, PrefixAffineRouting,
+from repro_torch.serve import (HostSwapPool, LeastOccupancyRouting,
+                               PrefixAffineRouting,
                                ReplicaSet, RoutingPolicy, SamplingParams,
                                ServingEngine, burst_trace,
                                make_routing_policy, make_serving_engine,
@@ -168,9 +169,13 @@ def test_make_serving_engine_dispatches_on_replica_count():
     wq = PARAMS["blocks"][0]["attn"]["wq"]
     assert all(r.params["blocks"][0]["attn"]["wq"] is wq
                for r in rs.replicas)
-    for n in (1, 2):
-        with pytest.raises(NotImplementedError, match="swap tier"):
-            make_serving_engine(CFG, PARAMS, replicas=n, swap=True, **kw)
+    # swap=True: one engine gets a private host pool, a fleet ONE pool
+    # shared by every replica (a drained request resumes on a peer)
+    one = make_serving_engine(CFG, PARAMS, replicas=1, swap=True, **kw)
+    assert isinstance(one.pool.swap_pool, HostSwapPool)
+    rs = make_serving_engine(CFG, PARAMS, replicas=2, swap=True, **kw)
+    pools = {id(r.pool.swap_pool) for r in rs.replicas}
+    assert len(pools) == 1 and rs.replicas[0].pool.swap_pool is not None
 
 
 # ---------------------------------------------------------------------------
