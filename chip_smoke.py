@@ -112,7 +112,32 @@ Phases, any failure exits non-zero before the result line:
      with the launches of #1 / #3 and #2 counted between the run and its
      verify, and n-gram k 4 at 4 slots bit-identical to the 8-slot runs;
      accepted tokens per step, and wall tokens/s of n-gram k 4 and the
-     model drafter against --spec off, three runs each.
+     model drafter against --spec off, three runs each;
+ 18. the four dense attention archs at full width and depth (random
+     seeded weights): qwen2-1.5b, granite-3-8b, yi-9b and qwen3-32b
+     (qk-norm; 65.6 GB of bf16 weights) each serve 8 Poisson requests
+     (prompt 64, gen 32, 8 slots, chunked lanes, greedy, block 16, prefix
+     cache on), #1 launched at GQA 6, 4, 8 and 8, every token equal to the
+     streamed-prefill one-shot baseline; qwen2-1.5b seeded (k 50 / p 0.9)
+     bit-identical at 8 and 4 slots (#2 at 151,936 logits), granite-3-8b
+     on the int8 pool at 8 and 4 slots (#3 at GQA 4), yi-9b by classic
+     admission at prompt 256 (8 x 48 flash launches at hd 128) against the
+     full-prefill one-shot; 16 steps of qwen3-32b profiled; qwen3-32b and
+     granite-3-8b at 2 layers, card vs CPU prefill logits (phase 14's
+     method);
+ 19. the two MoE archs at full width and cut depth, grok-1-314b at 4 of
+     64 layers and llama4-scout-17b-a16e at 8 of 48: the same serve
+     completes with #1 launched (GQA 6 and 5) and again with bit-identical
+     tokens, the tokens dispatched, capacity and drops printed per layer;
+     one MoE layer on the first 72-row step's input, card vs CPU (routing
+     equal up to router near-ties, outputs within a relative RMS), timed
+     beside its bound; card vs CPU prefill logits at 1 layer, within twice
+     the larger of the CPU's f64 spread and the card's own (its
+     tensor-core GEMMs against f32 ones); llama4-scout on the int8 pool
+     (#3 at GQA 5). No MoE token is held to a one-shot
+     baseline: capacity depends on the tokens one dispatch holds, and the
+     JAX package's own engine does not equal its baseline there.
+Each phase's wall time is printed as it ends.
 Phase 2 also holds the quant kernel to its plain version and to the bf16
 kernel on the same pool (relative RMS), the flash-attention kernel to its
 plain version at six shapes, and one full-width 256-token prefill on the
@@ -126,6 +151,7 @@ limit, and last {"ok": true, "device": {...}}. Needs no network; the
 kernel build lands in build/ (git-ignored).
 """
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -218,6 +244,17 @@ FD_SHAPES = [("paper-demo-110m", 8, 12, 4, 64, 32768),
 # slots): the first design's widest one-block row plus one, rwkv6-1.6b's
 # and recurrentgemma-9b's vocabularies, and one past the widest cluster
 MASK_WIDE = tuple(V for T, V in time_mask.SHAPES if T == 8)
+
+
+# the zoo slice (phases 18 and 19): the dense archs' depths are their own;
+# the MoE archs keep their width and are cut in depth to fit one card
+ZOO_DENSE = ("qwen2-1.5b", "granite-3-8b", "yi-9b", "qwen3-32b")
+ZOO_MOE = (("grok-1-314b", 4), ("llama4-scout-17b-a16e", 8))
+# one MoE layer, card vs CPU on the same input and weights: the bf16
+# outputs of the tokens routed alike differ by the expert products'
+# rounding (cuBLAS's bf16 GEMMs against f32-accumulated CPU ones, a bf16
+# step of 2^-8 now and then): relative RMS within MOE_RMS_TOL
+MOE_RMS_TOL = 1e-2
 
 
 def fail(msg):
@@ -1038,7 +1075,63 @@ def check_against_cpu():
           f"relative logit err {err:.3e}; tolerance {LOGIT_TOL}")
 
 
-def check_prefill_against_cpu(cfg, params, S=256):
+def route_capture(records):
+    """Patch the MoE router so each call appends (gates [n,E] f32 on the
+    CPU, expert set [n,E] bool, kept set [n,E] bool) to `records`; returns
+    the undo. The sets read the router's own sorted assignment and rank,
+    the capacity the one moe_layer takes for n tokens."""
+    import torch
+    from repro_torch.models import moe as M
+    route, capacity = M._route, M._capacity
+    caps = []
+
+    def cap(n, E, k, cf):
+        caps.append(capacity(n, E, k, cf))
+        return caps[-1]
+
+    def capture(x_flat, router_w, E, k):
+        out = route(x_flat, router_w, E, k)
+        e_s, tok_s, rank = (t.cpu() for t in (out[0], out[1], out[3]))
+        n = x_flat.shape[0]
+        sets = torch.zeros((n, E), dtype=torch.bool)
+        sets[tok_s, e_s] = True
+        keep = rank < caps[-1]
+        kept = torch.zeros((n, E), dtype=torch.bool)
+        kept[tok_s[keep], e_s[keep]] = True
+        gates = torch.softmax(x_flat.float().cpu() @ router_w.cpu(), dim=-1)
+        records.append((gates, sets, kept))
+        return out
+
+    M._route, M._capacity = capture, cap
+
+    def undo():
+        M._route, M._capacity = route, capacity
+
+    return undo
+
+
+def routing_moves(got, ref, k):
+    """Tokens the two runs' MoE layers route otherwise: (moved [n] bool,
+    experts differ; affected [n] bool, experts or kept set differ; the
+    reference's gate margins (k-th minus (k+1)-th gate) at the moved
+    tokens; the router noise: the largest gate difference between the
+    runs), over every MoE layer of the records."""
+    import torch
+    n = ref[0][0].shape[0]
+    moved = torch.zeros((n,), dtype=torch.bool)
+    affected = torch.zeros((n,), dtype=torch.bool)
+    margins, noise = [], 0.0
+    for (g1, s1, k1), (g0, s0, k0) in zip(got, ref):
+        m = (s1 != s0).any(1)
+        top = torch.sort(g0, dim=-1, descending=True).values
+        margins += (top[:, k - 1] - top[:, k])[m].tolist()
+        moved |= m
+        affected |= m | (k1 != k0).any(1)
+        noise = max(noise, float((g1 - g0).abs().max()))
+    return moved, affected, margins, noise
+
+
+def check_prefill_against_cpu(cfg, params, S=256, card_spread=False):
     """One full-width prefill (B=1, S=256: the flash branch) on the card
     vs the CPU path (plain attention, f32-accumulated GEMMs) on the same
     weights, |diff| / max(|logit|, 1) over every position's logits.
@@ -1046,13 +1139,38 @@ def check_prefill_against_cpu(cfg, params, S=256):
     Twelve bf16 layers spread under any change of summation order, so the
     tolerance is measured in the same run: the CPU path against itself
     with its GEMMs accumulated in f64 (each product still rounded once to
-    bf16) — two computations of the same function that differ only in
-    rounding. The card may differ from the CPU by at most twice that
-    spread, in the worst logit and on average: it reorders the GEMMs
-    (cuBLAS) and the attention sums (the flash kernel's online softmax)."""
+    bf16; an MoE arch's expert products as well) — two computations of
+    the same function that differ only in rounding. The card may differ
+    from the CPU by at most twice that spread, in the worst logit and on
+    average: it reorders the GEMMs (cuBLAS) and the attention sums (the
+    flash kernel's online softmax).
+
+    An MoE arch (run at 1 layer) routes by a top-k of its gates, so a
+    rounding difference at a router near-tie sends a token to another
+    expert and moves the kept sets of its experts: those positions'
+    logits change by O(1), as the JAX package's own MoE decode and forward
+    do (its tests hold them to 0.5). Every token routed otherwise must
+    have had its k-th and (k+1)-th gates within twice the router noise
+    (the largest gate difference between the two runs); the positions
+    whose expert or kept set differs in either comparison are counted and
+    left out of both the error and the spread (in one layer the MoE
+    output reaches only its own position).
+
+    card_spread (phase 19) measures a second spread on the card: its
+    bf16 GEMMs (tensor cores) against the same prefill with every product
+    taken in f32 on the card, and the tolerance is twice the larger of the
+    two spreads. A tensor-core GEMM's f32 accumulation rounds otherwise
+    than the CPU's: at llama4-scout's width it moves 0.3% of a bf16
+    projection's outputs by one step against the CPU path, and 4.9% of
+    the expert FFN's (the down product reads gate and up products that
+    moved), where f64 accumulation moves far fewer; so the f64 spread
+    alone undercounts the card's rounding (one layer of llama4-scout:
+    mean 3.06e-3 on the card against a f64 spread of 8.5e-4, every
+    position alike, on an H100; PERF.md §6)."""
     import torch
     from repro_torch.models import layers as L
     from repro_torch.models import model as Mo
+    from repro_torch.models import moe as M
     from repro_torch.models.env import Env
 
     t0 = time.perf_counter()
@@ -1061,34 +1179,96 @@ def check_prefill_against_cpu(cfg, params, S=256):
     cpu = lambda t: {k: cpu(v) for k, v in t.items()} \
         if isinstance(t, dict) else (tuple(cpu(v) for v in t)
                                      if isinstance(t, tuple) else t.cpu())
-    prefill = lambda p, t: Mo.forward(p, t, cfg, Env(), mode="prefill")[0]
-    lg_gpu = prefill(params, tok.cuda()).float().cpu()
+    routes = {"card": [], "cpu": [], "alt": []}
+
+    def prefill(p, t, name):
+        undo = route_capture(routes[name]) if cfg.moe is not None else None
+        try:
+            return Mo.forward(p, t, cfg, Env(), mode="prefill")[0].float()
+        finally:
+            if undo:
+                undo()
+
+    lg_gpu = prefill(params, tok.cuda(), "card").cpu()
     cparams = cpu(params)
-    ref = prefill(cparams, tok).float()
+    ref = prefill(cparams, tok, "cpu")
     linear = L.linear
 
     def linear_f64(x, w):
         y = x.reshape(-1, x.shape[-1]).double() @ w.double()
         return y.float().to(x.dtype).reshape(*x.shape[:-1], w.shape[-1])
 
+    def expert_ffn_f64(buf, wg, wu, wd):
+        mm = lambda a, b: (a.double() @ b.double()).float().to(a.dtype)
+        return mm(L.silu(mm(buf, wg)) * mm(buf, wu), wd)
+
     L.linear = linear_f64
+    ffn = M._expert_ffn
+    if cfg.moe is not None:  # an MoE arch's expert products too
+        M._expert_ffn = expert_ffn_f64
     try:
-        alt = prefill(cparams, tok).float()
+        alt = prefill(cparams, tok, "alt")
     finally:
         L.linear = linear
-    rel = lambda a: (a - ref).abs() / ref.abs().clamp_min(1.0)
+        M._expert_ffn = ffn
+    card_f32 = None
+    if card_spread:
+        bmm = L._bf16_matmul
+        mm32 = lambda a, b: (a.float() @ b.float()).to(a.dtype)
+        L.linear, L._bf16_matmul = mm32, mm32  # experts through L too
+        routes["card_f32"] = []
+        try:
+            card_f32 = prefill(params, tok.cuda(), "card_f32").cpu()
+        finally:
+            L.linear, L._bf16_matmul = linear, bmm
+    keep = torch.ones((S,), dtype=torch.bool)
+    moe_line = ""
+    if cfg.moe is not None:
+        k = cfg.moe.top_k
+        moved, affected, margins, noise = routing_moves(
+            routes["card"], routes["cpu"], k)
+        a_moved, a_affected, a_margins, a_noise = routing_moves(
+            routes["alt"], routes["cpu"], k)
+        if any(m > 2 * noise for m in margins) or any(
+                m > 2 * a_noise for m in a_margins):
+            fail(f"{cfg.name} prefill: tokens routed otherwise away from a "
+                 f"near-tie: margins {margins} (card, router noise "
+                 f"{noise:.3e}), {a_margins} (f64 GEMMs, {a_noise:.3e})")
+        keep = ~(affected | a_affected)
+        if card_spread:
+            _, c_affected, c_margins, c_noise = routing_moves(
+                routes["card_f32"], routes["card"], k)
+            if any(m > 2 * c_noise for m in c_margins):
+                fail(f"{cfg.name} prefill: f32 GEMMs on the card route "
+                     f"tokens otherwise away from a near-tie: {c_margins}")
+            keep &= ~c_affected
+        moe_line = (f"; MoE routing: {int(moved.sum())} tokens routed "
+                    f"otherwise on the card (gate margins {margins}, "
+                    f"router noise {noise:.3e}), {int(a_moved.sum())} "
+                    f"with f64 GEMMs; {int((~keep).sum())} of {S} positions "
+                    "whose expert or kept set moved left out")
+    rel = lambda a, b=ref: ((a - b).abs() / ref.abs().clamp_min(1.0))[
+        :, keep]
     err, spread = rel(lg_gpu), rel(alt)
+    alt_max, alt_mean = spread = spread.max(), spread.mean()
+    own = ""
+    if card_f32 is not None:
+        mine = rel(card_f32, lg_gpu)
+        own = (f"; the card against itself with f32 GEMMs: max "
+               f"{float(mine.max()):.3e}, mean {float(mine.mean()):.3e}")
+        spread = (torch.maximum(spread[0], mine.max()),
+                  torch.maximum(spread[1], mine.mean()))
     same = float((lg_gpu.argmax(-1) == ref.argmax(-1)).float().mean())
     print(f"{cfg.name} ({cfg.n_layers} layers) full-width prefill (S={S}) "
           f"on the card vs the CPU path: "
           f"relative logit err max {float(err.max()):.3e}, mean "
           f"{float(err.mean()):.3e}; the CPU path against itself with "
-          f"f64-accumulated GEMMs: max {float(spread.max()):.3e}, mean "
-          f"{float(spread.mean()):.3e}; argmax equal at {same:.4f} of the "
-          f"positions; {time.perf_counter() - t0:.1f}s")
+          f"f64-accumulated GEMMs: max {float(alt_max):.3e}, mean "
+          f"{float(alt_mean):.3e}{own}; argmax equal at {same:.4f} of the "
+          f"positions{moe_line}; {time.perf_counter() - t0:.1f}s")
     if not (math.isfinite(float(err.max()))
-            and float(err.max()) <= 2 * float(spread.max())
-            and float(err.mean()) <= 2 * float(spread.mean())):
+            and float(err.max()) <= 2 * float(spread[0])
+            and float(err.mean()) <= 2 * float(spread[1])):
         fail("prefill card vs CPU: the logits differ by more than twice "
              "the spread of a reordered CPU computation")
 
@@ -1689,12 +1869,294 @@ def check_spec(cfg, params, counted):
     return launches
 
 
+def zoo_args(arch, extra):
+    """The zoo phases' serve: serve_args's (prompt 64, gen 32, 8 slots,
+    block 16, prefix cache on, greedy, chunked lanes) at 8 requests."""
+    return serve_args(["--arch", arch, "--requests", "8"] + extra)
+
+
+def zoo_serve(cfg, params, args, counted, label, want, verify_run=True):
+    """Serve args's trace with the counts zeroed before the run and read
+    after it (before its verify, whose engines launch kernels too); fail
+    unless each kernel named in `want` launched (True) or did not (False)
+    and, with verify_run, unless the run passes its --verify. Returns
+    (run, launches by kernel name)."""
+    from repro_torch.launch.serve import serve, verify
+    for op in counted:
+        op.launches = 0
+    run = serve(args, cfg, params)
+    got = {op.__name__: op.launches for op in counted}
+    for name, on in want.items():
+        if (got[name] > 0) != on:
+            fail(f"{label}: {name} launched {got[name]} times")
+    check_tokens(run, cfg)
+    if run["engine"].metrics.preemptions:
+        fail(f"{label}: the serve preempted at the worst-case budget")
+    line = ""
+    if verify_run:
+        t0 = time.perf_counter()
+        ok, line = verify(args, cfg, params, run)
+        if not ok:
+            fail(f"{label}: {line}")
+        line = f"; {line} ({time.perf_counter() - t0:.1f}s)"
+    print(f"{label}: {run['tokens']} tokens in {run['steps']} decode steps, "
+          f"{run['wall_s']:.3f}s wall, "
+          f"{run['tokens'] / run['wall_s']:.1f} tokens/s wall on {card()}; "
+          f"launches {got}{line}")
+    return run, got
+
+
+def _add(acc, got):
+    for n, c in got.items():
+        acc[n] = acc.get(n, 0) + c
+
+
+def load_params(cfg, seed):
+    """cfg's seeded weights on the card, with their size and draw time."""
+    import torch
+    from repro_torch.models import model as Mo
+    from repro_torch.models.env import Env
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = Mo.init_params(cfg, Env(), seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    n_par = sum(x.numel() for x in _leaves(params))
+    n_bytes = sum(x.numel() * x.element_size() for x in _leaves(params))
+    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"heads {cfg.n_heads}/{cfg.n_kv_heads} (GQA "
+          f"{cfg.n_heads // cfg.n_kv_heads}), vocab {cfg.vocab_size}, "
+          f"{n_par / 1e9:.2f} B parameters, {n_bytes / 1e9:.1f} GB on the "
+          f"card (peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB "
+          f"while drawn, {time.perf_counter() - t0:.1f}s)")
+    return params
+
+
+def check_zoo_dense(counted):
+    """Phase 18: the four dense attention archs at full width and depth
+    (random seeded weights). Each serves 8 Poisson requests (prompt 64,
+    gen 32, 8 slots, chunked lanes, greedy) with the launches of #1
+    counted, every token equal to the streamed-prefill one-shot baseline;
+    qwen2-1.5b also seeded (k 50 / p 0.9) at 8 and 4 slots (#2's cluster
+    form at 151,936 logits), granite-3-8b on the int8 pool at 8 and 4
+    slots (#3 at GQA 4), yi-9b by classic admission at prompt 256 (#4 at
+    hd 128, 8 x 48 launches) against the full-prefill one-shot, and 16
+    steps of qwen3-32b profiled (phase 6's method). Then qwen3-32b
+    (qk-norm) and granite-3-8b (odd vocabulary) at 2 layers: card vs CPU
+    prefill logits (phase 14's method). Returns launches by name."""
+    import torch
+    from repro_torch.configs import get_config
+
+    launches = {}
+    for arch in ZOO_DENSE:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        params = load_params(cfg, 0)
+        args = zoo_args(arch, [])
+        got = zoo_serve(cfg, params, args, counted,
+                           f"{arch} greedy serve (chunked lanes)",
+                           {"paged_flash_decode": True,
+                            "paged_flash_decode_quant": False,
+                            "topk_topp_mask": False})[1]
+        _add(launches, got)
+        if arch == "qwen2-1.5b":
+            sargs = zoo_args(arch, ["--temperature", "0.8", "--top-k", "50",
+                                    "--top-p", "0.9", "--sample-seed", "7"])
+            got = zoo_serve(cfg, params, sargs, counted,
+                               f"{arch} seeded serve (k 50, p 0.9, vocab "
+                               f"{cfg.vocab_size})",
+                               {"topk_topp_mask": True,
+                                "paged_flash_decode": True})[1]
+            _add(launches, got)
+        if arch == "granite-3-8b":
+            got = zoo_serve(cfg, params, zoo_args(arch, ["--kv", "quant"]),
+                               counted, f"{arch} --kv quant serve",
+                               {"paged_flash_decode_quant": True,
+                                "paged_flash_decode": False})[1]
+            _add(launches, got)
+        if arch == "yi-9b":
+            cargs = zoo_args(arch, ["--prefill-chunk", "0", "--prompt-len",
+                                    "256"])
+            got = zoo_serve(cfg, params, cargs, counted,
+                               f"{arch} classic serve (prompt 256)",
+                               {"paged_flash_decode": True})[1]
+            want = cargs.requests * cfg.n_layers
+            if got["flash_attention"] != want:
+                fail(f"{arch} classic serve: flash attention launched "
+                     f"{got['flash_attention']} times, expected {want}")
+            _add(launches, got)
+        if arch == "qwen3-32b":
+            profile_steps(args, cfg, params, n_steps=16, warm=4)
+        print(f"{arch}: peak {torch.cuda.max_memory_allocated() / 2 ** 30:.1f}"
+              f" GiB, {time.perf_counter() - t0:.1f}s")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch in ("qwen3-32b", "granite-3-8b"):
+        cut = dataclasses.replace(get_config(arch), n_layers=2)
+        cparams = load_params(cut, 1)
+        check_prefill_against_cpu(cut, cparams, 128)
+        del cparams
+        torch.cuda.empty_cache()
+    return launches
+
+
+def check_moe_layer(cfg, p, x):
+    """One MoE layer on a served step's input x [T,1,d] (layer 0's
+    weights p), card vs the port's plain CPU path: the expert assignment
+    and the kept set equal (a token routed otherwise only at a router
+    near-tie: its k-th and (k+1)-th gates within twice the router noise,
+    as in check_prefill_against_cpu), the outputs of the tokens routed
+    alike within MOE_RMS_TOL; the layer's device time beside its bound."""
+    import torch
+    from repro_torch.models import moe as M
+
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    n, d = x.shape[0] * x.shape[1], x.shape[-1]
+    pc = {name: w.cpu() for name, w in p.items()}
+    routes = {"card": [], "cpu": []}
+    ys, stats = {}, {}
+    for name, pp, xx in (("card", p, x), ("cpu", pc, x.cpu())):
+        undo = route_capture(routes[name])
+        try:
+            with M.dispatch_stats() as stats[name]:
+                ys[name] = M.moe_layer(pp, xx, cfg)[0].float().cpu()
+        finally:
+            undo()
+    st = stats["card"]
+    moved, affected, margins, noise = routing_moves(routes["card"],
+                                                    routes["cpu"], k)
+    if any(m > 2 * noise for m in margins):
+        fail(f"{cfg.name} MoE layer: tokens routed otherwise on the card "
+             f"away from a near-tie: margins {margins}, router noise "
+             f"{noise:.3e}")
+    diff = (ys["card"] - ys["cpu"]).reshape(n, d)[~affected]
+    ref = ys["cpu"].reshape(n, d)[~affected]
+    rms = float(diff.norm() / ref.norm().clamp_min(1e-30))
+    if not math.isfinite(rms) or rms > MOE_RMS_TOL:
+        fail(f"{cfg.name} MoE layer: card vs CPU relative RMS {rms}")
+    kept = routes["card"][0][2]
+    used, cap = int(kept.any(0).sum()), st[0]["capacity"]
+    w_bytes = used * 3 * d * cfg.d_ff * 2
+    t_bytes = w_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = int(kept.sum()) * 3 * 2 * d * cfg.d_ff / BF16_FLOPS * 1e3
+    bound, by = max((t_bytes, "bytes"), (t_ops, "operations"))
+    ms = device_ms(lambda: M.moe_layer(p, x, cfg), calls=5, replays=5)
+    print(f"{cfg.name} MoE layer on a served step's {n} rows: capacity "
+          f"{cap}, {st[0]['dropped']} of {n * k} assignments dropped, {used} "
+          f"of {E} experts used; card vs CPU: {int(moved.sum())} tokens "
+          f"routed otherwise (gate margins {margins}, router noise "
+          f"{noise:.3e}), {int(affected.sum())} with another expert or "
+          f"kept set; output relative RMS {rms:.3e}, max abs err "
+          f"{float(diff.abs().max()):.3e} (tolerance {MOE_RMS_TOL}); "
+          f"{ms * 1e3:.1f} us of device time a call (CUDA graph), bound "
+          f"{bound * 1e3:.1f} us ({by}: {w_bytes / 1e9:.2f} GB of routed "
+          f"expert weights), {bound / ms:.3f} of the bound")
+
+
+def check_zoo_moe(counted):
+    """Phase 19: the two MoE archs at full width and cut depth
+    (ZOO_MOE). Each serves 8 Poisson requests (prompt 64, gen 32, 8 slots,
+    chunked lanes, greedy): the run completes with #1 launched (GQA 6,
+    GQA 5), a second run of the trace emits bit-identical tokens, and the
+    tokens dispatched, the capacity and the tokens dropped are printed per
+    layer. One MoE layer on the first 72-row step's input, card vs CPU
+    (check_moe_layer); card vs CPU prefill logits at 1 layer; llama4-scout
+    on the int8 pool (#3 at GQA 5). No token is held to a one-shot
+    baseline: MoE capacity depends on the tokens one dispatch holds, and
+    the JAX package's own engine does not equal its baseline there.
+    Returns launches by name."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+
+    launches = {}
+    for arch, depth in ZOO_MOE:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=depth)
+        print(f"{arch} at full width, {depth} of "
+              f"{get_config(arch).n_layers} layers")
+        params = load_params(cfg, 0)
+        args = zoo_args(arch, [])
+        captured = []
+        layer = M.moe_layer
+
+        def capture(p, x, c):
+            if not captured and x.shape[0] * x.shape[1] == 72:
+                captured.append(x.detach().clone())
+            return layer(p, x, c)
+
+        M.moe_layer = capture
+        try:
+            with M.dispatch_stats() as st:
+                run, got = zoo_serve(cfg, params, args, counted,
+                                     f"{arch} greedy serve (chunked lanes)",
+                                     {"paged_flash_decode": True,
+                                      "paged_flash_decode_quant": False},
+                                     verify_run=False)
+        finally:
+            M.moe_layer = layer
+        _add(launches, got)
+        for i in range(depth):
+            recs = st[i::depth]
+            n_tok = sum(r["tokens"] for r in recs)
+            print(f"  layer {i}: {len(recs)} dispatches, {n_tok} tokens "
+                  f"dispatched ({n_tok * cfg.moe.top_k} assignments), "
+                  f"capacities {sorted({r['capacity'] for r in recs})}, "
+                  f"{sum(r['dropped'] for r in recs)} assignments dropped")
+        again, got = zoo_serve(cfg, params, args, counted,
+                               f"{arch} greedy serve, the same trace again",
+                               {"paged_flash_decode": True},
+                               verify_run=False)
+        _add(launches, got)
+        if again["out"] != run["out"]:
+            bad = sum(again["out"][r] != run["out"][r] for r in run["out"])
+            fail(f"{arch}: a second run of the trace differs in {bad} "
+                 "requests")
+        print(f"{arch}: the second run's tokens equal the first's, bit for "
+              "bit")
+        if not captured:
+            fail(f"{arch}: no step dispatched 72 rows")
+        check_moe_layer(cfg, {n: w[0] for n, w in
+                              params["blocks"][0]["moe"].items()},
+                        captured[0])
+        if arch.startswith("llama4"):
+            got = zoo_serve(cfg, params, zoo_args(arch, ["--kv", "quant"]),
+                               counted, f"{arch} --kv quant serve",
+                               {"paged_flash_decode_quant": True,
+                                "paged_flash_decode": False},
+                               verify_run=False)[1]
+            _add(launches, got)
+        print(f"{arch}: peak {torch.cuda.max_memory_allocated() / 2 ** 30:.1f}"
+              f" GiB, {time.perf_counter() - t0:.1f}s")
+        del params, run, again, captured
+        gc.collect()
+        torch.cuda.empty_cache()
+        cut = dataclasses.replace(cfg, n_layers=1)
+        cparams = load_params(cut, 1)
+        check_prefill_against_cpu(cut, cparams, 128, card_spread=True)
+        del cparams
+        torch.cuda.empty_cache()
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
     if isinstance(tree, (tuple, list)):
         return [x for v in tree for x in _leaves(v)]
     return [tree]
+
+
+def phase_clock():
+    """done(n) prints phase n's wall time: the time since the last call."""
+    last = [time.perf_counter()]
+
+    def done(n):
+        now = time.perf_counter()
+        print(f"phase {n}: {now - last[0]:.1f}s")
+        last[0] = now
+
+    return done
 
 
 def card():
@@ -1730,6 +2192,7 @@ def main():
           f"{torch.cuda.get_device_name(0)}")
 
     # 1. build
+    done = phase_clock()
     t0 = time.perf_counter()
     kernels.library()
     print(f"kernel build: {time.perf_counter() - t0:.1f}s")
@@ -1740,6 +2203,7 @@ def main():
             print("  " + line.strip())
     redesigned_build_report(kernels)
 
+    done(1)
     # 2. kernels vs plain versions; one decode step and one full-width
     # prefill, card vs CPU
     checked = check_kernels(dev)
@@ -1749,6 +2213,7 @@ def main():
     params = Mo.init_params(cfg, Env(), seed=0, device=dev)
     check_prefill_against_cpu(cfg, params)
 
+    done(2)
     # 3. the main path, greedy, full width
     args = serve_args([])
     paged_flash_decode.launches = topk_topp_mask.launches = 0
@@ -1767,6 +2232,7 @@ def main():
         fail(f"greedy serve: {line}")
     print(line)
 
+    done(3)
     # 4. seeded top-k/top-p at two slot counts
     sargs = serve_args(["--temperature", "0.8", "--top-k", "50",
                         "--top-p", "0.9", "--sample-seed", "7"])
@@ -1782,6 +2248,7 @@ def main():
     print(f"seeded serve: {srun['tokens']} tokens, {srun['wall_s']:.3f}s "
           f"wall, mask launches {n_mask}; {line}")
 
+    done(4)
     # 5. timings at the phase-2 shapes
     pin, paged_err = checked["paged"]
     q, kp, vp, tables, lengths = pin
@@ -1908,9 +2375,11 @@ def main():
               f"with the wrapper's host work")
     print(f"wall tokens/s (greedy serve, full width): {tok_s:.1f}")
 
+    done(5)
     # 6. where a step's time goes
     profile_steps(args, cfg, params)
 
+    done(6)
     # 7. the paper's loop: an autoscaled fleet of int8-KV replicas
     # counts read between the run and its verify, as in phases 3-4: the
     # verify's own engine launches the kernel too
@@ -1942,6 +2411,7 @@ def main():
           f"{frun['tokens']} tokens in {frun['steps']} replica decode "
           f"steps, {frun['tokens'] / frun['wall_s']:.1f} tokens/s wall")
 
+    done(7)
     # 8. one quant engine under the cluster: 8 vs 4 slots
     qargs = serve_args(["--trace", "burst", "--kv", "quant"])
     paged_flash_decode.launches = paged_flash_decode_quant.launches = 0
@@ -1956,6 +2426,7 @@ def main():
         fail(f"quant engine: {line}")
     print(f"quant engine: quant decode launches {n_quant1}; {line}")
 
+    done(8)
     # 9. classic admission: a batch-1 prefill per request (the flash
     # kernel at 256 tokens), its K/V inserted into the paged pool; counts
     # read between the run and its verify, whose B=16 prefill launches the
@@ -1985,6 +2456,7 @@ def main():
           f"flash attention launches {n_flash}, paged decode launches "
           f"{n_dec}; {line}")
 
+    done(9)
     # 10. the slot pool on the same trace: paged == slot, bit for bit
     slargs = serve_args(["--kv", "slot", "--prompt-len", "256"])
     for op in counted:
@@ -2002,9 +2474,11 @@ def main():
           f"wall, flash attention launches {flash_attention.launches}; "
           "tokens equal the paged classic serve's bit for bit")
 
+    done(10)
     # 11. the recurrent slice's kernels on the card, and their times
     rec = check_recurrent_kernels(dev)
 
+    done(11)
     # 12. recurrentgemma-9b at full width and depth, classic admission
     from repro_torch.kernels.rglru.ops import rglru_scan
     from repro_torch.kernels.rwkv6.ops import wkv6
@@ -2012,11 +2486,13 @@ def main():
     n_rglru, rg_dec, rg_flash = serve_recurrent(
         "recurrentgemma-9b", ["--requests", "8", "--prompt-len", "2304",
                               "--slots", "4"], counted)
+    done(12)
     # 13. rwkv6-1.6b at full width and depth
     n_wkv, _, _ = serve_recurrent(
         "rwkv6-1.6b", ["--requests", "16", "--prompt-len", "256",
                        "--slots", "8"], counted)
 
+    done(13)
     # 14. card vs CPU at full width, cut depth
     for arch, layers, S in (("recurrentgemma-9b", 5, 160),
                             ("rwkv6-1.6b", 2, 128)):
@@ -2026,6 +2502,7 @@ def main():
         del cparams
         torch.cuda.empty_cache()
 
+    done(14)
     # 15. the flash-decoding path (kernel #5) at full width; the mask's
     # rows past shared memory and a seeded serve of a 65536-token vocab
     fd_launches, fd_err, fd_rows = check_flash_decode(dev)
@@ -2059,18 +2536,28 @@ def main():
     report[1]["wide"] = wide
     report[1]["wide_launches"] = n_mask_wide
 
+    done(15)
     # 16. the host swap tier at full width; 17. speculative decoding
-    t0 = time.perf_counter()
     swap_launches = check_swap_tier(cfg, params, counted)
-    print(f"phase 16: {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
+    done(16)
     spec_launches = check_spec(cfg, params, counted)
-    print(f"phase 17: {time.perf_counter() - t0:.1f}s")
+    done(17)
+    # 18. the four dense attention archs at full width and depth; 19. the
+    # two MoE archs at full width and cut depth (paper-demo's engines and
+    # weights freed first)
+    del params, run, srun, frun, qrun, crun, slrun
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo = check_zoo_dense(counted)
+    done(18)
+    _add(zoo, check_zoo_moe(counted))
+    done(19)
     for k in report:
         if k["name"] in swap_launches:
             k["swap_launches"] = swap_launches[k["name"]]
         if k["name"] in spec_launches:
             k["spec_launches"] = spec_launches[k["name"]]
+        k["zoo_launches"] = zoo.get(k["name"], 0)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": report}))

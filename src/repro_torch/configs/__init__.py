@@ -1,9 +1,12 @@
 """Architecture config registry: --arch <id> resolution.
 
-The port serves `paper-demo` and the two recurrent archs
-(`recurrentgemma-9b`, `rwkv6-1.6b`); the registry grows with each
-architecture the port learns to run. Each module is a copy of the JAX
-package's (tests/test_torch_recurrent.py holds the copies equal)."""
+The port serves `paper-demo`, the four dense attention archs (`yi-9b`,
+`granite-3-8b`, `qwen3-32b` with qk-norm, `qwen2-1.5b` with a qkv bias),
+the two MoE archs (`grok-1-314b`, `llama4-scout-17b-a16e`) and the two
+recurrent archs (`recurrentgemma-9b`, `rwkv6-1.6b`): every decoder-only
+text arch of the JAX package's zoo. Each module is a copy of the JAX
+package's (tests/test_torch_recurrent.py and tests/test_torch_zoo.py hold
+the copies equal)."""
 from __future__ import annotations
 
 import importlib
@@ -21,6 +24,12 @@ from repro_torch.configs.base import (  # noqa: F401
 # arch id -> module name
 _ARCH_MODULES: Dict[str, str] = {
     "paper-demo": "paper_demo",
+    "yi-9b": "yi_9b",
+    "granite-3-8b": "granite_3_8b",
+    "qwen3-32b": "qwen3_32b",
+    "qwen2-1.5b": "qwen2_1_5b",
+    "grok-1-314b": "grok_1_314b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "recurrentgemma-9b": "recurrentgemma_9b",
     "rwkv6-1.6b": "rwkv6_1_6b",
 }

@@ -26,10 +26,16 @@ for classic):
 --trace oneshot runs the one-shot baseline alone (a full-prefill batch
 submitted to the cluster), as the JAX CLI's legacy path does.
 
---arch picks the model: paper-demo (dense attention), recurrentgemma-9b
-(Griffin: RG-LRU blocks and sliding-window attention) or rwkv6-1.6b
-(attention-free RWKV-6); the two recurrent archs admit only by classic
-prefill (their prompts run through the RG-LRU-scan and WKV6 kernels).
+--arch picks the model, one of nine: paper-demo, yi-9b, granite-3-8b,
+qwen3-32b (qk-norm) and qwen2-1.5b (qkv bias), the dense attention archs;
+grok-1-314b and llama4-scout-17b-a16e, attention with a mixture of
+experts; recurrentgemma-9b (Griffin: RG-LRU blocks and sliding-window
+attention) and rwkv6-1.6b (attention-free RWKV-6). The two recurrent archs
+admit only by classic prefill (their prompts run through the RG-LRU-scan
+and WKV6 kernels). An MoE layer's capacity depends on the tokens one
+dispatch holds, so an MoE arch's tokens change with the batch around
+them; --verify compares what it compares for every arch and prints
+MISMATCH there where the JAX package's CLI does.
 `--smoke` swaps in the tiny smoke config; `--device cpu` runs the kernels'
 plain versions on the CPU. Time on the cluster is simulated (a
 ManualClock advanced per step); wall time is measured around the serve.
@@ -339,7 +345,8 @@ def run_oneshot(args, cfg, params) -> dict:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
-    ap.add_argument("--arch", default="paper-demo", choices=ARCH_IDS)
+    ap.add_argument("--arch", default="paper-demo", choices=ARCH_IDS,
+                    help="the model: " + ", ".join(ARCH_IDS))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--trace", default="poisson",
                     choices=("poisson", "burst", "sysprompt", "repetitive",

@@ -106,14 +106,22 @@ def silu(x):
 def _project_qkv(p, x, cfg: ModelConfig):
     """Returns q [B,S,Hq,hd], k/v [B,S,Hkv,hd] (no rope yet). With
     cfg.qkv_bias the bf16 biases bq/bk/bv are added to the bf16 products,
-    as the JAX package adds them (one more bf16 rounding)."""
+    as the JAX package adds them (one more bf16 rounding). With
+    cfg.qk_norm each head of q and of k goes through rms_norm with its
+    f32 q_norm / k_norm [hd] scale, after the bias and before rope, where
+    the JAX package puts it: the norm reads the bf16 projection and
+    returns bf16."""
     hd = cfg.head_dim
     B, S = x.shape[0], x.shape[1]
     q, k, v = (linear(x, p[w]) for w in ("wq", "wk", "wv"))
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(B, S, -1, hd), k.reshape(B, S, -1, hd),
-            v.reshape(B, S, -1, hd))
+    q, k, v = (q.reshape(B, S, -1, hd), k.reshape(B, S, -1, hd),
+               v.reshape(B, S, -1, hd))
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
 
 
 def _group(q, hkv: int):

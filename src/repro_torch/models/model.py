@@ -9,8 +9,10 @@ token per row over a contiguous cache or block tables).
 A model is `embed -> num_blocks x (the block_pattern unit) -> the
 pattern_tail blocks -> norm -> unembed`. Block kinds: "attn" (global
 attention + SwiGLU), "local" (sliding-window attention + SwiGLU, a
-window-sized ring cache), "rglru" (the Griffin recurrent block + SwiGLU,
-models/recurrent.py) and "rwkv" (RWKV-6 time and channel mix). The JAX
+window-sized ring cache), "moe" (global attention + a mixture of SwiGLU
+experts, models/moe.py), "rglru" (the Griffin recurrent block + SwiGLU,
+models/recurrent.py) and "rwkv" (RWKV-6 time and channel mix). Attention
+takes an optional qkv bias and qk-norm (models/layers.py). The JAX
 layer scan becomes a Python loop; parameters and caches keep the JAX
 layout: {"blocks": one dict per pattern position with leaves stacked on a
 leading layer axis, "tail": one unstacked dict per tail block}, so the
@@ -37,12 +39,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_decode import ops as pd_ops
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
 from repro_torch.models.env import Env, head_pad, kv_head_pad, vocab_pad
 
 Pytree = Any
 
-PAGEABLE_KINDS = ("attn", "local")
+PAGEABLE_KINDS = ("attn", "moe", "local")
 RECURRENT_KINDS = ("rglru", "rwkv")
 # prompts longer than this take the flash kernel in prefill, shorter ones
 # attention_naive: the JAX package's pallas-plan dispatch (Sq > 128)
@@ -50,16 +53,16 @@ FLASH_MIN_LEN = 128
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves decoders built of attn, local, rglru and rwkv
-    blocks, with or without a qkv bias (no MoE, M-RoPE, qk-norm or
-    encoder)."""
+    """The port serves text decoders built of attn, moe, local, rglru and
+    rwkv blocks (with or without a qkv bias and qk-norm); M-RoPE, vision
+    and encoder-decoder archs are refused."""
     kinds = set(cfg.block_pattern) | set(cfg.pattern_tail)
     if (not kinds <= set(PAGEABLE_KINDS + RECURRENT_KINDS)
-            or cfg.qk_norm or cfg.mrope or cfg.is_encdec
-            or cfg.family == "vlm"):
+            or cfg.mrope or cfg.is_encdec or cfg.family == "vlm"):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs decoders of attn, local, rglru and "
-            f"rwkv blocks (block kinds {sorted(kinds)})")
+            f"{cfg.name}: the port runs text decoders of attn, moe, local, "
+            f"rglru and rwkv blocks (block kinds {sorted(kinds)}; no "
+            "M-RoPE, vision or encoder)")
 
 
 def _units(cfg: ModelConfig, tree):
@@ -100,6 +103,13 @@ def _init_block(kind: str, gen: torch.Generator, cfg: ModelConfig,
             b = lambda n: torch.zeros((n,), dtype=torch.bfloat16,
                                       device=gen.device)
             attn.update(bq=b(hq * hd), bk=b(hkv * hd), bv=b(hkv * hd))
+        if cfg.qk_norm:  # f32 zeros, read as 1 + scale by rms_norm
+            hz = lambda: torch.zeros((hd,), dtype=torch.float32,
+                                     device=gen.device)
+            attn.update(q_norm=hz(), k_norm=hz())
+        if kind == "moe":
+            return {"ln1": z(), "attn": attn, "ln2": z(),
+                    "moe": M.init_moe(gen, cfg)}
         return {"ln1": z(), "attn": attn, "ln2": z(), "mlp": mlp()}
     if kind == "rglru":
         return {"ln1": z(), "rec": R.init_rglru_block(gen, cfg), "ln2": z(),
@@ -113,6 +123,33 @@ def _stack(trees):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
     return torch.stack(trees)
+
+
+def _stacked(make, n: int):
+    """n calls of make() (a dict nest of tensors) stacked on a leading
+    axis, as _stack([make() for _ in range(n)]) builds it and with the
+    same calls in the same order, but filled into tensors allocated once:
+    the peak is the stack plus one layer, not twice the stack (a 65.6 GB
+    bf16 model is built on an 80 GB card)."""
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        return t.new_empty((n,) + tuple(t.shape))
+
+    def fill(dst, src, i):
+        if isinstance(src, dict):
+            for k in src:
+                fill(dst[k], src[k], i)
+        else:
+            dst[i].copy_(src)
+
+    first = make()
+    out = alloc(first)
+    fill(out, first, 0)
+    del first
+    for i in range(1, n):
+        fill(out, make(), i)
+    return out
 
 
 def init_params(cfg: ModelConfig, env: Env, *, seed: int = 0,
@@ -129,8 +166,8 @@ def init_params(cfg: ModelConfig, env: Env, *, seed: int = 0,
     d, vp = cfg.d_model, vocab_pad(cfg, env)
     return {
         "embed": L.dense_init(gen, vp, d),
-        "blocks": tuple(_stack([_init_block(kind, gen, cfg, env)
-                                for _ in range(cfg.num_blocks)])
+        "blocks": tuple(_stacked(lambda: _init_block(kind, gen, cfg, env),
+                                 cfg.num_blocks)
                         for kind in cfg.block_pattern),
         "tail": tuple(_init_block(kind, gen, cfg, env)
                       for kind in cfg.pattern_tail),
@@ -465,7 +502,15 @@ def _attn_sublayer(p, h, cfg: ModelConfig, n_rows: int, cur_len, rope,
     "k_scale"/"v_scale" in a quant pool). row_slots ([n_rows] slot of each
     row, -1 masked) addresses a contiguous cache through its slots instead
     of row == slot. Every row's K/V is written before any row attends, so
-    a row sees the rows of its slot at lower depths in the same step."""
+    a row sees the rows of its slot at lower depths in the same step.
+
+    Masked rows all write one place (the null block's, or the contiguous
+    cache's tail position) and read it back. In an MoE arch their hidden
+    states differ (a dispatch keeps some and drops others) and they take
+    capacity from real rows, so what they read must be what the JAX
+    package's scatter leaves there, its last row's write: every row of a
+    shared place writes that row's K/V (_last_writer), which also keeps
+    the card's duplicate-index writes deterministic."""
     q, k, v = L._project_qkv(p, h, cfg)  # [Bp,1,H,hd]
     q = L.rotate(q, *rope)[:n_rows]
     k = L.rotate(k, *rope)[:n_rows, 0]
@@ -476,6 +521,9 @@ def _attn_sublayer(p, h, cfg: ModelConfig, n_rows: int, cur_len, rope,
         idx = cur_len % window if window else cur_len
         phys = torch.gather(tables, 1, (idx // bs)[:, None])[:, 0].long()
         off = idx % bs
+        if cfg.moe is not None:
+            src = _last_writer(phys * bs + off)
+            k, v = k[src], v[src]
         lengths = (torch.clamp_max(cur_len, window - 1) if window
                    else cur_len).to(torch.int32)
         if "k_scale" in cache:
@@ -508,6 +556,9 @@ def _attn_sublayer(p, h, cfg: ModelConfig, n_rows: int, cur_len, rope,
         live = row_slots >= 0
         slot = torch.where(live, row_slots, 0).long()
         idx = torch.where(live, cur_len, Sc - 1)
+        if cfg.moe is not None:
+            src = _last_writer(slot * Sc + idx)
+            k, v = k[src], v[src]
         ck[slot, :, idx] = k.to(ck.dtype)
         cv[slot, :, idx] = v.to(cv.dtype)
         o = L.attention_decode(q, ck, cv, cur_len, cfg, slots=slot)
@@ -521,6 +572,29 @@ def _attn_sublayer(p, h, cfg: ModelConfig, n_rows: int, cur_len, rope,
         o = L.attention_decode(q, ck, cv, lengths, cfg)
     o = F.pad(o, (0, 0, 0, 0, 0, h.shape[0] - n_rows))
     return L.linear(o, p["wo"])
+
+
+def _last_writer(place):
+    """[n] int: for each row, the last row writing the same place (a row
+    is its own when no later row shares its place)."""
+    rows = torch.arange(place.shape[0], device=place.device)
+    same = place[:, None] == place[None, :]
+    return torch.amax(torch.where(same, rows[None, :], -1), dim=1)
+
+
+def _moe_sublayer(p, x, cfg: ModelConfig, *, S=None, n_rows=None):
+    """The MoE FFN over the rows the JAX package dispatches: a prefill's
+    first S positions of each row-padded sequence (flattened b * S + s),
+    a decode step's first n_rows rows (masked rows included); the padding
+    rows are not dispatched and come out zero."""
+    real = x[:, :S] if S is not None else x[:n_rows]
+    y, _ = M.moe_layer(p, real, cfg)
+    out = torch.zeros_like(x)
+    if S is not None:
+        out[:, :S] = y
+    else:
+        out[:n_rows] = y
+    return out
 
 
 # state leaves read only by row-wise ops (the WKV step): they stay at the
@@ -574,7 +648,12 @@ def _apply_block(kind: str, p, h, hf, cfg: ModelConfig, *, S=None, rope=None,
         else:
             first = lambda x: _attn_prefill(p["attn"], x, cfg, S, rope,
                                             window)
-        second = lambda x: (L.mlp(p["mlp"], x), None)
+        if kind == "moe":
+            second = lambda x: (_moe_sublayer(
+                p["moe"], x, cfg, S=None if decode else S,
+                n_rows=n_rows), None)
+        else:
+            second = lambda x: (L.mlp(p["mlp"], x), None)
     elif kind == "rglru":
         st = _rows_state(cache, n_rows, h.shape[0]) if decode else None
         first = lambda x: R.rglru_block(p["rec"], x, cfg, st, **prefill_kw)

@@ -1,0 +1,173 @@
+"""Mixture-of-Experts layer: sort-based, capacity-clipped dispatch.
+
+Port of the JAX package's models/moe.py, its single-device branch
+(`env.mesh is None`): the router picks top_k experts per token, tokens
+are sorted by expert (stably, so a token's rank within its expert is its
+order in the dispatch), every expert takes at most `capacity` of them and
+the overflow is dropped (it passes through the residual), the kept tokens
+run their expert's SwiGLU and come back gate-weighted. The expert-parallel
+("ep") and TP-within-expert ("tp") sharded modes come with the parallel
+slice.
+
+Which tokens one dispatch holds decides the capacity and every drop, so
+the caller hands moe_layer exactly the tokens the JAX package dispatches,
+in its order: a decode step's real rows (masked rows included, padding
+rows not), a prefill's real positions flattened as b * S + s
+(models/model.py). The layer is not batch-invariant, in the JAX package
+either: a token's output depends on the tokens it shares a dispatch with.
+
+Determinism on the card: the sorts are stable, the top-k is a stable
+descending sort (tied gates keep the lower expert first, as lax.top_k
+does), the combine gathers each token's rows and sums them in sorted
+order (no atomic scatter-add), and the router's f32 product runs in full
+f32 (TF32 stays off, torch's default).
+
+The expert products are plain batched matrix products, outside any TPU
+kernel in the reference: torch.matmul, rounded where the JAX package's
+CPU einsum rounds (layers._bf16_matmul).
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import List, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+# per-call dispatch records while a `dispatch_stats()` block is open
+_STATS: Optional[List[dict]] = None
+
+
+@contextlib.contextmanager
+def dispatch_stats():
+    """Collect one {"tokens", "capacity", "dropped"} record per moe_layer
+    call (so per MoE layer, in layer order) while the block is open:
+    the tokens dispatched, the slots an expert takes, and the (token,
+    expert) assignments past them. The drop counts are read from the
+    device when the block closes. Off by default: nothing is recorded or
+    synchronised outside such a block."""
+    global _STATS
+    prev, _STATS = _STATS, []
+    records = _STATS
+    try:
+        yield records
+    finally:
+        _STATS = prev
+        for r in records:
+            r["dropped"] = int(r["dropped"])
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """f32 router [d,E]; bf16 w_gate / w_up [E,d,ff] and w_down [E,ff,d],
+    each expert drawn with dense_init (the JAX package's shapes and
+    scales, torch's generator)."""
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
+    router = L.dense_init(gen, d, E, dtype=torch.float32)
+
+    def experts(d_in, d_out):
+        w = torch.empty((E, d_in, d_out), dtype=torch.bfloat16,
+                        device=gen.device)
+        for e in range(E):
+            w[e] = L.dense_init(gen, d_in, d_out)
+        return w
+
+    return {"router": router, "w_gate": experts(d, ff),
+            "w_up": experts(d, ff), "w_down": experts(ff, d)}
+
+
+def _capacity(n_tokens: int, E: int, k: int, cf: float) -> int:
+    if n_tokens * k <= E:  # decode-scale dispatch: dropless worst case
+        return n_tokens * k
+    c = int(n_tokens * k * cf / E) + 1
+    return max(8, -(-c // 8) * 8)  # multiple of 8, >= 8
+
+
+def _top_k(gates, k: int):
+    """lax.top_k over the last axis: values descending, a tie keeps the
+    lower index first (a stable descending sort; E is small)."""
+    val, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    return val[:, :k], idx[:, :k]
+
+
+def _route(x_flat, router_w, E: int, k: int):
+    """Returns (e_sorted, tok_sorted, gate_sorted, rank, order, aux_loss):
+    the n*k (token, expert) assignments sorted stably by expert, each one's
+    rank within its expert, the sort permutation, and the Switch
+    load-balance loss E * sum(frac_tokens * frac_prob) (for training)."""
+    n = x_flat.shape[0]
+    logits = L.linear_f32(x_flat.float(), router_w)  # [N,E] f32
+    gates = torch.softmax(logits, dim=-1)
+    gval, gidx = _top_k(gates, k)  # [N,k]
+    gval = gval / torch.clamp_min(gval.sum(-1, keepdim=True), 1e-9)
+    e_flat = gidx.reshape(-1)
+    g_flat = gval.reshape(-1)
+    tok_flat = torch.arange(n, device=x_flat.device).repeat_interleave(k)
+    order = torch.sort(e_flat, stable=True).indices
+    e_s, tok_s, g_s = e_flat[order], tok_flat[order], g_flat[order]
+    # per-expert counts without bincount, whose CUDA form syncs the host
+    experts = torch.arange(E, device=e_flat.device)
+    counts = (e_flat[:, None] == experts).sum(0)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(n * k, device=x_flat.device) - starts[e_s]
+    frac_tok = counts.float() / (n * k)
+    frac_prob = gates.mean(dim=0)
+    aux = E * torch.sum(frac_tok * frac_prob)
+    return e_s, tok_s, g_s, rank, order, aux
+
+
+def _dispatch(x_flat, router_w, E: int, k: int, capacity: int):
+    """Capacity-clipped scatter of the sorted assignments into [E*C, d]
+    (expert e's slots at e*C ... e*C + C-1; a dropped assignment lands in
+    a trash row past them). Returns (buf, meta, aux)."""
+    e_s, tok_s, g_s, rank, order, aux = _route(x_flat, router_w, E, k)
+    keep = rank < capacity
+    dest = torch.where(keep, e_s * capacity + rank, E * capacity)
+    vals = x_flat[tok_s] * keep[:, None].to(x_flat.dtype)
+    buf = x_flat.new_zeros((E * capacity + 1, x_flat.shape[1]))
+    buf[dest] = vals  # kept destinations are distinct
+    return buf[:E * capacity], (tok_s, g_s, dest, keep, order), aux
+
+
+def _combine(expert_out, meta, n_tokens: int, k: int):
+    """expert_out [E*C, d] -> y [N, d]: each token's k gate-weighted rows
+    (zero where dropped), summed from zero in sorted (expert) order, as the
+    JAX package's scatter-add applies them, as a gather: no atomics."""
+    tok_s, g_s, dest, keep, order = meta
+    padded = torch.cat([expert_out, expert_out.new_zeros(
+        (1, expert_out.shape[1]))])
+    rows = padded[dest] * (g_s * keep).to(expert_out.dtype)[:, None]
+    # sorted position of assignment (t, j), then each token's in order
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(order.numel(), device=order.device)
+    pos = torch.sort(pos.view(n_tokens, k), dim=1).values
+    y = expert_out.new_zeros((n_tokens, expert_out.shape[1]))
+    for j in range(k):
+        y = y + rows[pos[:, j]]
+    return y
+
+
+def _expert_ffn(buf, wg, wu, wd):
+    """buf [E,C,d]; weights [E,d,ff] / [E,ff,d]: SiLU(x Wg) * (x Wu) Wd
+    per expert, op by op in bf16."""
+    h = L.silu(L._bf16_matmul(buf, wg)) * L._bf16_matmul(buf, wu)
+    return L._bf16_matmul(h, wd)
+
+
+def moe_layer(p, x, cfg: ModelConfig):
+    """x: [B, S, d], every token of it dispatched. Returns (y, aux_loss)."""
+    m = cfg.moe
+    E, k, cf = m.num_experts, m.top_k, m.capacity_factor
+    B, S, d = x.shape
+    n = B * S
+    flat = x.reshape(n, d)
+    cap = _capacity(n, E, k, cf)
+    buf, meta, aux = _dispatch(flat, p["router"], E, k, cap)
+    if _STATS is not None:
+        _STATS.append({"tokens": n, "capacity": cap,
+                       "dropped": (~meta[3]).sum()})
+    out = _expert_ffn(buf.reshape(E, cap, d), p["w_gate"], p["w_up"],
+                      p["w_down"])
+    y = _combine(out.reshape(E * cap, d), meta, n, k)
+    return y.reshape(B, S, d), aux

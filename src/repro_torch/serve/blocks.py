@@ -45,7 +45,8 @@ onto each other within a chunk, so chunk_prefill_ok is False there, and
 the prefix cache (global blocks only) is off.
 
 QuantBlockManager (`--kv quant`) is the same bookkeeping over an int8
-pool with per-row f32 scales, for attention-only archs.
+pool with per-row f32 scales, for archs of global attention blocks
+(attn and moe).
 
 The host swap tier (HostSwapPool, `swap=True`): preemption copies a
 victim's blocks (global and ring tables, the int8 pool's scales, the
@@ -244,7 +245,7 @@ class BlockManager:
         self.block_size = block_size
         kinds = set(cfg.block_pattern) | set(cfg.pattern_tail)
         self.window = cfg.local_window
-        self.has_global = "attn" in kinds
+        self.has_global = bool(kinds & {"attn", "moe"})
         self.has_local = "local" in kinds
         # recurrent state rows pin the decode batch to slot == row
         self.has_state = bool(kinds & set(Mo.RECURRENT_KINDS))
@@ -1023,7 +1024,7 @@ class QuantBlockManager(BlockManager):
 
     def __init__(self, cfg: ModelConfig, *args, **kw):
         kinds = set(cfg.block_pattern) | set(cfg.pattern_tail)
-        if kinds != {"attn"}:
+        if not kinds <= {"attn", "moe"}:
             raise NotImplementedError(
                 f"--kv quant for {cfg.name} (block kinds {sorted(kinds)}): "
                 "the int8 pool beside window rings and recurrent-state rows "

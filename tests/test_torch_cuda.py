@@ -864,3 +864,126 @@ def test_flash_decode_refuses_what_the_kernel_does_not_take(cuda):
         flash_decode_partials(q.float(), kv, kv,
                               torch.zeros((2,), dtype=torch.int32,
                                           device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# the zoo slice: GQA 5, qk-norm, the MoE layer
+# ---------------------------------------------------------------------------
+
+
+def _serving_row_mix(rng, Hq, Hkv, hd, bs=16, MB=6):
+    """chip_smoke's phase-2 row mix at other heads: 8 decode rows at
+    depths 64..95, a 64-row prefill lane at 0..63 over one table, a
+    masked row (null table), a depth-0 row and a full-table row."""
+    B_dec, lane = 8, 64
+    B = B_dec + lane + 3
+    NB = 1 + 8 * MB
+    ids = 1 + rng.permutation(NB - 1)
+    tables = np.zeros((B, MB), np.int32)
+    lengths = np.zeros((B,), np.int32)
+    for b in range(B_dec):
+        tables[b] = ids[b * MB:(b + 1) * MB]
+        lengths[b] = 64 + (b * 5) % 32
+    tables[B_dec:B_dec + lane] = ids[:MB]
+    lengths[B_dec:B_dec + lane] = np.arange(lane)
+    lengths[B - 3] = -1
+    tables[B - 2], lengths[B - 2] = ids[MB:2 * MB], 0
+    tables[B - 1], lengths[B - 1] = ids[2 * MB:3 * MB], MB * bs - 1
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32))
+    return (mk(B, Hq, hd), mk(NB, Hkv, bs, hd), mk(NB, Hkv, bs, hd),
+            torch.from_numpy(tables), torch.from_numpy(lengths))
+
+
+def test_paged_decode_kernels_at_gqa_5_match_plain(cuda):
+    """llama4-scout-17b-a16e's group: 40 query heads over 8 KV heads at hd
+    128, the bf16 and the int8 kernel against their plain versions at the
+    serving row mix, within 1e-5 (both compute in f32 from the same
+    inputs); the masked row is zero."""
+    q, kp, vp, tables, lengths = (t.to(cuda) for t in _serving_row_mix(
+        np.random.default_rng(40), 40, 8, 128))
+    q, kp, vp = (t.to(torch.bfloat16) for t in (q, kp, vp))
+    tables, lengths = tables.to(cuda), lengths.to(cuda)
+    before = paged_flash_decode.launches
+    got = paged_flash_decode(q, kp, vp, tables, lengths)
+    torch.cuda.synchronize()
+    assert paged_flash_decode.launches == before + 1
+    assert float((got - paged_decode_ref(q, kp, vp, tables, lengths))
+                 .abs().max()) < 1e-5
+    assert float(got[-3].abs().max()) == 0.0
+    kq, ks = quantize_kv(kp.float())
+    vq, vs = quantize_kv(vp.float())
+    before = paged_flash_decode_quant.launches
+    got = paged_flash_decode_quant(q, kq, vq, ks, vs, tables, lengths)
+    torch.cuda.synchronize()
+    assert paged_flash_decode_quant.launches == before + 1
+    want = paged_decode_quant_ref(q, kq, vq, ks, vs, tables, lengths)
+    assert float((got - want).abs().max()) < 1e-5
+    assert float(got[-3].abs().max()) == 0.0
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to(v, dev) for v in tree)
+    return tree.to(dev)
+
+
+def test_qk_norm_decode_step_on_the_card_matches_the_cpu(cuda):
+    """qwen3-32b's smoke config with random q_norm / k_norm scales: one
+    paged decode step (5 rows, one masked) on the card against the CPU
+    path on the same weights and pool, |diff| / max(|logit|, 1) within
+    3e-2 (chip_smoke's LOGIT_TOL: bf16 logits, sums in another order)."""
+    cfg = get_smoke("qwen3-32b")
+    params = Mo.init_params(cfg, Env(), seed=2, device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    attn = params["blocks"][0]["attn"]
+    for n in ("q_norm", "k_norm"):
+        attn[n].copy_(torch.randn(attn[n].shape, generator=gen))
+    B, NB, bs = 5, 12, 16
+    pool = Mo.init_paged_cache(cfg, Env(), NB, bs, device="cpu")
+    for leaf in pool["blocks"][0].values():
+        leaf.copy_(torch.randn(leaf.shape, generator=gen).to(leaf.dtype))
+    tables = torch.randperm(NB - 1, generator=gen)[:B * 2].reshape(B, 2) + 1
+    tables = tables.int()
+    tables[4] = 0
+    cur = torch.tensor([0, 5, 17, 31, 0], dtype=torch.int32)
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen)
+    step = lambda p, c, t, l, tb: Mo.forward(
+        p, t, cfg, Env(), caches=c, cur_len=l,
+        block_tables={"global": tb})[0]
+    ref = step(params, _to(pool, "cpu"), tok, cur, tables).float()
+    got = step(_to(params, cuda), _to(pool, cuda), tok.to(cuda),
+               cur.to(cuda), tables.to(cuda)).float().cpu()
+    err = float(((got - ref).abs() / ref.abs().clamp_min(1.0)).max())
+    assert err < 3e-2
+
+
+def test_moe_layer_on_the_card_matches_the_plain_path(cuda):
+    """grok-1-314b's smoke MoE layer on one 72-row input (a served step's
+    rows: 8 slots and a 64-row lane), card against the CPU path on the
+    same input and weights: the same experts, ranks and kept set (no
+    router near-tie within 1e-4 on this input), outputs within 1e-2
+    relative RMS (bf16 products rounded apart now and then); a second
+    call on the card bit-equal to the first."""
+    from repro_torch.models import moe as M
+    cfg = get_smoke("grok-1-314b")
+    p = {n: w[0] for n, w in Mo.init_params(
+        cfg, Env(), seed=4, device="cpu")["blocks"][0]["moe"].items()}
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn((72, 1, cfg.d_model), generator=gen).to(torch.bfloat16)
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    gates = torch.softmax(x.reshape(72, -1).float() @ p["router"], -1)
+    top = torch.sort(gates, -1, descending=True).values
+    assert float((top[:, k - 1] - top[:, k]).min()) > 1e-4
+    pc = _to(p, cuda)
+    r_cpu = M._route(x.reshape(72, -1), p["router"], E, k)
+    r_gpu = M._route(x.reshape(72, -1).to(cuda), pc["router"], E, k)
+    for i in (0, 1, 3):  # experts, tokens, ranks (sorted order)
+        assert torch.equal(r_gpu[i].cpu(), r_cpu[i])
+    y = M.moe_layer(pc, x.to(cuda), cfg)[0]
+    assert torch.equal(M.moe_layer(pc, x.to(cuda), cfg)[0], y)
+    yc = M.moe_layer(p, x, cfg)[0]
+    rms = float((y.float().cpu() - yc.float()).norm() / yc.float().norm())
+    assert rms < 1e-2

@@ -193,7 +193,12 @@ def test_paged_pool_helpers_round_trip():
 
 
 def test_unsupported_architectures_are_refused():
+    """qk-norm is served since the zoo slice; M-RoPE, vision and
+    encoder-decoder archs are still refused."""
     import dataclasses
-    with pytest.raises(NotImplementedError):
-        Mo.init_params(dataclasses.replace(CFG, qk_norm=True), Env(),
-                       device="cpu")
+    Mo.init_params(dataclasses.replace(CFG, qk_norm=True), Env(),
+                   device="cpu")
+    for change in ({"mrope": True}, {"family": "vlm"}):
+        with pytest.raises(NotImplementedError):
+            Mo.init_params(dataclasses.replace(CFG, **change), Env(),
+                           device="cpu")
