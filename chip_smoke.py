@@ -137,6 +137,27 @@ Phases, any failure exits non-zero before the result line:
      (#3 at GQA 5). No MoE token is held to a one-shot
      baseline: capacity depends on the tokens one dispatch holds, and the
      JAX package's own engine does not equal its baseline there.
+ 20. train mode, AdamW and make_train_step at full width (random seeded
+     weights, one fixed batch of next-token pairs, lr 1e-3): paper-demo-
+     110m at B=8 S=128 for 20 steps, rwkv6-1.6b at B=4 for 5 and
+     recurrentgemma-9b at 5 layers, B=2, for 3 with fp32 moments,
+     llama4-scout at 1 layer (4.1 B parameters) for 3 with int8 moments;
+     each loss falling, the first step's gradients finite and nonzero in
+     every leaf, none of the seven kernels launched during the steps,
+     step wall time and peak memory printed; then one train step of
+     paper-demo-110m at 2 layers, card vs CPU: the loss and every
+     gradient leaf's norm within twice the larger of the CPU's f64 spread
+     and the card's f32-GEMM spread (phases 14 and 19's method);
+ 21. the rollout loop (launch/rollout.py) at full width and depth:
+     paper-demo-110m, 4 prompts x 4 samples, prompt 64, gen 32,
+     temperature 0.7, top-k 50, top-p 0.9, 2 replicas x 4 slots, block
+     16, 2 rounds of 4 DPO steps, then one round with --kv quant; counts
+     read between each loop and its verify: #1 and #2 launched (#3 and #2
+     in the quant round), none by the DPO steps; the fleet's rollouts
+     bit-identical to one engine's at 2 slots, the first DPO loss log 2
+     within 1e-4 and falling, round 1 different from round 0 on the same
+     seeds and equal to a fresh engine on the weights swapped in; rollout
+     tokens/s, DPO step and set_params wall time printed.
 Each phase's wall time is printed as it ends.
 Phase 2 also holds the quant kernel to its plain version and to the bf16
 kernel on the same pool (relative RMS), the flash-attention kernel to its
@@ -1911,20 +1932,21 @@ def _add(acc, got):
         acc[n] = acc.get(n, 0) + c
 
 
-def load_params(cfg, seed):
+def load_params(cfg, seed, device="cuda"):
     """cfg's seeded weights on the card, with their size and draw time."""
     import torch
     from repro_torch.models import model as Mo
     from repro_torch.models.env import Env
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    params = Mo.init_params(cfg, Env(), seed=seed, device="cuda")
+    params = Mo.init_params(cfg, Env(), seed=seed, device=device)
     torch.cuda.synchronize()
     n_par = sum(x.numel() for x in _leaves(params))
     n_bytes = sum(x.numel() * x.element_size() for x in _leaves(params))
     print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"heads {cfg.n_heads}/{cfg.n_kv_heads} (GQA "
-          f"{cfg.n_heads // cfg.n_kv_heads}), vocab {cfg.vocab_size}, "
+          f"{cfg.n_heads // max(cfg.n_kv_heads, 1)}), vocab "
+          f"{cfg.vocab_size}, "
           f"{n_par / 1e9:.2f} B parameters, {n_bytes / 1e9:.1f} GB on the "
           f"card (peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB "
           f"while drawn, {time.perf_counter() - t0:.1f}s)")
@@ -2137,6 +2159,280 @@ def check_zoo_moe(counted):
         del cparams
         torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phases 20 and 21: train mode, AdamW and the rollout loop
+# ---------------------------------------------------------------------------
+
+# phase 20's configs: (arch, layers (None: the config's own), B, S, steps,
+# optimizer state); lr 1e-3, no warmup, no weight decay
+TRAIN_CELLS = (("paper-demo", None, 8, 128, 20, "fp32"),
+               ("rwkv6-1.6b", None, 4, 128, 5, "fp32"),
+               ("recurrentgemma-9b", 5, 2, 128, 3, "fp32"),
+               ("llama4-scout-17b-a16e", 1, 2, 128, 3, "int8"))
+
+
+def train_env():
+    """The training plan (the JAX package's default_plan for a train
+    shape on one device): each pattern unit recomputed in the backward,
+    xla_chunked attention (attention_naive at S <= attn_q_chunk)."""
+    from repro_torch.configs.base import ParallelPlan
+    from repro_torch.models.env import Env
+    return Env(plan=ParallelPlan(fsdp=False, remat="nothing",
+                                 attn_impl="xla_chunked",
+                                 kv_cache="replicated"))
+
+
+def train_batch(cfg, B, S, device):
+    """A fixed seeded batch of next-token pairs: labels are the tokens
+    shifted by one (the last label wraps)."""
+    import torch
+    tok = torch.randint(0, cfg.vocab_size, (B, S),
+                        generator=torch.Generator().manual_seed(11))
+    return {"tokens": tok.to(device),
+            "labels": torch.roll(tok, -1, dims=1).to(device)}
+
+
+def _launch_counts(counted):
+    return {op.__name__: op.launches for op in counted}
+
+
+def check_train_against_cpu(cfg, params, dev):
+    """Loss and per-leaf gradient norms of one train-mode step (B=8,
+    S=128) on the card against the CPU path on the same weights and
+    batch, |diff| / |cpu|. As phase 14 takes its tolerance: the spread of
+    the CPU path against itself with every product accumulated in f64
+    (each still rounded once to bf16), and of the card against itself
+    with its products taken in f32; the card may differ from the CPU by
+    at most twice the larger spread, in the worst leaf and on average."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as Mo
+    from repro_torch.optim.adamw import tree_leaves, tree_map, value_and_grad
+
+    t0 = time.perf_counter()
+    env = train_env()
+    batch = train_batch(cfg, 8, 128, "cpu")
+
+    def run(p, dev):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        (loss, _), g = value_and_grad(
+            lambda q: Mo.lm_loss(q, b, cfg, env), p)
+        # in f64: an f32 norm of the 24.6 M-entry (un)embedding's gradient
+        # sums with ~1e-3 of error on the CPU
+        norms = torch.stack([x.double().norm() for x in tree_leaves(g)])
+        return torch.cat([loss.double()[None], norms]).cpu()
+
+    card = run(params, dev)
+    cparams = tree_map(lambda x: x.cpu(), params)
+    ref = run(cparams, "cpu")
+    bmm = L._bf16_matmul
+    try:
+        L._bf16_matmul = lambda a, b: (a.double() @ b.double()).float().to(
+            a.dtype)
+        alt = run(cparams, "cpu")
+        L._bf16_matmul = lambda a, b: (a.float() @ b.float()).to(a.dtype)
+        card32 = run(params, dev)
+    finally:
+        L._bf16_matmul = bmm
+    rel = lambda a, b: (a - b).abs() / b.abs().clamp_min(1e-30)
+    err, s_cpu, s_card = rel(card, ref), rel(alt, ref), rel(card32, card)
+    spread_max = max(float(s_cpu.max()), float(s_card.max()))
+    spread_mean = max(float(s_cpu.mean()), float(s_card.mean()))
+    names = ["loss"] + _leaf_names(params)
+    for i in torch.argsort(err, descending=True)[:4].tolist():
+        print(f"  {names[i]}: card vs CPU {float(err[i]):.3e}, CPU f64 "
+              f"{float(s_cpu[i]):.3e}, card f32 {float(s_card[i]):.3e}")
+    print(f"{cfg.name} ({cfg.n_layers} layers) train step (B=8, S=128) on "
+          f"the card vs the CPU path, loss and {len(err) - 1} gradient-leaf "
+          f"norms: relative err max {float(err.max()):.3e}, mean "
+          f"{float(err.mean()):.3e} (loss {float(err[0]):.3e}); the CPU "
+          f"with f64-accumulated products: max {float(s_cpu.max()):.3e}, "
+          f"mean {float(s_cpu.mean()):.3e}; the card with f32 products: max "
+          f"{float(s_card.max()):.3e}, mean {float(s_card.mean()):.3e}; "
+          f"losses {float(card[0]):.6f} (card) {float(ref[0]):.6f} (CPU); "
+          f"{time.perf_counter() - t0:.1f}s")
+    if not (math.isfinite(float(err.max()))
+            and float(err.max()) <= 2 * spread_max
+            and float(err.mean()) <= 2 * spread_mean):
+        fail("train step card vs CPU: the loss or a gradient norm differs "
+             "by more than twice the spread of a reordered computation")
+
+
+def _leaf_names(tree, path=""):
+    """Leaf paths of a params tree in optim.adamw.tree_leaves' order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{path}/{k}")]
+    if isinstance(tree, (tuple, list)):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{path}/{i}")]
+    return [path]
+
+
+def check_train(counted, dev):
+    """Phase 20: train mode, AdamW and make_train_step at full width
+    (TRAIN_CELLS): each config's loss per step falling, its first-step
+    gradients finite and nonzero in every leaf, none of the seven kernels
+    launched during the steps, step wall time and peak memory printed;
+    then paper-demo at 2 layers, card vs CPU (check_train_against_cpu)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as Mo
+    from repro_torch.optim.adamw import (AdamWConfig, make_train_state,
+                                         tree_leaves, value_and_grad)
+
+    env = train_env()
+    for arch, layers, B, S, steps, sd in TRAIN_CELLS:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        params = load_params(cfg, seed=0, device=dev)
+        batch = train_batch(cfg, B, S, dev)
+        torch.cuda.reset_peak_memory_stats()
+        before = _launch_counts(counted)
+        (loss0, _), grads = value_and_grad(
+            lambda p: Mo.lm_loss(p, batch, cfg, env), params)
+        leaves = tree_leaves(grads)
+        amax = torch.stack([g.float().abs().amax() for g in leaves]).cpu()
+        finite = torch.stack([torch.isfinite(g).all() for g in leaves]).cpu()
+        if not bool(finite.all()) or not bool((amax > 0).all()):
+            fail(f"{arch} train: {int((~finite).sum())} gradient leaves "
+                 f"not finite, {int((amax == 0).sum())} all zero, of "
+                 f"{len(leaves)}")
+        del grads, leaves
+        opt = AdamWConfig(lr=1e-3, warmup_steps=0, weight_decay=0.0,
+                          state_dtype=sd)
+        step = make_train_step(cfg, env, opt)
+        state = make_train_state(params, opt)
+        del params
+        losses, times = [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))  # ends in a host transfer
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        launched = {n: c - before[n] for n, c in
+                    _launch_counts(counted).items() if c != before[n]}
+        print(f"{arch} train ({cfg.n_layers} layers, B={B} S={S}, {sd} "
+              f"AdamW states, lr 1e-3): loss "
+              f"{' '.join(f'{x:.4f}' for x in losses)}; first-step "
+              f"gradients finite and nonzero in all {len(amax)} leaves "
+              f"(loss {float(loss0):.4f}); step wall {times[0]:.3f}s "
+              f"first, {sum(times[1:]) / max(len(times) - 1, 1):.3f}s "
+              f"mean after; peak {peak:.1f} GB on {card()}; kernel "
+              f"launches {launched or 'none'}")
+        if not losses[-1] < losses[0] or not all(map(math.isfinite, losses)):
+            fail(f"{arch} train: the loss did not fall: {losses}")
+        if launched:
+            fail(f"{arch} train: train mode launched {launched}")
+        del state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    cut = dataclasses.replace(get_config("paper-demo"), n_layers=2)
+    cparams = load_params(cut, seed=1, device=dev)
+    check_train_against_cpu(cut, cparams, dev)
+    del cparams
+    torch.cuda.empty_cache()
+
+
+def rollout_args(extra, dev):
+    """Phase 21's rollout CLI: paper-demo at full width and depth, 4
+    prompts x 4 samples, prompt 64, gen 32, temperature 0.7, top-k 50,
+    top-p 0.9, 2 replicas x 4 slots (verified against 1 replica x 2),
+    block 16, 2 rounds of 4 DPO steps, --verify, on the card."""
+    from repro_torch.launch.rollout import parse_args
+    return parse_args(["--arch", "paper-demo", "--verify", "--prompt-len",
+                       "64", "--gen", "32", "--temperature", "0.7",
+                       "--top-k", "50", "--top-p", "0.9", "--block-size",
+                       "16", "--rounds", "2", "--train-steps", "4",
+                       "--device", str(dev)] + extra)
+
+
+def check_rollout(counted, dev):
+    """Phase 21: the rollout loop at full width and depth (rollout_args),
+    then one round with --kv quant. Counts zeroed before each loop and
+    read after it, before its verify (the verify's engines launch the
+    kernels too); the DPO steps' own launches counted apart (none
+    allowed). Checks: the fleet's rollouts bit-identical to one engine's
+    at another slot count, the first DPO loss log 2 within 1e-4 and the
+    loss falling, every later round different from the round before on
+    the same seeds and equal to a fresh engine on the weights swapped in,
+    the paged-decode (#1) and mask (#2) kernels launched by the bf16
+    loop, the int8 one (#3) and #2 by the quant round. Returns launches
+    by kernel name."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import rollout as cli
+    from repro_torch.rollout import preference
+
+    cfg = get_config("paper-demo")
+    params = load_params(cfg, seed=0, device=dev)
+    dpo_launches = {}
+    step = preference.PreferenceTrainer.step
+
+    def counted_step(self, batch):
+        before = _launch_counts(counted)
+        out = step(self, batch)
+        _add(dpo_launches, {n: c - before[n] for n, c in
+                            _launch_counts(counted).items()
+                            if c != before[n]})
+        return out
+
+    totals = {}
+    preference.PreferenceTrainer.step = counted_step
+    try:
+        for extra, rounds, want in (([], 2, ("paged_flash_decode",
+                                             "topk_topp_mask")),
+                                    (["--kv", "quant", "--rounds", "1"], 1,
+                                     ("paged_flash_decode_quant",
+                                      "topk_topp_mask"))):
+            args = rollout_args(extra, dev)
+            prompts = cli.prompts_of(args, cfg)
+            for op in counted:
+                op.launches = 0
+            res = cli.run_loop(args, cfg, params, prompts)
+            got = {n: c for n, c in _launch_counts(counted).items() if c}
+            _add(totals, got)
+            t0 = time.perf_counter()
+            ok, line = cli.verify_fleet(args, cfg, params, prompts)
+            ok2, lines = cli.verify_rounds(args, cfg, prompts, res)
+            print("\n".join([line] + lines))
+            times = res["times"]
+            gen_s = sum(times["generate"])
+            print(f"rollout loop ({args.kv} KV, {rounds} rounds x "
+                  f"{args.prompts * args.n_samples} rollouts): "
+                  f"{res['tokens']:.0f} rollout tokens in {gen_s:.3f}s of "
+                  f"generation ({res['tokens'] / gen_s:.1f} tokens/s wall), "
+                  f"DPO step {1e3 * sum(times['dpo_step']) / len(times['dpo_step']):.1f}"
+                  f" ms (mean of {len(times['dpo_step'])}), set_params "
+                  f"{1e3 * sum(times['set_params']) / max(len(times['set_params']), 1):.3f}"
+                  f" ms (mean of {len(times['set_params'])}); one run each, "
+                  f"no spread (PERF.md §7); on {card()}; launches {got}; "
+                  f"verify {time.perf_counter() - t0:.1f}s")
+            if not (ok and ok2):
+                fail(f"rollout loop ({args.kv} KV): verify failed")
+            if any(got.get(n, 0) <= 0 for n in want):
+                fail(f"rollout loop ({args.kv} KV): launches {got}, "
+                     f"expected {want}")
+            if args.kv == "quant" and got.get("paged_flash_decode", 0):
+                fail("the quant rollout launched the bf16 paged decode")
+            del res
+    finally:
+        preference.PreferenceTrainer.step = step
+    if dpo_launches:
+        fail(f"the DPO steps (train mode) launched {dpo_launches}")
+    print(f"DPO steps launched none of the seven kernels; rollout "
+          f"launches {totals}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
 
 
 def _leaves(tree):
@@ -2552,12 +2848,21 @@ def main():
     done(18)
     _add(zoo, check_zoo_moe(counted))
     done(19)
+    # 20. train mode, AdamW and the train step at full width; 21. the
+    # rollout loop at full width and depth
+    from repro_torch.kernels.flash_decode.ops import flash_decode_partials
+    counted = counted + (flash_decode_partials,)
+    check_train(counted, dev)
+    done(20)
+    rollout_launches = check_rollout(counted, dev)
+    done(21)
     for k in report:
         if k["name"] in swap_launches:
             k["swap_launches"] = swap_launches[k["name"]]
         if k["name"] in spec_launches:
             k["spec_launches"] = spec_launches[k["name"]]
         k["zoo_launches"] = zoo.get(k["name"], 0)
+        k["rollout_launches"] = rollout_launches.get(k["name"], 0)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": report}))

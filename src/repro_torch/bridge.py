@@ -7,6 +7,11 @@ same layout (models/model.py), so the bridge keeps the structure as it is:
 bf16 stays bf16, `blocks` leaves stay stacked on the layer axis and the
 vocabulary stays padded. The port never imports JAX to load weights: the
 tests make the numpy tree and hand it over.
+
+The same conversion carries an AdamW state over (optim/adamw.py): the
+int32 step, the f32 master weights and the moments, f32 or int8 {"q",
+"s"} with s None (an empty subtree) for 1-D leaves, so a test can step
+both packages from one state.
 """
 from __future__ import annotations
 
@@ -17,7 +22,10 @@ import torch
 
 
 def to_torch(tree: Any, device="cuda") -> Any:
-    """Convert a nest of dicts/tuples/lists of numpy arrays to torch."""
+    """Convert a nest of dicts/tuples/lists of numpy arrays to torch (None
+    stays None)."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: to_torch(v, device) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):

@@ -1,5 +1,5 @@
-"""Prefill and fused decode step builders (port of the JAX package's
-launch/steps.py).
+"""Train, prefill and fused decode step builders (port of the JAX
+package's launch/steps.py).
 
 PyTorch runs eagerly, so a "step" is a plain function over tensors on one
 device; nothing is traced or compiled. The builders keep the JAX names and
@@ -14,6 +14,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.sampling.ops import topk_topp_mask
 from repro_torch.models import model as Mo
 from repro_torch.models.env import Env
+from repro_torch.optim.adamw import AdamWConfig, adamw_update, value_and_grad
 
 # Packed per-row step metadata: one [META_I_ROWS,T] int32 + one
 # [META_F_ROWS,T] float32 upload per decode step (ReplicaEngine.step_decode
@@ -30,6 +31,22 @@ META_I_ROWS = 6
 ROW_TEMPERATURE = 0  # <=0 lowers the row to greedy argmax
 ROW_TOP_P = 1        # nucleus mass (>=1 disables)
 META_F_ROWS = 2
+
+
+def make_train_step(cfg: ModelConfig, env: Env, opt: AdamWConfig):
+    """One training step: lm_loss in train mode, its gradient with
+    respect to every parameter, one AdamW update. (state, batch) ->
+    (new state, {"loss", "ce", "aux"}); state is make_train_state's
+    {"params", "opt"}. The new parameters are new tensors; the optimizer
+    state is updated in place (optim/adamw.py)."""
+    def train_step(state, batch):
+        (loss, metrics), grads = value_and_grad(
+            lambda p: Mo.lm_loss(p, batch, cfg, env), state["params"])
+        new_params, new_opt = adamw_update(grads, state["opt"], opt)
+        return ({"params": new_params, "opt": new_opt},
+                {"loss": loss, **{k: v.detach() for k, v in metrics.items()}})
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig, env: Env):

@@ -12,7 +12,17 @@ from dataclasses import dataclass, field
 
 from repro_torch.configs.base import ModelConfig, ParallelPlan
 
-SERVE_PLAN = ParallelPlan(fsdp=False, remat="full", kv_cache="replicated")
+# The reference's SERVE_PLAN (serve/scheduler.py) takes "pallas" on a TPU
+# and "naive" elsewhere. The port serves as the pallas plan does on every
+# device (its kernels on the card, their plain versions on the CPU:
+# prefill past 128 tokens through flash attention, f32 decode
+# probabilities), so it names that plan. Train mode reads this field for
+# the DPO trainer and the logprob scorer: at sequences of up to 128
+# positions both plans take attention_naive, so the port trains as the
+# reference's CPU runs do; past 128 the pallas plan raises, as jax.grad
+# through the reference's flash kernel does on a TPU.
+SERVE_PLAN = ParallelPlan(fsdp=False, remat="full", attn_impl="pallas",
+                          kv_cache="replicated")
 
 
 @dataclass(frozen=True)

@@ -1,6 +1,7 @@
-"""Core layers: RMSNorm, RoPE, GQA attention (prefill and decode), SwiGLU.
+"""Core layers: RMSNorm, RoPE, GQA attention (prefill, decode and the
+training plan's chunked forms), SwiGLU.
 
-Port of the JAX package's models/layers.py, for serving. dtype
+Port of the JAX package's models/layers.py. dtype
 policy as there: parameters and activations bf16, norm and softmax
 statistics f32. Elementwise bf16 expressions are written op by op as the
 JAX code reads, so each op rounds to bf16 where the reference's does.
@@ -67,19 +68,44 @@ def apply_rope(x, positions, theta: float):
     return rotate(x, *rope_cos_sin(positions, x.shape[-1], theta))
 
 
+def _tiled_linear(x, w):
+    lead = x.shape[:-1]
+    tiles = [_bf16_matmul(t, w)
+             for t in x.reshape(-1, x.shape[-1]).split(ROW_TILE)]
+    y = tiles[0] if len(tiles) == 1 else torch.cat(tiles)
+    return y.reshape(*lead, w.shape[-1])
+
+
+class _Linear(torch.autograd.Function):
+    """`linear` under autograd: the forward in row tiles, the backward as
+    the JAX package's transposed dots, each one product over every row
+    rounded once (dx = g w^T, dw = x^T g). Autograd through the tiles
+    would round each tile's share of dw to bf16 and sum the shares in
+    bf16."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _tiled_linear(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        dx = _bf16_matmul(g2, w.t()).reshape(x.shape)
+        dw = _bf16_matmul(x.reshape(-1, x.shape[-1]).t(), g2)
+        return dx, dw
+
+
 def linear(x, w):
     """x [..., K] @ w [K, N] in ROW_TILE-row tiles (batch invariance, see
     the module docstring). On the CPU the product is taken in f32 and
     rounded once to bf16, as XLA's CPU dot does for bf16 operands; on the
-    GPU it is a bf16 GEMM with f32 accumulation."""
-    lead = x.shape[:-1]
-    if x.device.type == "cpu":
-        mm = lambda t: (t.float() @ w.float()).to(x.dtype)
-    else:
-        mm = lambda t: t @ w
-    tiles = [mm(t) for t in x.reshape(-1, x.shape[-1]).split(ROW_TILE)]
-    y = tiles[0] if len(tiles) == 1 else torch.cat(tiles)
-    return y.reshape(*lead, w.shape[-1])
+    GPU it is a bf16 GEMM with f32 accumulation. Differentiable
+    (_Linear) when autograd records either operand."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _Linear.apply(x, w)
+    return _tiled_linear(x, w)
 
 
 def linear_f32(x, w):
@@ -136,17 +162,24 @@ def _ungroup(o):
     return o.permute(0, 3, 1, 2, 4).reshape(B, S, Hkv * G * hd)
 
 
-def _mask_bias(Sq: int, Sk: int, causal: bool, window: int, device):
-    """Additive f32 bias [Sq, Sk]: 0 where a query sees a key, -inf else."""
-    qpos = torch.arange(Sq, device=device)[:, None]
-    kpos = torch.arange(Sk, device=device)[None, :]
-    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+def _bias(qpos, kpos, causal: bool, window: int):
+    """Additive f32 bias [Sq, Sk] for query positions qpos [Sq] and key
+    positions kpos [Sk]: 0 where a query sees a key, -inf else."""
+    qpos, kpos = qpos[:, None], kpos[None, :]
+    ok = torch.ones((qpos.shape[0], kpos.shape[1]), dtype=torch.bool,
+                    device=qpos.device)
     if causal:
         ok &= qpos >= kpos
     if window > 0:
         ok &= (qpos - kpos) < window
-    zero = torch.zeros((), dtype=torch.float32, device=device)
+    zero = torch.zeros((), dtype=torch.float32, device=qpos.device)
     return torch.where(ok, zero, float("-inf"))
+
+
+def _mask_bias(Sq: int, Sk: int, causal: bool, window: int, device):
+    """Additive f32 bias [Sq, Sk] over positions 0..Sq-1 and 0..Sk-1."""
+    return _bias(torch.arange(Sq, device=device),
+                 torch.arange(Sk, device=device), causal, window)
 
 
 def _bf16_matmul(a, b):
@@ -174,6 +207,90 @@ def attention_naive(q, k, v, cfg: ModelConfig, *, causal: bool,
     s = s + _mask_bias(q.shape[1], k.shape[1], causal, window, q.device)
     a = torch.softmax(s, dim=-1).to(v.dtype)
     return _ungroup(_bf16_matmul(a, vv))
+
+
+def attention_chunked(q, k, v, cfg: ModelConfig, *, causal: bool,
+                      window: int = 0, q_chunk: int = 1024,
+                      kv_chunk: int = 1024):
+    """Online-softmax attention over q chunks (outer) and kv chunks
+    (inner), carrying (m, l, acc): the JAX package's attention_chunked,
+    its training plan's ("xla_chunked") attention, written as plain
+    tensor code under autograd with the reference's rounding (bf16
+    scores before the f32 scale, f32 probabilities rounded to bf16 for a
+    bf16 P.V, f32 accumulators). Masked blocks are computed, as there.
+    q [B,Sq,Hq,hd], k/v [B,Sk,Hkv,hd] -> [B,Sq,Hq*hd]."""
+    B, Sq, Hq, hd = q.shape
+    Sk, hkv = k.shape[1], k.shape[2]
+    q_chunk, kv_chunk = min(q_chunk, Sq), min(kv_chunk, Sk)
+    if Sq % q_chunk or Sk % kv_chunk:  # the reference asserts the same
+        raise ValueError(f"attention_chunked: Sq {Sq} / Sk {Sk} not whole "
+                         f"chunks of {q_chunk} / {kv_chunk}")
+    scale = 1.0 / math.sqrt(hd)
+    qg = _group(q, hkv)  # [B,Hkv,G,Sq,hd]
+    kk = k.transpose(1, 2)[:, :, None]  # [B,Hkv,1,Sk,hd]
+    vv = v.transpose(1, 2)[:, :, None]
+    G, dev = qg.shape[2], q.device
+    inf = torch.full((), float("-inf"), device=dev)
+    outs = []
+    for i in range(Sq // q_chunk):
+        qpos = torch.arange(i * q_chunk, (i + 1) * q_chunk, device=dev)
+        qc = qg[:, :, :, i * q_chunk:(i + 1) * q_chunk]
+        m = torch.full((B, hkv, G, q_chunk), float("-inf"), device=dev)
+        l = torch.zeros((B, hkv, G, q_chunk), device=dev)
+        acc = torch.zeros((B, hkv, G, q_chunk, hd), device=dev)
+        for j in range(Sk // kv_chunk):
+            ks = slice(j * kv_chunk, (j + 1) * kv_chunk)
+            kpos = torch.arange(ks.start, ks.stop, device=dev)
+            s = _bf16_matmul(qc, kk[:, :, :, ks].transpose(-1, -2)).float()
+            s = s * scale + _bias(qpos, kpos, causal, window)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            # fully masked rows so far: m_new is -inf
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            p = torch.exp(s - m_safe[..., None])
+            corr = torch.exp(torch.where(torch.isfinite(m), m - m_safe, inf))
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + _bf16_matmul(
+                p.to(v.dtype), vv[:, :, :, ks]).float()
+            m = m_new
+        outs.append((acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype))
+    return _ungroup(torch.cat(outs, dim=3))
+
+
+def attention_window_prefill(q, k, v, cfg: ModelConfig, *, window: int,
+                             q_chunk: int = 1024):
+    """Sliding-window causal attention, each q chunk over the
+    (q_chunk + window)-key span that can reach it: the JAX package's
+    attention_window_prefill (its training plan's window attention),
+    with attention_naive's rounding over each span. Keys left of
+    position 0 are padding and masked. q [B,S,Hq,hd], k/v [B,S,Hkv,hd]
+    -> [B,S,Hq*hd]."""
+    B, Sq, Hq, hd = q.shape
+    hkv = k.shape[2]
+    q_chunk = min(q_chunk, Sq)
+    if Sq % q_chunk or k.shape[1] != Sq:  # the reference asserts the same
+        raise ValueError(f"attention_window_prefill: Sq {Sq} not whole "
+                         f"chunks of {q_chunk}, or Sk {k.shape[1]} != Sq")
+    span = q_chunk + window
+    scale = 1.0 / math.sqrt(hd)
+    qg = _group(q, hkv)
+    # keys padded on the left by `window`: every span is in bounds
+    kk = torch.nn.functional.pad(k.transpose(1, 2), (0, 0, window, 0))
+    vv = torch.nn.functional.pad(v.transpose(1, 2), (0, 0, window, 0))
+    dev = q.device
+    outs = []
+    for i in range(Sq // q_chunk):
+        t0 = i * q_chunk
+        qc = qg[:, :, :, t0:t0 + q_chunk]
+        kc = kk[:, :, None, t0:t0 + span]
+        vc = vv[:, :, None, t0:t0 + span]
+        qpos = t0 + torch.arange(q_chunk, device=dev)
+        kpos = t0 - window + torch.arange(span, device=dev)
+        bias = _bias(qpos, kpos, True, window)
+        bias = torch.where((kpos < 0)[None, :], float("-inf"), bias)
+        s = _bf16_matmul(qc, kc.transpose(-1, -2)).float() * scale + bias
+        a = torch.softmax(s, dim=-1).to(v.dtype)
+        outs.append(_bf16_matmul(a, vc))
+    return _ungroup(torch.cat(outs, dim=3))
 
 
 def attention_paged_decode(q, k_pool, v_pool, tables, lengths,

@@ -1,10 +1,22 @@
 """Model assembly for serving: embed -> layers -> norm -> unembed.
 
-Port of the JAX package's models/model.py for what serving a decoder
-needs: parameter init, the contiguous and paged caches, the slot-pool and
-paged-pool helpers behind the KV backends, and forward in two modes:
-"prefill" (a whole prompt at once, emitting its caches) and "decode" (one
-token per row over a contiguous cache or block tables).
+Port of the JAX package's models/model.py for the decoder archs:
+parameter init, the contiguous and paged caches, the slot-pool and
+paged-pool helpers behind the KV backends, forward in three modes:
+"prefill" (a whole prompt at once, emitting its caches), "decode" (one
+token per row over a contiguous cache or block tables) and "train" (a
+whole batch of sequences under autograd, no caches), and lm_loss.
+
+Train mode runs prefill's stack (the same rounding, the same row tiles)
+with each block's training form, as the reference's training computation
+takes it: attention by env.plan.attn_impl (attention_naive, or
+layers.attention_chunked / attention_window_prefill under "xla_chunked"
+past attn_q_chunk), the RG-LRU closed by the associative scan and the
+WKV6 by its chunked form, the MoE layers' aux losses summed. It launches
+none of the CUDA kernels: they have no backward, and neither have the
+reference's Pallas kernels, which its training computation never calls
+(jax.grad cannot pass through its flash kernel, so the "pallas" plan
+past 128 tokens raises here).
 
 A model is `embed -> num_blocks x (the block_pattern unit) -> the
 pattern_tail blocks -> norm -> unembed`. Block kinds: "attn" (global
@@ -34,6 +46,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -461,7 +474,28 @@ def _layer(tree, i: int):
     return tree[i]
 
 
-def _attn_prefill(p, h, cfg: ModelConfig, S: int, rope, window: int = 0):
+def _train_attention(q, k, v, cfg: ModelConfig, plan, window: int):
+    """Train mode's causal attention over q/k/v [B,S,H,hd], dispatched on
+    the plan as the reference's _attn_sublayer dispatches it."""
+    Sq = q.shape[1]
+    if plan.attn_impl == "xla_chunked" and Sq > plan.attn_q_chunk:
+        if window > 0:
+            return L.attention_window_prefill(q, k, v, cfg, window=window,
+                                              q_chunk=plan.attn_q_chunk)
+        return L.attention_chunked(q, k, v, cfg, causal=True,
+                                   q_chunk=plan.attn_q_chunk,
+                                   kv_chunk=plan.attn_kv_chunk)
+    if plan.attn_impl == "pallas" and Sq > FLASH_MIN_LEN:
+        raise NotImplementedError(
+            f"train mode under the pallas plan at {Sq} > {FLASH_MIN_LEN} "
+            "positions: the flash kernel has no backward (in the reference "
+            "either: jax.grad through its Pallas flash kernel fails); train "
+            "under the naive or xla_chunked plan")
+    return L.attention_naive(q, k, v, cfg, causal=True, window=window)
+
+
+def _attn_prefill(p, h, cfg: ModelConfig, S: int, rope, window: int = 0,
+                  plan=None):
     """Prefill attention over the first S (real) positions of the
     row-padded h [B,Sp,d]: causal, global (window 0) or sliding-window.
     Prompts longer than FLASH_MIN_LEN go through the flash kernel, shorter
@@ -470,11 +504,15 @@ def _attn_prefill(p, h, cfg: ModelConfig, S: int, rope, window: int = 0):
     are zeros). rope: (cos, sin) of positions 0..S-1. Returns (out
     [B,Sp,d], {"k","v"} [B,Hkv,S,hd] after rope; a window unit keeps the
     trailing min(window, S) positions, ring-aligned: position p at
-    p % that length)."""
+    p % that length). With a training plan (train mode): attention as
+    _train_attention dispatches it, and no cache (None)."""
     q, k, v = L._project_qkv(p, h, cfg)  # [B,Sp,H,hd]
     q = L.rotate(q[:, :S], *rope)
     k = L.rotate(k[:, :S], *rope)
     v = v[:, :S]
+    if plan is not None:
+        o = _train_attention(q, k, v, cfg, plan, window)
+        return L.linear(F.pad(o, (0, 0, 0, h.shape[1] - S)), p["wo"]), None
     if S > FLASH_MIN_LEN:
         o = fa_ops.flash_attention(q.contiguous(), k.contiguous(),
                                    v.contiguous(), causal=True, window=window,
@@ -586,15 +624,12 @@ def _moe_sublayer(p, x, cfg: ModelConfig, *, S=None, n_rows=None):
     """The MoE FFN over the rows the JAX package dispatches: a prefill's
     first S positions of each row-padded sequence (flattened b * S + s),
     a decode step's first n_rows rows (masked rows included); the padding
-    rows are not dispatched and come out zero."""
-    real = x[:, :S] if S is not None else x[:n_rows]
-    y, _ = M.moe_layer(p, real, cfg)
-    out = torch.zeros_like(x)
+    rows are not dispatched and come out zero. Returns (out, aux loss)."""
     if S is not None:
-        out[:, :S] = y
-    else:
-        out[:n_rows] = y
-    return out
+        y, aux = M.moe_layer(p, x[:, :S], cfg)
+        return F.pad(y, (0, 0, 0, x.shape[1] - S)), aux
+    y, aux = M.moe_layer(p, x[:n_rows], cfg)
+    return F.pad(y, (0, 0) * (x.dim() - 1) + (0, x.shape[0] - n_rows)), aux
 
 
 # state leaves read only by row-wise ops (the WKV step): they stay at the
@@ -624,19 +659,22 @@ def _write_rows(cache: dict, new: dict, n_rows: int) -> None:
 
 def _apply_block(kind: str, p, h, hf, cfg: ModelConfig, *, S=None, rope=None,
                  n_rows=None, cur_len=None, cache=None, tables=None,
-                 row_slots=None):
+                 row_slots=None, plan=None):
     """One block: h + first(norm(h)), then + second(norm(.)). Prefill when
     `cache` is None (S real positions of the row-padded h; returns the
     block's prompt cache), decode otherwise (updates `cache` in place; the
-    first n_rows rows are real).
+    first n_rows rows are real). With a training plan (train mode):
+    prefill's computation with the blocks' training forms, no cache.
 
     hf: the f32 value of h where the reference reads it unrounded into the
     first norm (the previous block's last residual sum inside the same
     pattern unit or the tail: XLA drops the bf16 round trip into the
-    norm's f32 cast), else None. Returns (h bf16, its f32 sum, cache)."""
+    norm's f32 cast), else None. Returns (h bf16, its f32 sum, cache, the
+    MoE aux loss or 0)."""
     eps = cfg.norm_eps
     decode = cache is not None
-    prefill_kw = {} if decode else {"S": S, "return_state": True}
+    train = plan is not None
+    prefill_kw = {} if decode else {"S": S, "return_state": not train}
     if kind in PAGEABLE_KINDS:
         window = cfg.local_window if kind == "local" else 0
         if decode:
@@ -647,20 +685,22 @@ def _apply_block(kind: str, p, h, hf, cfg: ModelConfig, *, S=None, rope=None,
                                               window, row_slots), None)
         else:
             first = lambda x: _attn_prefill(p["attn"], x, cfg, S, rope,
-                                            window)
+                                            window, plan)
         if kind == "moe":
-            second = lambda x: (_moe_sublayer(
-                p["moe"], x, cfg, S=None if decode else S,
-                n_rows=n_rows), None)
+            second = lambda x: _moe_sublayer(
+                p["moe"], x, cfg, S=None if decode else S, n_rows=n_rows)
         else:
             second = lambda x: (L.mlp(p["mlp"], x), None)
     elif kind == "rglru":
         st = _rows_state(cache, n_rows, h.shape[0]) if decode else None
-        first = lambda x: R.rglru_block(p["rec"], x, cfg, st, **prefill_kw)
+        first = lambda x: R.rglru_block(p["rec"], x, cfg, st, train=train,
+                                        **prefill_kw)
         second = lambda x: (L.mlp(p["mlp"], x), None)
     else:  # rwkv
         st = _rows_state(cache, n_rows, h.shape[0]) if decode else None
-        first = lambda x: R.rwkv_time_mix(p["mix"], x, cfg, st, **prefill_kw)
+        chunk = plan.rwkv_chunk if train else 0
+        first = lambda x: R.rwkv_time_mix(p["mix"], x, cfg, st, chunk=chunk,
+                                          **prefill_kw)
         second = lambda x: R.rwkv_channel_mix(p["mix"], x, cfg, st,
                                               **prefill_kw)
     a, c1 = first(L.rms_norm(h if hf is None else hf, p["ln1"], eps)
@@ -671,39 +711,76 @@ def _apply_block(kind: str, p, h, hf, cfg: ModelConfig, *, S=None, rope=None,
     h = hf.to(torch.bfloat16)
     y, c2 = second(L.rms_norm(hf, p["ln2"], eps).to(torch.bfloat16))
     hf = h.float() + y.float()
+    aux = c2 if kind == "moe" else 0.0
+    if train:
+        return hf.to(torch.bfloat16), hf, None, aux
     new = c1 if kind != "rwkv" else {**c1, "cm_prev": c2}
     if decode and kind in RECURRENT_KINDS:
         _write_rows(cache, new, n_rows)
-    return hf.to(torch.bfloat16), hf, new
+    return hf.to(torch.bfloat16), hf, new, aux
 
 
-def _run_blocks(params, h, cfg: ModelConfig, caches=None, **kw):
+def _run_blocks(params, h, cfg: ModelConfig, caches=None, plan=None, **kw):
     """Every block in order: num_blocks units of the pattern, then the
-    tail. Returns (final-norm input, prompt caches or None). A unit
-    boundary rounds the residual to bf16 (the reference's layer scan
-    carries it in bf16); inside a unit and through the tail the next norm
-    reads the f32 sum (see _apply_block)."""
+    tail. Returns (final-norm input, prompt caches or None, the summed
+    MoE aux loss). A unit boundary rounds the residual to bf16 (the
+    reference's layer scan carries it in bf16); inside a unit and through
+    the tail the next norm reads the f32 sum (see _apply_block).
+
+    plan (train mode): each pattern unit is recomputed in the backward
+    pass (torch.utils.checkpoint) under plan.remat "nothing" or "dots",
+    where the reference wraps its unit in jax.checkpoint (its "dots"
+    policy keeps the products; recomputing them gives the same values);
+    the tail is not, as there."""
     pattern, tail = cfg.block_pattern, cfg.pattern_tail
     out_blocks = [[] for _ in pattern]
-    for i in range(cfg.num_blocks):
-        hf = None
+    aux = 0.0  # a tensor once an MoE layer adds one: no launch otherwise
+
+    def unit(h, i):
+        hf, a = None, 0.0
         for j, kind in enumerate(pattern):
             c = None if caches is None else _layer(caches["blocks"][j], i)
-            h, hf, new = _apply_block(kind, _layer(params["blocks"][j], i),
-                                      h, hf, cfg, cache=c, **kw)
-            out_blocks[j].append(new)
+            h, hf, new, aj = _apply_block(
+                kind, _layer(params["blocks"][j], i), h, hf, cfg, cache=c,
+                plan=plan, **kw)
+            a = a + aj
+            if plan is None:
+                out_blocks[j].append(new)
+        return h, a
+
+    remat = plan is not None and plan.remat in ("nothing", "dots")
+    for i in range(cfg.num_blocks):
+        if remat:
+            h, a = torch.utils.checkpoint.checkpoint(unit, h, i,
+                                                     use_reentrant=False)
+        else:
+            h, a = unit(h, i)
+        aux = aux + a
     hf = None
     out_tail = []
     for j, kind in enumerate(tail):
         c = None if caches is None else caches["tail"][j]
-        h, hf, new = _apply_block(kind, params["tail"][j], h, hf, cfg,
-                                  cache=c, **kw)
+        h, hf, new, a = _apply_block(kind, params["tail"][j], h, hf, cfg,
+                                     cache=c, plan=plan, **kw)
+        aux = aux + a
         out_tail.append(new)
     x = h if hf is None else hf
-    if caches is not None:
-        return x, None
+    if caches is not None or plan is not None:
+        return x, None, aux
     return x, {"blocks": tuple(_stack(u) for u in out_blocks),
-               "tail": tuple(out_tail)}
+               "tail": tuple(out_tail)}, aux
+
+
+def _embed(params, tokens, cfg: ModelConfig):
+    """Whole sequences' embeddings, each padded to a multiple of
+    layers.ROW_TILE positions (h [B,Sp,d] bf16), and the rope angles of
+    positions 0..S-1 ([S,1,hd/2] each)."""
+    S = tokens.shape[1]
+    Sp = -(-S // L.ROW_TILE) * L.ROW_TILE
+    tok = F.pad(tokens.long(), (0, Sp - S))
+    rope = L.rope_cos_sin(torch.arange(S, device=tokens.device),
+                          cfg.head_dim, cfg.rope_theta)
+    return params["embed"][tok].to(torch.bfloat16), rope
 
 
 def _prefill(params, tokens, cfg: ModelConfig, last_only: bool = False):
@@ -717,19 +794,30 @@ def _prefill(params, tokens, cfg: ModelConfig, last_only: bool = False):
     real S positions only. last_only multiplies the unembedding on the
     row tile holding position S-1 alone: the same tile, so the same bits
     as the full product, without the [B,S,Vpad] logits."""
-    B, S = tokens.shape
-    Sp = -(-S // L.ROW_TILE) * L.ROW_TILE
-    tok = F.pad(tokens.long(), (0, Sp - S))
-    h = params["embed"][tok].to(torch.bfloat16)  # [B,Sp,d]
-    rope = L.rope_cos_sin(torch.arange(S, device=tokens.device),
-                          cfg.head_dim, cfg.rope_theta)  # [S,1,hd/2] each
-    x, caches = _run_blocks(params, h, cfg, S=S, rope=rope)
+    S = tokens.shape[1]
+    h, rope = _embed(params, tokens, cfg)
+    x, caches, _ = _run_blocks(params, h, cfg, S=S, rope=rope)
     h = L.rms_norm(x, params["final_norm"], cfg.norm_eps).to(torch.bfloat16)
     if last_only:
         t0 = (S - 1) // L.ROW_TILE * L.ROW_TILE
         tile = L.linear(h[:, t0:t0 + L.ROW_TILE], params["unembed"])
         return tile[:, S - 1 - t0], caches
     return L.linear(h, params["unembed"])[:, :S], caches
+
+
+def _train(params, tokens, cfg: ModelConfig, env: Env):
+    """forward(mode="train"): tokens [B,S] -> (logits [B,S,Vpad], the
+    summed MoE aux loss), under autograd. Prefill's stack on the same row
+    tiles (so the logits are prefill's wherever the blocks' training
+    forms compute what the kernels compute); the padding positions reach
+    no real position, so they carry no gradient into a loss over the
+    first S."""
+    S = tokens.shape[1]
+    h, rope = _embed(params, tokens, cfg)
+    x, _, aux = _run_blocks(params, h, cfg, S=S, rope=rope, plan=env.plan)
+    h = L.rms_norm(x, params["final_norm"], cfg.norm_eps).to(torch.bfloat16)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
+    return L.linear(h, params["unembed"])[:, :S], aux
 
 
 def forward(params, tokens, cfg: ModelConfig, env: Env, mode: str = "decode",
@@ -752,16 +840,20 @@ def forward(params, tokens, cfg: ModelConfig, env: Env, mode: str = "decode",
     b's, so the cache holds exactly B rows. The caches are updated in
     place. Returns (logits [B,1,Vpad] bf16, caches).
 
+    mode="train": tokens [B,S]; returns (logits [B,S,Vpad] bf16, the
+    summed MoE aux loss, f32 scalar), differentiable in params (see the
+    module docstring; attention follows env.plan.attn_impl).
+
     Every row-wise op runs on rows padded to a multiple of layers.ROW_TILE
     (batch invariance, see models/layers.py); the padding rows never touch
-    the cache. mode="train" waits for the training slice."""
+    the cache."""
     check_supported(cfg)
     if mode == "prefill":
         return _prefill(params, tokens, cfg, last_only)
+    if mode == "train":
+        return _train(params, tokens, cfg, env)
     if mode != "decode":
-        raise NotImplementedError(
-            f"mode={mode!r}: the port runs prefill and decode (training "
-            "comes with the training slice)")
+        raise ValueError(f"mode={mode!r}: one of train, prefill, decode")
     B = tokens.shape[0]
     Bp = -(-B // L.ROW_TILE) * L.ROW_TILE
     cl = torch.as_tensor(cur_len, device=tokens.device).long()
@@ -770,8 +862,38 @@ def forward(params, tokens, cfg: ModelConfig, env: Env, mode: str = "decode",
                           cfg.rope_theta)  # [Bp,1,1,hd/2] each
     tok = F.pad(tokens[:, 0].long(), (0, Bp - B))
     h = params["embed"][tok][:, None, :].to(torch.bfloat16)  # [Bp,1,d]
-    x, _ = _run_blocks(params, h, cfg, caches, rope=rope, n_rows=B,
-                       cur_len=cl, tables=block_tables, row_slots=row_slots)
+    x, _, _ = _run_blocks(params, h, cfg, caches, rope=rope, n_rows=B,
+                          cur_len=cl, tables=block_tables,
+                          row_slots=row_slots)
     h = L.rms_norm(x, params["final_norm"], cfg.norm_eps).to(torch.bfloat16)
     logits = L.linear(h, params["unembed"])[:B]
     return logits, caches
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+
+def token_logprobs(logits, labels, cfg: ModelConfig):
+    """(log-partition, label logit) per position, f32 [B,S] each, from
+    logits [B,S,Vpad]: the padded vocabulary columns are masked to -1e30
+    before the log-sum-exp, and the label's column is picked by an index
+    comparison summed over the vocabulary (as the reference reads it)."""
+    lf = logits.float()
+    viota = torch.arange(lf.shape[-1], device=lf.device)
+    lf = torch.where(viota < cfg.vocab_size, lf, -1e30)
+    logz = torch.logsumexp(lf, dim=-1)
+    ll = torch.sum(torch.where(viota == labels[..., None], lf, 0.0), dim=-1)
+    return logz, ll
+
+
+def lm_loss(params, batch, cfg: ModelConfig, env: Env,
+            aux_weight: float = 0.01):
+    """batch {"tokens": [B,S], "labels": [B,S]} -> (loss, {"ce", "aux"}):
+    the mean next-token cross-entropy of train mode's logits plus
+    aux_weight times the MoE aux loss (the reference's lm_loss)."""
+    logits, aux = forward(params, batch["tokens"], cfg, env, mode="train")
+    logz, ll = token_logprobs(logits, batch["labels"], cfg)
+    loss = torch.mean(logz - ll)
+    return loss + aux_weight * aux, {"ce": loss, "aux": aux}

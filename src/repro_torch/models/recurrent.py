@@ -7,7 +7,11 @@ h_t = a_t h_{t-1} + b_t through kernels/rglru (where the JAX model takes
 an associative scan), the WKV6 state recurrence through kernels/rwkv6
 (where it takes a chunked scan in jnp; the JAX package's Pallas kernels
 compute the same functions). Decode takes one step of each recurrence in
-plain tensor code, with the state carried in rows of the cache.
+plain tensor code, with the state carried in rows of the cache. Train
+mode closes them as the JAX model does in training, in plain tensor code
+under autograd: the associative scan (rglru_scan_assoc) and the chunked
+WKV (rwkv_time_mix_chunked). The kernels have no backward, and the
+reference's training computation calls no Pallas kernel either.
 
 Prefill takes the row-padded activations of models/model.py (each prompt
 padded to whole ROW_TILE-row tiles, see models/layers.py) and the real
@@ -133,8 +137,42 @@ def _rglru_gates(p, u):
     return a, mult * (i * u)
 
 
+def _interleave(x, y):
+    """x at the even and y at the odd positions of axis 1 (len(x) is
+    len(y) or len(y) + 1)."""
+    n = y.shape[1]
+    out = torch.stack([x[:, :n], y], dim=2).flatten(1, 2)
+    return torch.cat([out, x[:, n:]], dim=1) if x.shape[1] > n else out
+
+
+def rglru_scan_assoc(a, b):
+    """h_t = a_t h_{t-1} + b_t (h_{-1} = 0) over axis 1 of a, b [B,S,w]
+    f32, as the JAX package's model closes it in training and prefill:
+    jax.lax.associative_scan's odd/even recursion (pairs combined, the
+    odd positions scanned recursively, the even ones filled in from
+    them), with the same combine (a1 a2, a2 b1 + b2) in the same order,
+    so each h_t is summed as the reference sums it. Plain tensor code
+    under autograd (the kernel, kernels/rglru, has no backward). Returns
+    h [B,S,w]."""
+    def combine(x, y):  # x holds the earlier positions
+        return x[0] * y[0], y[0] * x[1] + y[1]
+
+    def scan(e):
+        n = e[0].shape[1]
+        if n < 2:
+            return e
+        odd = scan(combine([t[:, 0:-1:2] for t in e],
+                           [t[:, 1::2] for t in e]))
+        rest = [t[:, 2::2] for t in e]
+        even = combine(odd if n % 2 else [t[:, :-1] for t in odd], rest)
+        even = [torch.cat([t[:, :1], r], dim=1) for t, r in zip(e, even)]
+        return [_interleave(x, y) for x, y in zip(even, odd)]
+
+    return scan([a, b])[1]
+
+
 def rglru_block(p, x, cfg: ModelConfig, state=None, *, S=None,
-                return_state: bool = False):
+                return_state: bool = False, train: bool = False):
     """Griffin recurrent block. x [B,Sp,d] bf16 -> (y [B,Sp,d] bf16,
     new_state).
 
@@ -142,7 +180,9 @@ def rglru_block(p, x, cfg: ModelConfig, state=None, *, S=None,
     all); with return_state, the post-prompt state {"h": [B,w] f32,
     "conv": [B,cw-1,w] bf16}. Decode (state given, Sp == 1): one step from
     state; returns the next state (every row of x: the caller keeps the
-    rows it owns)."""
+    rows it owns). train: prefill's computation with the recurrence
+    closed by rglru_scan_assoc, the reference's training form, in place
+    of the kernel."""
     Sp = x.shape[1]
     S = Sp if S is None else S
     gate = gelu_tanh(L.linear(x, p["w_gate_in"]))
@@ -152,7 +192,8 @@ def rglru_block(p, x, cfg: ModelConfig, state=None, *, S=None,
         u, _ = _causal_conv1d(u_pre[:, :S], p["conv_w"])
         # the gates' f32 products run on whole row tiles of this sequence
         a, b = _rglru_gates(p, F.pad(u, (0, 0, 0, Sp - S)))
-        h = rglru_scan(a[:, :S].contiguous(), b[:, :S].contiguous())
+        scan = rglru_scan_assoc if train else rglru_scan
+        h = scan(a[:, :S].contiguous(), b[:, :S].contiguous())
         new_state = None
         if return_state:
             tail = u_pre[:, max(S - (cw - 1), 0):S]
@@ -246,6 +287,61 @@ def _group_norm_heads(x, scale, H: int, eps: float = 1e-5):
     return (y.reshape(B, S, -1) * scale).to(x.dtype)
 
 
+def _clip(x, lo: float, hi: float):
+    """jnp.clip as the JAX package differentiates it: minimum(maximum(x,
+    lo), hi), whose gradient is halved where x ties a bound (torch.clamp
+    passes all of it). In the chunked WKV a tie is the rule: the
+    pairwise decay of each step's predecessor is exp(0)."""
+    lo_t = torch.full((), lo, dtype=x.dtype, device=x.device)
+    hi_t = torch.full((), hi, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, lo_t), hi_t)
+
+
+def rwkv_time_mix_chunked(r, k, v, logw, u, chunk: int = 64):
+    """The WKV6 recurrence over whole chunks, from a zero state: the JAX
+    package's rwkv_time_mix_chunked, its model's training form, as plain
+    tensor code under autograd (the kernel, kernels/rwkv6, has no
+    backward). r, k, v [B,S,H,hd] bf16; logw [B,S,H,hd] f32 (<= 0); u
+    [H,hd] f32. Returns (o [B,S,H,hd] bf16, s_final [B,H,hd,hd] f32).
+
+    Within a chunk the pairwise decay D[t,s,c] = exp(clip(L_{t-1,c} -
+    L_{s,c})) is formed explicitly, [B,chunk,chunk,H,hd] f32 per chunk;
+    the carried state enters through exp(L_{t-1}). This drifts from the
+    step-exact recurrence at strong decays, as the reference does (its
+    f32 cumulative sums), and like the reference it takes only whole
+    chunks of min(chunk, S) steps."""
+    B, S, H, hd = r.shape
+    chunk = min(chunk, S)
+    if S % chunk:  # the reference asserts the same
+        raise ValueError(f"chunked WKV6: S {S} not whole chunks of {chunk}")
+    n = S // chunk
+    rf, kf, vf = (t.float().reshape(B, n, chunk, H, hd) for t in (r, k, v))
+    lw = logw.reshape(B, n, chunk, H, hd)
+    t_idx = torch.arange(chunk, device=r.device)
+    strict = (t_idx[:, None] > t_idx[None, :]).float()  # [t,s]
+    st = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    outs = []
+    for c in range(n):
+        rc, kc, vc, lc = rf[:, c], kf[:, c], vf[:, c], lw[:, c]
+        Lc = torch.cumsum(lc, dim=1)  # L_t = sum_{u<=t} log w_u
+        Lprev = Lc - lc  # L_{t-1}
+        D = torch.exp(_clip(Lprev[:, :, None] - Lc[:, None], -60.0, 0.0))
+        A = torch.einsum("bthc,bshc,btshc->bhts", rc, kc, D)
+        A = A * strict[None, None]
+        Au = torch.einsum("bthc,bthc->bth", rc, u[None, None] * kc)
+        o = torch.einsum("bhts,bshc->bthc", A, vc)
+        o = o + Au[..., None] * vc  # the diagonal (bonus u) term
+        rP = rc * torch.exp(_clip(Lprev, -60.0, 0.0))
+        o = o + torch.einsum("bthc,bhcd->bthd", rP, st)
+        LT = Lc[:, -1]  # [B,H,hd]
+        kT = kc * torch.exp(_clip(LT[:, None] - Lc, -60.0, 0.0))
+        st = (torch.exp(_clip(LT, -60.0, 0.0))[..., None] * st
+              + torch.einsum("bshc,bshd->bhcd", kT, vc))
+        outs.append(o)
+    o = torch.stack(outs, dim=1).reshape(B, S, H, hd)
+    return o.to(r.dtype), st
+
+
 def rwkv_time_mix_step(r, k, v, logw, u, s):
     """One decode step. r, k, v: [B,1,H,hd] bf16; logw [B,1,H,hd] f32; u
     [H,hd] f32; s [B,H,hd,hd] f32. Returns (o [B,1,H,hd] bf16, s_new).
@@ -263,12 +359,15 @@ def rwkv_time_mix_step(r, k, v, logw, u, s):
 
 
 def rwkv_time_mix(p, x, cfg: ModelConfig, state=None, *, S=None,
-                  return_state: bool = False):
+                  return_state: bool = False, chunk: int = 0):
     """x [B,Sp,d] bf16 -> (y [B,Sp,d] bf16, {"s", "tm_prev"} or None).
 
     Prefill (state None): the WKV recurrence over the first S positions
     through the kernel, from a zero state; with return_state, the final
-    state and position S - 1's input. Decode (state given): one step."""
+    state and position S - 1's input. Decode (state given): one step.
+    chunk > 0 (train mode): prefill's computation with the recurrence in
+    rwkv_time_mix_chunked's chunks of `chunk` steps, the reference's
+    training form, in place of the kernel."""
     B, Sp, d = x.shape
     S = Sp if S is None else S
     H, hd = cfg.n_heads, cfg.head_dim
@@ -282,8 +381,10 @@ def rwkv_time_mix(p, x, cfg: ModelConfig, state=None, *, S=None,
     g = L.silu(L.linear(xg, p["w_g"]))
     logw = rwkv_decay(p, xw).reshape(B, Sp, H, hd)
     if state is None:
-        o, s_fin = wkv6(*(t[:, :S].contiguous() for t in (r, k, v, logw)),
-                        p["bonus_u"])
+        wkv = (lambda *a: rwkv_time_mix_chunked(*a, chunk=chunk)) \
+            if chunk else wkv6
+        o, s_fin = wkv(*(t[:, :S].contiguous() for t in (r, k, v, logw)),
+                       p["bonus_u"])
         o = F.pad(o.to(torch.bfloat16), (0, 0, 0, 0, 0, Sp - S))
         new_state = ({"s": s_fin, "tm_prev": x[:, S - 1]}
                      if return_state else None)

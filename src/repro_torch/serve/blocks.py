@@ -907,6 +907,23 @@ class BlockManager:
             return 0
         return self._probe(prompt)[2]
 
+    def drop_prefix_cache(self) -> None:
+        """Forget every registered prefix block (set_params: their K/V was
+        computed under the old weights). Only on an idle pool: every
+        registered block is then unreferenced, waiting in the reclaim set,
+        and goes back to the free list; hit counters are kept."""
+        if np.count_nonzero(self._ref):
+            raise RuntimeError("drop_prefix_cache with referenced blocks "
+                               f"{np.flatnonzero(self._ref).tolist()}")
+        for bid in self._reclaim:
+            self._free_blocks.append(bid)
+            self._free_block_set.add(bid)
+        self._reclaim.clear()
+        self._cached.clear()
+        self._hash_of.clear()
+        self._hits.clear()
+        self._probe_memo = None
+
     def release(self) -> None:
         """Retire the pool. Verifies the free-list accounting returns to
         empty — every usable block either free or cache-retained with zero

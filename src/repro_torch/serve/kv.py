@@ -72,6 +72,10 @@ class KVBackend(Protocol):
         """Retire the backend: verify the free-list accounting returns to
         empty (leaks raise), then drop the device cache."""
         ...
+    def drop_prefix_cache(self) -> None:
+        """Forget every cached prefix block (an idle backend whose weights
+        are about to change: set_params)."""
+        ...
     def insert(self, slot: int, rid: int, prefill_caches: Pytree,
                gen_len: int) -> None: ...
     def ensure(self, slot: int, pos: int) -> None: ...

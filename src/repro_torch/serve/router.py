@@ -292,6 +292,15 @@ class ReplicaSet:
     def drained(self) -> bool:
         return not self.busy and not self.pending()
 
+    def set_params(self, params) -> None:
+        """Swap the serving weights on every replica, and the weights that
+        replicas spawned later start from (a post-training loop publishing
+        its updated policy). The fleet must be idle: a replica holding
+        requests refuses (ReplicaEngine.set_params)."""
+        for r in self.replicas:
+            r.set_params(params)
+        self.params = params
+
     def submit(self, requests: Sequence[Request]) -> None:
         validate_requests(requests, self.prompt_len, self.max_gen,
                           allow_shorter=self.prefill_chunk > 0)

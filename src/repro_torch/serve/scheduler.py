@@ -221,6 +221,7 @@ class ReplicaEngine:
                 and self.can_take(req))
 
     # -- admission commit ---------------------------------------------------
+    @torch.no_grad()
     def admit(self, req: Request, now: float) -> None:
         """Commit one admission (caller already took it off its queue)."""
         req.t_admit = now
@@ -363,6 +364,7 @@ class ReplicaEngine:
         self.pool.release()
 
     # -- one decode tick -----------------------------------------------------
+    @torch.no_grad()
     def step_decode(self, now: float) -> int:
         """Run one fused decode step over the replica's mixed batch
         (+ prefill lanes) and retire finished requests. Returns tokens
@@ -560,6 +562,26 @@ class ReplicaEngine:
         return (m.get("kv_block_occupancy", self.pool.occupancy),
                 len(self._inflight), -self.pool.free_capacity)
 
+    def set_params(self, params: Pytree) -> None:
+        """Swap the serving weights (a post-training loop publishing its
+        updated policy). Only between requests: in-flight KV was computed
+        under the old weights, so a mid-request swap would mix two models
+        inside one generation. The tree must have the old one's structure
+        (the step reads it by name); only the reference changes.
+
+        Unlike the JAX package, whose set_params keeps the prefix index,
+        the backend's prefix cache is dropped too (every registered block
+        is unreferenced once the replica is idle, so it is returned to the
+        free list): those blocks hold K/V computed under the old weights,
+        and a later prompt sharing their prefix would attend over them
+        (ROADMAP.md §3)."""
+        if self.busy or self._lanes:
+            raise RuntimeError(
+                f"{self.name}: set_params with {len(self._inflight)} "
+                "requests in flight — drain first")
+        self.pool.drop_prefix_cache()
+        self.params = params
+
     def snapshot(self, *, queue_depth: Optional[int] = None
                  ) -> Dict[str, float]:
         return self.metrics.snapshot(self.clock.now(),
@@ -662,6 +684,9 @@ class ServingEngine:
 
     def drained(self) -> bool:
         return not self.busy and not self.pending()
+
+    def set_params(self, params: Pytree) -> None:
+        self.replica.set_params(params)
 
     def submit(self, requests: Sequence[Request]) -> None:
         """Validate and enqueue. Never mutates the caller's Requests."""

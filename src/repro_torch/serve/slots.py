@@ -135,6 +135,9 @@ class SlotPool:
         """No prefix cache: a router probe can never hit here."""
         return 0
 
+    def drop_prefix_cache(self) -> None:
+        """The slot pool keeps no prefix cache: nothing to drop."""
+
     def release(self) -> None:
         """Retire the pool (replica scale-down): every slot must be back
         on the free list — a leak raises — then the cache is dropped."""

@@ -987,3 +987,88 @@ def test_moe_layer_on_the_card_matches_the_plain_path(cuda):
     yc = M.moe_layer(p, x, cfg)[0]
     rms = float((y.float().cpu() - yc.float()).norm() / yc.float().norm())
     assert rms < 1e-2
+
+
+# ---------------------------------------------------------------------------
+# train mode, the train step and set_params on the card
+# ---------------------------------------------------------------------------
+
+_SEVEN = (paged_flash_decode, paged_flash_decode_quant, topk_topp_mask,
+          flash_attention, flash_decode_partials, rglru_scan, wkv6)
+
+
+def _launches():
+    return {op.__name__: op.launches for op in _SEVEN}
+
+
+def _train_plan():
+    from repro_torch.configs.base import ParallelPlan
+    return Env(plan=ParallelPlan(fsdp=False, remat="nothing",
+                                 attn_impl="xla_chunked",
+                                 kv_cache="replicated"))
+
+
+@pytest.mark.parametrize("arch", ["paper-demo", "recurrentgemma-9b",
+                                  "rwkv6-1.6b", "grok-1-314b"])
+def test_train_step_on_the_card_tracks_the_cpu_and_launches_no_kernel(
+        arch, cuda):
+    """Three make_train_step steps at smoke size on the card and on the
+    CPU from the same weights (drawn on the CPU) and batch: the first
+    loss within 2e-3 of the CPU's (the card's bf16 GEMMs accumulate in
+    another order; the CPU tests hold the CPU to the JAX package), the
+    later ones within 5e-2 (each update compounds that, and an MoE token
+    routed otherwise at a near-tie moves its output by O(1): grok's third
+    loss sat 2.0e-2 from the CPU's on an H100), the loss falling, and
+    none of the seven kernels launched."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.adamw import (AdamWConfig, make_train_state,
+                                         tree_map)
+    cfg = get_smoke(arch)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=0, weight_decay=0.0)
+    tok = torch.randint(0, cfg.vocab_size, (2, 64),
+                        generator=torch.Generator().manual_seed(0))
+    batch = {"tokens": tok, "labels": torch.roll(tok, -1, dims=1)}
+    step = make_train_step(cfg, _train_plan(), opt)
+    losses = {}
+    weights = Mo.init_params(cfg, Env(), seed=0, device="cpu")
+    for dev in ("cpu", cuda):
+        params = tree_map(lambda x: x.to(dev), weights)
+        state = make_train_state(params, opt)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        before = _launches()
+        out = []
+        for _ in range(3):
+            state, m = step(state, b)
+            out.append(float(m["loss"]))
+        assert _launches() == before
+        losses[str(dev)] = out
+    cpu, card = losses["cpu"], losses[str(cuda)]
+    assert abs(card[0] - cpu[0]) <= 2e-3, (card, cpu)
+    assert all(abs(a - b) <= 5e-2 for a, b in zip(card, cpu)), (card, cpu)
+    assert card[-1] < card[0]
+
+
+def test_set_params_on_a_card_engine_serves_the_new_weights(cuda):
+    """A fleet of two replicas on the card serves a seeded trace, takes
+    new weights through set_params, and serves the trace again through
+    the paged-decode and mask kernels: the tokens equal a fresh engine's
+    on the new weights, not the first run's."""
+    cfg = get_smoke("paper-demo")
+    a = Mo.init_params(cfg, Env(), seed=0, device=cuda)
+    b = Mo.init_params(cfg, Env(), seed=1, device=cuda)
+    sp = SamplingParams(temperature=0.7, top_k=50, top_p=0.9, seed=3)
+    trace = lambda: poisson_trace(8, 16.0, prompt_len=16,
+                                  vocab_size=cfg.vocab_size, gen_len=8,
+                                  sampling=sp, seed=2)
+    mk = lambda p: make_serving_engine(cfg, p, replicas=2, num_slots=4,
+                                       prompt_len=16, max_gen=8,
+                                       block_size=4, clock=ManualClock(),
+                                       device=cuda)
+    eng = mk(a)
+    first = run_to_completion(eng, trace())
+    eng.set_params(b)
+    paged_flash_decode.launches = topk_topp_mask.launches = 0
+    again = run_to_completion(eng, trace())
+    assert paged_flash_decode.launches > 0 and topk_topp_mask.launches > 0
+    assert again == run_to_completion(mk(b), trace())
+    assert again != first

@@ -155,6 +155,15 @@ def test_slot_cache_ops_match_jax():
 
 
 def test_train_mode_waits_for_the_training_slice():
-    with pytest.raises(NotImplementedError, match="training"):
-        Mo.forward(PARAMS, torch.from_numpy(_tokens(1, 8)), CFG, Env(),
+    """The training slice has landed (tests/test_torch_train.py holds it
+    to the JAX package): under the serving plan train mode gives
+    prefill's logits at 8 tokens, and past 128 it refuses, since the
+    flash kernel has no backward."""
+    tok = torch.from_numpy(_tokens(1, 8))
+    logits, aux = Mo.forward(PARAMS, tok, CFG, Env(), mode="train")
+    assert torch.equal(logits,
+                       Mo.forward(PARAMS, tok, CFG, Env(), mode="prefill")[0])
+    assert float(aux) == 0.0
+    with pytest.raises(NotImplementedError, match="no backward"):
+        Mo.forward(PARAMS, torch.from_numpy(_tokens(1, 129)), CFG, Env(),
                    mode="train")
