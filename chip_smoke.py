@@ -157,7 +157,36 @@ Phases, any failure exits non-zero before the result line:
      bit-identical to one engine's at 2 slots, the first DPO loss log 2
      within 1e-4 and falling, round 1 different from round 0 on the same
      seeds and equal to a fresh engine on the weights swapped in; rollout
-     tokens/s, DPO step and set_params wall time printed.
+     tokens/s, DPO step and set_params wall time printed;
+ 22. the int8 pool of the recurrent archs: kernel #3 at recurrentgemma-
+     9b's rings (8 rows, GQA 16, hd 256, 2048-token rings of 16-token
+     blocks, rows past the wrap) against its plain version, timed beside
+     it and SDPA over the dequantized KV; recurrentgemma-9b (4 requests
+     of 2100-token prompts: its rings full at prefill and wrapping in
+     decode, gen 16, 4 slots) and rwkv6-1.6b (8 of 256 tokens, 8 slots)
+     at full width and depth served with --kv quant by classic
+     admission, on one engine and on 2 replicas at half the slots, counts
+     read between each run and its verify (#3 for the rings, never #1;
+     #4, #6, #7 once a prefill and layer), each passing its --verify (4
+     vs 2 slots, bit-identical; the fleet against one engine); a seeded
+     recurrentgemma-9b victim on the int8 pool (ring blocks with their
+     scales, state rows) swapped out and back, its tokens equal an
+     unpreempted run's with nothing recomputed;
+ 23. the modality archs: #1 at qwen2-vl-7b's GQA 7 (hd 128: the
+     one-shot's 416-position cache, the serving row mix, bf16 and int8)
+     and at whisper-small's cross (256 frames) and self caches, #4 at
+     qwen2-vl's prefill (B=4, 256 vision + 128 prompt positions, causal)
+     and at whisper's encoder (non-causal, 256 frames) and decoder
+     prefill, each against its plain version and timed beside it and
+     SDPA; qwen2-vl-7b (28 layers, 15.2 GB of bf16 weights; 4 requests,
+     prompt 128, gen 32) and whisper-small (12 + 12 layers; 8 requests,
+     prompt 512, gen 32) at full width and depth through --trace oneshot,
+     the counts read around the run (#4 once a prefill layer, encoder
+     included; #1 once a decode step and attention, cross included;
+     nothing else); both smoke configs' prefill (the flash branch) and 4
+     decode steps on the card against the CPU path with seeded stubs; one
+     train step of each at full width and 2 layers (and 2 encoder
+     layers), the loss finite and no kernel launched.
 Each phase's wall time is printed as it ends.
 Phase 2 also holds the quant kernel to its plain version and to the bf16
 kernel on the same pool (relative RMS), the flash-attention kernel to its
@@ -2435,6 +2464,416 @@ def check_rollout(counted, dev):
     return totals
 
 
+# the int8 pool of the recurrent archs (phase 22): each arch served with
+# --kv quant at full width and depth, on one engine and on two replicas.
+# recurrentgemma-9b's prompts of 2100 tokens fill its 2048-token rings
+# (the prefill rolls them) and its decode writes past the wrap
+QUANT_RECURRENT = (
+    ("recurrentgemma-9b", ["--requests", "4", "--prompt-len", "2100",
+                           "--gen", "16", "--slots", "4"]),
+    ("rwkv6-1.6b", ["--requests", "8", "--prompt-len", "256", "--gen", "16",
+                    "--slots", "8"]))
+# the modality archs (phase 23) through --trace oneshot at full width and
+# depth: whisper's 512-token prompts give its encoder 256 frames (the
+# flash branch, non-causal)
+MODALITY = (("qwen2-vl-7b", ["--requests", "4", "--prompt-len", "128",
+                             "--gen", "32"]),
+            ("whisper-small", ["--requests", "8", "--prompt-len", "512",
+                               "--gen", "32"]))
+
+
+def paged_case(label, pin, quant=None):
+    """Check one paged-decode call against its plain version (PAGED_TOL)
+    and time it beside the plain version and SDPA over the gathered KV
+    (dequantized beforehand for the int8 pool), with its bound. pin: (q,
+    k_pool, v_pool, tables, lengths) bf16; quant: (k int8, v int8,
+    k_scale, v_scale), which makes it kernel #3's call."""
+    import torch
+    from repro_torch.kernels.paged_decode.ops import (
+        paged_flash_decode, paged_flash_decode_quant)
+    from repro_torch.kernels.paged_decode.ref import (paged_decode_quant_ref,
+                                                      paged_decode_ref)
+    q, kp, vp, tables, lengths = pin
+    B, Hq, hd = q.shape
+    MB, bs, Hkv = tables.shape[1], kp.shape[2], kp.shape[1]
+    if quant is None:
+        call = lambda: paged_flash_decode(q, kp, vp, tables, lengths)
+        plain = lambda: paged_decode_ref(q, kp, vp, tables, lengths)
+        kd, vd, token_bytes, pool = kp, vp, 2 * 2 * hd, kp
+    else:
+        kq, vq, ks, vs = quant
+        call = lambda: paged_flash_decode_quant(q, kq, vq, ks, vs, tables,
+                                                lengths)
+        plain = lambda: paged_decode_quant_ref(q, kq, vq, ks, vs, tables,
+                                               lengths)
+        deq = lambda x, sc: (x.float() * sc[..., None]).to(torch.bfloat16)
+        kd, vd, token_bytes, pool = deq(kq, ks), deq(vq, vs), 2 * (hd + 4), kq
+    err = float((call() - plain()).abs().max())
+    if not math.isfinite(err) or err > PAGED_TOL:
+        fail(f"{label}: kernel vs plain max abs err {err}")
+    g = Hq // Hkv
+    gather = lambda x: x[tables.long()].transpose(1, 2).reshape(
+        B, Hkv, MB * bs, hd).repeat_interleave(g, dim=1)
+    kg, vg = gather(kd), gather(vd)
+    amask = (torch.arange(MB * bs, device=q.device)[None, :]
+             <= lengths.clamp_min(0).long()[:, None])[:, None, None, :]
+    bound, by = paged_bound_ms(q, pool, tables, lengths, token_bytes)
+    row = {"shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "hd": hd, "bs": bs,
+                     "MB": MB}, "max_abs_err": err,
+           "ms": device_ms(call), "plain_ms": device_ms(plain),
+           "bound_ms": bound, "bound_by": by,
+           "library_ms": device_ms(
+               lambda: torch.nn.functional.scaled_dot_product_attention(
+                   q[:, :, None, :], kg, vg, attn_mask=amask))}
+    print(f"{label}: kernel vs plain max abs err {err:.3e} (tolerance "
+          f"{PAGED_TOL}); {row['ms'] * 1e3} us kernel, "
+          f"{row['plain_ms'] * 1e3} us plain, {row['library_ms'] * 1e3} us "
+          f"SDPA, bound {bound * 1e3} us ({by}), "
+          f"{bound / row['ms']:.4f} of the bound")
+    return row
+
+
+def flash_case(label, gen, dev, B, S, Hq, Hkv, hd, causal):
+    """Check one flash-attention call against its plain version
+    (FLASH_TOL on the bf16 output) and time it beside the plain version
+    and SDPA, with its bound."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    fin = flash_inputs(gen, dev, B, S, Hq, Hkv, hd)
+    call = lambda: flash_attention(*fin, causal=causal, n_kv_heads=Hkv)
+    err = float((call().float() - flash_plain(*fin, causal).float())
+                .abs().max())
+    if not math.isfinite(err) or err > FLASH_TOL:
+        fail(f"{label}: kernel vs plain max abs err {err}")
+    bound, by = flash_bound_ms(B, S, Hq, Hkv, hd, causal)
+    row = {"shape": {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "hd": hd,
+                     "causal": causal}, "max_abs_err": err,
+           "ms": device_ms(call, calls=5, replays=5),
+           "plain_ms": device_ms(lambda: flash_plain(*fin, causal), calls=2,
+                                 replays=3),
+           "bound_ms": bound, "bound_by": by,
+           "library_ms": device_ms(
+               lambda: torch.nn.functional.scaled_dot_product_attention(
+                   *(t.transpose(1, 2) for t in fin), is_causal=causal,
+                   enable_gqa=True), calls=5, replays=5)}
+    print(f"{label}: kernel vs plain max abs err {err:.3e} (tolerance "
+          f"{FLASH_TOL}); {row['ms'] * 1e3} us kernel, "
+          f"{row['plain_ms'] * 1e3} us plain, {row['library_ms'] * 1e3} us "
+          f"SDPA, bound {bound * 1e3} us ({by}), "
+          f"{bound / row['ms']:.4f} of the bound")
+    return row
+
+
+def quant_ring_inputs(gen, dev):
+    """One decode step of recurrentgemma-9b's local layer over the int8
+    pool's window rings (MQA 16:1, hd 256, 8 slots of 128 blocks of 16):
+    four full rings (a row at or past the wrap attends at depth
+    min(cur_len, 2047) = 2047), a part-filled and a short one, a depth-0
+    and a masked row. Returns the bf16 (q, pools, tables, lengths) and the
+    int8 pools with their scales."""
+    import torch
+    from repro_torch.kernels.paged_decode.ops import quantize_kv
+    Hq, Hkv, hd, bs, MB = 16, 1, 256, 16, 128
+    lens = [2047] * 4 + [1500, 17, 0, -1]  # 2047: at or past the wrap
+    B, NB = len(lens), 1 + 8 * MB
+    q = torch.randn((B, Hq, hd), generator=gen, device=dev).to(torch.bfloat16)
+    kf = torch.randn((NB, Hkv, bs, hd), generator=gen, device=dev)
+    vf = torch.randn((NB, Hkv, bs, hd), generator=gen, device=dev)
+    kq, ks = quantize_kv(kf)
+    vq, vs = quantize_kv(vf)
+    perm = torch.randperm(NB - 1, generator=gen, device=dev) + 1
+    tables = torch.zeros((B, MB), dtype=torch.int32, device=dev)
+    for b, n in enumerate(lens):
+        if n >= 0:
+            tables[b] = perm[b * MB:(b + 1) * MB].int()
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return ((q, kf.to(torch.bfloat16), vf.to(torch.bfloat16), tables,
+             lengths), (kq, vq, ks, vs))
+
+
+def check_quant_recurrent(counted, dev):
+    """Phase 22: the int8 pool of the recurrent archs. Kernel #3 at
+    recurrentgemma-9b's int8 rings against its plain version, timed; each
+    arch of QUANT_RECURRENT at full width and depth served with --kv quant
+    by classic admission on one engine and on two replicas (counts read
+    between each run and its verify: the quant kernel launched for the
+    rings, the bf16 one never, the recurrence kernels once a prefill and
+    layer), each passing its --verify (another slot count; one engine);
+    one EDF swap-out and swap-in of a seeded recurrentgemma-9b request on
+    the int8 pool (ring blocks with their scales, state rows), resumed
+    bit-identical to an unpreempted run. Returns (#3's row at the rings,
+    launches by kernel name over the runs)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import parse_args, serve, verify
+    gen = torch.Generator(device=dev).manual_seed(22)
+    pin, quant = quant_ring_inputs(gen, dev)
+    ring = paged_case("int8 paged decode at recurrentgemma-9b's rings (GQA "
+                      f"16, hd 256; lengths {pin[4].tolist()})", pin, quant)
+    launches = {}
+    for arch, extra in QUANT_RECURRENT:
+        cfg = get_config(arch)
+        params = load_params(cfg, seed=0, device=dev)
+        kinds = cfg.block_pattern * cfg.num_blocks + cfg.pattern_tail
+        slots = extra[extra.index("--slots") + 1]
+        for fleet in ([], ["--replicas", "2", "--slots",
+                           str(int(slots) // 2)]):
+            args = parse_args(["--arch", arch, "--kv", "quant", "--rate",
+                               "16", "--block-size", "16", "--device",
+                               str(dev)] + extra + fleet)
+            label = (f"{cfg.name} --kv quant, {args.replicas} "
+                     f"replica(s) x {args.slots} slots")
+            for op in counted:
+                op.launches = 0
+            run = serve(args, cfg, params)
+            got = {op.__name__: op.launches for op in counted}
+            n = args.requests
+            want = {"rglru_scan": n * kinds.count("rglru"),
+                    "wkv6": n * kinds.count("rwkv"),
+                    "flash_attention": (n * kinds.count("local")
+                                        if args.prompt_len > 128 else 0),
+                    "paged_flash_decode": 0}
+            for name, w in want.items():
+                if got[name] != w:
+                    fail(f"{label}: {name} launched {got[name]} times, "
+                         f"expected {w}")
+            if (got["paged_flash_decode_quant"] > 0) != ("local" in kinds):
+                fail(f"{label}: the quant kernel launched "
+                     f"{got['paged_flash_decode_quant']} times")
+            if run["engine"].snapshot()["preemptions"]:
+                fail(f"{label}: the serve preempted at the worst-case "
+                     "budget")
+            check_tokens(run, cfg)
+            t0 = time.perf_counter()
+            ok, line = verify(args, cfg, params, run)
+            if not ok:
+                fail(f"{label}: {line}")
+            plane = (run["engine"].describe() if args.replicas > 1
+                     else run["engine"].pool.describe())
+            print(f"{label}: {plane}; {run['tokens']} tokens in "
+                  f"{run['steps']} decode steps, {run['wall_s']:.3f}s wall, "
+                  f"{run['tokens'] / run['wall_s']:.1f} tokens/s wall on "
+                  f"{card()}; launches {got}; {line} "
+                  f"({time.perf_counter() - t0:.1f}s)")
+            _add(launches, got)
+        if "local" in kinds:
+            _add(launches, swap_victim(
+                cfg, params, "quant", 2100, counted,
+                f"{cfg.name} int8 rings, swap tier"))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return ring, launches
+
+
+def check_oneshot_against_cpu(cfg, params, S, G=4):
+    """The smoke config's prefill (batch 2, seeded stubs) and G decode
+    steps of the same tokens on the card vs the CPU path on the same
+    weights, |diff| / max(|logit|, 1) over every logit of the prefill and
+    the steps; each device decodes over its own prefill's caches. The
+    tolerance: LOGIT_TOL (phase 2's bound for one decode step of a smoke
+    config) or, where larger, check_prefill_against_cpu's: twice the CPU
+    path's spread against itself with every product accumulated in f64,
+    in the worst logit and on average (at d_model 64 the f64 spread is
+    small: a GEMM of 64 terms seldom rounds otherwise)."""
+    import torch
+    from repro_torch.launch.serve import modality_stubs
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as Mo
+    from repro_torch.models.env import Env
+    from repro_torch.optim.adamw import tree_map
+
+    gen = torch.Generator().manual_seed(23)
+    B = 2
+    tok = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
+    nxt = torch.randint(0, cfg.vocab_size, (B, G), generator=gen)
+    stubs = {k: torch.randn(v.shape, generator=gen)
+             for k, v in modality_stubs(cfg, B, S, "cpu").items()}
+    off = cfg.num_vision_embeds if cfg.family == "vlm" else 0
+
+    def run(p, dev):
+        lg, caches = Mo.forward(p, tok.to(dev), cfg, Env(), mode="prefill",
+                                **{k: v.to(dev) for k, v in stubs.items()})
+        caches = Mo.grow_caches(caches, G, cfg)
+        out = [lg.float().reshape(-1)]
+        for i in range(G):
+            lg, caches = Mo.forward(p, nxt[:, i:i + 1].to(dev), cfg, Env(),
+                                    mode="decode", caches=caches,
+                                    cur_len=S + off + i)
+            out.append(lg.float().reshape(-1))
+        return torch.cat(out).cpu()
+
+    t0 = time.perf_counter()
+    cparams = tree_map(lambda x: x.cpu(), params)
+    card_lg, ref = run(params, params["embed"].device), run(cparams, "cpu")
+    linear = L.linear
+
+    def linear_f64(x, w):
+        y = x.reshape(-1, x.shape[-1]).double() @ w.double()
+        return y.float().to(x.dtype).reshape(*x.shape[:-1], w.shape[-1])
+
+    L.linear = linear_f64
+    try:
+        alt = run(cparams, "cpu")
+    finally:
+        L.linear = linear
+    rel = lambda a: (a - ref).abs() / ref.abs().clamp_min(1.0)
+    err, spread = rel(card_lg), rel(alt)
+    vis = f" + {off} vision" if off else ""
+    print(f"{cfg.name}: prefill (B={B}, S={S}{vis}) and {G} decode steps"
+          f" on the card vs the CPU path: relative logit "
+          f"err max {float(err.max()):.3e}, mean {float(err.mean()):.3e}; "
+          f"the CPU path against itself with f64-accumulated GEMMs: max "
+          f"{float(spread.max()):.3e}, mean {float(spread.mean()):.3e}; "
+          f"{time.perf_counter() - t0:.1f}s")
+    if not (math.isfinite(float(err.max()))
+            and float(err.max()) <= max(LOGIT_TOL, 2 * float(spread.max()))
+            and float(err.mean()) <= max(LOGIT_TOL,
+                                         2 * float(spread.mean()))):
+        fail(f"{cfg.name} card vs CPU: the logits differ by more than "
+             f"{LOGIT_TOL} and twice the spread of a reordered CPU "
+             "computation")
+
+
+def check_modality(counted, dev):
+    """Phase 23: the modality archs. Kernel #1 at qwen2-vl-7b's GQA 7 (hd
+    128: the one-shot's contiguous cache and the serving row mix) and at
+    whisper-small's cross and self caches, #4 at qwen2-vl's prefill
+    (causal, GQA 7, 256 vision + 128 prompt positions) and at whisper's
+    encoder (non-causal) and decoder prefill, each against its plain
+    version, timed; each arch of MODALITY at full width and depth through
+    --trace oneshot (counts read around the run: #4 once a layer of the
+    prefill, encoder included, #1 once a decode step and attention, cross
+    included, nothing else); the smoke configs' prefill and decode logits
+    on the card against the CPU path; one train step of each at full
+    width and 2 layers (2 + 2 for whisper), the loss finite and no kernel
+    launched. Returns (#1's rows, #4's rows, launches by kernel
+    name)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.kernels.paged_decode.ops import quantize_kv
+    from repro_torch.launch.serve import (modality_stubs, parse_args,
+                                          run_oneshot)
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as Mo
+    from repro_torch.models.env import Env
+    from repro_torch.optim.adamw import AdamWConfig, make_train_state
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(
+        torch.bfloat16)
+    ident = lambda B: torch.arange(B, dtype=torch.int32, device=dev)[:, None]
+    paged = {}
+    # qwen2-vl's one-shot: 4 rows over 256 + 128 + 32 positions
+    S = 256 + 128 + 32
+    paged["qwen2-vl one-shot"] = paged_case(
+        "paged decode, qwen2-vl-7b's one-shot cache (GQA 7, hd 128, 416 "
+        "positions)", (mk(4, 28, 128), mk(4, 4, S, 128), mk(4, 4, S, 128),
+                       ident(4), torch.tensor([384, 395, 405, 414],
+                                              dtype=torch.int32, device=dev)))
+    q, kp, vp, tables, lengths = (
+        t.to(dev) for t in paged_inputs(torch.Generator(device=dev)
+                                        .manual_seed(7), dev))
+    mix = (mk(*q.shape[:1], 28, 128), mk(kp.shape[0], 4, 16, 128),
+           mk(kp.shape[0], 4, 16, 128), tables, lengths)
+    paged["gqa7 serving mix"] = paged_case(
+        "paged decode, GQA 7 hd 128 at the serving row mix", mix)
+    kq, ks = quantize_kv(mix[1].float())
+    vq, vs = quantize_kv(mix[2].float())
+    paged["gqa7 serving mix int8"] = paged_case(
+        "int8 paged decode, GQA 7 hd 128 at the serving row mix", mix,
+        (kq, vq, ks, vs))
+    paged["whisper cross"] = paged_case(
+        "paged decode, whisper-small's cross caches (MHA 12, hd 64, 256 "
+        "frames)", (mk(8, 12, 64), mk(8, 12, 256, 64), mk(8, 12, 256, 64),
+                    ident(8), torch.full((8,), 255, dtype=torch.int32,
+                                         device=dev)))
+    paged["whisper self"] = paged_case(
+        "paged decode, whisper-small's self caches (512 + 32 positions)",
+        (mk(8, 12, 64), mk(8, 12, 544, 64), mk(8, 12, 544, 64), ident(8),
+         torch.arange(512, 544, 4, dtype=torch.int32, device=dev)))
+    flash = {
+        "qwen2-vl prefill": flash_case(
+            "flash attention, qwen2-vl-7b's prefill (GQA 7, hd 128, 256 + "
+            "128 positions, causal)", gen, dev, 4, 384, 28, 4, 128, True),
+        "whisper encoder": flash_case(
+            "flash attention, whisper-small's encoder (MHA 12, hd 64, 256 "
+            "frames, non-causal)", gen, dev, 8, 256, 12, 12, 64, False),
+        "whisper decoder": flash_case(
+            "flash attention, whisper-small's decoder prefill (512 tokens, "
+            "causal)", gen, dev, 8, 512, 12, 12, 64, True)}
+    launches = {}
+    for arch, extra in MODALITY:
+        cfg = get_config(arch)
+        params = load_params(cfg, seed=0, device=dev)
+        args = parse_args(["--arch", arch, "--trace", "oneshot", "--device",
+                           str(dev)] + extra)
+        for op in counted:
+            op.launches = 0
+        run = run_oneshot(args, cfg, params)
+        got = {op.__name__: op.launches for op in counted}
+        attn = 2 if cfg.is_encdec else 1
+        want = {op.__name__: 0 for op in counted}
+        want["flash_attention"] = cfg.n_layers + (
+            cfg.encoder_layers if cfg.is_encdec else 0)
+        want["paged_flash_decode"] = (args.gen - 1) * cfg.n_layers * attn
+        if got != want:
+            fail(f"{cfg.name} one-shot: launches {got}, expected {want}")
+        toks = np.asarray(run["tokens"])
+        if toks.shape != (args.requests, args.gen) or not (
+                (toks >= 0) & (toks < cfg.vocab_size)).all():
+            fail(f"{cfg.name} one-shot: bad tokens {toks[:, :8]}")
+        print(f"{cfg.name} one-shot ({args.requests} x prompt "
+              f"{args.prompt_len}, gen {args.gen}): {run['wall_s']:.3f}s "
+              f"wall, {toks.size / run['wall_s']:.1f} tokens/s wall on "
+              f"{card()}; launches {got}; sample {toks[0, :8].tolist()}")
+        _add(launches, got)
+        del params, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch, S in (("qwen2-vl-7b", 248), ("whisper-small", 512)):
+        cfg = get_smoke(arch)
+        check_oneshot_against_cpu(cfg, Mo.init_params(
+            cfg, Env(), seed=1, device=dev), S)
+    env = train_env()
+    for arch in ("qwen2-vl-7b", "whisper-small"):
+        cfg = get_config(arch)
+        cut = dict(n_layers=2)
+        if cfg.is_encdec:
+            cut["encoder_layers"] = 2
+        cfg = dataclasses.replace(cfg, **cut)
+        params = load_params(cfg, seed=0, device=dev)
+        B, S = 2, 128
+        batch = train_batch(cfg, B, S, dev)
+        batch.update({k: torch.randn(v.shape, generator=gen, device=dev)
+                      for k, v in modality_stubs(cfg, B, S, dev).items()})
+        opt = AdamWConfig(lr=1e-3, warmup_steps=0, weight_decay=0.0)
+        step = make_train_step(cfg, env, opt)
+        state = make_train_state(params, opt)
+        del params
+        before = _launch_counts(counted)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])
+        wall = time.perf_counter() - t0
+        launched = {n: c - before[n] for n, c in
+                    _launch_counts(counted).items() if c != before[n]}
+        enc = ", 2 encoder layers" if cfg.is_encdec else ""
+        print(f"{cfg.name} train step (2 layers{enc}, "
+              f"B={B} S={S}, stubs seeded): loss {loss:.4f}, {wall:.3f}s "
+              f"wall, peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB "
+              f"on {card()}; kernel launches {launched or 'none'}")
+        if not math.isfinite(loss) or launched:
+            fail(f"{cfg.name} train step: loss {loss}, launches {launched}")
+        del state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paged, flash, launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -2856,7 +3295,21 @@ def main():
     done(20)
     rollout_launches = check_rollout(counted, dev)
     done(21)
+    # 22. the int8 pool of the recurrent archs at full width and depth;
+    # 23. the modality archs (M-RoPE VLM, encoder-decoder) through the
+    # one-shot and train mode
+    ring_q, qr_launches = check_quant_recurrent(counted, dev)
+    done(22)
+    mod_paged, mod_flash, mod_launches = check_modality(counted, dev)
+    done(23)
+    report[2]["rings_int8"] = ring_q
+    report[2]["modality"] = {"gqa7 serving mix int8":
+                             mod_paged.pop("gqa7 serving mix int8")}
+    report[0]["modality"] = mod_paged
+    report[3]["modality"] = mod_flash
     for k in report:
+        k["quant_recurrent_launches"] = qr_launches.get(k["name"], 0)
+        k["modality_launches"] = mod_launches.get(k["name"], 0)
         if k["name"] in swap_launches:
             k["swap_launches"] = swap_launches[k["name"]]
         if k["name"] in spec_launches:

@@ -21,9 +21,10 @@ from repro_torch.kernels.paged_decode.ref import (paged_decode_quant_ref,
                                                   paged_decode_ref)
 
 # GQA group sizes (Hq / Hkv) the kernels are built for: up to 8 heads sit
-# on the N of the kernel's MMAs (5: llama4-scout-17b-a16e's 40 / 8), a
-# group of 16 (recurrentgemma-9b) on its M (csrc/paged_decode.cuh)
-GROUPS = (1, 2, 3, 4, 5, 6, 8, 16)
+# on the N of the kernel's MMAs (5: llama4-scout-17b-a16e's 40 / 8; 7:
+# qwen2-vl-7b's 28 / 4), a group of 16 (recurrentgemma-9b) on its M
+# (csrc/paged_decode.cuh)
+GROUPS = (1, 2, 3, 4, 5, 6, 7, 8, 16)
 # Tokens of a row that one block reads, its span: a longer row is split
 # over blocks whose partials a second launch merges in span order. Spans
 # sit on logical positions, so a row's output does not depend on bs or on

@@ -26,16 +26,21 @@ for classic):
 --trace oneshot runs the one-shot baseline alone (a full-prefill batch
 submitted to the cluster), as the JAX CLI's legacy path does.
 
---arch picks the model, one of nine: paper-demo, yi-9b, granite-3-8b,
+--arch picks the model, one of eleven: paper-demo, yi-9b, granite-3-8b,
 qwen3-32b (qk-norm) and qwen2-1.5b (qkv bias), the dense attention archs;
 grok-1-314b and llama4-scout-17b-a16e, attention with a mixture of
 experts; recurrentgemma-9b (Griffin: RG-LRU blocks and sliding-window
-attention) and rwkv6-1.6b (attention-free RWKV-6). The two recurrent archs
-admit only by classic prefill (their prompts run through the RG-LRU-scan
-and WKV6 kernels). An MoE layer's capacity depends on the tokens one
-dispatch holds, so an MoE arch's tokens change with the batch around
-them; --verify compares what it compares for every arch and prints
-MISMATCH there where the JAX package's CLI does.
+attention) and rwkv6-1.6b (attention-free RWKV-6); qwen2-vl-7b (a VLM
+with M-RoPE) and whisper-small (an encoder-decoder), behind zero stubs of
+their vision and audio front ends. The two recurrent archs admit only by
+classic prefill (their prompts run through the RG-LRU-scan and WKV6
+kernels), on any pool (--kv quant: int8 window rings beside their state
+rows). The two modality archs run --trace oneshot and nothing else: the
+engines refuse them (ValueError), as the JAX package's do. An MoE
+layer's capacity depends on the tokens one dispatch holds, so an MoE
+arch's tokens change with the batch around them; --verify compares what
+it compares for every arch and prints MISMATCH there where the JAX
+package's CLI does.
 `--smoke` swaps in the tiny smoke config; `--device cpu` runs the kernels'
 plain versions on the CPU. Time on the cluster is simulated (a
 ManualClock advanced per step); wall time is measured around the serve.
@@ -61,8 +66,24 @@ from repro_torch.serve import (SamplingParams, burst_trace,
                                run_to_completion, sysprompt_trace)
 
 
+def modality_stubs(cfg, B: int, S: int, device="cuda") -> dict:
+    """The prefill batch's modality stubs for B prompts of S tokens, zeros
+    of the JAX package's shapes (its serve_batch feeds the same): a VLM's
+    vision_embeds [B, num_vision_embeds, d_model], an encoder-decoder's
+    frames [B, S // enc_downsample, d_model] (f32); none for a text
+    arch."""
+    z = lambda n: torch.zeros((B, n, cfg.d_model), dtype=torch.float32,
+                              device=device)
+    if cfg.family == "vlm":
+        return {"vision_embeds": z(cfg.num_vision_embeds)}
+    if cfg.is_encdec:
+        return {"frames": z(S // cfg.enc_downsample)}
+    return {}
+
+
 def serve_batch(cfg, params, prompts, gen_len: int, *,
-                streamed_prefill: bool = True, device="cuda") -> np.ndarray:
+                streamed_prefill: bool = True, device="cuda",
+                stubs=None) -> np.ndarray:
     """One-shot batch serving, the correctness baseline for the engine:
     prefill every prompt together, then decode the uniform batch greedily
     to gen_len. Returns [B, gen_len] int32.
@@ -72,27 +93,40 @@ def serve_batch(cfg, params, prompts, gen_len: int, *,
     streamed_prefill=False runs one full-sequence prefill of the batch
     (the fp path of classic admission) and grows its caches for decode
     (window rings only to min(window, prompt + gen_len); recurrent states
-    as they are).
+    and cross-attention caches as they are).
     The two reduce attention in another order, so greedy argmax can flip
-    on a near-tie between them."""
+    on a near-tie between them.
+
+    A VLM or an encoder-decoder takes the full prefill only (a streamed
+    prefill would carry no modality), with its stubs: `stubs` ({"vision_
+    embeds"} or {"frames"}, tensors), zeros of modality_stubs' shapes by
+    default. A VLM's decode positions start past its vision embeddings,
+    at S + num_vision_embeds."""
     env = Env()
     prompts = torch.as_tensor(np.asarray(prompts), device=device)
     B, S = prompts.shape
     decode = St.make_decode_step(cfg, env)
+    modal = cfg.family == "vlm" or cfg.is_encdec
+    if streamed_prefill and modal:
+        raise ValueError(f"{cfg.name}: a streamed prefill carries no "
+                         "modality; serve it with streamed_prefill=False")
     if streamed_prefill:
         caches = Mo.init_cache(cfg, env, B, S + gen_len, device=device)
         logits = None
         for i in range(S):
             logits, caches = decode(params, caches, prompts[:, i:i + 1], i)
     else:
+        if stubs is None:
+            stubs = modality_stubs(cfg, B, S, device)
         logits, caches = St.make_prefill_step(cfg, env)(
-            params, {"tokens": prompts})
+            params, {"tokens": prompts, **stubs})
         caches = Mo.grow_caches(caches, gen_len, cfg)
     V = cfg.vocab_size
+    offset = cfg.num_vision_embeds if cfg.family == "vlm" else 0
     tok = torch.argmax(logits[:, :V], dim=-1).to(torch.int32)[:, None]
     out = [tok]
     for i in range(gen_len - 1):
-        logits, caches = decode(params, caches, tok, S + i)
+        logits, caches = decode(params, caches, tok, S + offset + i)
         tok = torch.argmax(logits[:, :V], dim=-1).to(torch.int32)[:, None]
         out.append(tok)
     return torch.cat(out, dim=1).cpu().numpy()
@@ -320,7 +354,9 @@ def run_oneshot(args, cfg, params) -> dict:
     """The one-shot baseline alone (the JAX CLI's --trace oneshot): a
     batch of --requests random prompts of --prompt-len tokens (numpy,
     seeded by --seed) prefilled together and decoded greedily to --gen,
-    submitted to a VirtualCluster over its rendered devices."""
+    submitted to a VirtualCluster over its rendered devices. A VLM or an
+    encoder-decoder prefills with zero modality stubs, as the JAX CLI
+    does (serve_batch)."""
     image = ClusterImage.build(f"{cfg.name}-serve", cfg, SERVE_PLAN, "serve")
     cluster = VirtualCluster(n_compute=args.nodes, image=image,
                              device=args.device)

@@ -51,12 +51,15 @@ def make_train_step(cfg: ModelConfig, env: Env, opt: AdamWConfig):
 
 def make_prefill_step(cfg: ModelConfig, env: Env):
     """Full-sequence prefill: (last-position logits [B,Vpad], the prompt
-    caches of Mo.forward) for batch {"tokens": [B,S]}. Only the last
-    position's row tile is unembedded (the same bits as the full logits,
-    without the [B,S,Vpad] tensor)."""
+    caches of Mo.forward) for batch {"tokens": [B,S]}, plus the modality
+    stubs "vision_embeds" (a VLM) or "frames" (an encoder-decoder). Only
+    the last position's row tile is unembedded (the same bits as the full
+    logits, without the [B,S,Vpad] tensor)."""
     def prefill_step(params, batch):
         return Mo.forward(params, batch["tokens"], cfg, env, mode="prefill",
-                          last_only=True)
+                          last_only=True,
+                          vision_embeds=batch.get("vision_embeds"),
+                          frames=batch.get("frames"))
 
     return prefill_step
 

@@ -68,6 +68,31 @@ def apply_rope(x, positions, theta: float):
     return rotate(x, *rope_cos_sin(positions, x.shape[-1], theta))
 
 
+def mrope_cos_sin(positions, head_dim: int, theta: float, sections):
+    """cos/sin of Qwen2-VL's multimodal rotary angles, [..., S, 1, hd/2]
+    for positions [..., S, 3] (temporal, h, w): the hd/2 rotary pairs are
+    split into `sections` (sum hd/2), each turned by its own component of
+    the position, the angles taken in f32 as the JAX package's
+    apply_mrope takes them."""
+    if sum(sections) != head_dim // 2:
+        raise ValueError(f"mrope sections {tuple(sections)} do not sum to "
+                         f"head_dim / 2 = {head_dim // 2}")
+    freqs = rope_freqs(head_dim, theta, positions.device)
+    parts, off = [], 0
+    for c, sec in enumerate(sections):
+        parts.append(positions[..., c:c + 1].float() * freqs[off:off + sec])
+        off += sec
+    ang = torch.cat(parts, dim=-1)
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
+def apply_mrope(x, positions, theta: float, sections):
+    """Qwen2-VL multimodal RoPE (the JAX package's apply_mrope): x
+    [..., S, H, hd], positions [..., S, 3]; rotated in f32, rounded back
+    to x's dtype."""
+    return rotate(x, *mrope_cos_sin(positions, x.shape[-1], theta, sections))
+
+
 def _tiled_linear(x, w):
     lead = x.shape[:-1]
     tiles = [_bf16_matmul(t, w)
@@ -129,25 +154,30 @@ def silu(x):
     return x * sigmoid(x)
 
 
-def _project_qkv(p, x, cfg: ModelConfig):
-    """Returns q [B,S,Hq,hd], k/v [B,S,Hkv,hd] (no rope yet). With
-    cfg.qkv_bias the bf16 biases bq/bk/bv are added to the bf16 products,
-    as the JAX package adds them (one more bf16 rounding). With
-    cfg.qk_norm each head of q and of k goes through rms_norm with its
-    f32 q_norm / k_norm [hd] scale, after the bias and before rope, where
-    the JAX package puts it: the norm reads the bf16 projection and
-    returns bf16."""
-    hd = cfg.head_dim
-    B, S = x.shape[0], x.shape[1]
-    q, k, v = (linear(x, p[w]) for w in ("wq", "wk", "wv"))
+def _project(p, x, cfg: ModelConfig, w: str):
+    """One of the q / k / v projections ("q", "k" or "v") of x [B,S,d]:
+    [B,S,H,hd], with its bias and (q, k) its qk-norm, as _project_qkv."""
+    y = linear(x, p["w" + w])
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q, k, v = (q.reshape(B, S, -1, hd), k.reshape(B, S, -1, hd),
-               v.reshape(B, S, -1, hd))
-    if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    return q, k, v
+        y = y + p["b" + w]
+    y = y.reshape(x.shape[0], x.shape[1], -1, cfg.head_dim)
+    if cfg.qk_norm and w != "v":
+        y = rms_norm(y, p[w + "_norm"], cfg.norm_eps)
+    return y
+
+
+def _project_qkv(p, x, cfg: ModelConfig, x_kv=None):
+    """Returns q [B,S,Hq,hd] from x, k/v [B,Skv,Hkv,hd] from x_kv (x when
+    None: self-attention; an encoder's output for cross-attention), no
+    rope yet. With cfg.qkv_bias the bf16 biases bq/bk/bv are added to the
+    bf16 products, as the JAX package adds them (one more bf16
+    rounding). With cfg.qk_norm each head of q and of k goes through
+    rms_norm with its f32 q_norm / k_norm [hd] scale, after the bias and
+    before rope, where the JAX package puts it: the norm reads the bf16
+    projection and returns bf16."""
+    src = x if x_kv is None else x_kv
+    return (_project(p, x, cfg, "q"), _project(p, src, cfg, "k"),
+            _project(p, src, cfg, "v"))
 
 
 def _group(q, hkv: int):

@@ -42,6 +42,7 @@ cache so call sites read as in the reference.
 """
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
@@ -66,16 +67,15 @@ FLASH_MIN_LEN = 128
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves text decoders built of attn, moe, local, rglru and
-    rwkv blocks (with or without a qkv bias and qk-norm); M-RoPE, vision
-    and encoder-decoder archs are refused."""
+    """The port runs decoders built of attn, moe, local, rglru and rwkv
+    blocks (with or without a qkv bias and qk-norm), with M-RoPE behind a
+    vision-embedding stub (qwen2-vl), and encoder-decoders: an "enc"
+    stack behind a frame stub and "dec" blocks (whisper)."""
     kinds = set(cfg.block_pattern) | set(cfg.pattern_tail)
-    if (not kinds <= set(PAGEABLE_KINDS + RECURRENT_KINDS)
-            or cfg.mrope or cfg.is_encdec or cfg.family == "vlm"):
+    if not kinds <= set(PAGEABLE_KINDS + RECURRENT_KINDS + ("dec",)):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs text decoders of attn, moe, local, "
-            f"rglru and rwkv blocks (block kinds {sorted(kinds)}; no "
-            "M-RoPE, vision or encoder)")
+            f"{cfg.name}: the port runs attn, moe, local, rglru, rwkv and "
+            f"dec blocks (block kinds {sorted(kinds)})")
 
 
 def _units(cfg: ModelConfig, tree):
@@ -106,8 +106,9 @@ def _init_block(kind: str, gen: torch.Generator, cfg: ModelConfig,
     mlp = lambda: {"w_gate": L.dense_init(gen, d, cfg.d_ff),
                    "w_up": L.dense_init(gen, d, cfg.d_ff),
                    "w_down": L.dense_init(gen, cfg.d_ff, d)}
-    if kind in PAGEABLE_KINDS:
-        hq, hkv, hd = head_pad(cfg, env), kv_head_pad(cfg, env), cfg.head_dim
+    hq, hkv, hd = head_pad(cfg, env), kv_head_pad(cfg, env), cfg.head_dim
+
+    def attention():
         attn = {"wq": L.dense_init(gen, d, hq * hd),
                 "wk": L.dense_init(gen, d, hkv * hd),
                 "wv": L.dense_init(gen, d, hkv * hd),
@@ -120,10 +121,18 @@ def _init_block(kind: str, gen: torch.Generator, cfg: ModelConfig,
             hz = lambda: torch.zeros((hd,), dtype=torch.float32,
                                      device=gen.device)
             attn.update(q_norm=hz(), k_norm=hz())
+        return attn
+
+    if kind in PAGEABLE_KINDS + ("enc",):
+        attn = attention()
         if kind == "moe":
             return {"ln1": z(), "attn": attn, "ln2": z(),
                     "moe": M.init_moe(gen, cfg)}
         return {"ln1": z(), "attn": attn, "ln2": z(), "mlp": mlp()}
+    if kind == "dec":  # self-attention, cross-attention (lnx, xattn), MLP
+        attn = attention()
+        return {"ln1": z(), "attn": attn, "lnx": z(), "xattn": attention(),
+                "ln2": z(), "mlp": mlp()}
     if kind == "rglru":
         return {"ln1": z(), "rec": R.init_rglru_block(gen, cfg), "ln2": z(),
                 "mlp": mlp()}
@@ -170,14 +179,16 @@ def init_params(cfg: ModelConfig, env: Env, *, seed: int = 0,
     """Seeded random parameters with the JAX package's shapes, dtypes and
     scales (Mo.init_params): one entry of `blocks` per pattern position,
     its leaves stacked on a leading layer axis, the tail unstacked,
-    vocabulary padded to vocab_pad. Drawn from a torch.Generator on
+    vocabulary padded to vocab_pad. An encoder-decoder adds the encoder
+    as the reference lays it out: "enc_blocks", one "enc" unit stacked
+    encoder_layers deep, and "enc_norm". Drawn from a torch.Generator on
     `device`, so the values are not jax's; tests that compare the two
     packages bridge jax's parameters instead (repro_torch/bridge.py)."""
     check_supported(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     d, vp = cfg.d_model, vocab_pad(cfg, env)
-    return {
+    params = {
         "embed": L.dense_init(gen, vp, d),
         "blocks": tuple(_stacked(lambda: _init_block(kind, gen, cfg, env),
                                  cfg.num_blocks)
@@ -187,6 +198,12 @@ def init_params(cfg: ModelConfig, env: Env, *, seed: int = 0,
         "final_norm": torch.zeros((d,), dtype=torch.float32, device=device),
         "unembed": L.dense_init(gen, d, vp),
     }
+    if cfg.is_encdec:
+        params["enc_blocks"] = (_stacked(
+            lambda: _init_block("enc", gen, cfg, env), cfg.encoder_layers),)
+        params["enc_norm"] = torch.zeros((d,), dtype=torch.float32,
+                                         device=device)
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -215,16 +232,21 @@ def init_cache(cfg: ModelConfig, env: Env, batch: int, max_len: int, *,
                device="cuda") -> Pytree:
     """Contiguous decode cache: attention k/v [L, B, Hkv, max_len, hd]
     bf16 (local rings min(window, max_len) long), recurrent state rows
-    [L, B, ...]."""
+    [L, B, ...]; a "dec" unit adds the cross-attention caches xk/xv
+    [L, B, Hkv, max_len // enc_downsample, hd] (the encoder's length)."""
     hkv, hd = kv_head_pad(cfg, env), cfg.head_dim
+    enc_len = max_len // cfg.enc_downsample if cfg.is_encdec else 0
 
     def unit(kind):
         if kind in RECURRENT_KINDS:
             return _state_cache(kind, cfg, batch, device)
+        z = lambda n: torch.zeros((batch, hkv, n, hd), dtype=torch.bfloat16,
+                                  device=device)
+        if kind == "dec":
+            return {"k": z(max_len), "v": z(max_len), "xk": z(enc_len),
+                    "xv": z(enc_len)}
         n = min(cfg.local_window, max_len) if kind == "local" else max_len
-        z = lambda: torch.zeros((batch, hkv, n, hd), dtype=torch.bfloat16,
-                                device=device)
-        return {"k": z(), "v": z()}
+        return {"k": z(n), "v": z(n)}
 
     return _tree_of(cfg, unit)
 
@@ -250,6 +272,9 @@ def init_paged_cache(cfg: ModelConfig, env: Env, num_blocks: int,
     def unit(kind):
         if kind in RECURRENT_KINDS:
             return _state_cache(kind, cfg, num_rows, device)
+        if kind not in PAGEABLE_KINDS:
+            raise ValueError(f"block kind {kind!r} has no paged-cache layout "
+                             "(enc/dec caches carry cross-attention state)")
         if not quant:
             return {"k": z(shape, torch.bfloat16), "v": z(shape, torch.bfloat16)}
         return {"k": z(shape, torch.int8), "v": z(shape, torch.int8),
@@ -261,8 +286,9 @@ def init_paged_cache(cfg: ModelConfig, env: Env, num_blocks: int,
 
 def grow_caches(caches: Pytree, extra: int, cfg: ModelConfig) -> Pytree:
     """Extend prefill-emitted KV caches ([L,B,Hkv,S,hd], length == prompt)
-    by `extra` zero positions so decode can append. Recurrent states have
-    no sequence axis and pass through. Sliding-window ('local') rings grow
+    by `extra` zero positions so decode can append. Cross-attention caches
+    (xk/xv) keep the encoder's length; recurrent states have no sequence
+    axis and pass through. Sliding-window ('local') rings grow
     only to min(window, prompt + extra): a full ring is never padded, or
     the slot = pos % window alignment breaks."""
     def grow(kind, d):
@@ -474,15 +500,17 @@ def _layer(tree, i: int):
     return tree[i]
 
 
-def _train_attention(q, k, v, cfg: ModelConfig, plan, window: int):
-    """Train mode's causal attention over q/k/v [B,S,H,hd], dispatched on
-    the plan as the reference's _attn_sublayer dispatches it."""
+def _train_attention(q, k, v, cfg: ModelConfig, plan, window: int,
+                     causal: bool = True):
+    """Train mode's self-attention over q/k/v [B,S,H,hd] (causal, or not:
+    an encoder's), dispatched on the plan as the reference's
+    _attn_sublayer dispatches it."""
     Sq = q.shape[1]
     if plan.attn_impl == "xla_chunked" and Sq > plan.attn_q_chunk:
         if window > 0:
             return L.attention_window_prefill(q, k, v, cfg, window=window,
                                               q_chunk=plan.attn_q_chunk)
-        return L.attention_chunked(q, k, v, cfg, causal=True,
+        return L.attention_chunked(q, k, v, cfg, causal=causal,
                                    q_chunk=plan.attn_q_chunk,
                                    kv_chunk=plan.attn_kv_chunk)
     if plan.attn_impl == "pallas" and Sq > FLASH_MIN_LEN:
@@ -491,34 +519,36 @@ def _train_attention(q, k, v, cfg: ModelConfig, plan, window: int):
             "positions: the flash kernel has no backward (in the reference "
             "either: jax.grad through its Pallas flash kernel fails); train "
             "under the naive or xla_chunked plan")
-    return L.attention_naive(q, k, v, cfg, causal=True, window=window)
+    return L.attention_naive(q, k, v, cfg, causal=causal, window=window)
 
 
 def _attn_prefill(p, h, cfg: ModelConfig, S: int, rope, window: int = 0,
-                  plan=None):
+                  plan=None, causal: bool = True):
     """Prefill attention over the first S (real) positions of the
-    row-padded h [B,Sp,d]: causal, global (window 0) or sliding-window.
-    Prompts longer than FLASH_MIN_LEN go through the flash kernel, shorter
-    ones through attention_naive, as the JAX package's pallas plan
-    dispatches; padding positions never enter attention (their output rows
-    are zeros). rope: (cos, sin) of positions 0..S-1. Returns (out
-    [B,Sp,d], {"k","v"} [B,Hkv,S,hd] after rope; a window unit keeps the
-    trailing min(window, S) positions, ring-aligned: position p at
-    p % that length). With a training plan (train mode): attention as
-    _train_attention dispatches it, and no cache (None)."""
+    row-padded h [B,Sp,d]: causal, global (window 0) or sliding-window,
+    or (causal=False) an encoder's full attention. Sequences longer than
+    FLASH_MIN_LEN go through the flash kernel, shorter ones through
+    attention_naive, as the JAX package's pallas plan dispatches; padding
+    positions never enter attention (their output rows are zeros). rope:
+    (cos, sin) of the S positions (rope_cos_sin, or mrope_cos_sin for an
+    M-RoPE arch). Returns (out [B,Sp,d], {"k","v"} [B,Hkv,S,hd] after
+    rope; a window unit keeps the trailing min(window, S) positions,
+    ring-aligned: position p at p % that length). With a training plan
+    (train mode): attention as _train_attention dispatches it, and no
+    cache (None)."""
     q, k, v = L._project_qkv(p, h, cfg)  # [B,Sp,H,hd]
     q = L.rotate(q[:, :S], *rope)
     k = L.rotate(k[:, :S], *rope)
     v = v[:, :S]
     if plan is not None:
-        o = _train_attention(q, k, v, cfg, plan, window)
+        o = _train_attention(q, k, v, cfg, plan, window, causal)
         return L.linear(F.pad(o, (0, 0, 0, h.shape[1] - S)), p["wo"]), None
     if S > FLASH_MIN_LEN:
         o = fa_ops.flash_attention(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), causal=True, window=window,
-                                   n_kv_heads=k.shape[2])
+                                   v.contiguous(), causal=causal,
+                                   window=window, n_kv_heads=k.shape[2])
     else:
-        o = L.attention_naive(q, k, v, cfg, causal=True, window=window)
+        o = L.attention_naive(q, k, v, cfg, causal=causal, window=window)
     o = F.pad(o, (0, 0, 0, h.shape[1] - S))
     kc, vc = k.transpose(1, 2), v.transpose(1, 2)
     if window > 0:
@@ -526,6 +556,39 @@ def _attn_prefill(p, h, cfg: ModelConfig, S: int, rope, window: int = 0,
         kc = torch.roll(kc[:, :, S - w:], (S - w) % w, dims=2)
         vc = torch.roll(vc[:, :, S - w:], (S - w) % w, dims=2)
     return L.linear(o, p["wo"]), {"k": kc, "v": vc}
+
+
+def _xattn_prefill(p, h, cfg: ModelConfig, S: int, enc, train: bool):
+    """Cross-attention of the first S positions of the row-padded decoder
+    stream h [B,Sp,d] over the encoder's output: enc = (its row-padded
+    output [B,Sep,d], its Se real positions). No rope, no mask, always
+    attention_naive (the reference's dispatch sends no cross-attention to
+    its flash kernel). Returns (out [B,Sp,d], {"xk","xv"} [B,Hkv,Se,hd],
+    the decode steps' cross caches; None in train mode)."""
+    e, Se = enc
+    q, k, v = L._project_qkv(p, h, cfg, x_kv=e)
+    k, v = k[:, :Se], v[:, :Se]
+    o = L.attention_naive(q[:, :S], k, v, cfg, causal=False)
+    out = L.linear(F.pad(o, (0, 0, 0, h.shape[1] - S)), p["wo"])
+    if train:
+        return out, None
+    return out, {"xk": k.transpose(1, 2).contiguous(),
+                 "xv": v.transpose(1, 2).contiguous()}
+
+
+def _xattn_decode(p, h, cfg: ModelConfig, n_rows: int, cache):
+    """Decode cross-attention of the first n_rows rows of h [Bp,1,d] over
+    the cached xk/xv [B,Hkv,Se,hd]: every row attends over all Se encoder
+    positions (depth Se - 1, as the reference reads its cross cache)
+    through the contiguous-cache read of models/layers.py. Nothing is
+    written."""
+    q = L._project(p, h, cfg, "q")[:n_rows]  # no rope
+    xk = cache["xk"]
+    depth = torch.full((n_rows,), xk.shape[-2] - 1, dtype=torch.int32,
+                       device=h.device)
+    o = L.attention_decode(q, xk, cache["xv"], depth, cfg)
+    o = F.pad(o, (0, 0, 0, 0, 0, h.shape[0] - n_rows))
+    return L.linear(o, p["wo"])
 
 
 def _attn_sublayer(p, h, cfg: ModelConfig, n_rows: int, cur_len, rope,
@@ -659,12 +722,16 @@ def _write_rows(cache: dict, new: dict, n_rows: int) -> None:
 
 def _apply_block(kind: str, p, h, hf, cfg: ModelConfig, *, S=None, rope=None,
                  n_rows=None, cur_len=None, cache=None, tables=None,
-                 row_slots=None, plan=None):
-    """One block: h + first(norm(h)), then + second(norm(.)). Prefill when
-    `cache` is None (S real positions of the row-padded h; returns the
-    block's prompt cache), decode otherwise (updates `cache` in place; the
-    first n_rows rows are real). With a training plan (train mode):
-    prefill's computation with the blocks' training forms, no cache.
+                 row_slots=None, plan=None, enc=None):
+    """One block: h + first(norm(h)), then + second(norm(.)) (a "dec"
+    block puts its cross-attention, + cross(lnx-norm(.)), between the
+    two). Prefill when `cache` is None (S real positions of the
+    row-padded h; returns the block's prompt cache), decode otherwise
+    (updates `cache` in place; the first n_rows rows are real). With a
+    training plan (train mode): prefill's computation with the blocks'
+    training forms, no cache. An "enc" block (the encoder) attends
+    without a mask and returns no cache; enc: the encoder's output and
+    length for a "dec" block's prefill cross-attention.
 
     hf: the f32 value of h where the reference reads it unrounded into the
     first norm (the previous block's last residual sum inside the same
@@ -675,49 +742,62 @@ def _apply_block(kind: str, p, h, hf, cfg: ModelConfig, *, S=None, rope=None,
     decode = cache is not None
     train = plan is not None
     prefill_kw = {} if decode else {"S": S, "return_state": not train}
-    if kind in PAGEABLE_KINDS:
+    subs = []  # (norm, sublayer) in order; each returns (out, cache part)
+    if kind in PAGEABLE_KINDS + ("enc", "dec"):
         window = cfg.local_window if kind == "local" else 0
         if decode:
             tbl = (None if tables is None
                    else tables["local" if window else "global"])
-            first = lambda x: (_attn_sublayer(p["attn"], x, cfg, n_rows,
-                                              cur_len, rope, cache, tbl,
-                                              window, row_slots), None)
+            subs.append(("ln1", lambda x: (_attn_sublayer(
+                p["attn"], x, cfg, n_rows, cur_len, rope, cache, tbl,
+                window, row_slots), None)))
         else:
-            first = lambda x: _attn_prefill(p["attn"], x, cfg, S, rope,
-                                            window, plan)
+            subs.append(("ln1", lambda x: _attn_prefill(
+                p["attn"], x, cfg, S, rope, window, plan,
+                causal=kind != "enc")))
+        if kind == "dec":
+            subs.append(("lnx", (lambda x: (_xattn_decode(
+                p["xattn"], x, cfg, n_rows, cache), None)) if decode else
+                (lambda x: _xattn_prefill(p["xattn"], x, cfg, S, enc,
+                                          train))))
         if kind == "moe":
-            second = lambda x: _moe_sublayer(
-                p["moe"], x, cfg, S=None if decode else S, n_rows=n_rows)
+            subs.append(("ln2", lambda x: _moe_sublayer(
+                p["moe"], x, cfg, S=None if decode else S, n_rows=n_rows)))
         else:
-            second = lambda x: (L.mlp(p["mlp"], x), None)
+            subs.append(("ln2", lambda x: (L.mlp(p["mlp"], x), None)))
     elif kind == "rglru":
         st = _rows_state(cache, n_rows, h.shape[0]) if decode else None
-        first = lambda x: R.rglru_block(p["rec"], x, cfg, st, train=train,
-                                        **prefill_kw)
-        second = lambda x: (L.mlp(p["mlp"], x), None)
+        subs += [("ln1", lambda x: R.rglru_block(p["rec"], x, cfg, st,
+                                                 train=train, **prefill_kw)),
+                 ("ln2", lambda x: (L.mlp(p["mlp"], x), None))]
     else:  # rwkv
         st = _rows_state(cache, n_rows, h.shape[0]) if decode else None
         chunk = plan.rwkv_chunk if train else 0
-        first = lambda x: R.rwkv_time_mix(p["mix"], x, cfg, st, chunk=chunk,
-                                          **prefill_kw)
-        second = lambda x: R.rwkv_channel_mix(p["mix"], x, cfg, st,
-                                              **prefill_kw)
-    a, c1 = first(L.rms_norm(h if hf is None else hf, p["ln1"], eps)
-                  .to(torch.bfloat16))
-    # the reference (XLA) fuses the residual add into the next norm: the
-    # norm reads the f32 sum, the residual stream its bf16 rounding
-    hf = h.float() + a.float()
-    h = hf.to(torch.bfloat16)
-    y, c2 = second(L.rms_norm(hf, p["ln2"], eps).to(torch.bfloat16))
-    hf = h.float() + y.float()
-    aux = c2 if kind == "moe" else 0.0
-    if train:
-        return hf.to(torch.bfloat16), hf, None, aux
-    new = c1 if kind != "rwkv" else {**c1, "cm_prev": c2}
+        subs += [("ln1", lambda x: R.rwkv_time_mix(
+                     p["mix"], x, cfg, st, chunk=chunk, **prefill_kw)),
+                 ("ln2", lambda x: R.rwkv_channel_mix(
+                     p["mix"], x, cfg, st, **prefill_kw))]
+    parts = []
+    for norm, sub in subs:
+        # the reference (XLA) fuses each residual add into the next norm:
+        # the norm reads the f32 sum, the residual stream its bf16 rounding
+        a, c = sub(L.rms_norm(h if hf is None else hf, p[norm], eps)
+                   .to(torch.bfloat16))
+        hf = h.float() + a.float()
+        h = hf.to(torch.bfloat16)
+        parts.append(c)
+    aux = parts[-1] if kind == "moe" else 0.0
+    if train or kind == "enc":
+        return h, hf, None, aux
+    if kind == "rwkv":
+        new = {**parts[0], "cm_prev": parts[1]}
+    elif kind == "dec" and not decode:
+        new = {**parts[0], **parts[1]}
+    else:
+        new = parts[0]
     if decode and kind in RECURRENT_KINDS:
         _write_rows(cache, new, n_rows)
-    return hf.to(torch.bfloat16), hf, new, aux
+    return h, hf, new, aux
 
 
 def _run_blocks(params, h, cfg: ModelConfig, caches=None, plan=None, **kw):
@@ -771,21 +851,94 @@ def _run_blocks(params, h, cfg: ModelConfig, caches=None, plan=None, **kw):
                "tail": tuple(out_tail)}, aux
 
 
-def _embed(params, tokens, cfg: ModelConfig):
+def build_mrope_positions(S: int, nv: int, cur_len=None, device="cpu"):
+    """Qwen2-VL's 3-D positions (the JAX package's build_mrope_positions):
+    the nv vision patches on a g x g grid (g = isqrt(nv)) at t = 0, the
+    text continuing linearly from g on every component. Prefill: [1,S,3]
+    int32 over positions 0..S-1; decode (cur_len, a scalar or [B] cache
+    position): [B,1,3] (B = 1 for a scalar), the token at g + cur_len - nv
+    on all three."""
+    g = max(math.isqrt(max(nv, 0)), 1)
+    if cur_len is not None:
+        p = torch.as_tensor(cur_len, device=device).reshape(-1, 1, 1)
+        return (g + p - nv).expand(-1, 1, 3).to(torch.int32)
+    idx = torch.arange(S, device=device)
+    is_vis = idx < nv
+    text = g + idx - nv
+    t = torch.where(is_vis, 0, text)
+    hh = torch.where(is_vis, idx // g, text)
+    ww = torch.where(is_vis, idx % g, text)
+    return torch.stack([t, hh, ww], -1)[None].to(torch.int32)
+
+
+def _rope_of(cfg: ModelConfig, positions):
+    """(cos, sin) of positions for every attention layer: M-RoPE over
+    [..., 3] positions for an M-RoPE arch, plain rope otherwise."""
+    if cfg.mrope:
+        return L.mrope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
+                               cfg.mrope_sections)
+    return L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+
+
+def _pad_rows(h, S: int):
+    """h [B,S,d] padded with zero positions to a multiple of
+    layers.ROW_TILE."""
+    return F.pad(h, (0, 0, 0, -(-S // L.ROW_TILE) * L.ROW_TILE - S))
+
+
+def _embed(params, tokens, cfg: ModelConfig, vision_embeds=None):
     """Whole sequences' embeddings, each padded to a multiple of
-    layers.ROW_TILE positions (h [B,Sp,d] bf16), and the rope angles of
-    positions 0..S-1 ([S,1,hd/2] each)."""
-    S = tokens.shape[1]
-    Sp = -(-S // L.ROW_TILE) * L.ROW_TILE
-    tok = F.pad(tokens.long(), (0, Sp - S))
-    rope = L.rope_cos_sin(torch.arange(S, device=tokens.device),
-                          cfg.head_dim, cfg.rope_theta)
-    return params["embed"][tok].to(torch.bfloat16), rope
+    layers.ROW_TILE positions (h [B,Sp,d] bf16), the rope angles of their
+    S positions and S. A VLM's sequence is its vision embeddings [B,Nv,d]
+    (the stub of the patch embedder) followed by the prompt's tokens, at
+    M-RoPE's 3-D positions; other archs' positions are 0..S-1."""
+    h = params["embed"][tokens.long()].to(torch.bfloat16)
+    if cfg.family != "vlm":
+        pos = torch.arange(h.shape[1], device=tokens.device)
+    elif vision_embeds is None:
+        raise ValueError(f"{cfg.name}: a prefill or train forward needs "
+                         "vision_embeds [B, num_vision_embeds, d_model]")
+    else:
+        h = torch.cat([vision_embeds.to(torch.bfloat16), h], 1)
+        pos = build_mrope_positions(h.shape[1], cfg.num_vision_embeds,
+                                    device=tokens.device)
+    S = h.shape[1]
+    return _pad_rows(h, S), _rope_of(cfg, pos), S
 
 
-def _prefill(params, tokens, cfg: ModelConfig, last_only: bool = False):
+def _encode(params, frames, cfg: ModelConfig, plan=None):
+    """The encoder of an encoder-decoder over its frame stub frames
+    [B,Se,d] (the conv front end's output): encoder_layers "enc" blocks
+    (full attention at rope positions 0..Se-1, as the reference runs its
+    encoder in train mode: past FLASH_MIN_LEN frames the flash kernel,
+    non-causal, in a prefill; train mode's dispatch under a training
+    plan), then enc_norm. Returns (the row-padded output [B,Sep,d] bf16,
+    Se), what the "dec" blocks' cross-attention reads."""
+    if frames is None:
+        raise ValueError(f"{cfg.name}: a prefill or train forward needs "
+                         "frames [B, S_enc, d_model]")
+    Se = frames.shape[1]
+    h = _pad_rows(frames.to(torch.bfloat16), Se)
+    rope = _rope_of(cfg, torch.arange(Se, device=frames.device))
+    unit = params["enc_blocks"][0]
+
+    def layer(h, i):
+        return _apply_block("enc", _layer(unit, i), h, None, cfg, S=Se,
+                            rope=rope, plan=plan)[0]
+
+    remat = plan is not None and plan.remat in ("nothing", "dots")
+    for i in range(cfg.encoder_layers):
+        h = (torch.utils.checkpoint.checkpoint(layer, h, i,
+                                               use_reentrant=False)
+             if remat else layer(h, i))
+    return L.rms_norm(h, params["enc_norm"], cfg.norm_eps), Se
+
+
+def _prefill(params, tokens, cfg: ModelConfig, last_only: bool = False,
+             vision_embeds=None, frames=None):
     """forward(mode="prefill"): tokens [B,S] -> (logits [B,S,Vpad] — or
-    [B,Vpad] of position S-1 with last_only — and the prompt caches).
+    [B,Vpad] of the last position with last_only — and the prompt caches;
+    a VLM's S counts its vision positions first).
 
     Each sequence is padded to a multiple of layers.ROW_TILE positions, so
     every `linear` tile holds rows of one sequence only and a prompt's rows
@@ -794,9 +947,9 @@ def _prefill(params, tokens, cfg: ModelConfig, last_only: bool = False):
     real S positions only. last_only multiplies the unembedding on the
     row tile holding position S-1 alone: the same tile, so the same bits
     as the full product, without the [B,S,Vpad] logits."""
-    S = tokens.shape[1]
-    h, rope = _embed(params, tokens, cfg)
-    x, caches, _ = _run_blocks(params, h, cfg, S=S, rope=rope)
+    h, rope, S = _embed(params, tokens, cfg, vision_embeds)
+    enc = _encode(params, frames, cfg) if cfg.is_encdec else None
+    x, caches, _ = _run_blocks(params, h, cfg, S=S, rope=rope, enc=enc)
     h = L.rms_norm(x, params["final_norm"], cfg.norm_eps).to(torch.bfloat16)
     if last_only:
         t0 = (S - 1) // L.ROW_TILE * L.ROW_TILE
@@ -805,16 +958,19 @@ def _prefill(params, tokens, cfg: ModelConfig, last_only: bool = False):
     return L.linear(h, params["unembed"])[:, :S], caches
 
 
-def _train(params, tokens, cfg: ModelConfig, env: Env):
-    """forward(mode="train"): tokens [B,S] -> (logits [B,S,Vpad], the
-    summed MoE aux loss), under autograd. Prefill's stack on the same row
-    tiles (so the logits are prefill's wherever the blocks' training
-    forms compute what the kernels compute); the padding positions reach
-    no real position, so they carry no gradient into a loss over the
-    first S."""
-    S = tokens.shape[1]
-    h, rope = _embed(params, tokens, cfg)
-    x, _, aux = _run_blocks(params, h, cfg, S=S, rope=rope, plan=env.plan)
+def _train(params, tokens, cfg: ModelConfig, env: Env, vision_embeds=None,
+           frames=None):
+    """forward(mode="train"): tokens [B,S] -> (logits [B,S,Vpad] — a
+    VLM's over its vision positions too —, the summed MoE aux loss),
+    under autograd. Prefill's stack on the same row tiles (so the logits
+    are prefill's wherever the blocks' training forms compute what the
+    kernels compute); the padding positions reach no real position, so
+    they carry no gradient into a loss over the first S."""
+    h, rope, S = _embed(params, tokens, cfg, vision_embeds)
+    enc = (_encode(params, frames, cfg, env.plan) if cfg.is_encdec
+           else None)
+    x, _, aux = _run_blocks(params, h, cfg, S=S, rope=rope, plan=env.plan,
+                            enc=enc)
     h = L.rms_norm(x, params["final_norm"], cfg.norm_eps).to(torch.bfloat16)
     aux = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
     return L.linear(h, params["unembed"])[:, :S], aux
@@ -822,12 +978,16 @@ def _train(params, tokens, cfg: ModelConfig, env: Env):
 
 def forward(params, tokens, cfg: ModelConfig, env: Env, mode: str = "decode",
             caches=None, cur_len=None, block_tables=None, row_slots=None,
-            last_only: bool = False):
+            last_only: bool = False, vision_embeds=None, frames=None):
     """mode="prefill": tokens [B,S] (whole prompts); returns (logits
     [B,S,Vpad] bf16 — [B,Vpad] of the last position with last_only —,
     caches in the init_cache layout at the prompt's length: attention k/v
     after rope, local rings ring-aligned, post-prompt recurrent states),
-    ready for grow_caches or a pool insert.
+    ready for grow_caches or a pool insert. A VLM takes vision_embeds
+    [B,Nv,d] (the patch embedder's stub) before the prompt: its logits
+    and caches cover Nv + S positions. An encoder-decoder takes frames
+    [B,Se,d] (the conv front end's stub) through its encoder; its "dec"
+    caches add xk/xv [B,Hkv,Se,hd].
 
     mode="decode": tokens [B,1] int (one token per row). cur_len: [B] int
     (or a scalar) KV write position == attention depth of each row.
@@ -840,26 +1000,34 @@ def forward(params, tokens, cfg: ModelConfig, env: Env, mode: str = "decode",
     b's, so the cache holds exactly B rows. The caches are updated in
     place. Returns (logits [B,1,Vpad] bf16, caches).
 
-    mode="train": tokens [B,S]; returns (logits [B,S,Vpad] bf16, the
-    summed MoE aux loss, f32 scalar), differentiable in params (see the
-    module docstring; attention follows env.plan.attn_impl).
+    mode="train": tokens [B,S] (and the stubs, as prefill); returns
+    (logits [B,S,Vpad] bf16, the summed MoE aux loss, f32 scalar),
+    differentiable in params (see the module docstring; attention follows
+    env.plan.attn_impl).
+
+    A VLM decodes at M-RoPE position g + cur_len - Nv on every component
+    (build_mrope_positions); an encoder-decoder's decode reads its cross
+    caches and runs no encoder.
 
     Every row-wise op runs on rows padded to a multiple of layers.ROW_TILE
     (batch invariance, see models/layers.py); the padding rows never touch
     the cache."""
     check_supported(cfg)
     if mode == "prefill":
-        return _prefill(params, tokens, cfg, last_only)
+        return _prefill(params, tokens, cfg, last_only, vision_embeds, frames)
     if mode == "train":
-        return _train(params, tokens, cfg, env)
+        return _train(params, tokens, cfg, env, vision_embeds, frames)
     if mode != "decode":
         raise ValueError(f"mode={mode!r}: one of train, prefill, decode")
     B = tokens.shape[0]
     Bp = -(-B // L.ROW_TILE) * L.ROW_TILE
     cl = torch.as_tensor(cur_len, device=tokens.device).long()
     cl = cl.expand(B) if cl.ndim == 0 else cl
-    rope = L.rope_cos_sin(F.pad(cl, (0, Bp - B))[:, None], cfg.head_dim,
-                          cfg.rope_theta)  # [Bp,1,1,hd/2] each
+    clp = F.pad(cl, (0, Bp - B))
+    pos = (build_mrope_positions(1, cfg.num_vision_embeds, cur_len=clp,
+                                 device=clp.device) if cfg.mrope
+           else clp[:, None])
+    rope = _rope_of(cfg, pos)  # [Bp,1,1,hd/2] each
     tok = F.pad(tokens[:, 0].long(), (0, Bp - B))
     h = params["embed"][tok][:, None, :].to(torch.bfloat16)  # [Bp,1,d]
     x, _, _ = _run_blocks(params, h, cfg, caches, rope=rope, n_rows=B,
@@ -890,10 +1058,16 @@ def token_logprobs(logits, labels, cfg: ModelConfig):
 
 def lm_loss(params, batch, cfg: ModelConfig, env: Env,
             aux_weight: float = 0.01):
-    """batch {"tokens": [B,S], "labels": [B,S]} -> (loss, {"ce", "aux"}):
-    the mean next-token cross-entropy of train mode's logits plus
-    aux_weight times the MoE aux loss (the reference's lm_loss)."""
-    logits, aux = forward(params, batch["tokens"], cfg, env, mode="train")
+    """batch {"tokens": [B,S], "labels": [B,S]} (plus "vision_embeds" or
+    "frames", the modality stubs) -> (loss, {"ce", "aux"}): the mean
+    next-token cross-entropy of train mode's logits (a VLM's over its
+    text positions only) plus aux_weight times the MoE aux loss (the
+    reference's lm_loss)."""
+    logits, aux = forward(params, batch["tokens"], cfg, env, mode="train",
+                          vision_embeds=batch.get("vision_embeds"),
+                          frames=batch.get("frames"))
+    if cfg.family == "vlm":
+        logits = logits[:, cfg.num_vision_embeds:]
     logz, ll = token_logprobs(logits, batch["labels"], cfg)
     loss = torch.mean(logz - ll)
     return loss + aux_weight * aux, {"ce": loss, "aux": aux}

@@ -235,6 +235,10 @@ class BlockManager:
                  max_shared_fraction: float = 1.0,
                  swap_pool: Optional[HostSwapPool] = None,
                  device="cuda"):
+        if cfg.family == "vlm" or cfg.is_encdec:
+            raise ValueError(
+                f"{cfg.name}: continuous batching supports decoder-only "
+                "archs (vlm/enc-dec prefill carries extra modalities)")
         Mo.check_supported(cfg)
         self.cfg = cfg
         self.env = env
@@ -1040,12 +1044,6 @@ class QuantBlockManager(BlockManager):
     _quant = True
 
     def __init__(self, cfg: ModelConfig, *args, **kw):
-        kinds = set(cfg.block_pattern) | set(cfg.pattern_tail)
-        if not kinds <= {"attn", "moe"}:
-            raise NotImplementedError(
-                f"--kv quant for {cfg.name} (block kinds {sorted(kinds)}): "
-                "the int8 pool beside window rings and recurrent-state rows "
-                "comes with a later slice of the port")
         super().__init__(cfg, *args, **kw)
         cfg, base_insert = self.cfg, self._insert
         self._insert = lambda pool, request, *tables: base_insert(

@@ -55,6 +55,10 @@ class SlotPool:
 
     def __init__(self, cfg: ModelConfig, env: Env, *, num_slots: int,
                  prompt_len: int, max_gen: int, device="cuda"):
+        if cfg.family == "vlm" or cfg.is_encdec:
+            raise ValueError(
+                f"{cfg.name}: continuous batching supports decoder-only "
+                "archs (vlm/enc-dec prefill carries extra modalities)")
         Mo.check_supported(cfg)
         if "local" in cfg.block_pattern + cfg.pattern_tail:
             # sliding-window blocks keep a ring-aligned cache of size

@@ -48,9 +48,10 @@ from repro_torch.kernels.rwkv6.ref import wkv6_ref
 from repro_torch.kernels.sampling.ops import (CLUSTER, MAX_SHARE,
                                               MAX_VOCAB, topk_topp_mask)
 from repro_torch.kernels.sampling.ref import topk_topp_mask_ref
-from repro_torch.launch.serve import serve_batch
+from repro_torch.launch.serve import modality_stubs, serve_batch
 from repro_torch.models import model as Mo
 from repro_torch.models.env import Env
+from repro_torch.optim.adamw import tree_map
 from repro_torch.serve import (BlockManager, EDFPolicy, Request,
                                SamplingParams, ServingEngine,
                                make_kv_backend, make_serving_engine,
@@ -1072,3 +1073,155 @@ def test_set_params_on_a_card_engine_serves_the_new_weights(cuda):
     assert paged_flash_decode.launches > 0 and topk_topp_mask.launches > 0
     assert again == run_to_completion(mk(b), trace())
     assert again != first
+
+
+# ---------------------------------------------------------------------------
+# the int8 pool of the recurrent archs; the modality archs
+# ---------------------------------------------------------------------------
+
+
+def test_paged_decode_kernels_at_gqa_7_match_plain(cuda):
+    """qwen2-vl-7b's group: 28 query heads over 4 KV heads at hd 128 (the
+    N of the kernel's MMAs padded from 7 heads to 8), the bf16 and the
+    int8 kernel at the serving row mix, and the bf16 kernel over the
+    one-shot's contiguous cache (vision 256 + prompt 128 + gen 32
+    positions, one block a row, rows at every depth); within 1e-5."""
+    q, kp, vp, tables, lengths = (t.to(cuda) for t in _serving_row_mix(
+        np.random.default_rng(28), 28, 4, 128))
+    q, kp, vp = (t.to(torch.bfloat16) for t in (q, kp, vp))
+    got = paged_flash_decode(q, kp, vp, tables, lengths)
+    assert float((got - paged_decode_ref(q, kp, vp, tables, lengths))
+                 .abs().max()) < 1e-5
+    assert float(got[-3].abs().max()) == 0.0
+    kq, ks = quantize_kv(kp.float())
+    vq, vs = quantize_kv(vp.float())
+    got = paged_flash_decode_quant(q, kq, vq, ks, vs, tables, lengths)
+    want = paged_decode_quant_ref(q, kq, vq, ks, vs, tables, lengths)
+    assert float((got - want).abs().max()) < 1e-5
+    rng = np.random.default_rng(29)
+    B, S = 4, 256 + 128 + 32
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(cuda).to(torch.bfloat16)
+    q, kc, vc = mk(B, 28, 128), mk(B, 4, S, 128), mk(B, 4, S, 128)
+    ident = torch.arange(B, dtype=torch.int32, device=cuda)[:, None]
+    depth = torch.tensor([383, 384, 400, S - 2], dtype=torch.int32,
+                         device=cuda)
+    before = paged_flash_decode.launches
+    got = paged_flash_decode(q, kc, vc, ident, depth)
+    assert paged_flash_decode.launches == before + 1
+    assert float((got - paged_decode_ref(q, kc, vc, ident, depth))
+                 .abs().max()) < 1e-5
+
+
+def test_paged_decode_kernel_over_cross_caches_matches_plain(cuda):
+    """whisper-small's cross-attention read: 12 heads (MHA) at hd 64 over
+    each row's encoder cache of 256 frames (prompt 512, downsampled 2),
+    every frame attended (depth 255), through the identity table."""
+    rng = np.random.default_rng(12)
+    B, Se = 8, 256
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(cuda).to(torch.bfloat16)
+    q, xk, xv = mk(B, 12, 64), mk(B, 12, Se, 64), mk(B, 12, Se, 64)
+    ident = torch.arange(B, dtype=torch.int32, device=cuda)[:, None]
+    depth = torch.full((B,), Se - 1, dtype=torch.int32, device=cuda)
+    before = paged_flash_decode.launches
+    got = paged_flash_decode(q, xk, xv, ident, depth)
+    assert paged_flash_decode.launches == before + 1
+    assert float((got - paged_decode_ref(q, xk, xv, ident, depth))
+                 .abs().max()) < 1e-5
+
+
+def test_quant_paged_decode_over_int8_rings_matches_plain(cuda):
+    """recurrentgemma-9b's local layers on the int8 pool: 16 query heads
+    over one KV head at hd 256, 2048-token window rings of 16-token
+    blocks; rows short of the window, at its last position and past the
+    wrap (depth min(cur_len, 2047)), and a masked row."""
+    rng = np.random.default_rng(16)
+    B, MB, bs = 9, 2048 // 16, 16
+    NB = 1 + B * MB
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(cuda)
+    q = mk(B, 16, 256).to(torch.bfloat16)
+    kq, ks = quantize_kv(mk(NB, 1, bs, 256))
+    vq, vs = quantize_kv(mk(NB, 1, bs, 256))
+    tables = torch.from_numpy((1 + rng.permutation(NB - 1)).reshape(
+        B, MB).astype(np.int32)).to(cuda)
+    cur = np.array([0, 100, 2046, 2047, 2048, 2303, 4000, 9000, -1])
+    depth = torch.tensor(np.where(cur < 0, -1, np.minimum(cur, 2047)),
+                         dtype=torch.int32, device=cuda)
+    before = paged_flash_decode_quant.launches
+    got = paged_flash_decode_quant(q, kq, vq, ks, vs, tables, depth)
+    assert paged_flash_decode_quant.launches == before + 1
+    want = paged_decode_quant_ref(q, kq, vq, ks, vs, tables, depth)
+    assert float((got - want).abs().max()) < 1e-5
+    assert float(got[-1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd,causal", [
+    (8, 256, 12, 12, 64, False), (2, 256, 12, 12, 64, True),
+    (1, 384, 28, 4, 128, True), (2, 256, 28, 4, 128, False)],
+    ids=["whisper-encoder", "whisper-decoder", "qwen2-vl", "gqa7-full"])
+def test_flash_attention_at_the_modality_shapes_matches_plain(
+        B, S, Hq, Hkv, hd, causal, cuda):
+    """whisper-small's encoder (non-causal, MHA, hd 64) and decoder
+    prefill, qwen2-vl-7b's prefill (GQA 7, hd 128: 256 vision positions
+    and a 128-token prompt), within 2e-2 of the plain version."""
+    rng = np.random.default_rng(S + Hq)
+    q, k, v = _flash_case(rng, B, S, S, Hq, Hkv, hd, cuda)
+    before = flash_attention.launches
+    assert _flash_vs_plain(q, k, v, causal, 0) < 2e-2
+    assert flash_attention.launches == before + 1
+
+
+def test_recurrent_quant_engines_on_the_card_are_slot_invariant(cuda):
+    """recurrentgemma-9b (its rings wrapping in decode) and rwkv6-1.6b on
+    the int8 pool at the smoke size: the same tokens at 2 slots and 1,
+    the quant kernel launched by the first (not the bf16 one) and by
+    neither for rwkv6, which has no attention."""
+    for arch, P in (("recurrentgemma-9b", 24), ("rwkv6-1.6b", 16)):
+        cfg = get_smoke(arch)
+        params = Mo.init_params(cfg, Env(), seed=0, device=cuda)
+        trace = lambda: poisson_trace(4, 16.0, prompt_len=P,
+                                      vocab_size=cfg.vocab_size, gen_len=8,
+                                      seed=1)
+        mk = lambda n: ServingEngine(cfg, params, num_slots=n, prompt_len=P,
+                                     max_gen=8, kv="quant", block_size=8,
+                                     clock=ManualClock(), device=cuda)
+        paged_flash_decode.launches = paged_flash_decode_quant.launches = 0
+        two = run_to_completion(mk(2), trace())
+        assert paged_flash_decode.launches == 0
+        assert (paged_flash_decode_quant.launches > 0) == (
+            arch == "recurrentgemma-9b")
+        assert two == run_to_completion(mk(1), trace())
+
+
+def test_modality_oneshots_on_the_card_launch_the_kernels(cuda):
+    """The one-shot of qwen2-vl-7b and whisper-small at the smoke size on
+    the card: whisper at prompt 512 runs its encoder through the flash
+    kernel (256 frames) and its decoder's prefill too, then reads its
+    self- and cross-attention caches through the paged-decode kernel;
+    qwen2-vl at prompt 248 (256 positions with its vision embeddings)
+    takes the flash kernel and decodes through the paged one. The first
+    token of each row equals the CPU path's wherever the CPU's top two
+    logits lie 2^-4 apart or more."""
+    for arch, P in (("qwen2-vl-7b", 248), ("whisper-small", 512)):
+        cfg = get_smoke(arch)
+        weights = Mo.init_params(cfg, Env(), seed=0, device="cpu")
+        params = tree_map(lambda x: x.to(cuda), weights)
+        tok = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, P))
+        flash_attention.launches = paged_flash_decode.launches = 0
+        out = serve_batch(cfg, params, tok, 4, streamed_prefill=False,
+                          device=cuda)
+        n_flash = cfg.n_layers + (cfg.encoder_layers if cfg.is_encdec
+                                  else 0)
+        assert flash_attention.launches == n_flash
+        per_step = cfg.n_layers * (2 if cfg.is_encdec else 1)
+        assert paged_flash_decode.launches == 3 * per_step
+        assert out.shape == (2, 4)
+        stubs = modality_stubs(cfg, 2, P, "cpu")
+        lg, _ = Mo.forward(weights, torch.from_numpy(tok), cfg, Env(),
+                           mode="prefill", last_only=True, **stubs)
+        lg = lg[:, :cfg.vocab_size].float()
+        top2 = torch.topk(lg, 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1] >= 2 ** -4).numpy()
+        assert np.array_equal(out[clear, 0], lg.argmax(-1).numpy()[clear])

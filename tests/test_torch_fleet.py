@@ -20,6 +20,7 @@ import sys
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.core import VirtualCluster as JaxCluster
 from repro.launch import serve as jax_serve
@@ -45,6 +46,18 @@ JPARAMS = JMo.init_params(jax.random.PRNGKey(0), CFG,
 PARAMS = bridge.to_torch(jax.tree.map(np.asarray, JPARAMS), "cpu")
 P = 16  # prompt length used throughout
 BS = 4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's eager CPU ops at these sizes gain nothing from torch's
+    intra-op pool, and under several test workers its spinning threads
+    only take cores from the others: one thread while this module runs,
+    the caller's count restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _fleet(replicas=2, routing="occupancy", num_slots=2, max_gen=8, **kw):

@@ -193,12 +193,16 @@ def test_paged_pool_helpers_round_trip():
 
 
 def test_unsupported_architectures_are_refused():
-    """qk-norm is served since the zoo slice; M-RoPE, vision and
-    encoder-decoder archs are still refused."""
+    """qk-norm is served since the zoo slice, M-RoPE and the VLM and
+    encoder-decoder families since the modality slice; an "enc" block in
+    the decoder's pattern is still refused (it builds the encoder stack,
+    never a decoder block)."""
     import dataclasses
-    Mo.init_params(dataclasses.replace(CFG, qk_norm=True), Env(),
-                   device="cpu")
-    for change in ({"mrope": True}, {"family": "vlm"}):
+    for change in ({"qk_norm": True}, {"mrope": True}, {"family": "vlm"},
+                   {"block_pattern": ("dec",), "encoder_layers": 1}):
+        Mo.init_params(dataclasses.replace(CFG, **change), Env(),
+                       device="cpu")
+    for kinds in (("enc",), ("attn", "enc")):
         with pytest.raises(NotImplementedError):
-            Mo.init_params(dataclasses.replace(CFG, **change), Env(),
-                           device="cpu")
+            Mo.init_params(dataclasses.replace(CFG, block_pattern=kinds),
+                           Env(), device="cpu")

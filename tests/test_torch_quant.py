@@ -59,6 +59,18 @@ PALLAS = ParallelPlan(fsdp=False, remat="full", attn_impl="pallas",
                       kv_cache="replicated")
 JPARAMS = JMo.init_params(jax.random.PRNGKey(0), JCFG, JENV)
 PARAMS = bridge.to_torch(jax.tree.map(np.asarray, JPARAMS), "cpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's eager CPU ops at these sizes gain nothing from torch's
+    intra-op pool, and under several test workers its spinning threads
+    only take cores from the others: one thread while this module runs,
+    the caller's count restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 P = 16
 SWEEP = [(2, 4, 2, 32, 16, 4),
          (3, 8, 8, 64, 8, 3),    # MHA

@@ -14,6 +14,7 @@ leaks.
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_smoke
 from repro.configs.base import ParallelPlan
@@ -43,6 +44,18 @@ JPARAMS = JMo.init_params(jax.random.PRNGKey(0), JCFG,
 PARAMS = bridge.to_torch(jax.tree.map(np.asarray, JPARAMS), "cpu")
 P = 16
 SAMPLED = SamplingParams(temperature=0.9, top_k=40, top_p=0.95, seed=7)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's eager CPU ops at these sizes gain nothing from torch's
+    intra-op pool, and under several test workers its spinning threads
+    only take cores from the others: one thread while this module runs,
+    the caller's count restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _engine(num_slots=2, max_gen=8, prompt_len=P, **kw):

@@ -3,8 +3,9 @@
 Against the JAX package: an EDF-preemptive engine with one slot swaps a
 deadline-free victim out for an urgent arrival and resumes it from the
 host tier, greedy and seeded, on the paged and int8 pools of paper-demo
-and the paged pools (ring tables, state rows) of recurrentgemma-9b and
-rwkv6-1.6b (smoke configs, weights bridged from JAX): the port's tokens
+and the paged and int8 pools (ring tables with their scales, state rows)
+of recurrentgemma-9b and rwkv6-1.6b (smoke configs, weights bridged from
+JAX): the port's tokens
 equal JAX's swap run's and the unpreempted run's, nothing is recomputed,
 and the bytes swapped out equal the bytes restored.
 
@@ -102,7 +103,8 @@ def _edf(mod):
     return mod(preemptive=True, min_slack_s=1.0)
 
 
-CASES = [(PD, "paged"), (PD, "quant"), (RG, "paged"), (RW, "paged")]
+CASES = [(PD, "paged"), (PD, "quant"), (RG, "paged"), (RW, "paged"),
+         (RG, "quant"), (RW, "quant")]
 
 
 @pytest.mark.parametrize("arch,kv", CASES,

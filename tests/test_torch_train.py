@@ -125,9 +125,18 @@ def _torch(tree):
 
 
 def _batch(cfg, seed=3, S=S):
+    """Tokens and labels, and a modality arch's seeded stubs: a VLM's
+    vision embeddings, an encoder-decoder's S / enc_downsample frames."""
     rng = np.random.default_rng(seed)
-    return {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
-            "labels": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
+    batch = {
+        "tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
+        "labels": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
+    stub = lambda n: rng.normal(size=(B, n, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = stub(cfg.num_vision_embeds)
+    if cfg.is_encdec:
+        batch["frames"] = stub(S // cfg.enc_downsample)
+    return batch
 
 
 def _jax_loss_grad(arch, env, batch):
@@ -251,18 +260,23 @@ def test_pallas_plan_raises_past_128_positions():
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_train_logits_equal_prefill_logits_in_the_port(arch):
     """Train mode is prefill's stack: its logits are prefill's, bit for
-    bit, on the attention and MoE archs (S <= 128: both take
-    attention_naive). The recurrent archs close their recurrences in
-    another order in train mode (the associative scan and the chunked
-    WKV against the kernels' sequential plain versions), within one bf16
-    step of the logits."""
+    bit, on the attention and MoE archs and the modality archs, stubs
+    included (S <= 128: both take attention_naive). The recurrent archs
+    close their recurrences in another order in train mode (the
+    associative scan and the chunked WKV against the kernels' sequential
+    plain versions), within one bf16 step of the logits."""
     cfg = torch_smoke(arch)
     p = _params(arch)[1]
-    tok = torch.as_tensor(_batch(cfg)["tokens"])
+    batch = {k: torch.as_tensor(v) for k, v in _batch(cfg).items()}
+    tok = batch["tokens"]
+    stubs = {k: v for k, v in batch.items()
+             if k in ("vision_embeds", "frames")}
     with torch.no_grad():
-        lt, _ = Mo.forward(p, tok, cfg, _plan("naive"), mode="train")
-        lp, _ = Mo.forward(p, tok, cfg, Env(), mode="prefill")
-    if set(cfg.block_pattern) | set(cfg.pattern_tail) <= {"attn", "moe"}:
+        lt, _ = Mo.forward(p, tok, cfg, _plan("naive"), mode="train",
+                           **stubs)
+        lp, _ = Mo.forward(p, tok, cfg, Env(), mode="prefill", **stubs)
+    if (set(cfg.block_pattern) | set(cfg.pattern_tail)
+            <= {"attn", "moe", "dec"}):
         assert torch.equal(lt, lp)
     else:
         assert float((lt.float() - lp.float()).abs().max()) <= 2 ** -5

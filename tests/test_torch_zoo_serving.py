@@ -18,6 +18,7 @@ tokens through chunked lanes (asserted), so a wrong row set shows.
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_smoke
 from repro.configs.base import ParallelPlan
@@ -45,6 +46,17 @@ MODES = {"chunked": {}, "classic": {"prefill_chunk": 0},
 CASES = ([(a, m) for a in DENSE + MOE for m in ("chunked", "classic")]
          + [("granite-3-8b", "quant"), ("llama4-scout-17b-a16e", "quant")])
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's eager CPU ops at these sizes gain nothing from torch's
+    intra-op pool, and under several test workers its spinning threads
+    only take cores from the others: one thread while this module runs,
+    the caller's count restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 def _trace(mod, vocab):
     return mod.poisson_trace(8, 16.0, prompt_len=16, vocab_size=vocab,
