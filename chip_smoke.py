@@ -186,7 +186,23 @@ Phases, any failure exits non-zero before the result line:
      nothing else); both smoke configs' prefill (the flash branch) and 4
      decode steps on the card against the CPU path with seeded stubs; one
      train step of each at full width and 2 layers (and 2 encoder
-     layers), the loss finite and no kernel launched.
+     layers), the loss finite and no kernel launched;
+ 24. the elastic runtime (core/elastic.py ElasticTrainer over a
+     VirtualCluster on the card, checkpoint/, data/) at paper-demo-110m's
+     full width and depth, seq 128, global batch 8, fp32 moments,
+     checkpoints every 5 steps: run A 16 steps uninterrupted and twice
+     more for 13 (the card's run-to-run loss spread), run B scaled to 3
+     nodes at step 6 and a node lost at step 13 (reshards 2: the
+     rollback's restore counts as one in the reference, restores 1,
+     steps lost 2), run C with int8 moments scaled at step 4; every
+     restored state torch.equal to the state saved at that step, run B's
+     losses up to the crash within twice the spread, run A's loss
+     falling, counts zeroed before and read after (no kernel launched;
+     the JSON line's `elastic_launches`); train step, sync save, the
+     blocking part of save_async and restore wall times and the bytes of
+     a checkpoint printed with the card's name and power limit; then
+     `python -m repro_torch.launch.train --smoke` on the card (scale to 3
+     at 8, crash at 14) ends with the JAX CLI's `done:` line.
 Each phase's wall time is printed as it ends.
 Phase 2 also holds the quant kernel to its plain version and to the bf16
 kernel on the same pool (relative RMS), the flash-attention kernel to its
@@ -2874,6 +2890,214 @@ def check_modality(counted, dev):
     return paged, flash, launches
 
 
+# the elastic runtime (phase 24): paper-demo-110m at full width and depth,
+# seq 128, global batch 8, lr 1e-3 without warmup, checkpoints every 5
+# steps. Run A 16 steps uninterrupted (and twice more for 13 steps with no
+# checkpoint: the card's run-to-run spread, its embedding backward adds
+# with atomics); run B scales to 3 nodes at step 6 and loses a node at
+# step 13; run C (int8 moments) scales at step 4
+ELASTIC_STEPS = 16
+ELASTIC_SPREAD_STEPS = 13
+ELASTIC_CLI = ["--smoke", "--steps", "20", "--nodes", "2", "--scale-to",
+               "3@8", "--crash-at", "14", "--ckpt-every", "5",
+               "--log-every", "5"]
+ELASTIC_DONE = "done: 20 steps; epochs=3 reshards=2 restores=1 steps_lost=1"
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, n))
+               for n in os.listdir(path))
+
+
+def elastic_run(label, state_dtype, steps, *, scale_at=None, crash_at=None,
+                ckpt_every=5, final_save=True):
+    """One ElasticTrainer run on a VirtualCluster over the card (2 nodes,
+    TTL 2 s) in a temporary checkpoint directory, removed after. The
+    checkpoint manager's save, save_async and restore are wrapped: each
+    call's wall time is kept (the card synchronised before and after;
+    for save_async that is the part that blocks the step), each save
+    snapshots the state it was given on the card, and each restore's
+    every leaf must torch.equal the snapshot of the step it restored.
+    Returns the losses by step (in order: a rollback repeats steps), the
+    trainer's counters, the times and the bytes of one checkpoint (None
+    without one). final_save=False leaves out the trainer's finalize."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import VirtualCluster
+    from repro_torch.core.elastic import ElasticTrainer
+    from repro_torch.optim.adamw import AdamWConfig, tree_leaves, tree_map
+
+    cfg = get_config("paper-demo")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=0, weight_decay=0.0,
+                      state_dtype=state_dtype)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    cluster = VirtualCluster(n_compute=2, ttl=2.0, device="cuda")
+    trainer = ElasticTrainer(cluster.template, cfg,
+                             ShapeConfig("phase24", 128, 8, "train"), tmp,
+                             opt=opt, ckpt_every=ckpt_every)
+    mgr = trainer.ckpt
+    times = {"save": [], "save_async": [], "restore": [], "step": []}
+    snaps, checked = {}, []
+    clone = lambda t: tree_map(lambda x: None if x is None else x.clone(), t)
+
+    def wrap(name):
+        fn = getattr(mgr, name)
+
+        def timed(*a, **kw):
+            if name != "restore":  # (step, state, metadata)
+                snaps[a[0]] = clone(a[1])
+            step = mgr.latest_step()  # restore's: the latest
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+            if name == "restore":
+                want = tree_leaves(snaps[step])
+                got = tree_leaves(out)
+                if len(got) != len(want) or not all(
+                        g.device.type == "cuda" and torch.equal(g, w)
+                        for g, w in zip(got, want)):
+                    fail(f"elastic {label}: the state restored at step "
+                         f"{step} is not the state saved there")
+                checked.append(step)
+            return out
+
+        setattr(mgr, name, timed)
+
+    for name in ("save", "save_async", "restore"):
+        wrap(name)
+    losses = []
+    try:
+        for i in range(steps):
+            if i == scale_at:
+                cluster.scale_to(3)
+                trainer.ensure_ready(planned=True)
+            if i == crash_at:
+                cluster.crash_node(cluster.compute_nodes()[-1])
+                cluster.pump(dt=10.0)  # let the TTL lapse
+                trainer.ensure_ready(planned=False)
+            cluster.pump(dt=0.1)
+            n_io = len(times["save_async"]) + len(times["restore"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = trainer.run_steps(1)  # ends in a host transfer (the loss)
+            # the first step builds the state; a step that saved is apart
+            if i and len(times["save_async"]) + len(times["restore"]) == \
+                    n_io:
+                times["step"].append(time.perf_counter() - t0)
+            losses.append((trainer.step, m["loss"]))
+        mgr.wait()
+        last = mgr.latest_step()
+        ckpt_bytes = (None if last is None else
+                      _dir_bytes(os.path.join(tmp, f"step_{last:08d}")))
+        if final_save:
+            trainer.finalize()
+        st = trainer.stats
+        stats = dict(epochs=st.epoch_changes, reshards=st.reshards,
+                     restores=st.restores, steps_lost=st.steps_lost,
+                     step=trainer.step, restored=checked)
+    finally:
+        cluster.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+        snaps.clear()
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    return losses, stats, times, ckpt_bytes
+
+
+def _ms(xs):
+    return (f"{1e3 * sum(xs) / len(xs):.1f} ms mean of {len(xs)}"
+            if xs else "none")
+
+
+def check_elastic(counted):
+    """Phase 24: the elastic runtime (ElasticTrainer, checkpoints, the data
+    pipeline) at full width and depth (elastic_run). Counts zeroed before
+    and read after: no kernel may launch. Checks: run B's counters (one
+    planned reshard and one rollback: JAX's semantics count the rollback's
+    restore as a reshard too, as its CLI's `reshards=2` does), every
+    restored state equal to the saved one on the card, run B's losses up
+    to the crash within twice the spread of run A against its repeats
+    (equal if they repeat bit for bit), run A's loss falling, every loss
+    finite, run C's counters, and the train CLI's smoke run on the card ending with the
+    JAX CLI's `done:` line. Returns the launches by kernel name."""
+    for op in counted:
+        op.launches = 0
+    t0 = time.perf_counter()
+    a, a_stats, a_times, a_bytes = elastic_run("A", "fp32", ELASTIC_STEPS)
+    repeats = [elastic_run(f"A{k}", "fp32", ELASTIC_SPREAD_STEPS,
+                           ckpt_every=10 ** 6, final_save=False)[0]
+               for k in (2, 3)]
+    b, b_stats, b_times, _ = elastic_run("B", "fp32", ELASTIC_STEPS,
+                                         scale_at=6, crash_at=13)
+    c, c_stats, c_times, c_bytes = elastic_run("C", "int8", 8, scale_at=4)
+    launches = {("flash_decode" if op.__name__ == "flash_decode_partials"
+                 else op.__name__): op.launches for op in counted}
+    n = ELASTIC_SPREAD_STEPS
+    first = [x for _, x in a[:n]]
+    runs = [first] + [[x for _, x in r[:n]] for r in repeats]
+    spread = max(abs(p - q) for r1 in runs for r2 in runs
+                 for p, q in zip(r1, r2))
+    b_err = max(abs(p - q) for (_, p), q in zip(b[:n], first))
+    print(f"elastic run A (paper-demo-110m, 12 layers, seq 128, batch 8, "
+          f"fp32 moments, 16 steps): loss "
+          f"{' '.join(f'{x:.4f}' for _, x in a)}; {a_stats}")
+    print(f"elastic run B (scale to 3 at step 6, crash at 13): loss "
+          f"{' '.join(f'{s}:{x:.4f}' for s, x in b)}; {b_stats}; losses "
+          f"up to the crash vs A: max |diff| {b_err:.3e}, the card's spread "
+          f"over 3 runs of {n} steps {spread:.3e}")
+    print(f"elastic run C (int8 moments, scale at 4): loss "
+          f"{' '.join(f'{x:.4f}' for _, x in c)}; {c_stats}")
+    for label, t, nbytes in (("A fp32", a_times, a_bytes),
+                             ("B fp32", b_times, None),
+                             ("C int8", c_times, c_bytes)):
+        print(f"elastic {label} on {card()}: train step {_ms(t['step'])}"
+              f" (steps that build, save or restore left out); sync save "
+              f"{_ms(t['save'])}; save_async blocking {_ms(t['save_async'])};"
+              f" restore {_ms(t['restore'])}"
+              + (f"; {nbytes} bytes a checkpoint" if nbytes else ""))
+    want_b = dict(epochs=3, reshards=2, restores=1, steps_lost=2,
+                  step=ELASTIC_STEPS - 2, restored=[6, 11])
+    if b_stats != want_b:
+        fail(f"elastic run B: counters {b_stats}, expected {want_b}")
+    want_c = dict(epochs=2, reshards=1, restores=0, steps_lost=0, step=8,
+                  restored=[4])
+    if c_stats != want_c:
+        fail(f"elastic run C: counters {c_stats}, expected {want_c}")
+    if a_stats["reshards"] or a_stats["step"] != ELASTIC_STEPS:
+        fail(f"elastic run A: counters {a_stats}")
+    if not b_err <= 2 * spread:
+        fail(f"elastic run B: losses differ from A's by {b_err:.3e}, more "
+             f"than twice the card's spread {spread:.3e}")
+    if not (all(math.isfinite(x) for _, x in a + b + c)
+            and a[-1][1] < a[0][1]):
+        fail("elastic: a loss is not finite or did not fall")
+    if any(launches.values()):
+        fail(f"elastic: the trainer launched {launches}")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as ck:
+        t1 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *ELASTIC_CLI,
+             "--ckpt-dir", ck], capture_output=True, text=True, env=env,
+            timeout=300)
+    lines = out.stdout.strip().splitlines()
+    if out.returncode != 0 or not lines or lines[-1] != ELASTIC_DONE:
+        fail(f"train CLI on the card: exit {out.returncode}, "
+             f"{out.stdout[-2000:]}{out.stderr[-2000:]}")
+    print(f"train CLI --smoke on the card ({time.perf_counter() - t1:.1f}s,"
+          f" a process of its own): {lines[-1]}")
+    print(f"elastic phase: {time.perf_counter() - t0:.1f}s; kernel "
+          f"launches {launches}")
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -3302,6 +3526,10 @@ def main():
     done(22)
     mod_paged, mod_flash, mod_launches = check_modality(counted, dev)
     done(23)
+    # 24. the elastic runtime: checkpoints, reshards and a rollback of a
+    # full-width training job, and the training CLI
+    elastic_launches = check_elastic(counted)
+    done(24)
     report[2]["rings_int8"] = ring_q
     report[2]["modality"] = {"gqa7 serving mix int8":
                              mod_paged.pop("gqa7 serving mix int8")}
@@ -3316,6 +3544,7 @@ def main():
             k["spec_launches"] = spec_launches[k["name"]]
         k["zoo_launches"] = zoo.get(k["name"], 0)
         k["rollout_launches"] = rollout_launches.get(k["name"], 0)
+        k["elastic_launches"] = elastic_launches.get(k["name"], 0)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": report}))

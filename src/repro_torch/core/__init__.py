@@ -1,7 +1,7 @@
 """The paper's contribution (P1-P4) as a composable runtime: registry,
-agents, simulated nodes, rendered hostfile and devices, autoscaler, and
-the VirtualCluster facade (port of the JAX package's core/, without the
-elastic trainer)."""
+agents, simulated nodes, rendered hostfile and devices, autoscaler, the
+VirtualCluster facade and the elastic trainer (port of the JAX package's
+core/)."""
 from repro_torch.core.agent import NodeAgent  # noqa: F401
 from repro_torch.core.autoscaler import (  # noqa: F401
     AutoScaler,
@@ -14,6 +14,7 @@ from repro_torch.core.autoscaler import (  # noqa: F401
 )
 from repro_torch.core.clock import Clock, ManualClock, RealClock  # noqa: F401
 from repro_torch.core.cluster import VirtualCluster  # noqa: F401
+from repro_torch.core.elastic import ElasticTrainer  # noqa: F401
 from repro_torch.core.image import ClusterImage, ImageHub  # noqa: F401
 from repro_torch.core.membership import (  # noqa: F401
     HPC_SERVICE,

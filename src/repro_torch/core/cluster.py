@@ -4,7 +4,8 @@ Port of the JAX package's core/cluster.py. Wires together:
 ReplicatedRegistry (Consul trio) + SimCluster (blades & containers) +
 MeshTemplate (consul-template) + AutoScaler. `submit()` is the `mpirun`
 analogue: run a function over the currently rendered device list (the
-hostfile's devices). The elastic trainer stays with the training slice.
+hostfile's devices). A training job that lives through the cluster's
+membership epochs is core/elastic.py's ElasticTrainer over `template`.
 """
 from __future__ import annotations
 

@@ -14,7 +14,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.sampling.ops import topk_topp_mask
 from repro_torch.models import model as Mo
 from repro_torch.models.env import Env
-from repro_torch.optim.adamw import AdamWConfig, adamw_update, value_and_grad
+from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
+                                     value_and_grad)
 
 # Packed per-row step metadata: one [META_I_ROWS,T] int32 + one
 # [META_F_ROWS,T] float32 upload per decode step (ReplicaEngine.step_decode
@@ -47,6 +48,13 @@ def make_train_step(cfg: ModelConfig, env: Env, opt: AdamWConfig):
                 {"loss": loss, **{k: v.detach() for k, v in metrics.items()}})
 
     return train_step
+
+
+def state_struct(cfg: ModelConfig, env: Env, opt: AdamWConfig):
+    """make_train_state's tree as meta-device tensors: shapes and dtypes,
+    no storage (the JAX package's jax.eval_shape of it)."""
+    params = Mo.init_params(cfg, env, device="meta")
+    return {"params": params, "opt": adamw_init(params, opt)}
 
 
 def make_prefill_step(cfg: ModelConfig, env: Env):

@@ -1,14 +1,19 @@
-"""Execution environment threaded through model code (single device).
+"""Execution environment threaded through model code.
 
 The JAX package's Env carries a device mesh and a ParallelPlan and pads
-heads and vocabulary for its tensor-parallel degree. The port runs on one
-device, so the degree is 1 and the padding helpers reduce to their tp=1
+heads and vocabulary for its tensor-parallel degree. The port's Env
+carries an optional mesh too: a torch DeviceMesh, or a shape-only mesh
+from launch/mesh.py (axis names and sizes, no ranks) for resolving the
+sharding rules (parallel/rules.py). The model computes on one device:
+`check_single_device` refuses a mesh of more than one device, so the tp
+degree the model sees is 1 and the padding helpers reduce to their tp=1
 values; they stay functions of (cfg, env) so shapes are computed exactly
 where the JAX package computes them.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Tuple
 
 from repro_torch.configs.base import ModelConfig, ParallelPlan
 
@@ -25,13 +30,65 @@ SERVE_PLAN = ParallelPlan(fsdp=False, remat="full", attn_impl="pallas",
                           kv_cache="replicated")
 
 
+def mesh_axes(mesh) -> Dict[str, int]:
+    """Axis name -> size of a DeviceMesh or a shape-only mesh (both carry
+    `mesh_dim_names` and `shape`)."""
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
 @dataclass(frozen=True)
 class Env:
     plan: ParallelPlan = field(default_factory=lambda: SERVE_PLAN)
+    mesh: Optional[Any] = None
+
+    # ---- axis helpers (the JAX package's models/env.py) ---------------------
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return tuple(self.mesh.mesh_dim_names) if self.mesh is not None \
+            else ()
+
+    @property
+    def dp_axes(self) -> Tuple[str, ...]:
+        return tuple(a for a in self.plan.dp_axes if a in self.axis_names)
+
+    @property
+    def dpx(self) -> Tuple[str, ...]:
+        return self.dp_axes
+
+    @property
+    def tp_axis(self) -> Optional[str]:
+        return self.plan.tp_axis if self.plan.tp_axis in self.axis_names \
+            else None
 
     @property
     def tp(self) -> int:
-        return 1
+        if self.mesh is None or self.tp_axis is None:
+            return 1
+        return mesh_axes(self.mesh)[self.tp_axis]
+
+    @property
+    def dp(self) -> int:
+        if self.mesh is None:
+            return 1
+        axes = mesh_axes(self.mesh)
+        n = 1
+        for a in self.dp_axes:
+            n *= axes[a]
+        return n
+
+
+def check_single_device(env: Env) -> None:
+    """The model computes on one device: a mesh of more than one device
+    (a sharded forward, padded heads over tp) is the multi-rank slice's
+    work (ROADMAP.md, queue 1 item 8)."""
+    if env.mesh is not None:
+        n = 1
+        for size in mesh_axes(env.mesh).values():
+            n *= size
+        if n > 1:
+            raise NotImplementedError(
+                f"the port's model computes on one device; a mesh of {n} "
+                "devices (sharded train step, FSDP/TP) is ROADMAP item 8")
 
 
 def head_pad(cfg: ModelConfig, env: Env) -> int:

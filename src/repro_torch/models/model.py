@@ -55,7 +55,8 @@ from repro_torch.kernels.paged_decode import ops as pd_ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
-from repro_torch.models.env import Env, head_pad, kv_head_pad, vocab_pad
+from repro_torch.models.env import (Env, check_single_device, head_pad,
+                                    kv_head_pad, vocab_pad)
 
 Pytree = Any
 
@@ -174,6 +175,12 @@ def _stacked(make, n: int):
     return out
 
 
+class _MetaGenerator(torch.Generator):
+    """A generator whose draws land on the meta device (shapes only): the
+    initialisers place their tensors on `gen.device`."""
+    device = torch.device("meta")
+
+
 def init_params(cfg: ModelConfig, env: Env, *, seed: int = 0,
                 device="cuda") -> Pytree:
     """Seeded random parameters with the JAX package's shapes, dtypes and
@@ -183,10 +190,16 @@ def init_params(cfg: ModelConfig, env: Env, *, seed: int = 0,
     as the reference lays it out: "enc_blocks", one "enc" unit stacked
     encoder_layers deep, and "enc_norm". Drawn from a torch.Generator on
     `device`, so the values are not jax's; tests that compare the two
-    packages bridge jax's parameters instead (repro_torch/bridge.py)."""
+    packages bridge jax's parameters instead (repro_torch/bridge.py).
+    device="meta" gives the tree's shapes and dtypes with no storage (the
+    port's jax.eval_shape: launch/steps.py state_struct)."""
     check_supported(cfg)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    check_single_device(env)
+    if torch.device(device).type == "meta":
+        gen = _MetaGenerator()
+    else:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
     d, vp = cfg.d_model, vocab_pad(cfg, env)
     params = {
         "embed": L.dense_init(gen, vp, d),
@@ -1011,8 +1024,10 @@ def forward(params, tokens, cfg: ModelConfig, env: Env, mode: str = "decode",
 
     Every row-wise op runs on rows padded to a multiple of layers.ROW_TILE
     (batch invariance, see models/layers.py); the padding rows never touch
-    the cache."""
+    the cache. An env whose mesh spans more than one device raises
+    NotImplementedError (models/env.py check_single_device)."""
     check_supported(cfg)
+    check_single_device(env)
     if mode == "prefill":
         return _prefill(params, tokens, cfg, last_only, vision_embeds, frames)
     if mode == "train":

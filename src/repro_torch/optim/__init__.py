@@ -9,3 +9,4 @@ from repro_torch.optim.adamw import (  # noqa: F401
     tree_map,
     value_and_grad,
 )
+from repro_torch.optim.compress import ef_psum_grads, init_error  # noqa: F401
