@@ -202,7 +202,27 @@ Phases, any failure exits non-zero before the result line:
      blocking part of save_async and restore wall times and the bytes of
      a checkpoint printed with the card's name and power limit; then
      `python -m repro_torch.launch.train --smoke` on the card (scale to 3
-     at 8, crash at 14) ends with the JAX CLI's `done:` line.
+     at 8, crash at 14) ends with the JAX CLI's `done:` line;
+ 25. training across ranks (models/model.py's sharded train forward,
+     parallel/collectives.py, models/moe.py's ep and tp modes, the
+     elastic trainer over a rendered DeviceMesh). Part (a), one rank of
+     an NCCL group and a 1 x 1 (data, model) mesh: paper-demo-110m at full
+     width and depth, B=8 S=128, fsdp, 5 sharded steps, the losses
+     within twice the one-device step's spread over 3 runs (equal if it
+     is 0); grok-1-314b's MoE layer at full width in ep and tp modes
+     against the one-device layer (relative RMS within 2^-8, the aux
+     loss equal); the elastic trainer over the mesh its cluster renders,
+     at 2 layers, through a planned scale and a lost node (counters, every
+     restored state equal to the saved one); the train CLI under
+     torchrun (one NCCL rank) ends with the JAX CLI's `done:` line.
+     Part (b), two processes
+     sharing the card over a gloo group with CUDA tensors, a (1, 2) mesh:
+     the dense step at 2 layers against part (a)'s (the first loss within
+     5e-5 relative, the later ones within 1e-2), the ep layer's ranks
+     against the one-device layer on each rank's positions. The sharded
+     and one-device step times and each rank's peak memory are printed
+     with the card's name and power limit; counts zeroed before and read
+     after, the ranks' too: no kernel launched (`sharded_launches`).
 Each phase's wall time is printed as it ends.
 Phase 2 also holds the quant kernel to its plain version and to the bf16
 kernel on the same pool (relative RMS), the flash-attention kernel to its
@@ -2909,8 +2929,15 @@ def _dir_bytes(path):
                for n in os.listdir(path))
 
 
+def _whole(x):
+    """A DTensor gathered whole (a collective over its mesh); a tensor as
+    it is."""
+    from torch.distributed.tensor import DTensor
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
 def elastic_run(label, state_dtype, steps, *, scale_at=None, crash_at=None,
-                ckpt_every=5, final_save=True):
+                ckpt_every=5, final_save=True, cfg=None):
     """One ElasticTrainer run on a VirtualCluster over the card (2 nodes,
     TTL 2 s) in a temporary checkpoint directory, removed after. The
     checkpoint manager's save, save_async and restore are wrapped: each
@@ -2920,7 +2947,10 @@ def elastic_run(label, state_dtype, steps, *, scale_at=None, crash_at=None,
     every leaf must torch.equal the snapshot of the step it restored.
     Returns the losses by step (in order: a rollback repeats steps), the
     trainer's counters, the times and the bytes of one checkpoint (None
-    without one). final_save=False leaves out the trainer's finalize."""
+    without one). final_save=False leaves out the trainer's finalize.
+    cfg: the model (paper-demo-110m by default). Under a process group
+    the cluster renders a DeviceMesh over its ranks and the state's
+    leaves are DTensors, compared gathered."""
     import shutil
     import tempfile
     import torch
@@ -2930,7 +2960,7 @@ def elastic_run(label, state_dtype, steps, *, scale_at=None, crash_at=None,
     from repro_torch.core.elastic import ElasticTrainer
     from repro_torch.optim.adamw import AdamWConfig, tree_leaves, tree_map
 
-    cfg = get_config("paper-demo")
+    cfg = cfg or get_config("paper-demo")
     opt = AdamWConfig(lr=1e-3, warmup_steps=0, weight_decay=0.0,
                       state_dtype=state_dtype)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
@@ -2959,7 +2989,8 @@ def elastic_run(label, state_dtype, steps, *, scale_at=None, crash_at=None,
                 want = tree_leaves(snaps[step])
                 got = tree_leaves(out)
                 if len(got) != len(want) or not all(
-                        g.device.type == "cuda" and torch.equal(g, w)
+                        g.device.type == "cuda"
+                        and torch.equal(_whole(g), _whole(w))
                         for g, w in zip(got, want)):
                     fail(f"elastic {label}: the state restored at step "
                          f"{step} is not the state saved there")
@@ -3095,6 +3126,331 @@ def check_elastic(counted):
           f" a process of its own): {lines[-1]}")
     print(f"elastic phase: {time.perf_counter() - t0:.1f}s; kernel "
           f"launches {launches}")
+    return launches
+
+
+# phase 25: training across ranks
+SHARDED_STEPS = 5  # paper-demo-110m, full width and depth, B=8 S=128
+SHARDED_SPREAD_RUNS = 3  # one-device runs: the card's run-to-run spread
+SHARDED_B_LAYERS = 2  # part (b)'s dense step: paper-demo-110m, cut depth
+SHARDED_B_STEPS = 3
+# part (b) against part (a), two tp ranks against one: the first loss
+# within STEP1_TOL relative (tests/test_torch_sharded.py: the row
+# products' tp shares summed in f32 in another order, the log-sum-exp
+# over the vocabulary's shards), the later ones within LATER_TOL (each
+# rank's gradient shares rounded to bf16 before they are summed; lr 1e-3
+# without warmup takes the loss from 10.9 to 4.1 in three steps)
+SHARDED_STEP1_TOL = 5e-5
+SHARDED_LATER_TOL = 1e-2
+# grok-1-314b's MoE layer, the ranks' outputs against the one-device
+# layer on the same tokens: relative RMS within one bf16 rounding
+SHARDED_MOE_RMS = 2.0 ** -8
+SHARDED_MOE_X = (2, 256)  # the layer's input, batch x positions
+
+
+def sharded_plan(fsdp=True):
+    """The sharded step's plan: phase 20's (attention_naive at S <= 128),
+    with FSDP."""
+    from repro_torch.configs.base import ParallelPlan
+    return ParallelPlan(fsdp=fsdp, remat="nothing", attn_impl="xla_chunked",
+                        kv_cache="replicated")
+
+
+def sharded_steps(cfg, env, steps):
+    """`steps` make_train_step steps from Mo.init_params(seed 0) on a fixed
+    batch (B=8, S=128, lr 1e-3, no warmup): over env.mesh with the state
+    and the batch placed by parallel/rules.py, else on one device.
+    Returns (losses, the wall time of each step after the first, peak
+    device memory in GiB)."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps as St
+    from repro_torch.models import model as Mo
+    from repro_torch.models.env import Env
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.parallel import rules as R
+
+    torch.cuda.reset_peak_memory_stats()
+    opt = AdamWConfig(lr=1e-3, warmup_steps=0, weight_decay=0.0)
+    params = Mo.init_params(cfg, Env(plan=env.plan), seed=0, device="cuda")
+    state = {"params": params, "opt": adamw_init(params, opt)}
+    batch = train_batch(cfg, 8, 128, "cuda")
+    if env.mesh is not None:
+        state = R.apply_shardings(
+            state, R.state_specs(St.state_struct(cfg, env, opt), cfg, env),
+            env)
+        batch = R.apply_shardings(batch, R.batch_specs(
+            batch, cfg, ShapeConfig("s", 128, 8, "train"), env), env)
+    step = St.make_train_step(cfg, env, opt)
+    losses, times = [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))  # a host transfer ends the step
+        if i:
+            times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, times, peak
+
+
+def moe_inputs(cfg):
+    """grok-1-314b's MoE layer at full width: seeded weights (one layer,
+    drawn on the card) and a seeded input [SHARDED_MOE_X, d] bf16."""
+    import torch
+    from repro_torch.models import moe as M
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    p = M.init_moe(gen, cfg)
+    x = torch.randn(SHARDED_MOE_X + (cfg.d_model,), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    return p, x
+
+
+def rel_rms(got, want):
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp_min(1e-30))
+
+
+def sharded_rank(rank, store, out):
+    """Part (b) of phase 25, one of two processes sharing the card: a gloo
+    group with CUDA tensors, a (1, 2) (data, model) DeviceMesh. The dense
+    step at SHARDED_B_LAYERS layers and full width, then grok-1-314b's MoE
+    layer in ep mode (4 experts a rank: each rank's slice of the
+    experts, its own positions); writes the losses, step times, peak
+    memory, the layer's output for this rank's positions and the launch
+    counts of the seven kernels (they must stay 0) to out.<rank>.json /
+    .pt."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels  # noqa: F401  (the counted ops)
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_decode.ops import flash_decode_partials
+    from repro_torch.kernels.paged_decode.ops import (
+        paged_flash_decode, paged_flash_decode_quant)
+    from repro_torch.kernels.rglru.ops import rglru_scan
+    from repro_torch.kernels.rwkv6.ops import wkv6
+    from repro_torch.kernels.sampling.ops import topk_topp_mask
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import moe as M
+    from repro_torch.models.env import Env
+
+    counted = (paged_flash_decode, paged_flash_decode_quant, topk_topp_mask,
+               flash_attention, rglru_scan, wkv6, flash_decode_partials)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="file://" + store, rank=rank,
+                            world_size=2)
+    mesh = make_test_mesh(2, model=2)
+    env = Env(plan=sharded_plan(), mesh=mesh)
+    cfg = dataclasses.replace(get_config("paper-demo"),
+                              n_layers=SHARDED_B_LAYERS)
+    losses, times, peak = sharded_steps(cfg, env, SHARDED_B_STEPS)
+    grok = get_config("grok-1-314b")
+    p, x = moe_inputs(grok)
+    el = grok.moe.num_experts // 2
+    local = {"router": p["router"], **{
+        k: p[k][rank * el:(rank + 1) * el].clone()
+        for k in ("w_gate", "w_up", "w_down")}}  # apply_shardings' ep split
+    del p
+    torch.cuda.empty_cache()
+    ep = Env(plan=sharded_plan(fsdp=False), mesh=mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y, aux = M.moe_layer(local, x, grok, ep)
+    torch.cuda.synchronize()
+    moe_s = time.perf_counter() - t0
+    half = SHARDED_MOE_X[1] // 2
+    torch.save(y[:, rank * half:(rank + 1) * half].cpu(), f"{out}.{rank}.pt")
+    with open(f"{out}.{rank}.json", "w") as f:
+        json.dump({"losses": losses, "times": times, "peak_gib": peak,
+                   "moe_s": moe_s, "aux": float(aux),
+                   "peak_moe_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                   "launches": {op.__name__: op.launches for op in counted}},
+                  f)
+    dist.destroy_process_group()
+
+
+def check_sharded(counted):
+    """Phase 25: training across ranks. Part (a), one rank of an NCCL group
+    and a 1 x 1 (data, model) DeviceMesh: paper-demo-110m at full width
+    and depth through the sharded train step (fsdp, SHARDED_STEPS steps)
+    against the one-device step (SHARDED_SPREAD_RUNS runs: the card's
+    run-to-run spread; the sharded losses within twice it, equal if it is
+    0), grok-1-314b's MoE layer at full width in ep and tp modes against
+    the one-device layer (SHARDED_MOE_RMS), and the ElasticTrainer over
+    the mesh its VirtualCluster renders through one planned scale and
+    one lost node (elastic_run at 2 layers: counters, every restored
+    state equal to the saved one), and the train CLI under torchrun (its
+    `done:` line). Part (b), two processes sharing the
+    card over a gloo group with CUDA tensors (every collective the step
+    uses carries them: all_gather_into_tensor, reduce_scatter_tensor,
+    all_reduce, all_to_all_single), a (1, 2) mesh (sharded_rank): the
+    dense step at 2 layers against part (a)'s and the ep layer's ranks
+    against the one-device layer on each rank's tokens. Counts zeroed
+    before and read after, the children's too: none of the seven kernels
+    is launched. Returns the launches by kernel name."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import moe as M
+    from repro_torch.models.env import Env
+
+    for op in counted:
+        op.launches = 0
+    t0 = time.perf_counter()
+    cfg = get_config("paper-demo")
+    cut = dataclasses.replace(cfg, n_layers=SHARDED_B_LAYERS)
+    singles = [sharded_steps(cfg, Env(plan=sharded_plan()), SHARDED_STEPS)
+               for _ in range(SHARDED_SPREAD_RUNS)]
+    spread = max(abs(a - b) for r1 in singles for r2 in singles
+                 for a, b in zip(r1[0], r2[0]))
+    grok = get_config("grok-1-314b")
+    store = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            rank=0, world_size=1)
+    try:
+        env = Env(plan=sharded_plan(), mesh=make_test_mesh(1, model=1))
+        losses, times, peak = sharded_steps(cfg, env, SHARDED_STEPS)
+        err = max(abs(a - b) for a, b in zip(losses, singles[0][0]))
+        print(f"sharded train step over a 1 x 1 NCCL mesh (paper-demo-110m, "
+              f"12 layers, B=8 S=128, fsdp, {SHARDED_STEPS} steps): loss "
+              f"{' '.join(f'{x:.6f}' for x in losses)}; one device "
+              f"{' '.join(f'{x:.6f}' for x in singles[0][0])}; max |diff| "
+              f"{err:.3e}, the card's spread over {SHARDED_SPREAD_RUNS} "
+              f"one-device runs {spread:.3e}")
+        print(f"on {card()}: sharded step {_ms(times)}, one-device step "
+              f"{_ms(singles[0][1])}; peak memory {peak:.2f} GiB sharded, "
+              f"{singles[0][2]:.2f} GiB one device")
+        if not err <= 2 * spread:
+            fail(f"sharded step over 1 x 1: losses differ from the one-device"
+                 f" step's by {err:.3e}, more than twice the spread "
+                 f"{spread:.3e}")
+        cut_losses = sharded_steps(cut, env, SHARDED_B_STEPS)[0]
+        p, x = moe_inputs(grok)
+        y1, aux1 = M.moe_layer(p, x, grok)
+        half = SHARDED_MOE_X[1] // 2
+        halves = [M.moe_layer(p, x[:, r * half:(r + 1) * half], grok)[0]
+                  .cpu() for r in range(2)]
+        moe_err = {}
+        for mode in ("ep", "tp"):
+            menv = Env(plan=dataclasses.replace(sharded_plan(),
+                                                moe_mode=mode),
+                       mesh=env.mesh)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            y, aux = M.moe_layer(p, x, grok, menv)
+            torch.cuda.synchronize()
+            moe_err[mode] = (rel_rms(y, y1), float(aux) - float(aux1),
+                             time.perf_counter() - t1)
+        del p, x, y, y1
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"grok-1-314b MoE layer at full width over the 1 x 1 mesh "
+              f"(tokens {SHARDED_MOE_X}): relative RMS against the "
+              f"one-device layer and aux difference "
+              + ", ".join(f"{m} {e:.3e} / {a:.3e} ({t * 1e3:.1f} ms)"
+                          for m, (e, a, t) in moe_err.items())
+              + f" (tolerance {SHARDED_MOE_RMS:.3e})")
+        if not all(e <= SHARDED_MOE_RMS and a == 0.0
+                   for e, a, _ in moe_err.values()):
+            fail(f"MoE layer over the 1 x 1 mesh: {moe_err}")
+        d, d_stats, d_times, _ = elastic_run("D", "fp32", 8, scale_at=3,
+                                             crash_at=6, ckpt_every=2,
+                                             cfg=cut)
+        want_d = dict(epochs=3, reshards=2, restores=1, steps_lost=1, step=7,
+                      restored=[3, 5])
+        print(f"elastic run D over the rendered 1 x 1 mesh (paper-demo-110m "
+              f"at 2 layers, scale to 3 at step 3, crash at 6): loss "
+              f"{' '.join(f'{s}:{x:.4f}' for s, x in d)}; {d_stats}; train "
+              f"step {_ms(d_times['step'])} on {card()}")
+        if d_stats != want_d:
+            fail(f"elastic run D: counters {d_stats}, expected {want_d}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    # the train CLI under torchrun (one NCCL rank on the card)
+    env_b = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_torchrun_") as ck:
+        t1 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "1", "-m", "repro_torch.launch.train",
+             *ELASTIC_CLI, "--ckpt-dir", ck], capture_output=True,
+            text=True, env=env_b, timeout=300)
+    lines = out.stdout.strip().splitlines()
+    if out.returncode != 0 or not lines or lines[-1] != ELASTIC_DONE:
+        fail(f"train CLI under torchrun: exit {out.returncode}, "
+             f"{out.stdout[-2000:]}{out.stderr[-2000:]}")
+    print(f"train CLI --smoke under torchrun, one NCCL rank on the card "
+          f"({time.perf_counter() - t1:.1f}s): {lines[-1]}")
+    # part (b): two processes on the card, a (1, 2) mesh over gloo
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    t1 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+         "--sharded-rank", str(r), f"{tmp}/store", f"{tmp}/out"],
+        env=env_b, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+    logs = []
+    for proc in procs:
+        try:
+            logs.append(proc.communicate(timeout=400)[0])
+        finally:
+            proc.kill()
+    if any(proc.returncode != 0 for proc in procs):
+        fail("phase 25 part (b): a rank failed:\n" + "\n".join(
+            log[-3000:] for log in logs))
+    ranks = []
+    for r in range(2):
+        with open(f"{tmp}/out.{r}.json") as f:
+            ranks.append(json.load(f))
+        ranks[r]["moe_rms"] = rel_rms(torch.load(f"{tmp}/out.{r}.pt"),
+                                      halves[r])
+    shutil.rmtree(tmp, ignore_errors=True)
+    wall_b = time.perf_counter() - t1
+    b_losses = ranks[0]["losses"]
+    moe_rms = " ".join(f"{rep['moe_rms']:.3e}" for rep in ranks)
+    moe_ms = " ".join(f"{rep['moe_s'] * 1e3:.1f} ms" for rep in ranks)
+    step_err = [abs(a - b) / abs(b) for a, b in zip(b_losses, cut_losses)]
+    print(f"part (b), two processes on the card over gloo (CUDA tensors), a "
+          f"(1, 2) mesh, {wall_b:.1f}s with their start: paper-demo-110m at "
+          f"{SHARDED_B_LAYERS} layers, loss "
+          f"{' '.join(f'{x:.6f}' for x in b_losses)} against the 1 x 1 "
+          f"mesh's {' '.join(f'{x:.6f}' for x in cut_losses)} (relative "
+          f"{' '.join(f'{e:.2e}' for e in step_err)}; tolerance "
+          f"{SHARDED_STEP1_TOL:.0e} first, {SHARDED_LATER_TOL:.0e} after); "
+          f"grok-1-314b MoE layer in ep mode, each rank's positions against "
+          f"the one-device layer on them: relative RMS {moe_rms} "
+          f"({moe_ms})")
+    for r, rep in enumerate(ranks):
+        print(f"part (b) rank {r} on {card()}: sharded step "
+              f"{_ms(rep['times'])}, peak memory {rep['peak_gib']:.2f} GiB "
+              f"(dense step), {rep['peak_moe_gib']:.2f} GiB (with the MoE "
+              f"layer)")
+    if not (ranks[0]["losses"] == ranks[1]["losses"]
+            and step_err[0] <= SHARDED_STEP1_TOL
+            and all(e <= SHARDED_LATER_TOL for e in step_err[1:])):
+        fail(f"part (b): losses {[rep['losses'] for rep in ranks]} against "
+             f"{cut_losses}")
+    if not all(rep["moe_rms"] <= SHARDED_MOE_RMS for rep in ranks):
+        fail(f"part (b): MoE layer relative RMS {moe_rms}")
+    launches = {("flash_decode" if op.__name__ == "flash_decode_partials"
+                 else op.__name__): op.launches for op in counted}
+    child = {k: sum(rep["launches"].get(k, 0) for rep in ranks) for k in
+             ("paged_flash_decode", "paged_flash_decode_quant",
+              "topk_topp_mask", "flash_attention", "rglru_scan", "wkv6",
+              "flash_decode_partials")}
+    if any(launches.values()) or any(child.values()):
+        fail(f"phase 25 launched {launches}, its ranks {child}")
+    print(f"sharded phase: {time.perf_counter() - t0:.1f}s; kernel launches "
+          f"{launches}, part (b)'s ranks {child}")
     return launches
 
 
@@ -3530,6 +3886,11 @@ def main():
     # full-width training job, and the training CLI
     elastic_launches = check_elastic(counted)
     done(24)
+    # 25. training across ranks: the sharded step, the MoE layer's ep and
+    # tp modes and the elastic trainer over a rendered mesh, on one rank
+    # of NCCL and on two processes sharing the card over gloo
+    sharded_launches = check_sharded(counted)
+    done(25)
     report[2]["rings_int8"] = ring_q
     report[2]["modality"] = {"gqa7 serving mix int8":
                              mod_paged.pop("gqa7 serving mix int8")}
@@ -3545,6 +3906,7 @@ def main():
         k["zoo_launches"] = zoo.get(k["name"], 0)
         k["rollout_launches"] = rollout_launches.get(k["name"], 0)
         k["elastic_launches"] = elastic_launches.get(k["name"], 0)
+        k["sharded_launches"] = sharded_launches.get(k["name"], 0)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": report}))
@@ -3556,4 +3918,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-rank"]:  # phase 25's part (b)
+        sharded_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        sys.exit(0)
     sys.exit(main())

@@ -36,3 +36,57 @@ def to_torch(tree: Any, device="cuda") -> Any:
     else:
         t = torch.from_numpy(a)
     return t.to(device)
+
+
+def pad_for_mesh(params: Any, cfg, env) -> Any:
+    """A one-device parameter tree (heads and vocabulary padded for tp 1)
+    padded with zeros into env's tp layout, the shapes the JAX package's
+    init_params gives under that mesh (head_pad, vocab_pad): the
+    vocabulary's embed rows and unembed columns appended, and the query
+    heads padded inside each KV group (G heads a group become
+    head_pad / Hkv, so every real head keeps its KV head); an MHA arch
+    pads its KV heads alongside, appended. A padded head's wq columns and
+    wo rows are zero, so it adds nothing to the output."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.env import Env, head_pad, kv_head_pad, vocab_pad
+    one = Env(plan=env.plan)
+    hq0, hq1 = head_pad(cfg, one), head_pad(cfg, env)
+    hkv0, hkv1 = kv_head_pad(cfg, one), kv_head_pad(cfg, env)
+    hd = cfg.head_dim
+    dv = vocab_pad(cfg, env) - vocab_pad(cfg, one)
+
+    def heads(x, dim, n0, n1, groups):
+        """Pad dim (n0 * hd wide) to n1 * hd: within `groups` groups."""
+        if n1 == n0:
+            return x
+        shape = x.shape
+        dim = dim % x.dim()
+        x = x.reshape(shape[:dim] + (groups, n0 // groups, hd)
+                      + shape[dim + 1:])
+        pad = [0, 0] * (x.dim() - dim - 2) + [0, (n1 - n0) // groups]
+        return F.pad(x, pad).reshape(shape[:dim] + (n1 * hd,)
+                                     + shape[dim + 1:])
+
+    def attn(p):
+        g = 1 if hkv1 != hkv0 else hkv0  # MHA appends, GQA pads in groups
+        out = dict(p)
+        out["wq"] = heads(p["wq"], -1, hq0, hq1, g)
+        out["wo"] = heads(p["wo"], -2, hq0, hq1, g)
+        if "bq" in p:
+            out["bq"] = heads(p["bq"], -1, hq0, hq1, g)
+        for n in ("wk", "wv", "bk", "bv"):
+            if n in p:
+                out[n] = heads(p[n], -1, hkv0, hkv1, 1)
+        return out
+
+    def unit(u):
+        return {k: attn(v) if k in ("attn", "xattn") else v
+                for k, v in u.items()}
+
+    out = dict(params)
+    out["blocks"] = tuple(unit(u) for u in params["blocks"])
+    out["tail"] = tuple(unit(u) for u in params["tail"])
+    out["embed"] = F.pad(params["embed"], (0, 0, 0, dv))
+    out["unembed"] = F.pad(params["unembed"], (0, dv))
+    return out

@@ -22,6 +22,13 @@ subtree, as jax.tree_util has it: it has no key and no file.
 Features: atomic publish (tmp dir + rename), retention of the last K,
 async save (a host copy taken before save_async returns, file IO on a
 background thread, wait()), integrity checks on restore.
+
+Under a process group (one process per rank) save, save_async and wait
+are entered by every rank alike: the ranks that hold the state (a tree
+of DTensors over a DeviceMesh; None on a rank outside it) gather each
+leaf whole, the lowest of them writes, and save and wait end in a
+barrier over the world, so every rank then reads the same directory.
+restore is entered by the ranks of the target mesh.
 """
 from __future__ import annotations
 
@@ -67,7 +74,11 @@ def _flatten_with_paths(tree: Pytree) -> Dict[str, Any]:
 def _host_copy(leaf: torch.Tensor) -> np.ndarray:
     """A C-ordered numpy array that owns its data (never a view of a live
     tensor, which an in-place optimizer step would change under a
-    background write); bf16 as its uint16 bits."""
+    background write); bf16 as its uint16 bits. A DTensor is gathered
+    whole first (a collective over its mesh)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     t = leaf.detach().contiguous()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).to("cpu", copy=True).numpy().view(
@@ -93,9 +104,39 @@ def _safe(key: str) -> str:
     return "".join(c if (c.isalnum() or c in "._-") else "_" for c in key)
 
 
+def _distributed() -> bool:
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized()
+
+
+def _writes(state: Pytree) -> bool:
+    """Whether this process writes `state`: always without a process
+    group; under one, the lowest rank of the mesh its DTensors span (a
+    rank outside it holds None)."""
+    if not _distributed():
+        return True
+    if state is None:
+        return False
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    for leaf in _flatten_with_paths(state).values():
+        if isinstance(leaf, DTensor):
+            return dist.get_rank() == int(leaf.device_mesh.mesh.min())
+    return True
+
+
+def _barrier() -> None:
+    if _distributed():
+        import torch.distributed as dist
+        dist.barrier()
+
+
 def _host_leaves(state: Pytree) -> Dict[str, tuple]:
-    """key -> (host copy, numpy dtype name) for every leaf of `state`."""
+    """key -> (host copy, numpy dtype name) for every leaf of `state`
+    (None: no leaves, a rank outside the state's mesh)."""
     out = {}
+    if state is None:
+        return out
     for k, v in _flatten_with_paths(state).items():
         a = _host_copy(v)
         out[k] = (a, "bfloat16" if v.dtype == torch.bfloat16
@@ -116,7 +157,12 @@ class CheckpointManager:
     def save(self, step: int, state: Pytree,
              metadata: Optional[Dict[str, Any]] = None) -> str:
         """Synchronous save; atomic publish via rename."""
-        return self._write(step, _host_leaves(state), metadata)
+        flat = _host_leaves(state)
+        final = os.path.join(self.dir, f"step_{step:08d}")
+        if _writes(state):
+            final = self._write(step, flat, metadata)
+        _barrier()
+        return final
 
     def _write(self, step: int, flat: Dict[str, tuple],
                metadata: Optional[Dict[str, Any]]) -> str:
@@ -148,8 +194,9 @@ class CheckpointManager:
         place as soon as this returns); file IO in the background."""
         flat = _host_leaves(state)
         with self._lock:
-            self._pending = self._pool.submit(self._write, step, flat,
-                                              metadata)
+            if _writes(state):
+                self._pending = self._pool.submit(self._write, step, flat,
+                                                  metadata)
             return self._pending
 
     def wait(self) -> None:
@@ -157,6 +204,7 @@ class CheckpointManager:
             pending = self._pending
         if pending is not None:
             pending.result()
+        _barrier()
 
     def _retain(self) -> None:
         steps = self.available_steps()
@@ -184,8 +232,8 @@ class CheckpointManager:
 
         Each leaf lands on `device`; without one, on its target leaf's
         device, and a meta target's leaf on the card ("cuda", the port's
-        default device). Where `shardings` (to_shardings' tree: None or a
-        (DeviceMesh, placements) pair per leaf) has an entry, the leaf is
+        default device). Where `shardings` (parallel/rules.py
+        to_shardings' tree: a Placed per leaf) has an entry, the leaf is
         distributed over that mesh instead."""
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -212,9 +260,8 @@ class CheckpointManager:
             sh = flat_shard.get(key)
             if sh is not None:
                 from torch.distributed.tensor import distribute_tensor
-                mesh, placements = sh
-                out[key] = distribute_tensor(arr.to(mesh.device_type), mesh,
-                                             placements)
+                out[key] = distribute_tensor(arr.to(sh.mesh.device_type),
+                                             sh.mesh, sh.placements)
                 continue
             dev = device
             if dev is None:

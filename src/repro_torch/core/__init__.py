@@ -28,6 +28,8 @@ from repro_torch.core.registry import (  # noqa: F401
 from repro_torch.core.simnet import SimCluster  # noqa: F401
 from repro_torch.core.template import (  # noqa: F401
     MeshTemplate,
+    default_mesh_rule,
     render_devices,
     render_hostfile,
+    render_mesh,
 )

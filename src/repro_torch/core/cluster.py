@@ -6,6 +6,9 @@ MeshTemplate (consul-template) + AutoScaler. `submit()` is the `mpirun`
 analogue: run a function over the currently rendered device list (the
 hostfile's devices). A training job that lives through the cluster's
 membership epochs is core/elastic.py's ElasticTrainer over `template`.
+Under a process group every rank builds the same cluster (a seeded
+control plane under its manual clock) and the template renders a
+DeviceMesh over the ranks the live members contribute.
 """
 from __future__ import annotations
 
@@ -23,9 +26,16 @@ from repro_torch.core.simnet import SimCluster
 from repro_torch.core.template import MeshTemplate, Rendering
 
 
-def device_pool(device) -> List[torch.device]:
-    """The real devices simulated nodes map onto: every card for "cuda",
-    the one named device otherwise ("cuda:1", "cpu")."""
+def device_pool(device) -> List:
+    """What simulated nodes' device ids index. Under an initialised
+    process group (one process per rank, torchrun's layout): the world's
+    ranks, id i being rank i, whose device is cuda:LOCAL_RANK (the card
+    its process set) or the CPU under gloo; the template renders a
+    DeviceMesh over them. Otherwise the real devices of this process:
+    every card for "cuda", the one named device ("cuda:1", "cpu")."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return list(range(dist.get_world_size()))
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         n = torch.cuda.device_count()
@@ -56,7 +66,10 @@ class VirtualCluster:
         self.sim = SimCluster(self.registry, clock=self.clock,
                               devices_per_node=devices_per_node, ttl=ttl,
                               image_digest=digest, n_devices=len(devices))
-        self.template = MeshTemplate(self.registry, devices, clock=self.clock)
+        ranks = isinstance(devices[0], int)
+        self.template = MeshTemplate(
+            self.registry, devices, clock=self.clock,
+            device_type=torch.device(device).type if ranks else None)
         self.scaler = AutoScaler(policy or TargetSizePolicy(n_compute),
                                  provisioner=self.sim, clock=self.clock,
                                  cooldown_s=cooldown_s,
@@ -99,7 +112,7 @@ class VirtualCluster:
     def submit(self, fn: Callable, *args, **kwargs):
         """Run `fn(devices, *args, **kwargs)` over the rendered device list
         (hostfile order; an oversubscribed simulation renders each real
-        device once)."""
+        device once; under a process group, the ranks)."""
         r = self.rendering
         assert r.devices, "cluster has no devices"
         return fn(list(r.devices), *args, **kwargs)

@@ -2,21 +2,27 @@
 
 consul-template watched the Consul catalog and re-rendered the MPI hostfile.
 Here the rendered artifacts are (a) the hostfile text (kept for fidelity and
-published to the KV store like the template's output file), and (b) the
-list of torch devices the live members contribute — the port's analogue of
-the JAX package's rendered jax.sharding.Mesh (core/template.py there).
-Re-rendering is triggered by registry-index watches and debounced.
+published to the KV store like the template's output file), (b) the list
+of devices the live members contribute and (c) over the ranks of a
+process group, the torch DeviceMesh they form — the port's analogue of
+the JAX package's rendered jax.sharding.Mesh ("the device mesh is the
+hostfile"). Re-rendering is triggered by registry-index watches and
+debounced.
 
 A one-card machine runs "oversubscribed": many simulated nodes map onto the
 one real device (the card, or the CPU when the caller asks for it), as the
-JAX package's simulation maps them onto its one CPU device; on a host with
-several cards, members own disjoint devices.
+JAX package's simulation maps them onto its one CPU device. Under a
+process group (one process per rank) a member's device ids are ranks,
+and members that own disjoint ranks render a DeviceMesh over them. Every
+rank runs the same control plane (one seeded cluster under a manual
+clock), so every rank renders the same meshes at the same polls, as
+DeviceMesh construction requires: each one enters every new sub-group.
 """
 from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -33,6 +39,7 @@ class Rendering:
     devices: Tuple[torch.device, ...]
     oversubscribed: bool
     view: ClusterView
+    mesh: Optional[Any] = None  # a DeviceMesh over the ranks, or None
 
 
 def render_hostfile(view: ClusterView) -> str:
@@ -70,14 +77,47 @@ def render_devices(view: ClusterView, devices: Sequence[torch.device]
     return tuple(usable), oversub
 
 
-class MeshTemplate:
-    """Watches the registry; re-renders (hostfile, devices) on membership
-    change."""
+def default_mesh_rule(n: int, max_model: int = 16) -> Tuple[Tuple[int, int],
+                                                            Tuple[str, str]]:
+    """Factor n devices into ("data","model") with the largest model degree
+    <= max_model that divides n."""
+    model = 1
+    for cand in range(min(max_model, n), 0, -1):
+        if n % cand == 0:
+            model = cand
+            break
+    return (n // model, model), ("data", "model")
 
-    def __init__(self, registry, devices: Sequence[torch.device],
-                 min_render_interval: float = 0.0, clock=None):
+
+def render_mesh(view: ClusterView, ranks: Sequence[int], device_type: str,
+                mesh_rule: Callable = default_mesh_rule):
+    """The DeviceMesh over the ranks the members contribute (hostfile
+    order; render_devices's oversubscription rule), shaped by mesh_rule.
+    Returns (mesh or None without members, oversubscribed). Every rank of
+    the process group must call it alike."""
+    from torch.distributed.device_mesh import DeviceMesh
+    usable, oversub = render_devices(view, ranks)
+    if not usable:
+        return None, oversub
+    shape, axes = mesh_rule(len(usable))
+    return DeviceMesh(device_type, torch.tensor(usable).reshape(shape),
+                      mesh_dim_names=axes), oversub
+
+
+class MeshTemplate:
+    """Watches the registry; re-renders (hostfile, devices, mesh) on
+    membership change. devices: the pool member ids index (torch devices,
+    or a process group's ranks; device_type given, a DeviceMesh is
+    rendered over them)."""
+
+    def __init__(self, registry, devices: Sequence,
+                 min_render_interval: float = 0.0, clock=None,
+                 device_type: Optional[str] = None,
+                 mesh_rule: Callable = default_mesh_rule):
         self.registry = registry
         self.devices = tuple(devices)
+        self.device_type = device_type
+        self.mesh_rule = mesh_rule
         self.tracker = ViewTracker()
         self.min_render_interval = min_render_interval
         self.clock = clock
@@ -114,9 +154,14 @@ class MeshTemplate:
                     return None  # debounced; next poll retries
                 self._last_render_t = now
             devices, oversub = render_devices(view, self.devices)
+            mesh = None
+            if self.device_type is not None:
+                mesh, _ = render_mesh(view, self.devices, self.device_type,
+                                      self.mesh_rule)
             hostfile = render_hostfile(view)
             r = Rendering(epoch=view.epoch, hostfile=hostfile,
-                          devices=devices, oversubscribed=oversub, view=view)
+                          devices=devices, oversubscribed=oversub, view=view,
+                          mesh=mesh)
             self._rendering = r
             # publish like consul-template writing the file
             self.registry.kv_put(HOSTFILE_KEY, hostfile)

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models.env import Env
+from repro_torch.parallel import rules
 
 
 def _philox(seed: int, step: int, shard: int) -> np.random.Generator:
@@ -92,18 +93,19 @@ def add_modality_stubs(batch: Dict[str, np.ndarray], cfg: ModelConfig,
 class ShardedLoader:
     """Global batches as torch tensors on `device` (the trainer's).
 
-    The model computes on one device, so the batch is whole there (the
-    JAX package's `mesh is None` branch); placing its shards over a
-    DeviceMesh comes with the sharded train step (ROADMAP.md, queue 1
-    item 8). A multi-host deployment would build only each host's rows
-    (same seed/step contract: batch_np's shard arguments)."""
+    Without a mesh the batch is whole there. Over a DeviceMesh each rank
+    takes its own rows of the global batch (its data coordinate's share,
+    as parallel/rules.py batch_specs places them; every row where the dp
+    degree does not divide the batch) and moves only those, as a DTensor
+    over the mesh: the JAX package's ShardedLoader places slices of the
+    same global batch, so a mesh of any shape trains on the same data."""
 
     def __init__(self, source, cfg: ModelConfig, shape: ShapeConfig, env: Env,
                  seed: int = 0, device="cuda"):
-        if env.mesh is not None:
-            raise NotImplementedError(
-                "ShardedLoader places whole batches on one device; batches "
-                "sharded over a mesh are ROADMAP item 8")
+        from torch.distributed.device_mesh import DeviceMesh
+        if env.mesh is not None and not isinstance(env.mesh, DeviceMesh):
+            raise ValueError("ShardedLoader places batches over a "
+                             "DeviceMesh; a shape-only mesh has no ranks")
         self.source = source
         self.cfg = cfg
         self.shape = shape
@@ -114,8 +116,25 @@ class ShardedLoader:
     def batch(self, step: int) -> Dict[str, torch.Tensor]:
         b = self.source.batch_np(step, self.shape.global_batch)
         b = add_modality_stubs(dict(b), self.cfg, step, self.seed)
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                for k, v in b.items()}
+        if self.env.mesh is None:
+            return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                self.device) for k, v in b.items()}
+        from torch.distributed.tensor import DTensor
+        mesh = self.env.mesh
+        specs = rules.batch_specs(b, self.cfg, self.shape, self.env)
+        out = {}
+        for k, v in b.items():
+            n, i = 1, 0
+            for a in rules.axes_of(specs[k][0]):  # its row block, major first
+                n, i = (n * mesh.size(mesh.mesh_dim_names.index(a)),
+                        i * mesh.size(mesh.mesh_dim_names.index(a))
+                        + mesh.get_local_rank(a))
+            rows = np.array_split(v, n)[i]
+            t = torch.from_numpy(np.ascontiguousarray(rows)).to(self.device)
+            out[k] = DTensor.from_local(t, mesh,
+                                        rules.placements(specs[k], mesh),
+                                        run_check=False)
+        return out
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
         step = 0

@@ -5,11 +5,14 @@ no process group. Axis layout follows the "no-NAT" rule: "model" (TP) and
 "data" (FSDP) ride the fast intra-pod links; only "pod" crosses the
 slower fabric.
 
-Each one makes a torch DeviceMesh (init_device_mesh over an
-initialised process group), or with abstract=True a ShapeMesh: the axis
-names and sizes alone, which is all the sharding rules
-(parallel/rules.py) read, so specs resolve for the production layout on
-a machine without its ranks (the JAX package's AbstractMesh).
+Each one makes a torch DeviceMesh over the first ranks of an initialised
+process group (rank-major: rank r sits at row r // model, column
+r % model), or with abstract=True a ShapeMesh: the axis names and sizes
+alone, which is all the sharding rules (parallel/rules.py) read, so specs
+resolve for the production layout on a machine without its ranks (the
+JAX package's AbstractMesh). Building a DeviceMesh creates its axes'
+process groups, which every rank of the world enters, ranks outside the
+mesh included: every rank calls the constructor alike.
 """
 from __future__ import annotations
 
@@ -36,9 +39,13 @@ class ShapeMesh:
 def _mesh(shape, axes, abstract: bool, device_type: str):
     if abstract:
         return ShapeMesh(tuple(shape), tuple(axes))
-    from torch.distributed.device_mesh import init_device_mesh
-    return init_device_mesh(device_type, tuple(shape),
-                            mesh_dim_names=tuple(axes))
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    n = 1
+    for s in shape:
+        n *= s
+    return DeviceMesh(device_type, torch.arange(n).reshape(tuple(shape)),
+                      mesh_dim_names=tuple(axes))
 
 
 def make_production_mesh(*, multi_pod: bool = False, abstract: bool = False,
@@ -50,8 +57,9 @@ def make_production_mesh(*, multi_pod: bool = False, abstract: bool = False,
 
 def make_test_mesh(n_devices: Optional[int] = None, model: int = 2, *,
                    abstract: bool = False, device_type: str = "cuda"):
-    """A (data, model) mesh over n_devices ranks (default: the process
-    group's world size; gloo ranks on the CPU with device_type="cpu")."""
+    """A (data, model) mesh over the first n_devices ranks (default: the
+    process group's world size; gloo ranks on the CPU with
+    device_type="cpu")."""
     if n_devices is None:
         import torch.distributed as dist
         n_devices = dist.get_world_size()

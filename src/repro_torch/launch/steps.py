@@ -1,9 +1,11 @@
 """Train, prefill and fused decode step builders (port of the JAX
 package's launch/steps.py).
 
-PyTorch runs eagerly, so a "step" is a plain function over tensors on one
-device; nothing is traced or compiled. The builders keep the JAX names and
-closures so the serving code reads as in the reference.
+PyTorch runs eagerly, so a "step" is a plain function over tensors;
+nothing is traced or compiled. The builders keep the JAX names and
+closures so the serving code reads as in the reference. Over a
+DeviceMesh the train step runs per rank on the local shards of a state of
+DTensors (_sharded_train_step).
 """
 from __future__ import annotations
 
@@ -13,9 +15,11 @@ from repro_torch import random as R
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.sampling.ops import topk_topp_mask
 from repro_torch.models import model as Mo
-from repro_torch.models.env import Env
+from repro_torch.models.env import Env, sharded
 from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
-                                     value_and_grad)
+                                     tree_map, value_and_grad)
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel import rules
 
 # Packed per-row step metadata: one [META_I_ROWS,T] int32 + one
 # [META_F_ROWS,T] float32 upload per decode step (ReplicaEngine.step_decode
@@ -39,12 +43,70 @@ def make_train_step(cfg: ModelConfig, env: Env, opt: AdamWConfig):
     respect to every parameter, one AdamW update. (state, batch) ->
     (new state, {"loss", "ce", "aux"}); state is make_train_state's
     {"params", "opt"}. The new parameters are new tensors; the optimizer
-    state is updated in place (optim/adamw.py)."""
+    state is updated in place (optim/adamw.py). Over a DeviceMesh, the
+    sharded step (_sharded_train_step)."""
+    if sharded(cfg, env):
+        return _sharded_train_step(cfg, env, opt)
+
     def train_step(state, batch):
         (loss, metrics), grads = value_and_grad(
             lambda p: Mo.lm_loss(p, batch, cfg, env), state["params"])
         new_params, new_opt = adamw_update(grads, state["opt"], opt)
         return ({"params": new_params, "opt": new_opt},
+                {"loss": loss, **{k: v.detach() for k, v in metrics.items()}})
+
+    return train_step
+
+
+def _local(x):
+    """A DTensor's local shard (detached), anything else as it is."""
+    from torch.distributed.tensor import DTensor
+    return x.to_local().detach() if isinstance(x, DTensor) else x
+
+
+def _rewrap(local, like):
+    """local (a tree of shards) as DTensors placed as `like`'s leaves."""
+    from torch.distributed.tensor import DTensor
+    return tree_map(lambda t, d: None if t is None else DTensor.from_local(
+        t, d.device_mesh, d.placements, run_check=False, shape=d.shape,
+        stride=d.stride()), local, like)
+
+
+def sync_grads(grads, specs, env: Env):
+    """Each leaf's gradient summed (in f32) over the mesh axes its spec
+    does not name: the data-parallel sum of a leaf FSDP does not shard,
+    and the tp ranks' partial gradients of a replicated one (a norm's
+    scale, the router, wk / wv). A leaf sharded over an axis already has
+    its own gradient there (FSDP's reduce-scatter, a tp shard's product)."""
+    def one(g, spec):
+        on = {a for e in spec for a in rules.axes_of(e)}
+        axes = tuple(a for a in env.axis_names if a not in on)
+        return C.sum_over(g.float(), env, axes).to(g.dtype) if axes else g
+
+    return tree_map(one, grads, specs)
+
+
+def _sharded_train_step(cfg: ModelConfig, env: Env, opt: AdamWConfig):
+    """make_train_step over env.mesh, per rank: the state's leaves are
+    DTensors placed by parallel/rules.py (apply_shardings of state_specs)
+    and the batch's are this rank's rows (DTensors placed by batch_specs,
+    or the rows themselves). The rank computes lm_loss on its shards
+    (models/model.py _Ranks), synchronises the gradients (sync_grads) and
+    updates its shards of the optimizer state; the new state comes back
+    as DTensors placed as the old, and the metrics are the same on every
+    rank."""
+    specs = Mo.param_specs(cfg, env)
+
+    def train_step(state, batch):
+        local = tree_map(_local, state)
+        rows = {k: _local(v) for k, v in batch.items()}
+        (loss, metrics), grads = value_and_grad(
+            lambda p: Mo.lm_loss(p, rows, cfg, env), local["params"])
+        grads = sync_grads(grads, specs, env)
+        new_params, new_opt = adamw_update(grads, local["opt"], opt,
+                                           specs, env)
+        return ({"params": _rewrap(new_params, state["params"]),
+                 "opt": _rewrap(new_opt, state["opt"])},
                 {"loss": loss, **{k: v.detach() for k, v in metrics.items()}})
 
     return train_step

@@ -5,10 +5,20 @@
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
       --steps 20 --nodes 2 --scale-to 3@8 --crash-at 14 --ckpt-every 5
 
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --smoke \
+      --steps 20 --nodes 2 --scale-to 3@8 --crash-at 14 --ckpt-every 5
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --smoke \
+      --device cpu ...                       # gloo ranks on the CPU
+
 The cluster is simulated (core/simnet); its nodes map onto the one device
-named by --device (the card by default). The trainer checkpoints and
-restores through a planned scale, rolls back to the last durable
-checkpoint after a crash, and the last line counts what it did:
+named by --device (the card by default). Under torchrun (RANK,
+WORLD_SIZE, LOCAL_RANK and the rendezvous address in the environment)
+each rank joins a process group (NCCL on cuda:LOCAL_RANK, gloo with
+--device cpu), every rank runs the same cluster, and the nodes' devices
+are the ranks: the trainer steps over the DeviceMesh the live members
+render (core/template.py). The trainer checkpoints and restores through
+a planned scale, rolls back to the last durable checkpoint after a
+crash, and rank 0 prints, the last line counting what it did:
 `done: N steps; epochs=… reshards=… restores=… steps_lost=…`, where N is
 the loop's iterations (after a rollback the trainer's own step is lower).
 """
@@ -23,6 +33,22 @@ from repro_torch.configs import get_config, get_smoke
 from repro_torch.configs.base import ParallelPlan, ShapeConfig
 from repro_torch.core import ClusterImage, VirtualCluster
 from repro_torch.core.elastic import ElasticTrainer
+
+
+def join_ranks(device: str) -> int:
+    """Join torchrun's process group when its environment names one (NCCL
+    on the card LOCAL_RANK names, gloo on the CPU). Returns this rank (0
+    without a group)."""
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        return 0
+    import torch
+    import torch.distributed as dist
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("nccl")
+    else:
+        dist.init_process_group("gloo")
+    return dist.get_rank()
 
 
 def main(argv=None) -> int:
@@ -48,6 +74,8 @@ def main(argv=None) -> int:
                     help="cuda (the card) or cpu")
     args = ap.parse_args(argv)
 
+    rank = join_ranks(args.device)
+    say = print if rank == 0 else (lambda *a, **kw: None)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     shape = ShapeConfig("cli", args.seq_len, args.global_batch, "train")
     plan = ParallelPlan(fsdp=False, remat="nothing", attn_impl="naive",
@@ -55,8 +83,8 @@ def main(argv=None) -> int:
     image = ClusterImage.build(f"{cfg.name}-train", cfg, plan, "train")
     cluster = VirtualCluster(n_compute=args.nodes, image=image,
                              device=args.device)
-    print(f"image {image.digest}\n{image.dockerfile()}")
-    print("rendered hostfile:\n" + cluster.hostfile)
+    say(f"image {image.digest}\n{image.dockerfile()}")
+    say("rendered hostfile:\n" + cluster.hostfile)
 
     trainer = ElasticTrainer(cluster.template, cfg, shape, args.ckpt_dir,
                              plan=plan, ckpt_every=args.ckpt_every)
@@ -69,8 +97,9 @@ def main(argv=None) -> int:
     t0 = time.time()
 
     def on_step(step, metrics):
-        if step % args.log_every == 0 or step == 1:
-            print(f"step {step:5d} loss={metrics['loss']:.4f} "
+        # a rank outside the rendered mesh has no metrics
+        if metrics and (step % args.log_every == 0 or step == 1):
+            say(f"step {step:5d} loss={metrics['loss']:.4f} "
                   f"epoch={cluster.rendering.epoch} "
                   f"nodes={len(cluster.compute_nodes())} "
                   f"t={time.time()-t0:.1f}s", flush=True)
@@ -78,11 +107,11 @@ def main(argv=None) -> int:
     done = 0
     while done < args.steps:
         if scale_step is not None and done == scale_step:
-            print(f"--- scaling to {scale_n} nodes (paper §IV auto-join) ---")
+            say(f"--- scaling to {scale_n} nodes (paper §IV auto-join) ---")
             cluster.scale_to(scale_n)
         if args.crash_at is not None and done == args.crash_at:
             victim = cluster.compute_nodes()[-1]
-            print(f"--- crashing {victim} (TTL will reap it) ---")
+            say(f"--- crashing {victim} (TTL will reap it) ---")
             cluster.crash_node(victim)
             cluster.pump(dt=10.0)  # let the TTL lapse
             trainer.ensure_ready(planned=False)
@@ -92,10 +121,13 @@ def main(argv=None) -> int:
 
     trainer.finalize()
     st = trainer.stats
-    print(f"done: {args.steps} steps; epochs={st.epoch_changes} "
-          f"reshards={st.reshards} restores={st.restores} "
-          f"steps_lost={st.steps_lost}")
+    say(f"done: {args.steps} steps; epochs={st.epoch_changes} "
+        f"reshards={st.reshards} restores={st.restores} "
+        f"steps_lost={st.steps_lost}")
     cluster.shutdown()
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
     return 0
 
 

@@ -2,13 +2,12 @@
 
 The JAX package's Env carries a device mesh and a ParallelPlan and pads
 heads and vocabulary for its tensor-parallel degree. The port's Env
-carries an optional mesh too: a torch DeviceMesh, or a shape-only mesh
-from launch/mesh.py (axis names and sizes, no ranks) for resolving the
-sharding rules (parallel/rules.py). The model computes on one device:
-`check_single_device` refuses a mesh of more than one device, so the tp
-degree the model sees is 1 and the padding helpers reduce to their tp=1
-values; they stay functions of (cfg, env) so shapes are computed exactly
-where the JAX package computes them.
+carries an optional mesh too: a torch DeviceMesh over the ranks of a
+process group, or a shape-only mesh from launch/mesh.py (axis names and
+sizes, no ranks) for resolving the sharding rules (parallel/rules.py).
+Over a DeviceMesh the dense and MoE archs train per rank on their local
+shards (`sharded`; models/model.py); the padding helpers take the mesh's
+tp degree, as the JAX package's do.
 """
 from __future__ import annotations
 
@@ -77,18 +76,70 @@ class Env:
         return n
 
 
-def check_single_device(env: Env) -> None:
-    """The model computes on one device: a mesh of more than one device
-    (a sharded forward, padded heads over tp) is the multi-rank slice's
-    work (ROADMAP.md, queue 1 item 8)."""
-    if env.mesh is not None:
-        n = 1
-        for size in mesh_axes(env.mesh).values():
-            n *= size
-        if n > 1:
-            raise NotImplementedError(
-                f"the port's model computes on one device; a mesh of {n} "
-                "devices (sharded train step, FSDP/TP) is ROADMAP item 8")
+def mesh_size(env: Env) -> int:
+    n = 1
+    for size in mesh_axes(env.mesh).values() if env.mesh is not None else ():
+        n *= size
+    return n
+
+
+# block kinds the sharded forward computes (attention, MoE): the dense and
+# MoE archs of the zoo
+SHARDED_KINDS = ("attn", "moe", "local")
+
+
+def check_mesh(cfg: ModelConfig, env: Env) -> None:
+    """The model's refusals of a mesh: axes other than the plan's dp axes
+    and tp axis (ValueError), and a recurrent or modality arch over a
+    mesh of more than one device (NotImplementedError: the sharded
+    forward covers the dense and MoE archs; the others are ROADMAP item
+    8.4)."""
+    if env.mesh is None:
+        return
+    extra = set(env.axis_names) - set(env.plan.dp_axes) - {env.plan.tp_axis}
+    if extra:
+        raise ValueError(f"mesh axes {sorted(extra)} are neither the plan's "
+                         f"dp axes {env.plan.dp_axes} nor its tp axis "
+                         f"{env.plan.tp_axis!r}")
+    kinds = set(cfg.block_pattern) | set(cfg.pattern_tail)
+    n = mesh_size(env)
+    if n > 1 and not (kinds <= set(SHARDED_KINDS) and cfg.family != "vlm"
+                      and not cfg.is_encdec):
+        raise NotImplementedError(
+            f"{cfg.name} over a mesh of {n} devices: the sharded forward "
+            f"covers the dense and MoE archs; the recurrent and modality "
+            f"archs over a mesh are ROADMAP item 8.4")
+
+
+def sharded(cfg: ModelConfig, env: Env) -> bool:
+    """Whether the model computes per rank over env.mesh (models/model.py's
+    sharded train forward): a DeviceMesh, for an arch check_mesh lets
+    through. A recurrent or modality arch over a one-device DeviceMesh
+    computes on that device (False); a shape-only mesh of more than one
+    device has no ranks to compute on (ValueError)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    check_mesh(cfg, env)
+    if env.mesh is None:
+        return False
+    if not isinstance(env.mesh, DeviceMesh):
+        if mesh_size(env) > 1:
+            raise ValueError(
+                f"a shape-only mesh of {mesh_size(env)} devices resolves "
+                "sharding specs; the model computes over a DeviceMesh of a "
+                "process group's ranks")
+        return False
+    kinds = set(cfg.block_pattern) | set(cfg.pattern_tail)
+    return (kinds <= set(SHARDED_KINDS) and cfg.family != "vlm"
+            and not cfg.is_encdec)
+
+
+def out_dims(env: Env, seq_len: int):
+    """Layer-output layout: sequence-parallel over tp when enabled (turns
+    the preceding row product's all-reduce into a reduce-scatter)."""
+    if (env.plan.seq_shard_acts and env.tp > 1 and seq_len % env.tp == 0
+            and seq_len >= env.tp):
+        return (env.dpx, env.plan.tp_axis, None)
+    return (env.dpx, None, None)
 
 
 def head_pad(cfg: ModelConfig, env: Env) -> int:

@@ -42,6 +42,7 @@ cache so call sites read as in the reference.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
@@ -55,8 +56,10 @@ from repro_torch.kernels.paged_decode import ops as pd_ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
-from repro_torch.models.env import (Env, check_single_device, head_pad,
-                                    kv_head_pad, vocab_pad)
+from repro_torch.models.env import (Env, check_mesh, head_pad, kv_head_pad,
+                                    mesh_size, out_dims, sharded, vocab_pad)
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel import rules
 
 Pytree = Any
 
@@ -192,9 +195,14 @@ def init_params(cfg: ModelConfig, env: Env, *, seed: int = 0,
     `device`, so the values are not jax's; tests that compare the two
     packages bridge jax's parameters instead (repro_torch/bridge.py).
     device="meta" gives the tree's shapes and dtypes with no storage (the
-    port's jax.eval_shape: launch/steps.py state_struct)."""
+    port's jax.eval_shape: launch/steps.py state_struct).
+
+    Under a mesh the heads and the vocabulary are padded for its tp
+    degree (head_pad, vocab_pad) and the tree is the whole (global) one,
+    drawn alike on every rank: parallel/rules.py apply_shardings places
+    it."""
     check_supported(cfg)
-    check_single_device(env)
+    check_mesh(cfg, env)
     if torch.device(device).type == "meta":
         gen = _MetaGenerator()
     else:
@@ -536,7 +544,7 @@ def _train_attention(q, k, v, cfg: ModelConfig, plan, window: int,
 
 
 def _attn_prefill(p, h, cfg: ModelConfig, S: int, rope, window: int = 0,
-                  plan=None, causal: bool = True):
+                  plan=None, causal: bool = True, ranks=None):
     """Prefill attention over the first S (real) positions of the
     row-padded h [B,Sp,d]: causal, global (window 0) or sliding-window,
     or (causal=False) an encoder's full attention. Sequences longer than
@@ -548,14 +556,23 @@ def _attn_prefill(p, h, cfg: ModelConfig, S: int, rope, window: int = 0,
     rope; a window unit keeps the trailing min(window, S) positions,
     ring-aligned: position p at p % that length). With a training plan
     (train mode): attention as _train_attention dispatches it, and no
-    cache (None)."""
+    cache (None). ranks (the sharded train forward): this rank's heads
+    over the whole sequence, its share of the output projection summed
+    over the tp ranks (_Ranks)."""
+    if ranks is not None:
+        h = ranks.enter(h)
     q, k, v = L._project_qkv(p, h, cfg)  # [B,Sp,H,hd]
+    if ranks is not None:
+        k, v = ranks.local_kv(k, v, q.shape[2])
     q = L.rotate(q[:, :S], *rope)
     k = L.rotate(k[:, :S], *rope)
     v = v[:, :S]
     if plan is not None:
-        o = _train_attention(q, k, v, cfg, plan, window, causal)
-        return L.linear(F.pad(o, (0, 0, 0, h.shape[1] - S)), p["wo"]), None
+        o = F.pad(_train_attention(q, k, v, cfg, plan, window, causal),
+                  (0, 0, 0, h.shape[1] - S))
+        if ranks is not None:
+            return ranks.row(o, p["wo"], ranks.heads_split), None
+        return L.linear(o, p["wo"]), None
     if S > FLASH_MIN_LEN:
         o = fa_ops.flash_attention(q.contiguous(), k.contiguous(),
                                    v.contiguous(), causal=causal,
@@ -696,13 +713,19 @@ def _last_writer(place):
     return torch.amax(torch.where(same, rows[None, :], -1), dim=1)
 
 
-def _moe_sublayer(p, x, cfg: ModelConfig, *, S=None, n_rows=None):
+def _moe_sublayer(p, x, cfg: ModelConfig, *, S=None, n_rows=None,
+                  ranks=None):
     """The MoE FFN over the rows the JAX package dispatches: a prefill's
     first S positions of each row-padded sequence (flattened b * S + s),
     a decode step's first n_rows rows (masked rows included); the padding
-    rows are not dispatched and come out zero. Returns (out, aux loss)."""
+    rows are not dispatched and come out zero. ranks: this rank's rows of
+    the sharded train forward, dispatched by the layer's ep or tp mode.
+    Returns (out, aux loss)."""
+    if ranks is not None and ranks.sp:
+        return M.moe_layer(p, x, cfg, ranks.env, seq_sharded=True)
+    env = None if ranks is None else ranks.env
     if S is not None:
-        y, aux = M.moe_layer(p, x[:, :S], cfg)
+        y, aux = M.moe_layer(p, x[:, :S], cfg, env)
         return F.pad(y, (0, 0, 0, x.shape[1] - S)), aux
     y, aux = M.moe_layer(p, x[:n_rows], cfg)
     return F.pad(y, (0, 0) * (x.dim() - 1) + (0, x.shape[0] - n_rows)), aux
@@ -735,7 +758,7 @@ def _write_rows(cache: dict, new: dict, n_rows: int) -> None:
 
 def _apply_block(kind: str, p, h, hf, cfg: ModelConfig, *, S=None, rope=None,
                  n_rows=None, cur_len=None, cache=None, tables=None,
-                 row_slots=None, plan=None, enc=None):
+                 row_slots=None, plan=None, enc=None, ranks=None):
     """One block: h + first(norm(h)), then + second(norm(.)) (a "dec"
     block puts its cross-attention, + cross(lnx-norm(.)), between the
     two). Prefill when `cache` is None (S real positions of the
@@ -750,7 +773,8 @@ def _apply_block(kind: str, p, h, hf, cfg: ModelConfig, *, S=None, rope=None,
     first norm (the previous block's last residual sum inside the same
     pattern unit or the tail: XLA drops the bf16 round trip into the
     norm's f32 cast), else None. Returns (h bf16, its f32 sum, cache, the
-    MoE aux loss or 0)."""
+    MoE aux loss or 0). ranks: the sharded train forward's rank (h its
+    rows, _Ranks)."""
     eps = cfg.norm_eps
     decode = cache is not None
     train = plan is not None
@@ -767,7 +791,7 @@ def _apply_block(kind: str, p, h, hf, cfg: ModelConfig, *, S=None, rope=None,
         else:
             subs.append(("ln1", lambda x: _attn_prefill(
                 p["attn"], x, cfg, S, rope, window, plan,
-                causal=kind != "enc")))
+                causal=kind != "enc", ranks=ranks)))
         if kind == "dec":
             subs.append(("lnx", (lambda x: (_xattn_decode(
                 p["xattn"], x, cfg, n_rows, cache), None)) if decode else
@@ -775,7 +799,10 @@ def _apply_block(kind: str, p, h, hf, cfg: ModelConfig, *, S=None, rope=None,
                                           train))))
         if kind == "moe":
             subs.append(("ln2", lambda x: _moe_sublayer(
-                p["moe"], x, cfg, S=None if decode else S, n_rows=n_rows)))
+                p["moe"], x, cfg, S=None if decode else S, n_rows=n_rows,
+                ranks=ranks)))
+        elif ranks is not None:
+            subs.append(("ln2", lambda x: (ranks.mlp(p["mlp"], x), None)))
         else:
             subs.append(("ln2", lambda x: (L.mlp(p["mlp"], x), None)))
     elif kind == "rglru":
@@ -813,7 +840,8 @@ def _apply_block(kind: str, p, h, hf, cfg: ModelConfig, *, S=None, rope=None,
     return h, hf, new, aux
 
 
-def _run_blocks(params, h, cfg: ModelConfig, caches=None, plan=None, **kw):
+def _run_blocks(params, h, cfg: ModelConfig, caches=None, plan=None,
+                ranks=None, **kw):
     """Every block in order: num_blocks units of the pattern, then the
     tail. Returns (final-norm input, prompt caches or None, the summed
     MoE aux loss). A unit boundary rounds the residual to bf16 (the
@@ -824,8 +852,13 @@ def _run_blocks(params, h, cfg: ModelConfig, caches=None, plan=None, **kw):
     pass (torch.utils.checkpoint) under plan.remat "nothing" or "dots",
     where the reference wraps its unit in jax.checkpoint (its "dots"
     policy keeps the products; recomputing them gives the same values);
-    the tail is not, as there."""
+    the tail is not, as there.
+
+    ranks (the sharded train forward): each block's FSDP-sharded weights
+    are gathered before use (inside the recomputed unit: gathered again
+    in the backward pass, as FSDP does)."""
     pattern, tail = cfg.block_pattern, cfg.pattern_tail
+    unshard = ((lambda p, path: p) if ranks is None else ranks.unshard)
     out_blocks = [[] for _ in pattern]
     aux = 0.0  # a tensor once an MoE layer adds one: no launch otherwise
 
@@ -834,8 +867,8 @@ def _run_blocks(params, h, cfg: ModelConfig, caches=None, plan=None, **kw):
         for j, kind in enumerate(pattern):
             c = None if caches is None else _layer(caches["blocks"][j], i)
             h, hf, new, aj = _apply_block(
-                kind, _layer(params["blocks"][j], i), h, hf, cfg, cache=c,
-                plan=plan, **kw)
+                kind, unshard(_layer(params["blocks"][j], i), ("blocks", j)),
+                h, hf, cfg, cache=c, plan=plan, ranks=ranks, **kw)
             a = a + aj
             if plan is None:
                 out_blocks[j].append(new)
@@ -853,8 +886,9 @@ def _run_blocks(params, h, cfg: ModelConfig, caches=None, plan=None, **kw):
     out_tail = []
     for j, kind in enumerate(tail):
         c = None if caches is None else caches["tail"][j]
-        h, hf, new, a = _apply_block(kind, params["tail"][j], h, hf, cfg,
-                                     cache=c, plan=plan, **kw)
+        h, hf, new, a = _apply_block(
+            kind, unshard(params["tail"][j], ("tail", j)), h, hf, cfg,
+            cache=c, plan=plan, ranks=ranks, **kw)
         aux = aux + a
         out_tail.append(new)
     x = h if hf is None else hf
@@ -971,6 +1005,136 @@ def _prefill(params, tokens, cfg: ModelConfig, last_only: bool = False,
     return L.linear(h, params["unembed"])[:, :S], caches
 
 
+class _Ranks:
+    """One rank of the sharded train forward (the port's counterpart of the
+    JAX package's GSPMD layout for train mode): the rank computes on its
+    local shards of what parallel/rules.py apply_shardings placed, with
+    the collectives of parallel/collectives.py between them.
+
+    - The batch is split over the dp axes; the loss is a mean over ranks.
+    - FSDP (plan.fsdp): a weight's dim sharded over the dp axes is
+      all-gathered before its block runs (the gradient reduce-scattered).
+    - TP: column weights (wq, w_gate, w_up) hold this rank's heads or ff
+      columns; the row weights (wo, w_down) its rows, whose product is
+      this rank's share of the output, summed over the tp ranks in f32
+      and rounded to bf16 once. wk / wv are replicated: the rank keeps
+      the KV heads its query heads read (local_kv). The embedding's
+      columns and the unembedding's vocabulary are split over tp.
+    - Sequence parallelism (out_dims: plan.seq_shard_acts, S % tp == 0):
+      the residual stream holds this rank's S / tp positions; a
+      sublayer gathers the sequence on entry and its share of the output
+      is reduce-scattered back onto the positions.
+
+    At tp 1 every product is the one-device forward's (row tiles
+    included), so a 1 x 1 mesh computes the one-device step's values."""
+
+    def __init__(self, cfg: ModelConfig, env: Env, S: int):
+        self.env = env
+        self.tp_axis, self.tp = env.tp_axis, env.tp
+        self.sp = out_dims(env, S)[1] is not None
+        self.specs = param_specs(cfg, env)
+        self.heads_split = self.tp > 1 and head_pad(cfg, env) % self.tp == 0
+        self.ff_split = self.tp > 1 and cfg.d_ff % self.tp == 0
+
+    def on_tp(self, spec, dim: int) -> bool:
+        """Whether a leaf's dim is split over tp ranks."""
+        return self.tp > 1 and self.tp_axis in rules.axes_of(
+            spec[dim] if len(spec) > dim else None)
+
+    def unshard(self, p, path):
+        """p with every dim sharded over the dp axes all-gathered (FSDP);
+        the MoE experts are gathered by moe_layer."""
+        spec = self.specs
+        for k in path:
+            spec = spec[k]
+        dp = set(self.env.dp_axes)
+
+        def one(names, x, sp):
+            if "moe" in names and names[-1] != "router":
+                return x
+            # a stacked leaf's spec names its layer dim, which x lacks
+            for d, e in enumerate(sp[len(sp) - x.dim():]):
+                axes = tuple(a for a in rules.axes_of(e) if a in dp)
+                if axes:
+                    x = C.gather(x, self.env, axes, d)
+            return x
+
+        return rules._tree_map_with_names(one, p, spec)
+
+    def enter(self, x):
+        """A sublayer's input: the whole sequence under sequence
+        parallelism (gathered over tp), x as it is otherwise."""
+        return C.gather(x, self.env, self.tp_axis, 1) if self.sp else x
+
+    def row(self, x, w, split: bool):
+        """x @ w for a row weight w: split, w holds this rank's rows and the
+        shares are summed over tp (reduce-scattered onto the positions
+        under sequence parallelism); a whole w gives the whole product on
+        every rank."""
+        if self.tp == 1 or not split:
+            y = L.linear(x, w)
+            return C.split(y, self.env, self.tp_axis, 1) if self.sp else y
+        y = x.float() @ w.float()
+        y = (C.reduce_scatter(y, self.env, self.tp_axis, 1) if self.sp
+             else C.all_reduce(y, self.env, (self.tp_axis,)))
+        return y.to(torch.bfloat16)
+
+    def mlp(self, p, x):
+        """layers.mlp over this rank's ff columns."""
+        x = self.enter(x)
+        h = L.silu(L.linear(x, p["w_gate"])) * L.linear(x, p["w_up"])
+        return self.row(h, p["w_down"], self.ff_split)
+
+    def local_kv(self, k, v, hq_local: int):
+        """The KV heads of k / v [B,S,Hkv,hd] that this rank's query heads
+        read: rank r holds query heads r*hq_local ... and query head h
+        reads KV head h // G (G = padded heads / Hkv). A whole group, or
+        a part of one, keeps the grouping (a slice of KV heads); where the
+        rank's heads straddle groups unevenly, each query head gets its
+        own copy of its KV head."""
+        if not self.heads_split:
+            return k, v
+        G = hq_local * self.tp // k.shape[2]
+        r = C.axis_rank(self.env, self.tp_axis)
+        idx = [(r * hq_local + i) // G for i in range(hq_local)]
+        lo, n = idx[0], idx[-1] + 1 - idx[0]
+        if hq_local % n == 0 and idx == [lo + i // (hq_local // n)
+                                        for i in range(hq_local)]:
+            return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+        sel = torch.tensor(idx, device=k.device)
+        return k[:, :, sel], v[:, :, sel]
+
+
+@functools.lru_cache(maxsize=8)
+def param_specs(cfg: ModelConfig, env: Env):
+    """The parameter specs (parallel/rules.py) of init_params' tree over
+    env.mesh."""
+    return rules.param_specs(init_params(cfg, env, device="meta"), cfg, env)
+
+
+def _train_sharded(params, tokens, cfg: ModelConfig, env: Env):
+    """forward(mode="train") per rank over env.mesh (_Ranks): params are
+    this rank's shards, tokens its rows [B/dp, S]. Returns (this rank's
+    logits [B/dp, S, Vpad / tp] — its vocabulary columns —, the MoE aux
+    loss, a mean over the mesh's ranks)."""
+    S = tokens.shape[1]
+    rk = _Ranks(cfg, env, S)
+    h = params["embed"][tokens.long()].to(torch.bfloat16)
+    if rk.on_tp(rk.specs["embed"], 1):
+        h = C.gather(h, env, rk.tp_axis, 2)
+    if rk.tp == 1:  # the one-device forward's row tiles
+        h = _pad_rows(h, S)
+    rope = _rope_of(cfg, torch.arange(S, device=tokens.device))
+    if rk.sp:
+        h = C.split(h, env, rk.tp_axis, 1)
+    x, _, aux = _run_blocks(params, h, cfg, S=S, rope=rope, plan=env.plan,
+                            ranks=rk)
+    h = L.rms_norm(x, params["final_norm"], cfg.norm_eps).to(torch.bfloat16)
+    h = rk.enter(h)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
+    return L.linear(h, params["unembed"])[:, :S], aux
+
+
 def _train(params, tokens, cfg: ModelConfig, env: Env, vision_embeds=None,
            frames=None):
     """forward(mode="train"): tokens [B,S] -> (logits [B,S,Vpad] — a
@@ -978,7 +1142,10 @@ def _train(params, tokens, cfg: ModelConfig, env: Env, vision_embeds=None,
     under autograd. Prefill's stack on the same row tiles (so the logits
     are prefill's wherever the blocks' training forms compute what the
     kernels compute); the padding positions reach no real position, so
-    they carry no gradient into a loss over the first S."""
+    they carry no gradient into a loss over the first S. Over a
+    DeviceMesh, the sharded train forward (_train_sharded)."""
+    if sharded(cfg, env):
+        return _train_sharded(params, tokens, cfg, env)
     h, rope, S = _embed(params, tokens, cfg, vision_embeds)
     enc = (_encode(params, frames, cfg, env.plan) if cfg.is_encdec
            else None)
@@ -1024,10 +1191,18 @@ def forward(params, tokens, cfg: ModelConfig, env: Env, mode: str = "decode",
 
     Every row-wise op runs on rows padded to a multiple of layers.ROW_TILE
     (batch invariance, see models/layers.py); the padding rows never touch
-    the cache. An env whose mesh spans more than one device raises
-    NotImplementedError (models/env.py check_single_device)."""
+    the cache.
+
+    Over a DeviceMesh (models/env.py sharded) train mode runs per rank:
+    params are the rank's shards, tokens its rows, and the logits its
+    vocabulary columns (_train_sharded). Prefill and decode serve on one
+    device: over a mesh of more than one they raise
+    NotImplementedError."""
     check_supported(cfg)
-    check_single_device(env)
+    if sharded(cfg, env) and mode != "train" and mesh_size(env) > 1:
+        raise NotImplementedError(
+            f"mode={mode!r} over a mesh of {mesh_size(env)} devices: the "
+            "port serves on one device; over a mesh it trains")
     if mode == "prefill":
         return _prefill(params, tokens, cfg, last_only, vision_embeds, frames)
     if mode == "train":
@@ -1058,17 +1233,28 @@ def forward(params, tokens, cfg: ModelConfig, env: Env, mode: str = "decode",
 # ---------------------------------------------------------------------------
 
 
-def token_logprobs(logits, labels, cfg: ModelConfig):
+def token_logprobs(logits, labels, cfg: ModelConfig, env: Env = None):
     """(log-partition, label logit) per position, f32 [B,S] each, from
     logits [B,S,Vpad]: the padded vocabulary columns are masked to -1e30
     before the log-sum-exp, and the label's column is picked by an index
-    comparison summed over the vocabulary (as the reference reads it)."""
+    comparison summed over the vocabulary (as the reference reads it).
+
+    Logits narrower than vocab_pad(cfg, env) are this rank's vocabulary
+    columns (the sharded train forward): the max, the sum of
+    exponentials and the label's logit are taken over the tp ranks."""
     lf = logits.float()
-    viota = torch.arange(lf.shape[-1], device=lf.device)
+    vl = lf.shape[-1]
+    split = env is not None and vl != vocab_pad(cfg, env)
+    off = C.axis_rank(env, env.tp_axis) * vl if split else 0
+    viota = torch.arange(off, off + vl, device=lf.device)
     lf = torch.where(viota < cfg.vocab_size, lf, -1e30)
-    logz = torch.logsumexp(lf, dim=-1)
     ll = torch.sum(torch.where(viota == labels[..., None], lf, 0.0), dim=-1)
-    return logz, ll
+    if not split:
+        return torch.logsumexp(lf, dim=-1), ll
+    tp = (env.tp_axis,)
+    m = C.all_reduce_max(lf.detach().amax(dim=-1), env, tp)
+    se = C.all_reduce(torch.exp(lf - m[..., None]).sum(dim=-1), env, tp)
+    return m + torch.log(se), C.all_reduce(ll, env, tp)
 
 
 def lm_loss(params, batch, cfg: ModelConfig, env: Env,
@@ -1077,12 +1263,19 @@ def lm_loss(params, batch, cfg: ModelConfig, env: Env,
     "frames", the modality stubs) -> (loss, {"ce", "aux"}): the mean
     next-token cross-entropy of train mode's logits (a VLM's over its
     text positions only) plus aux_weight times the MoE aux loss (the
-    reference's lm_loss)."""
+    reference's lm_loss).
+
+    Over a DeviceMesh (the sharded train forward) batch holds this
+    rank's rows, and the loss, its "ce" and its "aux" are means over the
+    mesh's ranks, the same value on every rank."""
     logits, aux = forward(params, batch["tokens"], cfg, env, mode="train",
                           vision_embeds=batch.get("vision_embeds"),
                           frames=batch.get("frames"))
     if cfg.family == "vlm":
         logits = logits[:, cfg.num_vision_embeds:]
-    logz, ll = token_logprobs(logits, batch["labels"], cfg)
+    logz, ll = token_logprobs(logits, batch["labels"], cfg, env)
     loss = torch.mean(logz - ll)
+    if sharded(cfg, env):
+        return (C.loss_mean(loss + aux_weight * aux, env),
+                {"ce": C.mesh_mean(loss.detach(), env), "aux": aux})
     return loss + aux_weight * aux, {"ce": loss, "aux": aux}

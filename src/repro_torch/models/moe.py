@@ -1,13 +1,23 @@
 """Mixture-of-Experts layer: sort-based, capacity-clipped dispatch.
 
-Port of the JAX package's models/moe.py, its single-device branch
-(`env.mesh is None`): the router picks top_k experts per token, tokens
-are sorted by expert (stably, so a token's rank within its expert is its
-order in the dispatch), every expert takes at most `capacity` of them and
-the overflow is dropped (it passes through the residual), the kept tokens
-run their expert's SwiGLU and come back gate-weighted. The expert-parallel
-("ep") and TP-within-expert ("tp") sharded modes come with the parallel
-slice.
+Port of the JAX package's models/moe.py: the router picks top_k experts
+per token, tokens are sorted by expert (stably, so a token's rank within
+its expert is its order in the dispatch), every expert takes at most
+`capacity` of them and the overflow is dropped (it passes through the
+residual), the kept tokens run their expert's SwiGLU and come back
+gate-weighted.
+
+Over a DeviceMesh each rank dispatches its own tokens (the JAX package's
+shard_map body, per rank) in one of two modes (plan.resolve_moe):
+  "ep": experts sharded over the tp axis; the rank's tokens are its
+        batch rows and, where S divides, its S / tp positions; an
+        all_to_all carries each expert's slots to the rank that holds it
+        and back ([E, cap, d] -> [E/tp, tp*cap, d] -> [E, cap, d]);
+  "tp": every expert's ff columns sharded over the tp axis; the tp ranks
+        dispatch the same tokens and sum the down projection's shares.
+The capacity is the local dispatch's, as in the reference. The aux loss
+is the mean of the ranks' own (the reference returns device 0's:
+ROADMAP.md section 3).
 
 Which tokens one dispatch holds decides the capacity and every drop, so
 the caller hands moe_layer exactly the tokens the JAX package dispatches,
@@ -31,10 +41,15 @@ from __future__ import annotations
 import contextlib
 from typing import List, Optional
 
+import functools
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.env import Env
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel import rules
 
 # per-call dispatch records while a `dispatch_stats()` block is open
 _STATS: Optional[List[dict]] = None
@@ -155,8 +170,41 @@ def _expert_ffn(buf, wg, wu, wd):
     return L._bf16_matmul(h, wd)
 
 
-def moe_layer(p, x, cfg: ModelConfig):
-    """x: [B, S, d], every token of it dispatched. Returns (y, aux_loss)."""
+@functools.lru_cache(maxsize=8)
+def _expert_specs(cfg: ModelConfig, env: Env) -> dict:
+    """The specs of the stored expert weights over env.mesh (the JAX
+    package's moe_param_specs, from parallel/rules.py)."""
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
+    meta = lambda *shape: torch.empty(shape, device="meta")
+    struct = {"moe": {"w_gate": meta(E, d, ff), "w_up": meta(E, d, ff),
+                      "w_down": meta(E, ff, d)}}
+    return rules.param_specs(struct, cfg, env)["moe"]
+
+
+def _gather_fsdp(p, cfg: ModelConfig, env: Env) -> dict:
+    """The expert weights with their FSDP-sharded dims all-gathered over
+    the dp axes (their ep / tp split kept)."""
+    out = dict(p)
+    for name, spec in _expert_specs(cfg, env).items():
+        for dim, e in enumerate(spec):
+            axes = tuple(a for a in rules.axes_of(e) if a in env.dp_axes)
+            if axes:
+                out[name] = C.gather(out[name], env, axes, dim)
+    return out
+
+
+def moe_layer(p, x, cfg: ModelConfig, env: Env = None, *,
+              seq_sharded: bool = False):
+    """x: [B, S, d], every token of it dispatched. Returns (y, aux_loss).
+
+    Over a DeviceMesh (env.mesh): p is this rank's shards of the layer's
+    weights (parallel/rules.py) and x its batch rows, [B/dp, S, d] with
+    every position, or [B/dp, S/tp, d], its positions, with seq_sharded
+    (the sharded forward's sequence-parallel residual); y comes back in
+    x's layout, and aux is the mean over the mesh's ranks of each one's
+    own dispatch's."""
+    if env is not None and env.mesh is not None:
+        return _moe_ranks(p, x, cfg, env, seq_sharded)
     m = cfg.moe
     E, k, cf = m.num_experts, m.top_k, m.capacity_factor
     B, S, d = x.shape
@@ -164,10 +212,63 @@ def moe_layer(p, x, cfg: ModelConfig):
     flat = x.reshape(n, d)
     cap = _capacity(n, E, k, cf)
     buf, meta, aux = _dispatch(flat, p["router"], E, k, cap)
-    if _STATS is not None:
-        _STATS.append({"tokens": n, "capacity": cap,
-                       "dropped": (~meta[3]).sum()})
+    _record(n, cap, meta)
     out = _expert_ffn(buf.reshape(E, cap, d), p["w_gate"], p["w_up"],
                       p["w_down"])
     y = _combine(out.reshape(E * cap, d), meta, n, k)
     return y.reshape(B, S, d), aux
+
+
+def _record(n: int, cap: int, meta) -> None:
+    if _STATS is not None:
+        _STATS.append({"tokens": n, "capacity": cap,
+                       "dropped": (~meta[3]).sum()})
+
+
+def _moe_ranks(p, x, cfg: ModelConfig, env: Env, seq_sharded: bool):
+    """moe_layer on one rank of env.mesh (the JAX package's shard_map
+    body): see the module docstring."""
+    m = cfg.moe
+    E, k, cf = m.num_experts, m.top_k, m.capacity_factor
+    mode = env.plan.resolve_moe(cfg, env.tp)
+    tp_axis, tp = env.tp_axis, env.tp
+    if mode == "ep" and E % tp:
+        raise ValueError(f"ep mode puts {E} experts on {tp} tp ranks")
+    S = x.shape[1] * (tp if seq_sharded else 1)
+    seq_split = mode == "ep" and tp_axis is not None and S % tp == 0
+    if seq_sharded and not seq_split:  # tp mode: every position
+        x = C.gather(x, env, tp_axis, 1)
+    elif seq_split and not seq_sharded:
+        x = C.split(x, env, tp_axis, 1)
+    B, Sl, d = x.shape
+    n = B * Sl
+    cap = _capacity(n, E, k, cf)
+    w = _gather_fsdp(p, cfg, env)
+    buf, meta, aux = _dispatch(x.reshape(n, d), p["router"], E, k, cap)
+    _record(n, cap, meta)
+    if mode == "ep" and tp_axis is not None:
+        # expert e's slots to the rank holding it: [E/tp, tp*cap, d]
+        el = E // tp
+        buf = C.all_to_all(buf.reshape(tp, el * cap * d), env, tp_axis)
+        buf = buf.reshape(tp, el, cap, d).transpose(0, 1).reshape(
+            el, tp * cap, d)
+        out = _expert_ffn(buf, w["w_gate"], w["w_up"], w["w_down"])
+        out = out.reshape(el, tp, cap, d).transpose(0, 1).reshape(tp, -1)
+        out = C.all_to_all(out, env, tp_axis).reshape(E, cap, d)
+    elif tp > 1 and w["w_gate"].shape[-1] != cfg.d_ff:
+        # ff columns sharded: each rank's share of the down projection,
+        # summed over tp in f32 and rounded once
+        buf = buf.reshape(E, cap, d)
+        h = L.silu(L._bf16_matmul(buf, w["w_gate"])) * L._bf16_matmul(
+            buf, w["w_up"])
+        out = C.all_reduce(h.float() @ w["w_down"].float(), env,
+                           (tp_axis,)).to(x.dtype)
+    else:
+        out = _expert_ffn(buf.reshape(E, cap, d), w["w_gate"], w["w_up"],
+                          w["w_down"])
+    y = _combine(out.reshape(E * cap, d), meta, n, k).reshape(B, Sl, d)
+    if seq_sharded and not seq_split:
+        y = C.split(y, env, tp_axis, 1)
+    elif seq_split and not seq_sharded:
+        y = C.gather(y, env, tp_axis, 1)
+    return y, C.mesh_mean(aux, env)

@@ -32,6 +32,13 @@ chunks of at most CHUNK elements, which bounds the step's f32
 temporaries on a card (a 202,048 x 5,120 embedding is 4.1 GB a
 temporary at full size); the rows are independent, so the values are
 the same.
+
+Over a DeviceMesh (the sharded train step, launch/steps.py) the trees
+hold each rank's local shards and `specs` their parameters' specs: the
+global norm sums each leaf's squares over the axes that shard it (a
+replicated leaf counts once), and an int8 moment's row scale is the max
+over the axes that shard its last dim, so a shard quantizes with the
+whole row's scale, as one device does.
 """
 from __future__ import annotations
 
@@ -133,12 +140,16 @@ def _sqrt(x):
     return torch.sqrt(x)
 
 
-def _quantize(x):
+def _quantize(x, env=None, axes: Tuple[str, ...] = ()):
     """f32 -> (int8, f32 scale per row of the last axis); a 1-D tensor
-    passes through with no scale."""
+    passes through with no scale. axes: the mesh axes sharding the last
+    axis (x a local shard): the row max is taken over them."""
     if x.dim() < 2:
         return x, None
     amax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+    if axes:
+        from repro_torch.parallel.collectives import all_reduce_max
+        amax = all_reduce_max(amax, env, axes)
     scale = torch.clamp_min(amax, 1e-20) / 127.0
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale[..., 0]
@@ -170,10 +181,29 @@ def adamw_init(params: Pytree, cfg: AdamWConfig) -> Dict[str, Pytree]:
             "v": tree_map(init_m, params)}
 
 
-def global_norm(tree: Pytree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
-    sq = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sq)))
+def global_norm(tree: Pytree, specs: Pytree = None,
+                env=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's f32 sum of squares.
+    With specs and a mesh env: the leaves are local shards, each leaf's
+    sum taken over the mesh axes its spec names."""
+    sq = torch.stack([torch.sum(torch.square(x.float()))
+                      for x in tree_leaves(tree)])
+    if env is not None:
+        from repro_torch.parallel.collectives import sum_over
+        from repro_torch.parallel.rules import axes_of
+        on = [set(a for e in s for a in axes_of(e))
+              for s in _spec_leaves(tree, specs)]
+        for axis in env.axis_names:
+            mask = torch.tensor([axis in o for o in on], device=sq.device)
+            sq = torch.where(mask, sum_over(sq, env, (axis,)), sq)
+    return torch.sqrt(torch.sum(sq))
+
+
+def _spec_leaves(tree: Pytree, specs: Pytree) -> list:
+    """The spec of every leaf of `tree`, in tree_leaves order."""
+    out = []
+    tree_map(lambda x, s: out.append(s), tree, specs)
+    return out
 
 
 def _rows(x: torch.Tensor) -> List[slice]:
@@ -185,14 +215,18 @@ def _rows(x: torch.Tensor) -> List[slice]:
     return [slice(i, i + per) for i in range(0, x.shape[0], per)]
 
 
-def adamw_update(grads: Pytree, state: Dict[str, Pytree], cfg: AdamWConfig
+def adamw_update(grads: Pytree, state: Dict[str, Pytree], cfg: AdamWConfig,
+                 specs: Pytree = None, env=None
                  ) -> Tuple[Pytree, Dict[str, Pytree]]:
     """One AdamW step: (new parameters in the grads' dtypes, the state).
     grads matches the parameters' tree; see the module docstring for what
-    is new and what is updated in place."""
+    is new and what is updated in place. specs and env: the parameters'
+    specs over env.mesh, the trees holding this rank's shards."""
+    if specs is None:
+        specs = tree_map(lambda g: (), grads)
     step = state["step"] + 1
     lr = cosine_lr(cfg, step)
-    gn = global_norm(grads)
+    gn = global_norm(grads, specs, env)
     clip = torch.clamp_max(
         torch.div(_f32(cfg.grad_clip, gn), torch.clamp_min(gn, 1e-12)), 1.0)
     b1c = 1 - torch.pow(_f32(cfg.b1, gn), step.float())
@@ -205,18 +239,22 @@ def adamw_update(grads: Pytree, state: Dict[str, Pytree], cfg: AdamWConfig
                                None if x["s"] is None else x["s"][rows])
         return x[rows]
 
-    def store(x, rows, val):
+    def store(x, rows, val, axes):
         if not is_q:
             x[rows] = val
             return
-        q, s = _quantize(val)
+        q, s = _quantize(val, env, axes)
         if s is None:
             x["q"] = q
         else:
             x["q"][rows] = q
             x["s"][rows] = s
 
-    def upd(g, master, m, v):
+    from repro_torch.parallel.rules import axes_of
+
+    def upd(g, master, m, v, spec):
+        axes = tuple(a for a in axes_of(spec[-1] if spec else None)
+                     if env is not None and a in env.axis_names)
         new = torch.empty(g.shape, dtype=g.dtype, device=g.device)
         for rows in _rows(g):
             gf = g[rows].float() * clip
@@ -227,14 +265,14 @@ def adamw_update(grads: Pytree, state: Dict[str, Pytree], cfg: AdamWConfig
             ma = master[rows]
             ma.sub_(lr * (mhat / (_sqrt(vhat) + cfg.eps)
                           + cfg.weight_decay * ma))
-            store(m, rows, mm)
-            store(v, rows, vv)
+            store(m, rows, mm, axes)
+            store(v, rows, vv, axes)
             new[rows] = ma
         return new
 
     with torch.no_grad():
         new_params = tree_map(upd, grads, state["master"], state["m"],
-                              state["v"])
+                              state["v"], specs)
         state["step"] = step
     return new_params, state
 

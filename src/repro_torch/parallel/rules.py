@@ -25,6 +25,7 @@ resolving reads only axis names and sizes. Placing a tree
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Optional, Tuple
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
@@ -209,6 +210,13 @@ def batch_specs(batch_struct: Pytree, cfg: ModelConfig, shape: ShapeConfig,
     return _tree_map_with_names(one, batch_struct)
 
 
+def axes_of(entry) -> Tuple[str, ...]:
+    """The mesh axes one entry of a spec names (None, a name or a tuple)."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
 def placements(spec: Spec, mesh) -> Tuple:
     """A spec as DTensor placements over `mesh`, one per mesh dim: Shard(d)
     where tensor dim d names the mesh dim, Replicate() elsewhere. A dim
@@ -223,13 +231,20 @@ def placements(spec: Spec, mesh) -> Tuple:
     return tuple(out)
 
 
+@dataclass(frozen=True)
+class Placed:
+    """Where a leaf goes: DTensor placements over a DeviceMesh (the JAX
+    package's NamedSharding)."""
+    mesh: Any
+    placements: Tuple
+
+
 def to_shardings(specs: Pytree, env: Env) -> Optional[Pytree]:
-    """(DeviceMesh, placements) per leaf of `specs`, or None without a
-    mesh."""
+    """A Placed per leaf of `specs`, or None without a mesh."""
     if env.mesh is None:
         return None
     return _tree_map_with_names(
-        lambda _, s: (env.mesh, placements(s, env.mesh)), specs)
+        lambda _, s: Placed(env.mesh, placements(s, env.mesh)), specs)
 
 
 def apply_shardings(tree: Pytree, specs: Pytree, env: Env) -> Pytree:

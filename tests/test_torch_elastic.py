@@ -254,7 +254,7 @@ def test_a_rendering_of_several_devices_or_none_is_refused(tmp_path):
     two = ElasticTrainer(_Template((torch.device("cpu"),
                                     torch.device("meta"))),
                          torch_smoke("yi-9b"), SHAPE, str(tmp_path / "a"))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="one process per rank"):
         two.ensure_ready()
     empty = ElasticTrainer(_Template(()), torch_smoke("yi-9b"), SHAPE,
                            str(tmp_path / "b"))

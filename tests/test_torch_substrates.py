@@ -174,7 +174,7 @@ def test_loader_gives_jax_batches_as_torch_tensors(arch):
         for k in j:
             assert isinstance(t[k], torch.Tensor) and t[k].device.type == "cpu"
             assert np.array_equal(_np(t[k]), np.asarray(j[k]))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="shape-only mesh has no ranks"):
         D.ShardedLoader(src, cfg, ShapeConfig("t", 16, 4, "train"),
                         Env(mesh=LM.make_test_mesh(4, abstract=True)))
 
@@ -506,19 +506,43 @@ def test_mesh_constructors_resolve_the_production_layout_without_ranks():
 
 
 def test_the_model_refuses_a_mesh_of_more_than_one_device():
-    cfg = torch_smoke("paper-demo")
-    wide = Env(plan=ParallelPlan(), mesh=LM.ShapeMesh((2, 1),
-                                                      ("data", "model")))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Mo.init_params(cfg, wide, device="cpu")
-    one = Env(plan=ParallelPlan(fsdp=False, attn_impl="naive"),
-              mesh=LM.ShapeMesh((1, 1), ("data", "model")))
-    params = Mo.init_params(cfg, one, device="cpu")
+    """The guard the sharded slice narrowed (models/env.py check_mesh,
+    sharded). A recurrent or modality arch over a mesh of two devices
+    raises NotImplementedError naming ROADMAP item 8.4, in init_params and
+    in forward. A dense or MoE arch over it is accepted: init_params gives
+    the whole tree padded for the mesh's tp degree, the JAX package's
+    shapes under the same mesh; computing needs a DeviceMesh's ranks (a
+    shape-only mesh of two raises ValueError; tests/test_torch_sharded.py
+    computes over gloo ranks); a mesh of one device computes on it."""
+    shape_mesh = lambda dims: LM.ShapeMesh(dims, ("data", "model"))
+    wide = Env(plan=ParallelPlan(), mesh=shape_mesh((1, 2)))
     tok = torch.zeros((1, 4), dtype=torch.int32)
+    for arch in ("rwkv6-1.6b", "recurrentgemma-9b", "qwen2-vl-7b",
+                 "whisper-small"):
+        cfg = torch_smoke(arch)
+        with pytest.raises(NotImplementedError, match="ROADMAP item 8.4"):
+            Mo.init_params(cfg, wide, device="meta")
+        params = Mo.init_params(cfg, Env(), device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP item 8.4"):
+            Mo.forward(params, tok, cfg, wide, mode="train")
+    for arch in ("qwen2-1.5b", "granite-3-8b", "grok-1-314b"):
+        jenv = JEnv(mesh=AbstractMesh((1, 2), ("data", "model")),
+                    plan=JPlan())
+        want = jax.eval_shape(lambda k: JMo.init_params(
+            k, get_smoke(arch), jenv), jax.ShapeDtypeStruct((2,), jnp.uint32))
+        got = Mo.init_params(torch_smoke(arch), wide, device="meta")
+        assert [tuple(x.shape) for x in A.tree_leaves(got)] == \
+            [tuple(x.shape) for x in jax.tree.leaves(want)]
+    cfg = torch_smoke("paper-demo")
+    one = Env(plan=ParallelPlan(fsdp=False, attn_impl="naive"),
+              mesh=shape_mesh((1, 1)))
+    params = Mo.init_params(cfg, one, device="cpu")
     logits, _ = Mo.forward(params, tok, cfg, one, mode="train")
     assert logits.shape[:2] == (1, 4)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Mo.forward(params, tok, cfg, wide, mode="train")
+    with pytest.raises(ValueError, match="shape-only mesh"):
+        Mo.forward(params, tok, cfg, Env(plan=ParallelPlan(),
+                                         mesh=shape_mesh((2, 1))),
+                   mode="train")
 
 
 # ---- four gloo ranks: ef_psum_grads and apply_shardings ------------------------
