@@ -105,7 +105,9 @@ Phases, any failure exits non-zero before the result line:
      victim on recurrentgemma-9b at full width and phase 14's cut depth
      (5 layers, prompt 160: flash attention and the RG-LRU scan in its
      prefill), swapping its window-ring blocks and state rows;
- 17. speculative decoding at full width: n-gram and model drafters at
+ 17. speculative decoding at full width (paper-demo-110m cut to
+     SPEC_LAYERS = 4 of its 12 layers since PR 27, to keep the script
+     within its time limit): n-gram and model drafters at
      spec_k 4 and auto, greedy and seeded (k 50 / p 0.9), on the paged,
      int8 and slot pools over a repetitive trace (8 requests, prompt 64,
      gen 32, 8 slots), each bit-identical to --spec off on the same pool
@@ -114,8 +116,10 @@ Phases, any failure exits non-zero before the result line:
      accepted tokens per step, and wall tokens/s of n-gram k 4 and the
      model drafter against --spec off, three runs each;
  18. the four dense attention archs at full width and depth (random
-     seeded weights): qwen2-1.5b, granite-3-8b, yi-9b and qwen3-32b
-     (qk-norm; 65.6 GB of bf16 weights) each serve 8 Poisson requests
+     seeded weights; qwen3-32b at 32 of its 64 layers since PR 27, 32.8
+     GB of bf16 weights, to keep the script within its time limit):
+     qwen2-1.5b, granite-3-8b, yi-9b and qwen3-32b (qk-norm) each serve 8
+     Poisson requests
      (prompt 64, gen 32, 8 slots, chunked lanes, greedy, block 16, prefix
      cache on), #1 launched at GQA 6, 4, 8 and 8, every token equal to the
      streamed-prefill one-shot baseline; qwen2-1.5b seeded (k 50 / p 0.9)
@@ -222,7 +226,32 @@ Phases, any failure exits non-zero before the result line:
      against the one-device layer on each rank's positions. The sharded
      and one-device step times and each rank's peak memory are printed
      with the card's name and power limit; counts zeroed before and read
-     after, the ranks' too: no kernel launched (`sharded_launches`).
+     after, the ranks' too: no kernel launched (`sharded_launches`);
+ 26. the one-shot serve over the cluster's rendered mesh (run_oneshot:
+     VirtualCluster.submit of serve_batch over the DeviceMesh it renders;
+     prefill and decode per rank). Part (a), one NCCL rank and the 1 x 1
+     mesh: the serve CLI's `--trace oneshot` under torchrun ends with the
+     JAX CLI's lines; paper-demo-110m (B=8, prompt 256, gen 32),
+     rwkv6-1.6b and recurrentgemma-9b at 5 layers (B=8, prompt 256, gen
+     16), full width: tokens and every step's logits equal the
+     one-device one-shot's bit for bit, #4, #1, #6, #7 counted;
+     paper-demo-110m under kv_cache="seq_sharded" launches #5 (logits
+     along the replicated tokens within 3e-2 of them, tokens under the
+     near-tie oracle); #5 at those shapes (a 288-position cache, and a
+     (1, 2) rank's 144) against its plain version, merged over the
+     one-rank group, and timed beside its plain version, SDPA and its
+     bound. Part (b), two processes sharing the card over gloo with CUDA
+     tensors, the (1, 2) mesh a VirtualCluster of two nodes renders: the
+     same models against one device (logits within 3e-2 before the first
+     differing token, tokens under the near-tie oracle), paper-demo-110m
+     in both layouts, recurrentgemma-9b with 2048 channels and 8 gate
+     blocks a rank, rwkv6-1.6b with 16 heads a rank at 2 layers (at 24 a
+     rounding amplified by the recurrence outgrows any tolerance that
+     still tells a fault); #5 merged across
+     the two ranks against its plain version on the same slices. Part
+     (c): rwkv6-1.6b at 2 layers, 3 sharded steps over that mesh against
+     one device. Counts zeroed before each run and read after it, the
+     ranks' too (`mesh_launches`; #5's row gains `seq_sharded`).
 Each phase's wall time is printed as it ends.
 Phase 2 also holds the quant kernel to its plain version and to the bf16
 kernel on the same pool (relative RMS), the flash-attention kernel to its
@@ -332,10 +361,16 @@ FD_SHAPES = [("paper-demo-110m", 8, 12, 4, 64, 32768),
 MASK_WIDE = tuple(V for T, V in time_mask.SHAPES if T == 8)
 
 
-# the zoo slice (phases 18 and 19): the dense archs' depths are their own;
-# the MoE archs keep their width and are cut in depth to fit one card
+# the zoo slice (phases 18 and 19): the dense archs' depths are their own
+# but qwen3-32b's, cut to 32 of 64 layers (PR 27: the script had outgrown
+# its time limit); the MoE archs keep their width and are cut in depth to
+# fit one card
 ZOO_DENSE = ("qwen2-1.5b", "granite-3-8b", "yi-9b", "qwen3-32b")
+ZOO_DEPTH = {"qwen3-32b": 32}
 ZOO_MOE = (("grok-1-314b", 4), ("llama4-scout-17b-a16e", 8))
+# phase 17's paper-demo-110m depth (its width whole): 4 of 12 layers since
+# PR 27, as ZOO_DEPTH; the spec paths' checks do not depend on depth
+SPEC_LAYERS = 4
 # one MoE layer, card vs CPU on the same input and weights: the bf16
 # outputs of the tokens routed alike differ by the expert products'
 # rounding (cuBLAS's bf16 GEMMs against f32-accumulated CPU ones, a bf16
@@ -2037,6 +2072,8 @@ def check_zoo_dense(counted):
     for arch in ZOO_DENSE:
         t0 = time.perf_counter()
         cfg = get_config(arch)
+        if arch in ZOO_DEPTH:
+            cfg = dataclasses.replace(cfg, n_layers=ZOO_DEPTH[arch])
         params = load_params(cfg, 0)
         args = zoo_args(arch, [])
         got = zoo_serve(cfg, params, args, counted,
@@ -2167,10 +2204,10 @@ def check_zoo_moe(counted):
         captured = []
         layer = M.moe_layer
 
-        def capture(p, x, c):
+        def capture(p, x, c, env=None):
             if not captured and x.shape[0] * x.shape[1] == 72:
                 captured.append(x.detach().clone())
-            return layer(p, x, c)
+            return layer(p, x, c, env)
 
         M.moe_layer = capture
         try:
@@ -3454,6 +3491,564 @@ def check_sharded(counted):
     return launches
 
 
+# phase 26: the one-shot over the cluster's rendered mesh. (arch, layers
+# (None: its own depth), B, prompt, gen): paper-demo-110m and rwkv6-1.6b
+# at full width and depth, recurrentgemma-9b at full width and 5 layers
+# (one (rglru, rglru, local) unit and the rglru tail pair: every kernel of
+# its path, at 2.3 of its 9.2 billion parameters)
+MESH_CASES = (("paper-demo", None, 8, 256, 32),
+              ("rwkv6-1.6b", None, 8, 256, 16),
+              ("recurrentgemma-9b", 5, 8, 256, 16))
+# ... and part (b)'s, the (1, 2) mesh against one device, rwkv6-1.6b cut to
+# 2 layers: a row product's tp shares rounded once in another order part
+# the logits by a rounding, and RWKV's 24 layers of recurrence amplify it
+# (the CPU, full width, 64-token prompts: 0.031, 0.079, 0.135-0.148 and
+# 0.34-0.37 at logits up to 5.1 at 2, 6, 12 and 24 layers; the card at 24
+# layers and 256 tokens 0.25 of the largest logit), which no tolerance
+# tells from a fault; at 2 layers a wrong head, gather or sum still moves
+# every logit
+MESH_B_CASES = (("paper-demo", None, 8, 256, 32),
+                ("rwkv6-1.6b", 2, 8, 256, 16),
+                ("recurrentgemma-9b", 5, 8, 256, 16))
+# the (1, 2) mesh (two processes sharing the card over gloo) and the
+# seq_sharded layout against one device: |diff| / max(|logit|, 1) on the
+# prefill's and on every decode step before the first differing token
+# (LOGIT_TOL: a row product's tp shares summed in f32 and rounded once,
+# or flash-decoding's partials merged, against one GEMM or one paged
+# decode); the tokens equal up to the first step where either side's
+# top-2 margin falls under MESH_TIE of the row's largest logit (|.| >= 1)
+MESH_TOL = LOGIT_TOL
+MESH_TIE = LOGIT_TOL
+MESH_TRAIN = ("rwkv6-1.6b", 2, 3)  # part (c): arch, layers, sharded steps
+# part (c)'s losses against one device's: the first within
+# SHARDED_STEP1_TOL (the forward and the vocabulary-parallel loss over
+# the ranks); the later ones within MESH_LATER_TOL. lr 1e-3 without
+# warmup takes rwkv6-1.6b from 11.58 to 2.75 in three steps, so weights
+# a rounding of the gradients' shares apart after a step move the third
+# loss by 3.05e-2 (this phase's first full run; 1.04e-3 at the second):
+# the tolerance was set from that run. The tight checks of the gradient
+# path are the CPU's (tests/test_torch_mesh_serving.py, three steps
+# within 5e-4) and the sharded AdamW update's (tests/test_torch_sharded
+# .py, bit for bit)
+MESH_LATER_TOL = 0.1
+
+
+def mesh_cfg(arch, layers):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def mesh_args(B, S, gen, nodes):
+    """run_oneshot's arguments: B prompts of S tokens (seed 0), gen."""
+    import argparse
+    return argparse.Namespace(nodes=nodes, device="cuda", requests=B,
+                              prompt_len=S, gen=gen, seed=0)
+
+
+def mesh_prompts(cfg, B, S):
+    """run_oneshot's prompts for mesh_args(B, S, ...)."""
+    import numpy as np
+    return np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S),
+                                             dtype=np.int32)
+
+
+def logit_err(got, want, ok=None):
+    """max |got - want| / max(|want|, 1) over [G, B, V] logits, on every
+    step (ok None) or the [G, B] steps of `ok`."""
+    import numpy as np
+    err = np.abs(got - want).max(-1) / np.maximum(np.abs(want).max(-1), 1)
+    return float(err.max() if ok is None else err[ok].max())
+
+
+def near_tie_equal(a, b, la, lb):
+    """Tokens a, b [B, G] equal up to each row's first differing step,
+    where either side's top-2 margin (la, lb [G, B, V] along each side's
+    own tokens) is under MESH_TIE of the row's largest |logit| (>= 1).
+    Returns (ok, the [G, B] steps before each row's first difference,
+    the number of rows that part)."""
+    import numpy as np
+
+    def tie(lg):
+        top2 = np.sort(lg, -1)[-2:]
+        return top2[1] - top2[0] < MESH_TIE * max(np.abs(lg).max(), 1)
+
+    same = np.cumprod(a == b, axis=1).astype(bool)
+    agreed = np.concatenate([np.ones((a.shape[0], 1), bool),
+                             same[:, :-1]], axis=1).T
+    parted = 0
+    for row in range(a.shape[0]):
+        diff = np.nonzero(a[row] != b[row])[0]
+        if diff.size:
+            parted += 1
+            t = diff[0]
+            if not (tie(la[t, row]) or tie(lb[t, row])):
+                return False, agreed, parted
+    return True, agreed, parted
+
+
+def kv_bytes(cfg, env, B, n):
+    """The bytes of this rank's decode cache for B rows of n positions
+    (init_cache's shapes on the meta device: k / v and state rows)."""
+    from repro_torch.models import model as Mo
+    return sum(x.numel() * x.element_size() for x in _leaves(
+        Mo.init_cache(cfg, env, B, n, device="meta")))
+
+
+# kernel #5's merged output (in q's dtype, bf16) against its plain
+# version merged the same way: within one bf16 rounding of the value
+# (2^-8 of it, taken as 2^-7 as phase 15's sharded-vs-whole check) plus
+# FD_TOL: the two sides' f32 partials differ by FD_TOL, which flips a
+# rounding now and then
+FD_MERGED_REL = 2.0 ** -7
+
+
+def fd_seq_case(q, k, v, group, index, n):
+    """Kernel #5 over the rank's slice k, v of a cache split over the n
+    ranks of `group` (slice `index`), merged across them, against its
+    plain version merged the same way on the same slices, at a ragged
+    and at the last position. Returns (the max abs error, the largest
+    excess over FD_MERGED_REL of the value: <= FD_TOL passes)."""
+    from repro_torch.kernels.flash_decode.ops import (
+        flash_decode_seq_sharded, merge_partials)
+    from repro_torch.kernels.flash_decode.ref import (
+        flash_decode_partials_ref)
+    import torch
+    s_local, worst, excess = k.shape[2], 0.0, 0.0
+    for c in (n * s_local * 5 // 8 + 3, n * s_local - 1):
+        cur = torch.tensor([c], dtype=torch.int32, device=q.device)
+        got = flash_decode_seq_sharded(q, k, v, cur, group, index).float()
+        local = min(max(c - index * s_local, -1), s_local - 1)
+        want = merge_partials(*flash_decode_partials_ref(q, k, v, local),
+                              group).to(q.dtype).float()
+        err = (got - want).abs()
+        worst = max(worst, float(err.max()))
+        excess = max(excess, float((err - FD_MERGED_REL * want.abs()).max()))
+    return worst, excess
+
+
+def mesh_rank(rank, store, out):
+    """Parts (b) and (c) of phase 26, one of two processes sharing the
+    card: a gloo group with CUDA tensors and the (1, 2) DeviceMesh a
+    VirtualCluster of two nodes renders from its hostfile. run_oneshot
+    over it for each MESH_B_CASES model (paper-demo-110m under both
+    layouts), each run's logits along its own tokens (serve_logits; the
+    seq_sharded one's along the replicated tokens too); kernel #5 merged
+    across the two ranks against its plain version on the same slices at
+    paper-demo-110m's seq_sharded shapes; then MESH_TRAIN's sharded train
+    steps over a (1, 2) make_test_mesh. Rank 0 writes the tokens and
+    logits (out.<case>.npz), every rank its launch counts, the runs' wall
+    times and the losses (out.<rank>.json)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_decode.ops import flash_decode_partials
+    from repro_torch.kernels.paged_decode.ops import (
+        paged_flash_decode, paged_flash_decode_quant)
+    from repro_torch.kernels.rglru.ops import rglru_scan
+    from repro_torch.kernels.rwkv6.ops import wkv6
+    from repro_torch.kernels.sampling.ops import topk_topp_mask
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.serve import (run_oneshot, serve_batch,
+                                          serve_logits)
+    from repro_torch.models import model as Mo
+    from repro_torch.models.env import SERVE_PLAN, Env
+    from repro_torch.parallel import collectives as C
+
+    counted = (paged_flash_decode, paged_flash_decode_quant, topk_topp_mask,
+               flash_attention, rglru_scan, wkv6, flash_decode_partials)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="file://" + store, rank=rank,
+                            world_size=2)
+    seq = dataclasses.replace(SERVE_PLAN, kv_cache="seq_sharded")
+    mesh = make_test_mesh(2, model=2)
+    rep = {"wall_s": {}, "warm_s": {}, "launches": {}}
+    for arch, layers, B, S, gen in MESH_B_CASES:
+        cfg = mesh_cfg(arch, layers)
+        params = Mo.init_params(cfg, Env(), seed=0, device="cuda")
+        prompts = mesh_prompts(cfg, B, S)
+        plans = [("replicated", SERVE_PLAN)]
+        if arch == "paper-demo":
+            plans.append(("seq_sharded", seq))
+        toks = {}
+        for layout, plan in plans:
+            for op in counted:
+                op.launches = 0
+            run = run_oneshot(mesh_args(B, S, gen, 2), cfg, params, plan)
+            rep["launches"][f"{arch}/{layout}"] = {
+                op.__name__: op.launches for op in counted}
+            rep["wall_s"][f"{arch}/{layout}"] = run["wall_s"]
+            rep.setdefault("kv_bytes", {})[f"{arch}/{layout}"] = kv_bytes(
+                cfg, Env(plan=plan, mesh=mesh), B, S + gen)
+            toks[layout] = run["tokens"]
+            kw = dict(streamed_prefill=False, mesh=mesh, plan=plan)
+            res = {"tokens": run["tokens"], "logits": serve_logits(
+                cfg, params, prompts, run["tokens"], **kw)}
+            if layout == "seq_sharded":
+                res["forced"] = serve_logits(cfg, params, prompts,
+                                             toks["replicated"], **kw)
+            torch.cuda.synchronize()  # warm: the mesh served before
+            t1 = time.perf_counter()
+            serve_batch(cfg, params, prompts, gen, **kw)
+            rep["warm_s"][f"{arch}/{layout}"] = time.perf_counter() - t1
+            if rank == 0:
+                np.savez(f"{out}.{arch}.{layout}.npz", **res)
+        del params
+        torch.cuda.empty_cache()
+    # kernel #5 across the two ranks at paper-demo-110m's seq_sharded
+    # decode shapes: every head's q, this rank's half of the positions
+    cfg = mesh_cfg("paper-demo", None)
+    B, S, gen = MESH_CASES[0][2:]
+    gen_ = torch.Generator(device="cuda").manual_seed(26)
+    mk = lambda *s: torch.randn(s, generator=gen_, device="cuda").to(
+        torch.bfloat16)
+    q = mk(B, cfg.n_heads, cfg.head_dim)
+    half = (S + gen) // 2
+    k = mk(2, B, cfg.n_kv_heads, half, cfg.head_dim)[rank].contiguous()
+    v = mk(2, B, cfg.n_kv_heads, half, cfg.head_dim)[rank].contiguous()
+    env = Env(plan=seq, mesh=mesh)
+    rep["fd_merged_err"] = fd_seq_case(
+        q, k, v, C._group(env, "model"), C.axis_rank(env, "model"), 2)
+    # part (c): the recurrent train step over the same mesh
+    arch, layers, steps = MESH_TRAIN
+    for op in counted:
+        op.launches = 0
+    tenv = Env(plan=sharded_plan(), mesh=mesh)
+    losses, times, peak = sharded_steps(mesh_cfg(arch, layers), tenv, steps)
+    rep.update(losses=losses, step_s=times, peak_gib=peak,
+               train_launches={op.__name__: op.launches for op in counted})
+    with open(f"{out}.{rank}.json", "w") as f:
+        json.dump(rep, f)
+    dist.destroy_process_group()
+
+
+def check_mesh_serving(counted):
+    """Phase 26: the one-shot serve over the cluster's rendered mesh
+    (launch/serve.py run_oneshot: VirtualCluster.submit of serve_batch
+    over the DeviceMesh it renders under a process group; prefill and
+    decode per rank, models/model.py _Ranks). Part (a), one rank of an
+    NCCL group and the 1 x 1 mesh: the CLI `--trace oneshot` under
+    torchrun ends with the JAX CLI's lines; each MESH_CASES model's
+    tokens and every step's logits (serve_logits) equal the one-device
+    one-shot's bit for bit under the replicated layout, #4 and #1 (and
+    #6, #7) counted; paper-demo-110m under seq_sharded launches #5, its
+    logits along the replicated tokens within MESH_TOL and its tokens
+    under the near-tie oracle; #5 merged over the one-rank group against
+    its plain version at those shapes, and timed there. Part (b), two
+    processes sharing the card over gloo with CUDA tensors (mesh_rank):
+    MESH_B_CASES's models over the (1, 2) mesh against one device,
+    paper-demo-110m in both layouts; #5 merged across the two ranks against its
+    plain version on the same slices. Part (c): rwkv6-1.6b at 2 layers,
+    3 sharded steps over that mesh against one device. Counts zeroed
+    before each run and read after it, the children's too. Returns
+    ({kernel: launches}, #5's seq_sharded row)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.flash_decode.ops import flash_decode_partials
+    from repro_torch.kernels.flash_decode.ref import (
+        flash_decode_partials_ref)
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.serve import (run_oneshot, serve_batch,
+                                          serve_logits)
+    from repro_torch.models import model as Mo
+    from repro_torch.models.env import SERVE_PLAN, Env
+    from repro_torch.parallel import collectives as C
+
+    t0 = time.perf_counter()
+    seq = dataclasses.replace(SERVE_PLAN, kv_cache="seq_sharded")
+    names = {op: ("flash_decode" if op.__name__ == "flash_decode_partials"
+                  else op.__name__) for op in counted}
+    launches = {n: 0 for n in names.values()}
+
+    def read(label, want):
+        got = {names[op]: op.launches for op in counted}
+        for k, n in got.items():
+            launches[k] += n
+        if any((got[k] > 0) != w for k, w in want.items()):
+            fail(f"phase 26 {label}: launches {got}, expected "
+                 f"{ {k: 'some' if w else 0 for k, w in want.items()} }")
+        return got
+
+    def zero():
+        for op in counted:
+            op.launches = 0
+
+    # the CLI under torchrun: one NCCL rank, its rendered 1 x 1 mesh
+    env_b = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t1 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "1", "-m", "repro_torch.launch.serve",
+         "--trace", "oneshot"], capture_output=True, text=True, env=env_b,
+        timeout=300)
+    # the JAX CLI's last lines: the count and rate, then the sample (numpy
+    # wraps its 16 tokens)
+    gi = cli.stdout.rfind("generated 384 tokens in ")
+    si = cli.stdout.rfind("sample: [")
+    if cli.returncode != 0 or not 0 <= gi < si:
+        fail(f"serve CLI --trace oneshot under torchrun: exit "
+             f"{cli.returncode}, {cli.stdout[-2000:]}{cli.stderr[-2000:]}")
+    print(f"serve CLI --trace oneshot under torchrun, one NCCL rank on the "
+          f"card ({time.perf_counter() - t1:.1f}s): "
+          + " ".join(cli.stdout[gi:].split()))
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    # one device, per (arch, layers): tokens, logits, wall tokens/s, cache
+    ref = {}
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_test_mesh(1, model=1)
+        for arch, layers, B, S, gen in MESH_CASES:
+            cfg = mesh_cfg(arch, layers)
+            params = load_params(cfg, 0)
+            prompts = mesh_prompts(cfg, B, S)
+            kw = dict(streamed_prefill=False)
+            tok1 = serve_batch(cfg, params, prompts, gen, **kw)
+            lg1 = serve_logits(cfg, params, prompts, tok1, **kw)
+            torch.cuda.synchronize()  # warm: timed after two runs
+            t1 = time.perf_counter()
+            serve_batch(cfg, params, prompts, gen, **kw)
+            one_s = time.perf_counter() - t1
+            ref[arch, layers] = (tok1, lg1, B * gen / one_s,
+                                 kv_bytes(cfg, Env(), B, S + gen))
+            kinds = cfg.block_pattern * cfg.num_blocks + cfg.pattern_tail
+            want = {"flash_attention": S > 128 and any(
+                        k in ("attn", "local") for k in kinds),
+                    "paged_flash_decode": any(k in ("attn", "local")
+                                              for k in kinds),
+                    "rglru_scan": "rglru" in kinds,
+                    "wkv6": "rwkv" in kinds, "flash_decode": False,
+                    "topk_topp_mask": False,
+                    "paged_flash_decode_quant": False}
+            zero()
+            run = run_oneshot(mesh_args(B, S, gen, 1), cfg, params)
+            got = read(f"(a) {arch} replicated", want)
+            lgm = serve_logits(cfg, params, prompts, run["tokens"],
+                               mesh=mesh, **kw)
+            if not (np.array_equal(run["tokens"], tok1)
+                    and np.array_equal(lgm, lg1)):
+                fail(f"phase 26 (a) {arch}: the 1 x 1 mesh's tokens or "
+                     f"logits differ from one device's (tokens equal: "
+                     f"{np.array_equal(run['tokens'], tok1)})")
+            # warm: the same mesh's groups already carried a run
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            serve_batch(cfg, params, prompts, gen, mesh=mesh, **kw)
+            warm_s = time.perf_counter() - t1
+            n_tok = B * gen
+            cache_b = kv_bytes(cfg, Env(mesh=mesh), B, S + gen)
+            print(f"(a) {cfg.name} ({cfg.n_layers} layers, B={B} prompt {S} "
+                  f"gen {gen}) over the rendered 1 x 1 NCCL mesh: tokens and "
+                  f"all {gen} steps' logits equal one device's bit for bit; "
+                  f"wall tokens/s {n_tok / run['wall_s']:.1f} through "
+                  f"run_oneshot (a new cluster's mesh: its NCCL "
+                  f"communicators start inside), {n_tok / warm_s:.1f} warm "
+                  f"on a mesh that served before, {n_tok / one_s:.1f} one "
+                  f"device, on {card()}; cache {cache_b} bytes; launches { {k: n for k, n in got.items() if n} }")
+            if arch == "paper-demo":
+                zero()
+                srun = run_oneshot(mesh_args(B, S, gen, 1), cfg, params, seq)
+                want = dict(want, flash_decode=True,
+                            paged_flash_decode=False)
+                got = read("(a) paper-demo seq_sharded", want)
+                kws = dict(kw, mesh=mesh, plan=seq)
+                own = serve_logits(cfg, params, prompts, srun["tokens"],
+                                   **kws)
+                forced = serve_logits(cfg, params, prompts, tok1, **kws)
+                ok, agreed, parted = near_tie_equal(srun["tokens"], tok1,
+                                                    own, lg1)
+                err = logit_err(forced, lg1)
+                if not ok or err > MESH_TOL:
+                    fail(f"phase 26 (a) seq_sharded: near-tie oracle {ok}, "
+                         f"logits along the replicated tokens {err:.3e}")
+                print(f"(a) {cfg.name} under seq_sharded over the 1 x 1 "
+                      f"mesh: logits along the replicated tokens within "
+                      f"{err:.3e} of them (tolerance {MESH_TOL}), {parted} "
+                      f"of {B} rows part at a near-tie; "
+                      f"{n_tok / srun['wall_s']:.1f} tokens/s wall; "
+                      f"launches { {k: n for k, n in got.items() if n} }")
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        # kernel #5 at the seq_sharded decode shapes, the cache full
+        cfg = mesh_cfg("paper-demo", None)
+        B, S, gen = MESH_CASES[0][2:]
+        fgen = torch.Generator(device="cuda").manual_seed(26)
+        mk = lambda *s: torch.randn(s, generator=fgen, device="cuda").to(
+            torch.bfloat16)
+        q = mk(B, cfg.n_heads, cfg.head_dim)
+        rows = []
+        for n in (1, 2):  # the (1, 1) mesh's cache, a (1, 2) rank's half
+            n_tok = (S + gen) // n
+            k = mk(B, cfg.n_kv_heads, n_tok, cfg.head_dim)
+            v = mk(B, cfg.n_kv_heads, n_tok, cfg.head_dim)
+            cur = torch.tensor([n_tok - 1], dtype=torch.int32, device="cuda")
+            o, _, _ = flash_decode_partials(q, k, v, cur)
+            ro = flash_decode_partials_ref(q, k, v, cur)[0]
+            bound, by = fd_bound_ms(B, cfg.n_heads, cfg.n_kv_heads,
+                                    cfg.head_dim, n_tok, 2)
+            qs = q[:, :, None, :]
+            rows.append({
+                "shape": f"B={B} Hq={cfg.n_heads} Hkv={cfg.n_kv_heads} "
+                         f"hd={cfg.head_dim} S={n_tok} bf16 (tp {n})",
+                "max_abs_err": float((o - ro).abs().max()),
+                "ms": device_ms(lambda: flash_decode_partials(q, k, v,
+                                                              cur)),
+                "plain_ms": device_ms(lambda: flash_decode_partials_ref(
+                    q, k, v, cur)),
+                "library_ms": device_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qs, k, v, enable_gqa=True)),
+                "bound_ms": bound, "bound_by": by})
+            if n == 1:
+                env = Env(plan=seq, mesh=mesh)
+                rows[-1]["merged_err"] = fd_seq_case(
+                    q, k, v, C._group(env, "model"), 0, 1)
+            print(f"#5 at {rows[-1]['shape']}: {rows[-1]['ms'] * 1e3} us "
+                  f"kernel, {rows[-1]['plain_ms'] * 1e3} us plain, "
+                  f"{rows[-1]['library_ms'] * 1e3} us SDPA, bound "
+                  f"{bound * 1e3} us ({by}), {bound / rows[-1]['ms']:.4f} "
+                  f"of the bound; max abs err {rows[-1]['max_abs_err']:.3e}"
+                  + (f"; merged over the one-rank group (max abs err, "
+                     f"excess) {rows[-1]['merged_err']}" if n == 1 else "")
+                  + f" on {card()}")
+            if not rows[-1]["max_abs_err"] <= FD_TOL or not rows[0].get(
+                    "merged_err", (0.0, 0.0))[1] <= FD_TOL:
+                fail(f"phase 26: #5 at {rows[-1]['shape']}: {rows[-1]}")
+        del q, k, v
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # part (b)'s one-device runs not in part (a), part (c)'s one-device
+    # losses, then parts (b) and (c) on two ranks
+    for arch, layers, B, S, gen in MESH_B_CASES:
+        if (arch, layers) not in ref:
+            cfg = mesh_cfg(arch, layers)
+            params = load_params(cfg, 0)
+            prompts = mesh_prompts(cfg, B, S)
+            kw = dict(streamed_prefill=False)
+            tok1 = serve_batch(cfg, params, prompts, gen, **kw)
+            lg1 = serve_logits(cfg, params, prompts, tok1, **kw)
+            torch.cuda.synchronize()  # warm: timed after two runs
+            t1 = time.perf_counter()
+            serve_batch(cfg, params, prompts, gen, **kw)
+            one_s = time.perf_counter() - t1
+            ref[arch, layers] = (tok1, lg1, B * gen / one_s,
+                                 kv_bytes(cfg, Env(), B, S + gen))
+            del params
+            torch.cuda.empty_cache()
+    arch, layers, steps = MESH_TRAIN
+    one_losses = sharded_steps(mesh_cfg(arch, layers),
+                               Env(plan=sharded_plan()), steps)[0]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_ranks_")
+    t1 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+         "--mesh-rank", str(r), f"{tmp}/store", f"{tmp}/out"],
+        env=env_b, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+    logs = []
+    for proc in procs:
+        try:
+            logs.append(proc.communicate(timeout=600)[0])
+        finally:
+            proc.kill()
+    if any(proc.returncode != 0 for proc in procs):
+        fail("phase 26 part (b): a rank failed:\n" + "\n".join(
+            log[-3000:] for log in logs))
+    ranks = []
+    for r in range(2):
+        with open(f"{tmp}/out.{r}.json") as f:
+            ranks.append(json.load(f))
+    wall_b = time.perf_counter() - t1
+    for arch, layers, B, S, gen in MESH_B_CASES:
+        tok1, lg1, one_rate, one_kv = ref[arch, layers]
+        for layout in (("replicated", "seq_sharded") if arch == "paper-demo"
+                       else ("replicated",)):
+            z = np.load(f"{tmp}/out.{arch}.{layout}.npz")
+            ok, agreed, parted = near_tie_equal(z["tokens"], tok1,
+                                                z["logits"], lg1)
+            err = logit_err(z["logits"], lg1, agreed)
+            # the seq_sharded run along the replicated run's tokens against
+            # the replicated run's logits, both over the mesh
+            forced = (logit_err(z["forced"], np.load(
+                f"{tmp}/out.{arch}.replicated.npz")["logits"])
+                if "forced" in z else None)
+            label = f"{arch}/{layout}"
+            walls = [rep["wall_s"][label] for rep in ranks]
+            warms = [rep["warm_s"][label] for rep in ranks]
+            per = [rep["launches"][label] for rep in ranks]
+            for p in per:
+                for k, n in p.items():
+                    launches[k.replace("_partials", "")] += n
+            print(f"(b) {mesh_cfg(arch, layers).name} {layout} over the "
+                  f"(1, 2) gloo mesh (two processes on the card; a rank's "
+                  f"decode cache {ranks[0]['kv_bytes'][label]} bytes, one "
+                  f"device's {one_kv}): logits "
+                  f"within {err:.3e} of one device's before the first "
+                  f"differing token (tolerance {MESH_TOL})"
+                  + ("" if forced is None else
+                     f", {forced:.3e} of the replicated mesh run's along "
+                     f"its tokens")
+                  + f"; {parted} of {B} rows part at a near-tie; wall "
+                  f"tokens/s {B * gen / max(walls):.1f} through run_oneshot,"
+                  f" {B * gen / max(warms):.1f} warm (the slower rank; one "
+                  f"device {one_rate:.1f}); launches per rank "
+                  f"{[{k: n for k, n in p.items() if n} for p in per]}")
+            if not ok or err > MESH_TOL or (forced or 0.0) > MESH_TOL:
+                fail(f"phase 26 (b) {label}: near-tie oracle {ok}, logits "
+                     f"{err:.3e}, forced {forced}")
+            kinds = set(mesh_cfg(arch, layers).block_pattern)
+            attn = bool(kinds & {"attn", "local"})
+            need = {"wkv6": "rwkv" in kinds, "rglru_scan": "rglru" in kinds,
+                    "flash_attention": attn,
+                    "paged_flash_decode": attn and (
+                        layout == "replicated" or "local" in kinds),
+                    "flash_decode_partials": layout == "seq_sharded",
+                    "topk_topp_mask": False,
+                    "paged_flash_decode_quant": False}
+            if any((p[k] > 0) != w for p in per for k, w in need.items()):
+                fail(f"phase 26 (b) {label}: launches {per}")
+    if any(any(rep["train_launches"].values()) for rep in ranks):
+        fail(f"phase 26 (c) launched "
+             f"{[rep['train_launches'] for rep in ranks]}")
+    merged = [rep["fd_merged_err"] for rep in ranks]
+    if not all(e[1] <= FD_TOL for e in merged):
+        fail(f"phase 26 (b): #5 merged across two ranks vs plain {merged}")
+    b_losses = ranks[0]["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(b_losses, one_losses)]
+    print(f"(b) #5 merged across the two gloo ranks against its plain "
+          f"version on the same slices: (max abs err, excess over "
+          f"{FD_MERGED_REL} of the value) {merged} (tolerance {FD_TOL})")
+    print(f"(c) {MESH_TRAIN[0]} at {MESH_TRAIN[1]} layers, {MESH_TRAIN[2]} "
+          f"sharded steps over the (1, 2) mesh: loss "
+          f"{' '.join(f'{x:.6f}' for x in b_losses)}, one device "
+          f"{' '.join(f'{x:.6f}' for x in one_losses)} (relative "
+          f"{' '.join(f'{e:.2e}' for e in rel)}; tolerance "
+          f"{SHARDED_STEP1_TOL:.0e} first, {MESH_LATER_TOL:.0e} after); "
+          f"sharded step {_ms(ranks[0]['step_s'])} on {card()}; parts (b) "
+          f"and (c) {wall_b:.1f}s with the processes' start")
+    if not (ranks[0]["losses"] == ranks[1]["losses"]
+            and rel[0] <= SHARDED_STEP1_TOL
+            and all(e <= MESH_LATER_TOL for e in rel[1:])):
+        fail(f"phase 26 (c): losses {[r['losses'] for r in ranks]} against "
+             f"{one_losses}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"mesh serving phase: {time.perf_counter() - t0:.1f}s; kernel "
+          f"launches {launches}")
+    return launches, rows
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -3855,7 +4450,10 @@ def main():
     # 16. the host swap tier at full width; 17. speculative decoding
     swap_launches = check_swap_tier(cfg, params, counted)
     done(16)
-    spec_launches = check_spec(cfg, params, counted)
+    spec_cfg = dataclasses.replace(cfg, n_layers=SPEC_LAYERS)
+    spec_params = Mo.init_params(spec_cfg, Env(), seed=0, device=dev)
+    spec_launches = check_spec(spec_cfg, spec_params, counted)
+    del spec_params
     done(17)
     # 18. the four dense attention archs at full width and depth; 19. the
     # two MoE archs at full width and cut depth (paper-demo's engines and
@@ -3891,6 +4489,11 @@ def main():
     # of NCCL and on two processes sharing the card over gloo
     sharded_launches = check_sharded(counted)
     done(25)
+    # 26. the one-shot serve over the cluster's rendered mesh: one NCCL
+    # rank, two processes sharing the card over gloo, the recurrent train
+    # step over the same mesh
+    mesh_launches, fd_seq = check_mesh_serving(counted)
+    done(26)
     report[2]["rings_int8"] = ring_q
     report[2]["modality"] = {"gqa7 serving mix int8":
                              mod_paged.pop("gqa7 serving mix int8")}
@@ -3907,6 +4510,8 @@ def main():
         k["rollout_launches"] = rollout_launches.get(k["name"], 0)
         k["elastic_launches"] = elastic_launches.get(k["name"], 0)
         k["sharded_launches"] = sharded_launches.get(k["name"], 0)
+        k["mesh_launches"] = mesh_launches.get(k["name"], 0)
+    report[-1]["seq_sharded"] = fd_seq
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": report}))
@@ -3920,5 +4525,8 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sharded-rank"]:  # phase 25's part (b)
         sharded_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--mesh-rank"]:  # phase 26's parts (b) and (c)
+        mesh_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
         sys.exit(0)
     sys.exit(main())

@@ -8,6 +8,10 @@ bf16 stays bf16, `blocks` leaves stay stacked on the layer axis and the
 vocabulary stays padded. The port never imports JAX to load weights: the
 tests make the numpy tree and hand it over.
 
+Over a DeviceMesh the same tree is padded for its tp degree
+(pad_for_mesh) and cut to each rank's shards (rank_shards): the parameter
+leaves of every block kind, the recurrent ones included.
+
 The same conversion carries an AdamW state over (optim/adamw.py): the
 int32 step, the f32 master weights and the moments, f32 or int8 {"q",
 "s"} with s None (an empty subtree) for 1-D leaves, so a test can step
@@ -90,3 +94,15 @@ def pad_for_mesh(params: Any, cfg, env) -> Any:
     out["embed"] = F.pad(params["embed"], (0, 0, 0, dv))
     out["unembed"] = F.pad(params["unembed"], (0, dv))
     return out
+
+
+def rank_shards(params: Any, cfg, env) -> Any:
+    """A one-device parameter tree (torch, whole on every rank) as this
+    rank's shards over env.mesh: padded for its tp degree (pad_for_mesh),
+    then each leaf cut to the rank's chunk of its spec
+    (parallel/rules.py param_specs, local_shard), the local tensors
+    apply_shardings would place, with no message."""
+    from repro_torch.models.model import param_specs
+    from repro_torch.parallel.rules import local_shards
+    return local_shards(pad_for_mesh(params, cfg, env),
+                        param_specs(cfg, env), env)

@@ -3,9 +3,10 @@
 Port of the JAX package's core/cluster.py. Wires together:
 ReplicatedRegistry (Consul trio) + SimCluster (blades & containers) +
 MeshTemplate (consul-template) + AutoScaler. `submit()` is the `mpirun`
-analogue: run a function over the currently rendered device list (the
-hostfile's devices). A training job that lives through the cluster's
-membership epochs is core/elastic.py's ElasticTrainer over `template`.
+analogue: run a function over the current rendering (the hostfile's
+devices, or under a process group the DeviceMesh of their ranks). A
+training job that lives through the cluster's membership epochs is
+core/elastic.py's ElasticTrainer over `template`.
 Under a process group every rank builds the same cluster (a seeded
 control plane under its manual clock) and the template renders a
 DeviceMesh over the ranks the live members contribute.
@@ -110,11 +111,19 @@ class VirtualCluster:
 
     # -- the mpirun analogue --------------------------------------------------------
     def submit(self, fn: Callable, *args, **kwargs):
-        """Run `fn(devices, *args, **kwargs)` over the rendered device list
-        (hostfile order; an oversubscribed simulation renders each real
-        device once; under a process group, the ranks)."""
+        """Run `fn(target, *args, **kwargs)` SPMD over the rendering, as
+        the JAX package passes its rendered mesh. Under a process group
+        the target is the rendered DeviceMesh over the members' ranks:
+        every rank of the group calls submit alike, the ranks of the mesh
+        run fn, and a rank outside it runs nothing and gets None.
+        Otherwise it is the rendered device list (hostfile order; an
+        oversubscribed simulation renders each real device once)."""
         r = self.rendering
         assert r.devices, "cluster has no devices"
+        if r.mesh is not None:
+            if r.mesh.get_coordinate() is None:
+                return None
+            return fn(r.mesh, *args, **kwargs)
         return fn(list(r.devices), *args, **kwargs)
 
     # -- scaling API -------------------------------------------------------------------

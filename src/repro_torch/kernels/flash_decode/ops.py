@@ -130,16 +130,24 @@ def merge_partials_stacked(o, m, l):
     return (o * w).sum(0) / torch.clamp_min(w.sum(0), 1e-30)
 
 
-def flash_decode_seq_sharded(q, k_local, v_local, cur_len, group=None):
+def flash_decode_seq_sharded(q, k_local, v_local, cur_len, group=None,
+                             index=None):
     """Flash-decoding over a cache whose sequence axis is split evenly
     across the ranks of `group`: each rank passes q (the same on every
-    rank) and its own slice k_local, v_local [B,Hkv,S/world,hd]; cur_len
-    is the global index of the last valid position. Each rank attends to
-    its slice up to clamp(cur_len - rank * s_local, -1, s_local - 1) and
-    the partials merge across the group (ops.py flash_decode_seq_sharded).
-    Returns [B,Hq,hd] in q's dtype on every rank."""
+    rank) and its own slice k_local, v_local [B,Hkv,S/world,hd], slice
+    `index` of the sequence (default: the rank's place in the group; a
+    DeviceMesh passes its coordinate along the axis); cur_len is the
+    global index of the last valid position, an int or a [1] int tensor
+    on q's device (no host sync). Each rank attends to its slice up to
+    clamp(cur_len - index * s_local, -1, s_local - 1) through
+    flash_decode_partials (the kernel on a CUDA tensor, the plain version
+    on a CPU one) and the partials merge across the group (ops.py
+    flash_decode_seq_sharded). Returns [B,Hq,hd] in q's dtype on every
+    rank."""
     s_local = k_local.shape[2]
-    start = dist.get_rank(group) * s_local
+    if index is None:
+        index = dist.get_rank(group)
+    start = index * s_local
     if isinstance(cur_len, torch.Tensor):
         local = (cur_len.reshape(1).to(q.device) - start).clamp(
             -1, s_local - 1).to(torch.int32)

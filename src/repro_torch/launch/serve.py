@@ -24,7 +24,13 @@ for classic):
       --replicas 2 --max-nodes 4 --kv quant --verify
 
 --trace oneshot runs the one-shot baseline alone (a full-prefill batch
-submitted to the cluster), as the JAX CLI's legacy path does.
+submitted to the cluster), as the JAX CLI's legacy path does. Under
+torchrun it runs SPMD over the DeviceMesh the cluster renders from its
+hostfile, one process per rank (NCCL on cuda:LOCAL_RANK, gloo with
+--device cpu; rank 0 prints), the JAX CLI's way of running the job:
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.serve --smoke \\
+      --device cpu --trace oneshot --nodes 2
 
 --arch picks the model, one of eleven: paper-demo, yi-9b, granite-3-8b,
 qwen3-32b (qk-norm) and qwen2-1.5b (qkv bias), the dense attention archs;
@@ -48,18 +54,22 @@ ManualClock advanced per step); wall time is measured around the serve.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
 import torch
 
+from repro_torch import bridge
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke
 from repro_torch.core import (ClusterImage, LatencyPolicy, QueueDepthPolicy,
                               VirtualCluster)
 from repro_torch.core.clock import ManualClock
 from repro_torch.launch import steps as St
 from repro_torch.models import model as Mo
-from repro_torch.models.env import SERVE_PLAN, Env
+from repro_torch.models.env import SERVE_PLAN, Env, sharded
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel import rules
 from repro_torch.serve import (SamplingParams, burst_trace,
                                make_scheduler_policy, make_serving_engine,
                                poisson_trace, repetitive_trace,
@@ -83,7 +93,7 @@ def modality_stubs(cfg, B: int, S: int, device="cuda") -> dict:
 
 def serve_batch(cfg, params, prompts, gen_len: int, *,
                 streamed_prefill: bool = True, device="cuda",
-                stubs=None) -> np.ndarray:
+                stubs=None, mesh=None, plan=SERVE_PLAN) -> np.ndarray:
     """One-shot batch serving, the correctness baseline for the engine:
     prefill every prompt together, then decode the uniform batch greedily
     to gen_len. Returns [B, gen_len] int32.
@@ -101,9 +111,50 @@ def serve_batch(cfg, params, prompts, gen_len: int, *,
     prefill would carry no modality), with its stubs: `stubs` ({"vision_
     embeds"} or {"frames"}, tensors), zeros of modality_stubs' shapes by
     default. A VLM's decode positions start past its vision embeddings,
-    at S + num_vision_embeds."""
-    env = Env()
+    at S + num_vision_embeds.
+
+    mesh (the JAX package's serve_batch signature; None: one device): a
+    DeviceMesh of a process group's ranks, every rank of it calling with
+    the same whole (one-device) params and prompts. Each rank keeps its
+    shards of the params (bridge.rank_shards) and its rows of the batch
+    (B / dp), prefills and decodes them per rank (models/model.py
+    _Ranks) under `plan` (its kv_cache picks the layout: "replicated" or
+    "seq_sharded", flash-decoding over the positions split across tp),
+    and picks each token by the vocabulary-parallel argmax. The tokens
+    come back gathered, the same on every rank."""
+    return _oneshot(cfg, params, prompts, gen_len, streamed_prefill,
+                    device, stubs, mesh, plan)[0]
+
+
+def serve_logits(cfg, params, prompts, tokens, *, streamed_prefill=True,
+                 device="cuda", stubs=None, mesh=None,
+                 plan=SERVE_PLAN) -> np.ndarray:
+    """The one-shot's logits along given tokens [B, G] (teacher forcing):
+    step i's logits [B, V] f32, from which serve_batch picks token i
+    when tokens are its own. Returns [G, B, V] (gathered over a mesh's
+    ranks, the same on every rank): the near-tie oracle's input (a
+    greedy token may flip where the top two logits are within a
+    tolerance of each other)."""
+    return _oneshot(cfg, params, prompts, np.asarray(tokens).shape[1],
+                    streamed_prefill, device, stubs, mesh, plan,
+                    forced=tokens)[1]
+
+
+def _oneshot(cfg, params, prompts, gen_len, streamed_prefill, device,
+             stubs, mesh, plan, forced=None):
+    """serve_batch's loop. Returns (tokens [B, gen_len] int32, and with
+    `forced` [B, gen_len] the logits along those tokens, else None)."""
+    env = Env(mesh=mesh, plan=plan)
+    per_rank = sharded(cfg, env)
     prompts = torch.as_tensor(np.asarray(prompts), device=device)
+    if forced is not None:
+        forced = torch.as_tensor(np.asarray(forced), device=device)
+    if per_rank:
+        params = bridge.rank_shards(params, cfg, env)
+        rows = rules.Spec((env.dpx or None, None))
+        prompts = rules.local_shard(prompts, rows, env)
+        if forced is not None:
+            forced = rules.local_shard(forced, rows, env)
     B, S = prompts.shape
     decode = St.make_decode_step(cfg, env)
     modal = cfg.family == "vlm" or cfg.is_encdec
@@ -111,7 +162,8 @@ def serve_batch(cfg, params, prompts, gen_len: int, *,
         raise ValueError(f"{cfg.name}: a streamed prefill carries no "
                          "modality; serve it with streamed_prefill=False")
     if streamed_prefill:
-        caches = Mo.init_cache(cfg, env, B, S + gen_len, device=device)
+        caches = Mo.init_cache(cfg, env, B * env.dp, S + gen_len,
+                               device=device)
         logits = None
         for i in range(S):
             logits, caches = decode(params, caches, prompts[:, i:i + 1], i)
@@ -120,16 +172,32 @@ def serve_batch(cfg, params, prompts, gen_len: int, *,
             stubs = modality_stubs(cfg, B, S, device)
         logits, caches = St.make_prefill_step(cfg, env)(
             params, {"tokens": prompts, **stubs})
-        caches = Mo.grow_caches(caches, gen_len, cfg)
-    V = cfg.vocab_size
+        caches = Mo.grow_caches(caches, gen_len, cfg, env)
     offset = cfg.num_vision_embeds if cfg.family == "vlm" else 0
-    tok = torch.argmax(logits[:, :V], dim=-1).to(torch.int32)[:, None]
-    out = [tok]
-    for i in range(gen_len - 1):
-        logits, caches = decode(params, caches, tok, S + offset + i)
-        tok = torch.argmax(logits[:, :V], dim=-1).to(torch.int32)[:, None]
+    out, seen = [], []
+    for i in range(gen_len):
+        if i:
+            logits, caches = decode(params, caches, tok, S + offset + i - 1)
+        tok = St.greedy(logits, cfg, env)
+        if forced is not None:
+            seen.append(_whole_logits(logits, cfg, env, per_rank))
+            tok = forced[:, i:i + 1].to(torch.int32)
         out.append(tok)
-    return torch.cat(out, dim=1).cpu().numpy()
+    out = torch.cat(out, dim=1)
+    if per_rank:
+        out = C.gather(out, env, env.dp_axes, 0)
+    return (out.cpu().numpy(),
+            None if forced is None else torch.stack(seen).numpy())
+
+
+def _whole_logits(logits, cfg, env, per_rank):
+    """Step logits [B, V] f32 on the host: over a mesh gathered from the
+    ranks' vocabulary columns and rows."""
+    if per_rank and env.tp_axis is not None:
+        logits = C.gather(logits, env, env.tp_axis, 1)
+    if per_rank:
+        logits = C.gather(logits, env, env.dp_axes, 0)
+    return logits[:, :cfg.vocab_size].float().cpu()
 
 
 def _sampling_of(args) -> SamplingParams:
@@ -350,30 +418,46 @@ def run_trace(args, cfg, params) -> dict:
     return run
 
 
-def run_oneshot(args, cfg, params) -> dict:
+def run_oneshot(args, cfg, params, plan=SERVE_PLAN) -> dict:
     """The one-shot baseline alone (the JAX CLI's --trace oneshot): a
     batch of --requests random prompts of --prompt-len tokens (numpy,
     seeded by --seed) prefilled together and decoded greedily to --gen,
-    submitted to a VirtualCluster over its rendered devices. A VLM or an
-    encoder-decoder prefills with zero modality stubs, as the JAX CLI
-    does (serve_batch)."""
-    image = ClusterImage.build(f"{cfg.name}-serve", cfg, SERVE_PLAN, "serve")
+    submitted to a VirtualCluster: serve_batch over its rendered devices,
+    or under a process group (torchrun) SPMD over the DeviceMesh it
+    renders from the hostfile, every rank with the same params, as the
+    JAX CLI submits over its rendered mesh. `plan` (the CLI's: SERVE_PLAN)
+    picks the KV layout over a mesh. A VLM or an encoder-decoder
+    prefills with zero modality stubs, as the JAX CLI does (serve_batch).
+    Rank 0 prints; a rank outside the rendered mesh gets no tokens."""
+    import torch.distributed as dist
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    say = print if rank == 0 else (lambda *a, **kw: None)
+    image = ClusterImage.build(f"{cfg.name}-serve", cfg, plan, "serve")
     cluster = VirtualCluster(n_compute=args.nodes, image=image,
                              device=args.device)
-    print("serving replicas register to the catalog:\n" + cluster.hostfile)
+    say("serving replicas register to the catalog:\n" + cluster.hostfile)
     prompts = np.random.default_rng(args.seed).integers(
         0, cfg.vocab_size, (args.requests, args.prompt_len), dtype=np.int32)
+
+    def job(target):
+        if isinstance(target, list):  # the rendered devices
+            return serve_batch(cfg, params, prompts, args.gen,
+                               streamed_prefill=False, device=target[0],
+                               plan=plan)
+        return serve_batch(cfg, params, prompts, args.gen,
+                           streamed_prefill=False, device=args.device,
+                           mesh=target, plan=plan)
+
     if args.device.startswith("cuda"):
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    toks = cluster.submit(
-        lambda devices: serve_batch(cfg, params, prompts, args.gen,
-                                    streamed_prefill=False, device=devices[0]))
+    toks = cluster.submit(job)
     wall = time.perf_counter() - t0  # ends in the tokens' host transfer
     n_tok = args.requests * args.gen
-    print(f"generated {n_tok} tokens in {wall:.3f}s wall "
-          f"({n_tok / wall:.1f} tokens/s wall on {args.device})")
-    print("sample:", toks[0][:16])
+    say(f"generated {n_tok} tokens in {wall:.3f}s wall "
+        f"({n_tok / wall:.1f} tokens/s wall on {args.device})")
+    if toks is not None:
+        say("sample:", toks[0][:16])
     cluster.shutdown()
     return {"tokens": toks, "prompts": prompts, "wall_s": wall, "rc": 0}
 
@@ -502,11 +586,22 @@ def main() -> int:
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu for the plain "
                          "versions of the kernels")
+    import torch.distributed as dist
+    from repro_torch.launch.train import join_ranks
+    if "RANK" in os.environ and args.trace != "oneshot":
+        raise SystemExit("under torchrun the CLI serves --trace oneshot over "
+                         "the rendered mesh; the engines over a mesh are a "
+                         "later ROADMAP item")
+    join_ranks(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     params = Mo.init_params(cfg, Env(), seed=0, device=args.device)
-    if args.trace == "oneshot":
-        return run_oneshot(args, cfg, params)["rc"]
-    return run_trace(args, cfg, params)["rc"]
+    try:
+        if args.trace == "oneshot":
+            return run_oneshot(args, cfg, params)["rc"]
+        return run_trace(args, cfg, params)["rc"]
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

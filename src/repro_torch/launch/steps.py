@@ -5,7 +5,9 @@ PyTorch runs eagerly, so a "step" is a plain function over tensors;
 nothing is traced or compiled. The builders keep the JAX names and
 closures so the serving code reads as in the reference. Over a
 DeviceMesh the train step runs per rank on the local shards of a state of
-DTensors (_sharded_train_step).
+DTensors (_sharded_train_step), and the prefill and decode steps per rank
+on the rank's shards, rows and caches (models/model.py _Ranks): their
+logits are the rank's vocabulary columns, which `greedy` reads.
 """
 from __future__ import annotations
 
@@ -124,7 +126,8 @@ def make_prefill_step(cfg: ModelConfig, env: Env):
     caches of Mo.forward) for batch {"tokens": [B,S]}, plus the modality
     stubs "vision_embeds" (a VLM) or "frames" (an encoder-decoder). Only
     the last position's row tile is unembedded (the same bits as the full
-    logits, without the [B,S,Vpad] tensor)."""
+    logits, without the [B,S,Vpad] tensor). Over a DeviceMesh, per rank:
+    its rows, its vocabulary columns, its caches."""
     def prefill_step(params, batch):
         return Mo.forward(params, batch["tokens"], cfg, env, mode="prefill",
                           last_only=True,
@@ -136,7 +139,8 @@ def make_prefill_step(cfg: ModelConfig, env: Env):
 
 def make_decode_step(cfg: ModelConfig, env: Env):
     """Contiguous-cache decode: (logits [B,Vpad], caches) for one token per
-    row at write position cur_len (the one-shot baseline's step)."""
+    row at write position cur_len (the one-shot baseline's step); over a
+    DeviceMesh per rank, as make_prefill_step."""
     def decode_step(params, caches, tokens, cur_len):
         logits, new_caches = Mo.forward(params, tokens, cfg, env,
                                         mode="decode", caches=caches,
@@ -144,6 +148,19 @@ def make_decode_step(cfg: ModelConfig, env: Env):
         return logits[:, 0, :], new_caches
 
     return decode_step
+
+
+def greedy(logits, cfg: ModelConfig, env: Env):
+    """The greedy tokens [B, 1] int32 of step logits [B, Vpad]: the
+    argmax over the first vocab_size columns; per rank over a DeviceMesh
+    (the logits its vocabulary columns) the vocabulary-parallel argmax,
+    the same token on every tp rank (parallel/collectives.py
+    vocab_argmax)."""
+    if sharded(cfg, env):
+        tok = C.vocab_argmax(logits, env, cfg.vocab_size)
+    else:
+        tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)
+    return tok.to(torch.int32)[:, None]
 
 
 def _select_tokens(prev_tok, meta_i):

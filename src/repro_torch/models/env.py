@@ -5,8 +5,9 @@ heads and vocabulary for its tensor-parallel degree. The port's Env
 carries an optional mesh too: a torch DeviceMesh over the ranks of a
 process group, or a shape-only mesh from launch/mesh.py (axis names and
 sizes, no ranks) for resolving the sharding rules (parallel/rules.py).
-Over a DeviceMesh the dense and MoE archs train per rank on their local
-shards (`sharded`; models/model.py); the padding helpers take the mesh's
+Over a DeviceMesh the text archs (dense, MoE and recurrent) compute per
+rank on their local shards (`sharded`; models/model.py): the train step,
+and prefill and decode for serving. The padding helpers take the mesh's
 tp degree, as the JAX package's do.
 """
 from __future__ import annotations
@@ -83,17 +84,17 @@ def mesh_size(env: Env) -> int:
     return n
 
 
-# block kinds the sharded forward computes (attention, MoE): the dense and
-# MoE archs of the zoo
-SHARDED_KINDS = ("attn", "moe", "local")
+def modality(cfg: ModelConfig) -> bool:
+    """A VLM or an encoder-decoder: the archs with a front-end stub."""
+    return cfg.family == "vlm" or cfg.is_encdec
 
 
 def check_mesh(cfg: ModelConfig, env: Env) -> None:
     """The model's refusals of a mesh: axes other than the plan's dp axes
-    and tp axis (ValueError), and a recurrent or modality arch over a
-    mesh of more than one device (NotImplementedError: the sharded
-    forward covers the dense and MoE archs; the others are ROADMAP item
-    8.4)."""
+    and tp axis (ValueError), and a modality arch (a VLM or an
+    encoder-decoder) over a mesh of more than one device
+    (NotImplementedError: the per-rank forward covers the text archs;
+    the modality archs over a mesh are ROADMAP item 8.4)."""
     if env.mesh is None:
         return
     extra = set(env.axis_names) - set(env.plan.dp_axes) - {env.plan.tp_axis}
@@ -101,20 +102,18 @@ def check_mesh(cfg: ModelConfig, env: Env) -> None:
         raise ValueError(f"mesh axes {sorted(extra)} are neither the plan's "
                          f"dp axes {env.plan.dp_axes} nor its tp axis "
                          f"{env.plan.tp_axis!r}")
-    kinds = set(cfg.block_pattern) | set(cfg.pattern_tail)
     n = mesh_size(env)
-    if n > 1 and not (kinds <= set(SHARDED_KINDS) and cfg.family != "vlm"
-                      and not cfg.is_encdec):
+    if n > 1 and modality(cfg):
         raise NotImplementedError(
-            f"{cfg.name} over a mesh of {n} devices: the sharded forward "
-            f"covers the dense and MoE archs; the recurrent and modality "
-            f"archs over a mesh are ROADMAP item 8.4")
+            f"{cfg.name} over a mesh of {n} devices: the per-rank forward "
+            f"covers the dense, MoE and recurrent archs; the modality archs "
+            f"over a mesh are ROADMAP item 8.4")
 
 
 def sharded(cfg: ModelConfig, env: Env) -> bool:
-    """Whether the model computes per rank over env.mesh (models/model.py's
-    sharded train forward): a DeviceMesh, for an arch check_mesh lets
-    through. A recurrent or modality arch over a one-device DeviceMesh
+    """Whether the model computes per rank over env.mesh (models/model.py
+    _Ranks: train mode, prefill and decode): a DeviceMesh, for an arch
+    check_mesh lets through. A modality arch over a one-device DeviceMesh
     computes on that device (False); a shape-only mesh of more than one
     device has no ranks to compute on (ValueError)."""
     from torch.distributed.device_mesh import DeviceMesh
@@ -128,9 +127,7 @@ def sharded(cfg: ModelConfig, env: Env) -> bool:
                 "sharding specs; the model computes over a DeviceMesh of a "
                 "process group's ranks")
         return False
-    kinds = set(cfg.block_pattern) | set(cfg.pattern_tail)
-    return (kinds <= set(SHARDED_KINDS) and cfg.family != "vlm"
-            and not cfg.is_encdec)
+    return not modality(cfg)
 
 
 def out_dims(env: Env, seq_len: int):

@@ -57,7 +57,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
 from repro_torch.models.env import (Env, check_mesh, head_pad, kv_head_pad,
-                                    mesh_size, out_dims, sharded, vocab_pad)
+                                    out_dims, sharded, vocab_pad)
 from repro_torch.parallel import collectives as C
 from repro_torch.parallel import rules
 
@@ -232,10 +232,15 @@ def init_params(cfg: ModelConfig, env: Env, *, seed: int = 0,
 # ---------------------------------------------------------------------------
 
 
-def _state_cache(kind: str, cfg: ModelConfig, rows: int, device) -> dict:
+def _state_cache(kind: str, cfg: ModelConfig, rows: int, device,
+                 rk=None) -> dict:
+    """Zero state rows of a recurrent unit: every channel or head, or
+    this rank's (rk, a _Ranks: its share unless the kind computes whole
+    there)."""
+    n = 1 if rk is None or kind in rk.whole else rk.tp
     if kind == "rglru":
-        return R.rglru_init_state(cfg, rows, device)
-    return R.rwkv_init_state(cfg, rows, device)
+        return R.rglru_init_state(cfg, rows, device, cfg.rglru_width // n)
+    return R.rwkv_init_state(cfg, rows, device, cfg.n_heads // n)
 
 
 def _tree_of(cfg: ModelConfig, unit_of) -> Pytree:
@@ -249,24 +254,51 @@ def _tree_of(cfg: ModelConfig, unit_of) -> Pytree:
             "tail": tuple(unit_of(k) for k in cfg.pattern_tail)}
 
 
+def _local_rows(batch: int, env: Env) -> int:
+    """The rows of a batch of `batch` one rank of env.mesh holds."""
+    if batch % env.dp:
+        raise ValueError(f"a batch of {batch} rows over {env.dp} dp ranks")
+    return batch // env.dp
+
+
+def _seq_len_local(n: int, rk) -> int:
+    """The positions of a global unit's cache of length n one rank holds
+    under the seq_sharded layout."""
+    if n % rk.tp:
+        raise ValueError(f"a cache of {n} positions split over {rk.tp} tp "
+                         "ranks (seq_sharded)")
+    return n // rk.tp
+
+
 def init_cache(cfg: ModelConfig, env: Env, batch: int, max_len: int, *,
                device="cuda") -> Pytree:
     """Contiguous decode cache: attention k/v [L, B, Hkv, max_len, hd]
     bf16 (local rings min(window, max_len) long), recurrent state rows
     [L, B, ...]; a "dec" unit adds the cross-attention caches xk/xv
-    [L, B, Hkv, max_len // enc_downsample, hd] (the encoder's length)."""
+    [L, B, Hkv, max_len // enc_downsample, hd] (the encoder's length).
+
+    Over a DeviceMesh (models/env.py sharded), this rank's: B / dp rows,
+    and the heads, positions and channels _Ranks lays out."""
+    rk = _Ranks(cfg, env, 1) if sharded(cfg, env) else None
     hkv, hd = kv_head_pad(cfg, env), cfg.head_dim
     enc_len = max_len // cfg.enc_downsample if cfg.is_encdec else 0
+    if rk is not None:
+        batch = _local_rows(batch, env)
 
     def unit(kind):
         if kind in RECURRENT_KINDS:
-            return _state_cache(kind, cfg, batch, device)
-        z = lambda n: torch.zeros((batch, hkv, n, hd), dtype=torch.bfloat16,
+            return _state_cache(kind, cfg, batch, device, rk)
+        n = min(cfg.local_window, max_len) if kind == "local" else max_len
+        h = hkv
+        if rk is not None and rk.kv_seq and kind != "local":
+            n = _seq_len_local(n, rk)
+        elif rk is not None:
+            h = rk.n_kv_local()
+        z = lambda n: torch.zeros((batch, h, n, hd), dtype=torch.bfloat16,
                                   device=device)
         if kind == "dec":
             return {"k": z(max_len), "v": z(max_len), "xk": z(enc_len),
                     "xv": z(enc_len)}
-        n = min(cfg.local_window, max_len) if kind == "local" else max_len
         return {"k": z(n), "v": z(n)}
 
     return _tree_of(cfg, unit)
@@ -305,13 +337,21 @@ def init_paged_cache(cfg: ModelConfig, env: Env, num_blocks: int,
     return _tree_of(cfg, unit)
 
 
-def grow_caches(caches: Pytree, extra: int, cfg: ModelConfig) -> Pytree:
+def grow_caches(caches: Pytree, extra: int, cfg: ModelConfig,
+                env: Env = None) -> Pytree:
     """Extend prefill-emitted KV caches ([L,B,Hkv,S,hd], length == prompt)
     by `extra` zero positions so decode can append. Cross-attention caches
     (xk/xv) keep the encoder's length; recurrent states have no sequence
     axis and pass through. Sliding-window ('local') rings grow
     only to min(window, prompt + extra): a full ring is never padded, or
-    the slot = pos % window alignment breaks."""
+    the slot = pos % window alignment breaks.
+
+    Per rank over a DeviceMesh under the seq_sharded layout (env), a
+    global unit's grown k/v [.., S + extra, hd] keep this rank's
+    (S + extra) / tp positions (_Ranks)."""
+    rk = (_Ranks(cfg, env, 1) if env is not None and sharded(cfg, env)
+          and env.plan.kv_cache == "seq_sharded" else None)
+
     def grow(kind, d):
         out = {}
         for n, x in d.items():
@@ -321,6 +361,10 @@ def grow_caches(caches: Pytree, extra: int, cfg: ModelConfig) -> Pytree:
                 cur = x.shape[-2]
                 pad_n = max(min(cfg.local_window, cur + extra) - cur, 0)
             out[n] = F.pad(x, (0, 0, 0, pad_n)) if pad_n else x
+            if rk is not None and n in ("k", "v") and kind != "local":
+                sl = _seq_len_local(out[n].shape[-2], rk)
+                r = C.axis_rank(env, rk.tp_axis)
+                out[n] = out[n].narrow(-2, r * sl, sl).contiguous()
         return out
 
     return {"blocks": tuple(grow(k, d) for k, d in
@@ -556,23 +600,25 @@ def _attn_prefill(p, h, cfg: ModelConfig, S: int, rope, window: int = 0,
     rope; a window unit keeps the trailing min(window, S) positions,
     ring-aligned: position p at p % that length). With a training plan
     (train mode): attention as _train_attention dispatches it, and no
-    cache (None). ranks (the sharded train forward): this rank's heads
-    over the whole sequence, its share of the output projection summed
-    over the tp ranks (_Ranks)."""
+    cache (None). ranks (the per-rank forward): this rank's heads over
+    the whole sequence, its share of the output projection summed over
+    the tp ranks; the cache holds the KV heads its heads read, or every
+    KV head for a global unit under the seq_sharded layout (_Ranks)."""
     if ranks is not None:
         h = ranks.enter(h)
     q, k, v = L._project_qkv(p, h, cfg)  # [B,Sp,H,hd]
-    if ranks is not None:
-        k, v = ranks.local_kv(k, v, q.shape[2])
     q = L.rotate(q[:, :S], *rope)
     k = L.rotate(k[:, :S], *rope)
     v = v[:, :S]
+    k_all, v_all = k, v
+    if ranks is not None:
+        k, v = ranks.local_kv(k, v)
+    out = ((lambda o: L.linear(o, p["wo"])) if ranks is None else
+           (lambda o: ranks.row(o, p["wo"], ranks.heads_split)))
     if plan is not None:
         o = F.pad(_train_attention(q, k, v, cfg, plan, window, causal),
                   (0, 0, 0, h.shape[1] - S))
-        if ranks is not None:
-            return ranks.row(o, p["wo"], ranks.heads_split), None
-        return L.linear(o, p["wo"]), None
+        return out(o), None
     if S > FLASH_MIN_LEN:
         o = fa_ops.flash_attention(q.contiguous(), k.contiguous(),
                                    v.contiguous(), causal=causal,
@@ -580,12 +626,14 @@ def _attn_prefill(p, h, cfg: ModelConfig, S: int, rope, window: int = 0,
     else:
         o = L.attention_naive(q, k, v, cfg, causal=causal, window=window)
     o = F.pad(o, (0, 0, 0, h.shape[1] - S))
+    if ranks is not None and ranks.kv_seq and window == 0:
+        k, v = k_all, v_all  # split over the positions by grow_caches
     kc, vc = k.transpose(1, 2), v.transpose(1, 2)
     if window > 0:
         w = min(window, S)
         kc = torch.roll(kc[:, :, S - w:], (S - w) % w, dims=2)
         vc = torch.roll(vc[:, :, S - w:], (S - w) % w, dims=2)
-    return L.linear(o, p["wo"]), {"k": kc, "v": vc}
+    return out(o), {"k": kc, "v": vc}
 
 
 def _xattn_prefill(p, h, cfg: ModelConfig, S: int, enc, train: bool):
@@ -622,7 +670,8 @@ def _xattn_decode(p, h, cfg: ModelConfig, n_rows: int, cache):
 
 
 def _attn_sublayer(p, h, cfg: ModelConfig, n_rows: int, cur_len, rope,
-                   cache, tables, window: int = 0, row_slots=None):
+                   cache, tables, window: int = 0, row_slots=None,
+                   ranks=None):
     """Decode attention for the first n_rows rows of the row-padded h: each
     row writes its token's K/V (through its block table, or at its own row
     of a contiguous cache) and attends at its own depth. A window unit
@@ -641,12 +690,23 @@ def _attn_sublayer(p, h, cfg: ModelConfig, n_rows: int, cur_len, rope,
     capacity from real rows, so what they read must be what the JAX
     package's scatter leaves there, its last row's write: every row of a
     shared place writes that row's K/V (_last_writer), which also keeps
-    the card's duplicate-index writes deterministic."""
+    the card's duplicate-index writes deterministic.
+
+    ranks (the per-rank forward, a contiguous cache): this rank's query
+    heads; its share of the output projection summed over tp. A global
+    unit under the seq_sharded layout goes through _attn_seq_sharded;
+    otherwise the rank's cache holds the KV heads its heads read."""
     q, k, v = L._project_qkv(p, h, cfg)  # [Bp,1,H,hd]
     q = L.rotate(q, *rope)[:n_rows]
     k = L.rotate(k, *rope)[:n_rows, 0]
     v = v[:n_rows, 0]
     ck, cv = cache["k"], cache["v"]
+    if ranks is not None:
+        if ranks.kv_seq and not window:
+            o = _attn_seq_sharded(q, k, v, ck, cv, cur_len, ranks)
+            o = F.pad(o, (0, 0, 0, 0, 0, h.shape[0] - n_rows))
+            return ranks.row(o, p["wo"], ranks.heads_split)
+        k, v = ranks.local_kv(k, v, dim=1)
     if tables is not None:
         bs = ck.shape[-2]
         idx = cur_len % window if window else cur_len
@@ -702,7 +762,37 @@ def _attn_sublayer(p, h, cfg: ModelConfig, n_rows: int, cur_len, rope,
         lengths = torch.clamp_max(cur_len, Sc - 1) if window else cur_len
         o = L.attention_decode(q, ck, cv, lengths, cfg)
     o = F.pad(o, (0, 0, 0, 0, 0, h.shape[0] - n_rows))
+    if ranks is not None:
+        return ranks.row(o, p["wo"], ranks.heads_split)
     return L.linear(o, p["wo"])
+
+
+def _attn_seq_sharded(q, k, v, ck, cv, cur_len, ranks):
+    """Decode attention of this rank's query heads q [n,1,Hq/tp,hd] over
+    a global unit's cache split over tp along the sequence: ck, cv
+    [n,Hkv,Smax/tp,hd], this rank's positions of every KV head. The new
+    K/V (k, v [n,Hkv,hd], every KV head) is written on the rank that owns
+    cur_len; q is gathered over tp (every head), flash-decoding (kernel
+    #5: the kernel on the card, its plain version on the CPU) attends to
+    the rank's positions and merges the tp ranks' partials, and the rank
+    keeps its own heads. The rows share one cur_len (the one-shot's
+    uniform batch), read on the device. Returns [n,1,Hq/tp*hd]."""
+    from repro_torch.kernels.flash_decode.ops import flash_decode_seq_sharded
+    n, _, hq, hd = q.shape
+    s_local = ck.shape[-2]
+    r = C.axis_rank(ranks.env, ranks.tp_axis)
+    cur = cur_len[:1]
+    idx = cur - r * s_local
+    own = (idx >= 0) & (idx < s_local)
+    pos = idx.clamp(0, s_local - 1)
+    rows = torch.arange(n, device=q.device)
+    ck[rows, :, pos] = torch.where(own, k.to(ck.dtype), ck[rows, :, pos])
+    cv[rows, :, pos] = torch.where(own, v.to(cv.dtype), cv[rows, :, pos])
+    qa = ranks.gather(q[:, 0], 1).contiguous()  # [n,Hq,hd]
+    o = flash_decode_seq_sharded(qa, ck, cv, cur,
+                                 group=C._group(ranks.env, ranks.tp_axis),
+                                 index=r)
+    return o[:, r * hq:(r + 1) * hq].reshape(n, 1, hq * hd)
 
 
 def _last_writer(place):
@@ -719,15 +809,15 @@ def _moe_sublayer(p, x, cfg: ModelConfig, *, S=None, n_rows=None,
     first S positions of each row-padded sequence (flattened b * S + s),
     a decode step's first n_rows rows (masked rows included); the padding
     rows are not dispatched and come out zero. ranks: this rank's rows of
-    the sharded train forward, dispatched by the layer's ep or tp mode.
-    Returns (out, aux loss)."""
+    the per-rank forward (train mode, prefill or decode), dispatched by
+    the layer's ep or tp mode. Returns (out, aux loss)."""
     if ranks is not None and ranks.sp:
         return M.moe_layer(p, x, cfg, ranks.env, seq_sharded=True)
     env = None if ranks is None else ranks.env
     if S is not None:
         y, aux = M.moe_layer(p, x[:, :S], cfg, env)
         return F.pad(y, (0, 0, 0, x.shape[1] - S)), aux
-    y, aux = M.moe_layer(p, x[:n_rows], cfg)
+    y, aux = M.moe_layer(p, x[:n_rows], cfg, env)
     return F.pad(y, (0, 0) * (x.dim() - 1) + (0, x.shape[0] - n_rows)), aux
 
 
@@ -773,8 +863,8 @@ def _apply_block(kind: str, p, h, hf, cfg: ModelConfig, *, S=None, rope=None,
     first norm (the previous block's last residual sum inside the same
     pattern unit or the tail: XLA drops the bf16 round trip into the
     norm's f32 cast), else None. Returns (h bf16, its f32 sum, cache, the
-    MoE aux loss or 0). ranks: the sharded train forward's rank (h its
-    rows, _Ranks)."""
+    MoE aux loss or 0). ranks: the per-rank forward's rank (h its rows,
+    p its shards, the cache its own; _Ranks)."""
     eps = cfg.norm_eps
     decode = cache is not None
     train = plan is not None
@@ -787,7 +877,7 @@ def _apply_block(kind: str, p, h, hf, cfg: ModelConfig, *, S=None, rope=None,
                    else tables["local" if window else "global"])
             subs.append(("ln1", lambda x: (_attn_sublayer(
                 p["attn"], x, cfg, n_rows, cur_len, rope, cache, tbl,
-                window, row_slots), None)))
+                window, row_slots, ranks), None)))
         else:
             subs.append(("ln1", lambda x: _attn_prefill(
                 p["attn"], x, cfg, S, rope, window, plan,
@@ -807,16 +897,19 @@ def _apply_block(kind: str, p, h, hf, cfg: ModelConfig, *, S=None, rope=None,
             subs.append(("ln2", lambda x: (L.mlp(p["mlp"], x), None)))
     elif kind == "rglru":
         st = _rows_state(cache, n_rows, h.shape[0]) if decode else None
+        mlp = L.mlp if ranks is None else ranks.mlp
         subs += [("ln1", lambda x: R.rglru_block(p["rec"], x, cfg, st,
-                                                 train=train, **prefill_kw)),
-                 ("ln2", lambda x: (L.mlp(p["mlp"], x), None))]
+                                                 train=train, ranks=ranks,
+                                                 **prefill_kw)),
+                 ("ln2", lambda x: (mlp(p["mlp"], x), None))]
     else:  # rwkv
         st = _rows_state(cache, n_rows, h.shape[0]) if decode else None
         chunk = plan.rwkv_chunk if train else 0
         subs += [("ln1", lambda x: R.rwkv_time_mix(
-                     p["mix"], x, cfg, st, chunk=chunk, **prefill_kw)),
+                     p["mix"], x, cfg, st, chunk=chunk, ranks=ranks,
+                     **prefill_kw)),
                  ("ln2", lambda x: R.rwkv_channel_mix(
-                     p["mix"], x, cfg, st, **prefill_kw))]
+                     p["mix"], x, cfg, st, ranks=ranks, **prefill_kw))]
     parts = []
     for norm, sub in subs:
         # the reference (XLA) fuses each residual add into the next norm:
@@ -854,7 +947,7 @@ def _run_blocks(params, h, cfg: ModelConfig, caches=None, plan=None,
     policy keeps the products; recomputing them gives the same values);
     the tail is not, as there.
 
-    ranks (the sharded train forward): each block's FSDP-sharded weights
+    ranks (the per-rank forward): each block's FSDP-sharded weights
     are gathered before use (inside the recomputed unit: gathered again
     in the backward pass, as FSDP does)."""
     pattern, tail = cfg.block_pattern, cfg.pattern_tail
@@ -1006,10 +1099,12 @@ def _prefill(params, tokens, cfg: ModelConfig, last_only: bool = False,
 
 
 class _Ranks:
-    """One rank of the sharded train forward (the port's counterpart of the
-    JAX package's GSPMD layout for train mode): the rank computes on its
-    local shards of what parallel/rules.py apply_shardings placed, with
-    the collectives of parallel/collectives.py between them.
+    """One rank of the per-rank forward over a DeviceMesh (the port's
+    counterpart of the JAX package's GSPMD layout): the rank computes on
+    its local shards of what parallel/rules.py places (apply_shardings,
+    or bridge.rank_shards for serving), with the collectives of
+    parallel/collectives.py between them. Train mode (the sharded train
+    step), prefill and decode (serving) share it.
 
     - The batch is split over the dp axes; the loss is a mean over ranks.
     - FSDP (plan.fsdp): a weight's dim sharded over the dp axes is
@@ -1019,22 +1114,40 @@ class _Ranks:
       this rank's share of the output, summed over the tp ranks in f32
       and rounded to bf16 once. wk / wv are replicated: the rank keeps
       the KV heads its query heads read (local_kv). The embedding's
-      columns and the unembedding's vocabulary are split over tp.
+      columns and the unembedding's vocabulary are split over tp. The
+      recurrent blocks hold their channels or heads over tp
+      (models/recurrent.py); a block whose channels or heads do not
+      split evenly computes whole on every rank (`whole`).
     - Sequence parallelism (out_dims: plan.seq_shard_acts, S % tp == 0):
       the residual stream holds this rank's S / tp positions; a
       sublayer gathers the sequence on entry and its share of the output
       is reduce-scattered back onto the positions.
+    - The decode caches (init_cache, grow_caches): under plan.kv_cache
+      "replicated" an attention unit's k / v hold the KV heads the
+      rank's query heads read, at every position; under "seq_sharded"
+      a global unit's hold every KV head at the rank's Smax / tp
+      positions (flash-decoding, kernel #5, merges the ranks' partials),
+      and window rings stay whole. Recurrent states hold the rank's
+      channels or heads.
 
     At tp 1 every product is the one-device forward's (row tiles
     included), so a 1 x 1 mesh computes the one-device step's values."""
 
     def __init__(self, cfg: ModelConfig, env: Env, S: int):
-        self.env = env
+        self.cfg, self.env = cfg, env
         self.tp_axis, self.tp = env.tp_axis, env.tp
         self.sp = out_dims(env, S)[1] is not None
         self.specs = param_specs(cfg, env)
         self.heads_split = self.tp > 1 and head_pad(cfg, env) % self.tp == 0
         self.ff_split = self.tp > 1 and cfg.d_ff % self.tp == 0
+        self.kv_seq = env.plan.kv_cache == "seq_sharded"
+        self.whole = set()  # recurrent kinds computed whole on every rank
+        kinds = set(cfg.block_pattern) | set(cfg.pattern_tail)
+        if self.tp > 1 and "rglru" in kinds and (
+                cfg.rglru_width % self.tp or R.gate_blocks(cfg) % self.tp):
+            self.whole.add("rglru")
+        if self.tp > 1 and "rwkv" in kinds and cfg.n_heads % self.tp:
+            self.whole.add("rwkv")
 
     def on_tp(self, spec, dim: int) -> bool:
         """Whether a leaf's dim is split over tp ranks."""
@@ -1042,19 +1155,26 @@ class _Ranks:
             spec[dim] if len(spec) > dim else None)
 
     def unshard(self, p, path):
-        """p with every dim sharded over the dp axes all-gathered (FSDP);
-        the MoE experts are gathered by moe_layer."""
+        """p with every dim sharded over the dp axes all-gathered (FSDP),
+        and, for a recurrent block computed whole, over tp too; the MoE
+        experts are gathered by moe_layer."""
         spec = self.specs
         for k in path:
             spec = spec[k]
+        kind = (self.cfg.block_pattern if path[0] == "blocks"
+                else self.cfg.pattern_tail)[path[1]]
+        if not self.env.plan.fsdp and kind not in self.whole:
+            return p  # no spec names a dp axis without FSDP
         dp = set(self.env.dp_axes)
+        whole = dp | ({self.tp_axis} if kind in self.whole else set())
 
         def one(names, x, sp):
             if "moe" in names and names[-1] != "router":
                 return x
+            on = whole if names[0] in ("rec", "mix") else dp
             # a stacked leaf's spec names its layer dim, which x lacks
             for d, e in enumerate(sp[len(sp) - x.dim():]):
-                axes = tuple(a for a in rules.axes_of(e) if a in dp)
+                axes = tuple(a for a in rules.axes_of(e) if a in on)
                 if axes:
                     x = C.gather(x, self.env, axes, d)
             return x
@@ -1065,6 +1185,14 @@ class _Ranks:
         """A sublayer's input: the whole sequence under sequence
         parallelism (gathered over tp), x as it is otherwise."""
         return C.gather(x, self.env, self.tp_axis, 1) if self.sp else x
+
+    def gather(self, x, dim: int):
+        """x's dim, split over tp, gathered."""
+        return C.gather(x, self.env, self.tp_axis, dim)
+
+    def local(self, x, dim: int):
+        """This rank's tp chunk of dim of a value replicated over tp."""
+        return C.split(x, self.env, self.tp_axis, dim)
 
     def row(self, x, w, split: bool):
         """x @ w for a row weight w: split, w holds this rank's rows and the
@@ -1085,24 +1213,37 @@ class _Ranks:
         h = L.silu(L.linear(x, p["w_gate"])) * L.linear(x, p["w_up"])
         return self.row(h, p["w_down"], self.ff_split)
 
-    def local_kv(self, k, v, hq_local: int):
-        """The KV heads of k / v [B,S,Hkv,hd] that this rank's query heads
-        read: rank r holds query heads r*hq_local ... and query head h
-        reads KV head h // G (G = padded heads / Hkv). A whole group, or
-        a part of one, keeps the grouping (a slice of KV heads); where the
-        rank's heads straddle groups unevenly, each query head gets its
-        own copy of its KV head."""
+    def kv_index(self, hkv: int):
+        """Which of hkv KV heads this rank's query heads read: rank r holds
+        query heads r*hq_local ... and query head h reads KV head h // G
+        (G = padded heads / Hkv). A slice (a whole group, or a part of
+        one, keeps the grouping), or, where the rank's heads straddle
+        groups unevenly, a list: each query head its own KV head."""
+        hq_local = head_pad(self.cfg, self.env) // self.tp
         if not self.heads_split:
-            return k, v
-        G = hq_local * self.tp // k.shape[2]
+            return slice(0, hkv)
+        G = hq_local * self.tp // hkv
         r = C.axis_rank(self.env, self.tp_axis)
         idx = [(r * hq_local + i) // G for i in range(hq_local)]
         lo, n = idx[0], idx[-1] + 1 - idx[0]
         if hq_local % n == 0 and idx == [lo + i // (hq_local // n)
                                         for i in range(hq_local)]:
-            return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
-        sel = torch.tensor(idx, device=k.device)
-        return k[:, :, sel], v[:, :, sel]
+            return slice(lo, lo + n)
+        return idx
+
+    def local_kv(self, k, v, dim: int = 2):
+        """The KV heads (dim) of k / v that this rank's query heads read
+        (kv_index)."""
+        sel = self.kv_index(k.shape[dim])
+        if isinstance(sel, slice):
+            return k.narrow(dim, sel.start, sel.stop - sel.start), \
+                v.narrow(dim, sel.start, sel.stop - sel.start)
+        sel = torch.tensor(sel, device=k.device)
+        return k.index_select(dim, sel), v.index_select(dim, sel)
+
+    def n_kv_local(self) -> int:
+        sel = self.kv_index(kv_head_pad(self.cfg, self.env))
+        return (sel.stop - sel.start) if isinstance(sel, slice) else len(sel)
 
 
 @functools.lru_cache(maxsize=8)
@@ -1119,9 +1260,7 @@ def _train_sharded(params, tokens, cfg: ModelConfig, env: Env):
     loss, a mean over the mesh's ranks)."""
     S = tokens.shape[1]
     rk = _Ranks(cfg, env, S)
-    h = params["embed"][tokens.long()].to(torch.bfloat16)
-    if rk.on_tp(rk.specs["embed"], 1):
-        h = C.gather(h, env, rk.tp_axis, 2)
+    h = _embed_ranks(params, tokens, rk)
     if rk.tp == 1:  # the one-device forward's row tiles
         h = _pad_rows(h, S)
     rope = _rope_of(cfg, torch.arange(S, device=tokens.device))
@@ -1133,6 +1272,42 @@ def _train_sharded(params, tokens, cfg: ModelConfig, env: Env):
     h = rk.enter(h)
     aux = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
     return L.linear(h, params["unembed"])[:, :S], aux
+
+
+def _embed_ranks(params, tokens, rk: _Ranks):
+    """This rank's tokens' embeddings, whole: the embedding's columns
+    gathered over tp."""
+    h = params["embed"][tokens.long()].to(torch.bfloat16)
+    if rk.on_tp(rk.specs["embed"], 1):
+        h = C.gather(h, rk.env, rk.tp_axis, h.dim() - 1)
+    return h
+
+
+def _prefill_sharded(params, tokens, cfg: ModelConfig, env: Env,
+                     last_only: bool):
+    """forward(mode="prefill") per rank over env.mesh (_Ranks): params
+    are this rank's shards, tokens its rows [B/dp, S]. Returns (this
+    rank's logits, its vocabulary columns: [B/dp, S, Vpad/tp], or
+    [B/dp, Vpad/tp] with last_only; its prompt caches, in the layout
+    _Ranks describes). At tp 1 each sequence is padded to whole row tiles
+    as on one device (the same bits); at tp > 1 the residual stream is
+    split over the positions when S % tp == 0 (sequence parallelism)."""
+    S = tokens.shape[1]
+    rk = _Ranks(cfg, env, S)
+    h = _embed_ranks(params, tokens, rk)
+    if rk.tp == 1:
+        h = _pad_rows(h, S)
+    rope = _rope_of(cfg, torch.arange(S, device=tokens.device))
+    if rk.sp:
+        h = C.split(h, env, rk.tp_axis, 1)
+    x, caches, _ = _run_blocks(params, h, cfg, S=S, rope=rope, ranks=rk)
+    h = L.rms_norm(x, params["final_norm"], cfg.norm_eps).to(torch.bfloat16)
+    h = rk.enter(h)
+    if last_only:
+        t0 = (S - 1) // L.ROW_TILE * L.ROW_TILE
+        tile = L.linear(h[:, t0:t0 + L.ROW_TILE], params["unembed"])
+        return tile[:, S - 1 - t0], caches
+    return L.linear(h, params["unembed"])[:, :S], caches
 
 
 def _train(params, tokens, cfg: ModelConfig, env: Env, vision_embeds=None,
@@ -1193,17 +1368,19 @@ def forward(params, tokens, cfg: ModelConfig, env: Env, mode: str = "decode",
     (batch invariance, see models/layers.py); the padding rows never touch
     the cache.
 
-    Over a DeviceMesh (models/env.py sharded) train mode runs per rank:
-    params are the rank's shards, tokens its rows, and the logits its
-    vocabulary columns (_train_sharded). Prefill and decode serve on one
-    device: over a mesh of more than one they raise
-    NotImplementedError."""
+    Over a DeviceMesh (models/env.py sharded) every mode runs per rank
+    (_Ranks): params are the rank's shards (bridge.rank_shards, or
+    parallel/rules.py apply_shardings), tokens its rows, the logits its
+    vocabulary columns and the caches its own (init_cache, grow_caches;
+    a contiguous cache: block tables and row slots, the engines' pools,
+    raise NotImplementedError there). Decode under the seq_sharded
+    layout takes one cur_len for every row (the one-shot's uniform
+    batch)."""
     check_supported(cfg)
-    if sharded(cfg, env) and mode != "train" and mesh_size(env) > 1:
-        raise NotImplementedError(
-            f"mode={mode!r} over a mesh of {mesh_size(env)} devices: the "
-            "port serves on one device; over a mesh it trains")
+    per_rank = sharded(cfg, env)
     if mode == "prefill":
+        if per_rank:
+            return _prefill_sharded(params, tokens, cfg, env, last_only)
         return _prefill(params, tokens, cfg, last_only, vision_embeds, frames)
     if mode == "train":
         return _train(params, tokens, cfg, env, vision_embeds, frames)
@@ -1212,6 +1389,17 @@ def forward(params, tokens, cfg: ModelConfig, env: Env, mode: str = "decode",
     B = tokens.shape[0]
     Bp = -(-B // L.ROW_TILE) * L.ROW_TILE
     cl = torch.as_tensor(cur_len, device=tokens.device).long()
+    rk = None
+    if per_rank:
+        if block_tables is not None or row_slots is not None:
+            raise NotImplementedError(
+                "decode over a mesh reads a contiguous cache: the engines' "
+                "pools (block tables, row slots) over a mesh are a later "
+                "ROADMAP item")
+        rk = _Ranks(cfg, env, 1)
+        if rk.kv_seq and cl.ndim:
+            raise ValueError("decode under the seq_sharded layout takes one "
+                             "cur_len for every row")
     cl = cl.expand(B) if cl.ndim == 0 else cl
     clp = F.pad(cl, (0, Bp - B))
     pos = (build_mrope_positions(1, cfg.num_vision_embeds, cur_len=clp,
@@ -1219,10 +1407,13 @@ def forward(params, tokens, cfg: ModelConfig, env: Env, mode: str = "decode",
            else clp[:, None])
     rope = _rope_of(cfg, pos)  # [Bp,1,1,hd/2] each
     tok = F.pad(tokens[:, 0].long(), (0, Bp - B))
-    h = params["embed"][tok][:, None, :].to(torch.bfloat16)  # [Bp,1,d]
+    if rk is None:
+        h = params["embed"][tok][:, None, :].to(torch.bfloat16)  # [Bp,1,d]
+    else:
+        h = _embed_ranks(params, tok, rk)[:, None, :]
     x, _, _ = _run_blocks(params, h, cfg, caches, rope=rope, n_rows=B,
                           cur_len=cl, tables=block_tables,
-                          row_slots=row_slots)
+                          row_slots=row_slots, ranks=rk)
     h = L.rms_norm(x, params["final_norm"], cfg.norm_eps).to(torch.bfloat16)
     logits = L.linear(h, params["unembed"])[:B]
     return logits, caches

@@ -31,6 +31,22 @@ result unrounded (XLA drops the convert pair), which happens to the
 conv's last sum (cast to f32 for the gates) and to the decay's lerp (cast
 to f32 for the LoRA). tests/test_torch_recurrent.py holds each block to
 the JAX one.
+
+Per rank over a DeviceMesh (`ranks`, models/model.py _Ranks; the JAX
+package's GSPMD layout, parallel/rules.py) each block takes its input
+whole (gathered over tp under sequence parallelism: the conv and the
+token shift read the whole sequence) and its weights as the rank's
+shards. The RG-LRU's w_in, w_gate_in, conv_w and lam hold the rank's
+channels and its block-diagonal gates whole blocks of them, so the scan
+runs on w / tp channels; RWKV's w_r, w_k, w_v, w_g, decay_B, decay_base
+and bonus_u hold the rank's heads, so the WKV runs on H / tp heads and
+the group norm stays local; the channel mix's cm_k holds ff columns and
+cm_v their rows, and cm_r's columns are gathered (its output multiplies
+the summed cm_v product element by element). The row weights (w_out,
+w_o, cm_v) give this rank's share of the output, summed over tp
+(ranks.row). A sublayer whose channels or heads do not split evenly
+over tp gets its weights whole (gathered by ranks.unshard) and computes
+whole on every rank.
 """
 from __future__ import annotations
 
@@ -52,11 +68,17 @@ _RGLRU_C = 8.0
 _GATE_BLOCKS = 16  # block-diagonal recurrence gates (Griffin)
 
 
+def gate_blocks(cfg: ModelConfig) -> int:
+    """The blocks of the block-diagonal gates: _GATE_BLOCKS where they
+    divide the width, else one."""
+    return _GATE_BLOCKS if cfg.rglru_width % _GATE_BLOCKS == 0 else 1
+
+
 def init_rglru_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """The JAX package's init_rglru_block shapes, dtypes and scales (drawn
     from a torch.Generator)."""
     d, w, cw = cfg.d_model, cfg.rglru_width, cfg.conv_width
-    g = _GATE_BLOCKS if w % _GATE_BLOCKS == 0 else 1
+    g = gate_blocks(cfg)
     bw = w // g
     dev = gen.device
     normal = lambda *s: torch.randn(s, generator=gen, dtype=torch.float32,
@@ -172,7 +194,8 @@ def rglru_scan_assoc(a, b):
 
 
 def rglru_block(p, x, cfg: ModelConfig, state=None, *, S=None,
-                return_state: bool = False, train: bool = False):
+                return_state: bool = False, train: bool = False,
+                ranks=None):
     """Griffin recurrent block. x [B,Sp,d] bf16 -> (y [B,Sp,d] bf16,
     new_state).
 
@@ -182,7 +205,10 @@ def rglru_block(p, x, cfg: ModelConfig, state=None, *, S=None,
     state; returns the next state (every row of x: the caller keeps the
     rows it owns). train: prefill's computation with the recurrence
     closed by rglru_scan_assoc, the reference's training form, in place
-    of the kernel."""
+    of the kernel. ranks: this rank's channels (see the module
+    docstring); the state holds them too."""
+    if ranks is not None:
+        x = ranks.enter(x)
     Sp = x.shape[1]
     S = Sp if S is None else S
     gate = gelu_tanh(L.linear(x, p["w_gate_in"]))
@@ -206,11 +232,18 @@ def rglru_block(p, x, cfg: ModelConfig, state=None, *, S=None,
         a, b = _rglru_gates(p, u)
         h = a * state["h"][:, None, :] + b  # S == 1
         new_state = {"h": h[:, -1], "conv": new_conv}
-    return L.linear(gate * h.to(gate.dtype), p["w_out"]), new_state
+    y = gate * h.to(gate.dtype)
+    if ranks is not None:
+        w = p["w_out"]
+        return ranks.row(y, w, w.shape[0] != cfg.rglru_width), new_state
+    return L.linear(y, p["w_out"]), new_state
 
 
-def rglru_init_state(cfg: ModelConfig, batch: int, device) -> dict:
-    w, cw = cfg.rglru_width, cfg.conv_width
+def rglru_init_state(cfg: ModelConfig, batch: int, device,
+                     width: int = None) -> dict:
+    """Zero state rows: width channels (default all; a rank's share over
+    a mesh)."""
+    w, cw = width or cfg.rglru_width, cfg.conv_width
     return {"h": torch.zeros((batch, w), dtype=torch.float32, device=device),
             "conv": torch.zeros((batch, cw - 1, w), dtype=torch.bfloat16,
                                 device=device)}
@@ -359,7 +392,7 @@ def rwkv_time_mix_step(r, k, v, logw, u, s):
 
 
 def rwkv_time_mix(p, x, cfg: ModelConfig, state=None, *, S=None,
-                  return_state: bool = False, chunk: int = 0):
+                  return_state: bool = False, chunk: int = 0, ranks=None):
     """x [B,Sp,d] bf16 -> (y [B,Sp,d] bf16, {"s", "tm_prev"} or None).
 
     Prefill (state None): the WKV recurrence over the first S positions
@@ -367,15 +400,20 @@ def rwkv_time_mix(p, x, cfg: ModelConfig, state=None, *, S=None,
     state and position S - 1's input. Decode (state given): one step.
     chunk > 0 (train mode): prefill's computation with the recurrence in
     rwkv_time_mix_chunked's chunks of `chunk` steps, the reference's
-    training form, in place of the kernel."""
+    training form, in place of the kernel. ranks: this rank's heads (see
+    the module docstring); the state "s" holds them too, "tm_prev" the
+    whole input."""
+    if ranks is not None:
+        x = ranks.enter(x)
     B, Sp, d = x.shape
     S = Sp if S is None else S
-    H, hd = cfg.n_heads, cfg.head_dim
+    hd = cfg.head_dim
     prev = None if state is None else state["tm_prev"]
     xs = _token_shift(x, prev)
     xr, xk, xv, xg = (_lerp(x, xs, p["mu"][i]) for i in range(4))
     xw = _lerp(x, xs, p["mu"][4], f32_out=True)
-    r = L.linear(xr, p["w_r"]).reshape(B, Sp, H, hd)
+    r = L.linear(xr, p["w_r"]).reshape(B, Sp, -1, hd)
+    H = r.shape[2]  # the rank's heads over a mesh
     k = L.linear(xk, p["w_k"]).reshape(B, Sp, H, hd)
     v = L.linear(xv, p["w_v"]).reshape(B, Sp, H, hd)
     g = L.silu(L.linear(xg, p["w_g"]))
@@ -394,29 +432,47 @@ def rwkv_time_mix(p, x, cfg: ModelConfig, state=None, *, S=None,
                                       p["bonus_u"], state["s"])
         o = F.pad(o, (0, 0, 0, 0, 0, 0, 0, B - n))
         new_state = {"s": s_fin, "tm_prev": x[:, -1]}
-    o = _group_norm_heads(o, p["ln_x"], H)
-    return L.linear(o * g.to(o.dtype), p["w_o"]), new_state
+    split = H * hd != d
+    scale = ranks.local(p["ln_x"], 0) if split else p["ln_x"]
+    o = _group_norm_heads(o, scale, H)
+    y = o * g.to(o.dtype)
+    if ranks is not None:
+        return ranks.row(y, p["w_o"], split), new_state
+    return L.linear(y, p["w_o"]), new_state
 
 
 def rwkv_channel_mix(p, x, cfg: ModelConfig, state=None, *, S=None,
-                     return_state: bool = False):
+                     return_state: bool = False, ranks=None):
     """x [B,Sp,d] bf16 -> (y [B,Sp,d] bf16, the next cm_prev [B,d] or
-    None): position S - 1's input in prefill, the step's in decode."""
+    None): position S - 1's input in prefill, the step's in decode.
+    ranks: this rank's ff columns (see the module docstring)."""
+    if ranks is not None:
+        x = ranks.enter(x)
     S = x.shape[1] if S is None else S
     prev = None if state is None else state["cm_prev"]
     xs = _token_shift(x, prev)
     xk = _lerp(x, xs, p["cmu"][0])
     xr = _lerp(x, xs, p["cmu"][1])
     kk = torch.square(torch.relu(L.linear(xk, p["cm_k"])))
-    hv = L.linear(kk, p["cm_v"])
     rr = L.sigmoid(L.linear(xr, p["cm_r"]))
+    if ranks is None:
+        hv = L.linear(kk, p["cm_v"])
+    else:
+        hv = ranks.row(kk, p["cm_v"], p["cm_v"].shape[0] != cfg.d_ff)
+        if rr.shape[-1] != x.shape[-1]:  # cm_r's columns: the whole rr
+            rr = ranks.gather(rr, -1)
+        if ranks.sp:  # the rank's positions, as hv's
+            rr = ranks.local(rr, 1)
     y = rr * hv
     new = x[:, S - 1] if (state is not None or return_state) else None
     return y, new
 
 
-def rwkv_init_state(cfg: ModelConfig, batch: int, device) -> dict:
-    H, hd, d = cfg.n_heads, cfg.head_dim, cfg.d_model
+def rwkv_init_state(cfg: ModelConfig, batch: int, device,
+                    heads: int = None) -> dict:
+    """Zero state rows: the WKV state of `heads` heads (default all; a
+    rank's share over a mesh), the token shifts' whole inputs."""
+    H, hd, d = heads or cfg.n_heads, cfg.head_dim, cfg.d_model
     return {"s": torch.zeros((batch, H, hd, hd), dtype=torch.float32,
                              device=device),
             "tm_prev": torch.zeros((batch, d), dtype=torch.bfloat16,

@@ -18,6 +18,9 @@ over the axis' ranks. That fixes every mirror:
   mesh_mean       mean over every rank       | all-reduce / ranks
   loss_mean       the loss's mesh_mean       | 1 / ranks (each rank seeds 1)
 
+Serving (prefill and decode per rank) runs the same calls outside
+autograd, and adds the vocabulary-parallel greedy pick (vocab_argmax).
+
 so a replicated value feeding a column-sharded product needs no identity
 with an all-reduce behind it (Megatron's f): its partial gradients are
 summed where the value was gathered or where the parameter's gradient is
@@ -206,3 +209,29 @@ def sum_over(x, env: Env, axes: Sequence[str]):
     for axis in axes:
         x = _sum(x, _group(env, axis))
     return x
+
+
+@torch.no_grad()
+def vocab_argmax(logits, env: Env, vocab_size: int):
+    """The greedy token of vocabulary-parallel logits [..., V / tp], this
+    rank's columns of the padded vocabulary: torch.argmax over the
+    first vocab_size columns of the whole row, on every rank. Each rank
+    takes its local max and its first index; the tp ranks' pairs are
+    gathered and the max taken again, a tie going to the lowest global
+    index (the lower rank), as torch.argmax breaks it. Returns int64
+    [...]."""
+    vl = logits.shape[-1]
+    tp = env.tp_axis
+    off = axis_rank(env, tp) * vl if tp is not None else 0
+    col = torch.arange(off, off + vl, device=logits.device)
+    lf = torch.where(col < vocab_size, logits.float(), -torch.inf)
+    idx = torch.argmax(lf, dim=-1)
+    val = torch.gather(lf, -1, idx[..., None])[..., 0]
+    idx = idx + off
+    if tp is None:
+        return idx
+    n = axis_size(env, tp)
+    vals = _all_gather(val[None], _group(env, tp), n, 0)
+    idxs = _all_gather(idx[None], _group(env, tp), n, 0)
+    best = torch.argmax(vals, dim=0)  # the first rank among equal maxima
+    return torch.gather(idxs, 0, best[None])[0]

@@ -247,6 +247,31 @@ def to_shardings(specs: Pytree, env: Env) -> Optional[Pytree]:
         lambda _, s: Placed(env.mesh, placements(s, env.mesh)), specs)
 
 
+def local_shard(x, spec: Spec, env: Env):
+    """This rank's chunk of a whole leaf x, cut as apply_shardings places
+    it (DTensor's Shard: a dim over several axes is cut major first),
+    with no message: every rank holds x whole. A leaf of a rank outside
+    the mesh is None."""
+    coord = env.mesh.get_coordinate()
+    if coord is None:
+        return None
+    where = dict(zip(env.mesh.mesh_dim_names, coord))
+    sizes = mesh_axes(env.mesh)
+    for d, e in enumerate(spec):
+        n, i = 1, 0
+        for a in axes_of(e):
+            n, i = n * sizes[a], i * sizes[a] + where[a]
+        if n > 1:
+            x = x.narrow(d, i * (x.shape[d] // n), x.shape[d] // n)
+    return x.contiguous()
+
+
+def local_shards(tree: Pytree, specs: Pytree, env: Env) -> Pytree:
+    """local_shard over a tree and its specs."""
+    return _tree_map_with_names(lambda _, x, s: local_shard(x, s, env),
+                                tree, specs)
+
+
 def apply_shardings(tree: Pytree, specs: Pytree, env: Env) -> Pytree:
     """Distribute a concrete tree over env.mesh with the resolved specs
     (each leaf a DTensor); without a mesh the tree as it is."""

@@ -299,13 +299,16 @@ for moments in ("fp32", "int8"):  # AdamW alone, the same gradients
     if rank == 0:
         torch.save(whole, out + f".adamw.{moments}.pt")
 
-refused = ""
-try:
-    Mo.init_params(get_smoke("rwkv6-1.6b"),
-                   Env(plan=ParallelPlan(), mesh=make_test_mesh(
-                       world, model=2, device_type="cpu")), device="meta")
-except NotImplementedError as e:
-    refused = str(e)
+refused = {}
+for arch in ("qwen2-vl-7b", "rwkv6-1.6b", "recurrentgemma-9b"):
+    try:
+        Mo.init_params(get_smoke(arch),
+                       Env(plan=ParallelPlan(), mesh=make_test_mesh(
+                           world, model=2, device_type="cpu")),
+                       device="meta")
+        refused[arch] = ""
+    except NotImplementedError as e:
+        refused[arch] = str(e)
 report["refused"] = refused
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules), "a rank imported jax or repro"
@@ -648,8 +651,13 @@ def test_sharded_adamw_update_is_one_devices(ranks, moments):
 
 
 def test_recurrent_archs_over_a_mesh_name_item_8_4(ranks):
-    """rwkv6-1.6b over the eight ranks' DeviceMesh raises
-    NotImplementedError naming ROADMAP item 8.4, on every rank."""
+    """Over the eight ranks' DeviceMesh the refusal naming ROADMAP item
+    8.4 is the modality archs' alone: qwen2-vl-7b raises
+    NotImplementedError naming it, on every rank; the recurrent archs
+    (rwkv6-1.6b, recurrentgemma-9b) are accepted, as they now compute
+    per rank (tests/test_torch_mesh_serving.py)."""
     _, reports = ranks
     for rep in reports:
-        assert "ROADMAP item 8.4" in rep["refused"]
+        assert "ROADMAP item 8.4" in rep["refused"]["qwen2-vl-7b"]
+        assert rep["refused"]["rwkv6-1.6b"] == ""
+        assert rep["refused"]["recurrentgemma-9b"] == ""

@@ -506,26 +506,34 @@ def test_mesh_constructors_resolve_the_production_layout_without_ranks():
 
 
 def test_the_model_refuses_a_mesh_of_more_than_one_device():
-    """The guard the sharded slice narrowed (models/env.py check_mesh,
-    sharded). A recurrent or modality arch over a mesh of two devices
-    raises NotImplementedError naming ROADMAP item 8.4, in init_params and
-    in forward. A dense or MoE arch over it is accepted: init_params gives
-    the whole tree padded for the mesh's tp degree, the JAX package's
-    shapes under the same mesh; computing needs a DeviceMesh's ranks (a
-    shape-only mesh of two raises ValueError; tests/test_torch_sharded.py
-    computes over gloo ranks); a mesh of one device computes on it."""
+    """The guard the per-rank slices narrowed (models/env.py check_mesh,
+    sharded). A modality arch over a mesh of two devices raises
+    NotImplementedError naming ROADMAP item 8.4, in init_params and in
+    forward (train mode and prefill). A dense, MoE or recurrent arch over
+    it is accepted: init_params gives the whole tree padded for the
+    mesh's tp degree, the JAX package's shapes under the same mesh;
+    computing needs a DeviceMesh's ranks (a shape-only mesh of two raises
+    ValueError; tests/test_torch_sharded.py and
+    tests/test_torch_mesh_serving.py compute over gloo ranks); a mesh of
+    one device computes on it."""
     shape_mesh = lambda dims: LM.ShapeMesh(dims, ("data", "model"))
     wide = Env(plan=ParallelPlan(), mesh=shape_mesh((1, 2)))
     tok = torch.zeros((1, 4), dtype=torch.int32)
-    for arch in ("rwkv6-1.6b", "recurrentgemma-9b", "qwen2-vl-7b",
-                 "whisper-small"):
+    for arch in ("qwen2-vl-7b", "whisper-small"):
         cfg = torch_smoke(arch)
         with pytest.raises(NotImplementedError, match="ROADMAP item 8.4"):
             Mo.init_params(cfg, wide, device="meta")
         params = Mo.init_params(cfg, Env(), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP item 8.4"):
-            Mo.forward(params, tok, cfg, wide, mode="train")
-    for arch in ("qwen2-1.5b", "granite-3-8b", "grok-1-314b"):
+        for mode in ("train", "prefill"):
+            with pytest.raises(NotImplementedError,
+                               match="ROADMAP item 8.4"):
+                Mo.forward(params, tok, cfg, wide, mode=mode)
+    for arch in ("rwkv6-1.6b", "recurrentgemma-9b"):
+        params = Mo.init_params(torch_smoke(arch), Env(), device="cpu")
+        with pytest.raises(ValueError, match="shape-only mesh"):
+            Mo.forward(params, tok, torch_smoke(arch), wide, mode="train")
+    for arch in ("qwen2-1.5b", "granite-3-8b", "grok-1-314b", "rwkv6-1.6b",
+                 "recurrentgemma-9b"):
         jenv = JEnv(mesh=AbstractMesh((1, 2), ("data", "model")),
                     plan=JPlan())
         want = jax.eval_shape(lambda k: JMo.init_params(
