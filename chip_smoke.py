@@ -251,7 +251,35 @@ Phases, any failure exits non-zero before the result line:
      the two ranks against its plain version on the same slices. Part
      (c): rwkv6-1.6b at 2 layers, 3 sharded steps over that mesh against
      one device. Counts zeroed before each run and read after it, the
-     ranks' too (`mesh_launches`; #5's row gains `seq_sharded`).
+     ranks' too (`mesh_launches`; #5's row gains `seq_sharded`);
+ 27. the modality archs over the rendered mesh (the vision rows, M-RoPE
+     over Nv + S positions, whisper's encoder per rank, the cross caches
+     xk / xv in the KV layout). Part (a), one NCCL rank and the 1 x 1
+     mesh: the serve CLI `--arch whisper-small --trace oneshot` under
+     torchrun ends with the JAX CLI's lines; qwen2-vl-7b (B=4, 256 vision
+     + 128 prompt positions, gen 16) and whisper-small (B=8, prompt 512:
+     256 frames, gen 16) at full width and depth through run_oneshot
+     (zero stubs, the CLI's: the one-device tokens; #4 once a layer of
+     each prefill, the encoder's included, and #1 once a decode step and
+     attention, counted exactly), then on seeded nonzero stubs the
+     mesh's tokens and every step's logits equal one device's bit for
+     bit; under kv_cache="seq_sharded" serve_batch over the mesh launches
+     #5 on the self- and cross-attention decode instead of #1 (logits
+     along the replicated tokens within 3e-2, tokens under the near-tie
+     oracle); #5 at
+     whisper's cross caches (256 frames, a (1, 2) rank's 128, every frame
+     valid) against its plain version, merged over the one-rank group,
+     timed beside its plain version, SDPA and its bound. Part (b), two
+     processes sharing the card over gloo, the (1, 2) mesh:
+     whisper-small whole and qwen2-vl-7b at 4 layers, gen 8, both
+     layouts, against one device on the same seeded stubs (logits within
+     3e-2 before the first differing token), each rank's decode-cache
+     bytes (init_cache on the meta device, cross caches included). Part
+     (c): whisper-small, 3 sharded steps over that mesh against one
+     device (the first loss within twice the spread f32 products give
+     the one-device loss).
+     Counts zeroed before each run and read after it, the ranks' too
+     (`mesh_modality_launches`; #5's row gains `seq_sharded_cross`).
 Each phase's wall time is printed as it ends.
 Phase 2 also holds the quant kernel to its plain version and to the bf16
 kernel on the same pool (relative RMS), the flash-attention kernel to its
@@ -265,6 +293,7 @@ Prints the kernel report as one JSON line, the card's name and power
 limit, and last {"ok": true, "device": {...}}. Needs no network; the
 kernel build lands in build/ (git-ignored).
 """
+import atexit
 import dataclasses
 import gc
 import json
@@ -3195,8 +3224,9 @@ def sharded_plan(fsdp=True):
 
 def sharded_steps(cfg, env, steps):
     """`steps` make_train_step steps from Mo.init_params(seed 0) on a fixed
-    batch (B=8, S=128, lr 1e-3, no warmup): over env.mesh with the state
-    and the batch placed by parallel/rules.py, else on one device.
+    batch (B=8, S=128, lr 1e-3, no warmup; a modality arch's seeded
+    stubs): over env.mesh with the state and the batch placed by
+    parallel/rules.py, else on one device.
     Returns (losses, the wall time of each step after the first, peak
     device memory in GiB)."""
     import torch
@@ -3212,6 +3242,7 @@ def sharded_steps(cfg, env, steps):
     params = Mo.init_params(cfg, Env(plan=env.plan), seed=0, device="cuda")
     state = {"params": params, "opt": adamw_init(params, opt)}
     batch = train_batch(cfg, 8, 128, "cuda")
+    batch.update(modality_stubs_seeded(cfg, 8, 128))
     if env.mesh is not None:
         state = R.apply_shardings(
             state, R.state_specs(St.state_struct(cfg, env, opt), cfg, env),
@@ -4049,6 +4080,466 @@ def check_mesh_serving(counted):
     return launches, rows
 
 
+# phase 27: the modality archs over the cluster's rendered mesh. Part
+# (a)'s models at full width and depth, (arch, layers (None: its own
+# depth), B, prompt, gen): qwen2-vl-7b's 4 rows of 256 vision + 128 prompt
+# positions, whisper-small's 8 prompts of 512 tokens (256 frames: the
+# encoder through #4, non-causal)
+MODALITY_MESH = (("qwen2-vl-7b", None, 4, 128, 16),
+                 ("whisper-small", None, 8, 512, 16))
+# ... and part (b)'s over the (1, 2) gloo mesh, gen 8 (the script's time:
+# every collective of gloo a host round trip): qwen2-vl-7b at full width
+# cut to 4 of its 28 layers, whisper-small whole
+MODALITY_MESH_B = (("qwen2-vl-7b", 4, 4, 128, 8),
+                   ("whisper-small", None, 8, 512, 8))
+MODALITY_TRAIN = ("whisper-small", 3)  # part (c): arch, sharded steps
+
+
+def modality_stubs_seeded(cfg, B, S):
+    """Seeded nonzero stubs (a VLM's vision embeddings, an
+    encoder-decoder's frames) of the whole batch on the card: zero stubs,
+    the CLI's, leave whisper's encoder and cross caches zeros."""
+    import torch
+    from repro_torch.launch.serve import modality_stubs
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    return {k: torch.randn(v.shape, generator=gen, device="cuda")
+            for k, v in modality_stubs(cfg, B, S, "cuda").items()}
+
+
+def modality_launches_want(cfg, S, gen, layout):
+    """The launches one run of the one-shot gives each kernel: #4 once a
+    layer of a prefill past 128 positions (the encoder's and the
+    decoder's), #1 (replicated) or #5 (seq_sharded) once a decode step and
+    attention, cross-attention included."""
+    attn = 2 if cfg.is_encdec else 1
+    pos = S + (cfg.num_vision_embeds if cfg.family == "vlm" else 0)
+    n_flash = cfg.n_layers * (pos > 128) + (
+        cfg.encoder_layers * (S // cfg.enc_downsample > 128)
+        if cfg.is_encdec else 0)
+    n_dec = (gen - 1) * cfg.n_layers * attn
+    seq = layout == "seq_sharded"
+    return {"flash_attention": n_flash,
+            "paged_flash_decode": 0 if seq else n_dec,
+            "flash_decode": n_dec if seq else 0,
+            "paged_flash_decode_quant": 0, "topk_topp_mask": 0,
+            "rglru_scan": 0, "wkv6": 0}
+
+
+def modality_rank(rank, store, out):
+    """Parts (b) and (c) of phase 27, one of two processes sharing the
+    card: a gloo group with CUDA tensors and the (1, 2) DeviceMesh a
+    VirtualCluster of two nodes renders. For each MODALITY_MESH_B model,
+    each layout: run_oneshot over it (zero stubs; counts zeroed before
+    and read after), serve_batch and serve_logits on the seeded nonzero
+    stubs (the seq_sharded run's logits along the replicated
+    tokens too; under seq_sharded the counts are serve_batch's); then
+    MODALITY_TRAIN's sharded train steps over a (1, 2) make_test_mesh. Rank 0 writes the tokens and logits (out.<case>.npz),
+    every rank its launch counts, the runs' wall times, its decode-cache
+    bytes and the losses (out.<rank>.json)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_decode.ops import flash_decode_partials
+    from repro_torch.kernels.paged_decode.ops import (
+        paged_flash_decode, paged_flash_decode_quant)
+    from repro_torch.kernels.rglru.ops import rglru_scan
+    from repro_torch.kernels.rwkv6.ops import wkv6
+    from repro_torch.kernels.sampling.ops import topk_topp_mask
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.serve import (run_oneshot, serve_batch,
+                                          serve_logits)
+    from repro_torch.models import model as Mo
+    from repro_torch.models.env import SERVE_PLAN, Env
+
+    counted = (paged_flash_decode, paged_flash_decode_quant, topk_topp_mask,
+               flash_attention, rglru_scan, wkv6, flash_decode_partials)
+    name = lambda op: ("flash_decode" if op is flash_decode_partials
+                       else op.__name__)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="file://" + store, rank=rank,
+                            world_size=2)
+    mesh = make_test_mesh(2, model=2)
+    rep = {"wall_s": {}, "launches": {}, "kv_bytes": {}}
+    for arch, layers, B, S, gen in MODALITY_MESH_B:
+        cfg = mesh_cfg(arch, layers)
+        params = Mo.init_params(cfg, Env(), seed=0, device="cuda")
+        prompts = mesh_prompts(cfg, B, S)
+        stubs = modality_stubs_seeded(cfg, B, S)
+        toks = None
+        for layout in ("replicated", "seq_sharded"):
+            plan = dataclasses.replace(SERVE_PLAN, kv_cache=layout)
+            label = f"{arch}/{layout}"
+            kw = dict(streamed_prefill=False, mesh=mesh, plan=plan,
+                      stubs=stubs)
+            for op in counted:
+                op.launches = 0
+            t1 = time.perf_counter()
+            if layout == "replicated":  # the cluster's rendered mesh
+                run_oneshot(mesh_args(B, S, gen, 2), cfg, params, plan)
+            else:  # serve_batch over the mesh, on the seeded stubs
+                got = serve_batch(cfg, params, prompts, gen, **kw)
+            rep["wall_s"][label] = time.perf_counter() - t1
+            rep["launches"][label] = {name(op): op.launches
+                                      for op in counted}
+            n = S + gen + (cfg.num_vision_embeds if cfg.family == "vlm"
+                           else 0)
+            rep["kv_bytes"][label] = kv_bytes(cfg, Env(plan=plan, mesh=mesh),
+                                              B, n)
+            if layout == "replicated":
+                got = serve_batch(cfg, params, prompts, gen, **kw)
+            res = {"tokens": got, "logits": serve_logits(
+                cfg, params, prompts, got, **kw)}
+            if layout == "replicated":
+                toks = got
+            else:
+                res["forced"] = serve_logits(cfg, params, prompts, toks,
+                                             **kw)
+            if rank == 0:
+                np.savez(f"{out}.{arch}.{layout}.npz", **res)
+        del params
+        torch.cuda.empty_cache()
+    arch, steps = MODALITY_TRAIN
+    for op in counted:
+        op.launches = 0
+    tenv = Env(plan=sharded_plan(), mesh=mesh)
+    losses, times, peak = sharded_steps(mesh_cfg(arch, None), tenv, steps)
+    rep.update(losses=losses, step_s=times, peak_gib=peak,
+               train_launches={name(op): op.launches for op in counted})
+    with open(f"{out}.{rank}.json", "w") as f:
+        json.dump(rep, f)
+    dist.destroy_process_group()
+
+
+def check_mesh_modality(counted):
+    """Phase 27: the modality archs over the cluster's rendered mesh
+    (run_oneshot: serve_batch submitted over the DeviceMesh; the vision
+    rows and whisper's encoder per rank, the cross caches in the KV
+    layout). Part (a), one NCCL rank and the 1 x 1 mesh: the serve CLI
+    `--arch whisper-small --trace oneshot` (8 requests, gen 8) under
+    torchrun ends with the JAX CLI's lines; each MODALITY_MESH model at full width and depth
+    through run_oneshot (zero stubs, the CLI's: its tokens the one-device
+    one-shot's, #4 and #1 counted), then on seeded nonzero stubs the
+    mesh's tokens and every step's logits equal the one device's bit for
+    bit under the replicated layout; under seq_sharded serve_batch over
+    the mesh launches #5 on the self- and cross-attention decode and #1
+    not, the logits along the replicated tokens within MESH_TOL and the
+    tokens under the near-tie oracle; #5 at whisper's cross caches (256 frames,
+    and a (1, 2) rank's 128, every frame valid) against its plain
+    version, merged over the one-rank group, timed beside its plain
+    version, SDPA and its bound. Part (b), two processes sharing the card
+    over gloo (modality_rank): MODALITY_MESH_B's models over the (1, 2)
+    mesh in both layouts against one device on the same stubs, each
+    rank's decode-cache bytes (the cross caches included). Part (c):
+    whisper-small's sharded train step over that mesh against one device
+    (the first loss within twice the spread that f32 products give the
+    one-device loss, or SHARDED_STEP1_TOL). Counts zeroed before each run and read after it, the
+    children's too. Returns ({kernel: launches}, #5's cross rows)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.flash_decode.ops import flash_decode_partials
+    from repro_torch.kernels.flash_decode.ref import (
+        flash_decode_partials_ref)
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.serve import (run_oneshot, serve_batch,
+                                          serve_logits)
+    from repro_torch.models.env import SERVE_PLAN, Env
+    from repro_torch.parallel import collectives as C
+
+    t0 = time.perf_counter()
+    seq = dataclasses.replace(SERVE_PLAN, kv_cache="seq_sharded")
+    names = {op: ("flash_decode" if op.__name__ == "flash_decode_partials"
+                  else op.__name__) for op in counted}
+    launches = {n: 0 for n in names.values()}
+
+    def read(label, want):
+        got = {names[op]: op.launches for op in counted}
+        for k, n in got.items():
+            launches[k] += n
+        if got != want:
+            fail(f"phase 27 {label}: launches {got}, expected {want}")
+        return got
+
+    def zero():
+        for op in counted:
+            op.launches = 0
+
+    env_b = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    store = tempfile.mkdtemp(prefix="chip_smoke_modality_")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    ref = {}  # (arch, layers): one device's tokens and logits, nonzero stubs
+    rows = []
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_test_mesh(1, model=1)
+        for arch, layers, B, S, gen in MODALITY_MESH:
+            cfg = mesh_cfg(arch, layers)
+            params = load_params(cfg, 0)
+            prompts = mesh_prompts(cfg, B, S)
+            stubs = modality_stubs_seeded(cfg, B, S)
+            kw = dict(streamed_prefill=False)
+            tok1 = serve_batch(cfg, params, prompts, gen, stubs=stubs, **kw)
+            lg1 = serve_logits(cfg, params, prompts, tok1, stubs=stubs, **kw)
+            torch.cuda.synchronize()  # warm: timed after two runs
+            t1 = time.perf_counter()
+            tok0 = serve_batch(cfg, params, prompts, gen, **kw)  # zero stubs
+            one_s = time.perf_counter() - t1
+            ref[arch, layers, gen] = (tok1, lg1)
+            zero()
+            run = run_oneshot(mesh_args(B, S, gen, 1), cfg, params)
+            got = read(f"(a) {arch} replicated",
+                       modality_launches_want(cfg, S, gen, "replicated"))
+            kwm = dict(kw, mesh=mesh, stubs=stubs)
+            torch.cuda.synchronize()  # warm: the mesh served before
+            t1 = time.perf_counter()
+            tokm = serve_batch(cfg, params, prompts, gen, **kwm)
+            warm_s = time.perf_counter() - t1
+            lgm = serve_logits(cfg, params, prompts, tokm, **kwm)
+            if not (np.array_equal(run["tokens"], tok0)
+                    and np.array_equal(tokm, tok1)
+                    and np.array_equal(lgm, lg1)):
+                fail(f"phase 27 (a) {arch}: the 1 x 1 mesh's tokens or "
+                     f"logits differ from one device's (run_oneshot "
+                     f"{np.array_equal(run['tokens'], tok0)}, seeded stubs "
+                     f"{np.array_equal(tokm, tok1)})")
+            n_tok = B * gen
+            vis = (f"{cfg.num_vision_embeds} vision + "
+                   if cfg.family == "vlm" else "")
+            print(f"(a) {cfg.name} ({cfg.n_layers} layers, B={B}, {vis}"
+                  f"prompt {S}, gen {gen}) over the rendered 1 x 1 NCCL "
+                  f"mesh: run_oneshot's tokens equal one device's, and on "
+                  f"seeded stubs the tokens and all {gen} steps' logits bit "
+                  f"for bit; wall tokens/s {n_tok / run['wall_s']:.1f} "
+                  f"through run_oneshot, {n_tok / warm_s:.1f} warm, "
+                  f"{n_tok / one_s:.1f} one device, on {card()}; launches "
+                  f"{ {k: n for k, n in got.items() if n} }")
+            kws = dict(kwm, plan=seq)
+            zero()
+            t1 = time.perf_counter()
+            stok = serve_batch(cfg, params, prompts, gen, **kws)
+            seq_s = time.perf_counter() - t1
+            got = read(f"(a) {arch} seq_sharded",
+                       modality_launches_want(cfg, S, gen, "seq_sharded"))
+            own = serve_logits(cfg, params, prompts, stok, **kws)
+            forced = serve_logits(cfg, params, prompts, tok1, **kws)
+            ok, _, parted = near_tie_equal(stok, tok1, own, lg1)
+            err = logit_err(forced, lg1)
+            if not ok or err > MESH_TOL:
+                fail(f"phase 27 (a) {arch} seq_sharded: near-tie oracle "
+                     f"{ok}, logits along the replicated tokens {err:.3e}")
+            print(f"(a) {cfg.name} under seq_sharded over the 1 x 1 mesh "
+                  f"(#5 on the self- and cross-attention decode): logits "
+                  f"along the replicated tokens within {err:.3e} of them "
+                  f"(tolerance {MESH_TOL}), {parted} of {B} rows part at a "
+                  f"near-tie; {n_tok / seq_s:.1f} tokens/s wall "
+                  f"(serve_batch, warm); launches "
+                  f"{ {k: n for k, n in got.items() if n} }")
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        # kernel #5 at whisper-small's cross caches under seq_sharded: every
+        # head's q, the frames the rank holds, every one valid (no write)
+        cfg = mesh_cfg("whisper-small", None)
+        B, S = MODALITY_MESH[1][2:4]
+        se = S // cfg.enc_downsample
+        fgen = torch.Generator(device="cuda").manual_seed(27)
+        mk = lambda *s: torch.randn(s, generator=fgen, device="cuda").to(
+            torch.bfloat16)
+        q = mk(B, cfg.n_heads, cfg.head_dim)
+        for n in (1, 2):  # the (1, 1) mesh's cross cache, a (1, 2) rank's
+            n_tok = se // n
+            k = mk(B, cfg.n_kv_heads, n_tok, cfg.head_dim)
+            v = mk(B, cfg.n_kv_heads, n_tok, cfg.head_dim)
+            cur = torch.tensor([n_tok - 1], dtype=torch.int32, device="cuda")
+            o, _, _ = flash_decode_partials(q, k, v, cur)
+            ro = flash_decode_partials_ref(q, k, v, cur)[0]
+            bound, by = fd_bound_ms(B, cfg.n_heads, cfg.n_kv_heads,
+                                    cfg.head_dim, n_tok, 2)
+            qs = q[:, :, None, :]
+            rows.append({
+                "shape": f"B={B} Hq={cfg.n_heads} Hkv={cfg.n_kv_heads} "
+                         f"hd={cfg.head_dim} Se={n_tok} bf16 cross (tp {n})",
+                "max_abs_err": float((o - ro).abs().max()),
+                "ms": device_ms(lambda: flash_decode_partials(q, k, v,
+                                                              cur)),
+                "plain_ms": device_ms(lambda: flash_decode_partials_ref(
+                    q, k, v, cur)),
+                "library_ms": device_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qs, k, v)),
+                "bound_ms": bound, "bound_by": by})
+            if n == 1:
+                env = Env(plan=seq, mesh=mesh)
+                rows[-1]["merged_err"] = fd_seq_case(
+                    q, k, v, C._group(env, "model"), 0, 1)
+            print(f"#5 at {rows[-1]['shape']}: {rows[-1]['ms'] * 1e3} us "
+                  f"kernel, {rows[-1]['plain_ms'] * 1e3} us plain, "
+                  f"{rows[-1]['library_ms'] * 1e3} us SDPA, bound "
+                  f"{bound * 1e3} us ({by}), {bound / rows[-1]['ms']:.4f} "
+                  f"of the bound; max abs err {rows[-1]['max_abs_err']:.3e}"
+                  + (f"; merged over the one-rank group (max abs err, "
+                     f"excess) {rows[-1]['merged_err']}" if n == 1 else "")
+                  + f" on {card()}")
+            if not rows[-1]["max_abs_err"] <= FD_TOL or not rows[0].get(
+                    "merged_err", (0.0, 0.0))[1] <= FD_TOL:
+                fail(f"phase 27: #5 at {rows[-1]['shape']}: {rows[-1]}")
+        del q, k, v
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 27 part (a): {time.perf_counter() - t0:.1f}s")
+    # the serve CLI under torchrun (one NCCL rank), its start and its
+    # communicator's overlapping the one-device runs below and parts (b)
+    # and (c), whose wall times it may stretch (nothing of it is timed)
+    t_cli = time.perf_counter()
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "1", "-m", "repro_torch.launch.serve",
+         "--arch", "whisper-small", "--trace", "oneshot", "--requests",
+         "8", "--gen", "8"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=env_b)
+    # a failure below exits through fail(): stop the CLI then too (torchrun
+    # passes SIGTERM on to its worker)
+    atexit.register(lambda: cli.poll() is None and cli.terminate())
+    # part (b)'s one-device runs, part (c)'s one-device losses, then parts
+    # (b) and (c) on two ranks
+    for arch, layers, B, S, gen in MODALITY_MESH_B:
+        if (arch, layers, gen) not in ref:
+            cfg = mesh_cfg(arch, layers)
+            params = load_params(cfg, 0)
+            prompts = mesh_prompts(cfg, B, S)
+            stubs = modality_stubs_seeded(cfg, B, S)
+            kw = dict(streamed_prefill=False, stubs=stubs)
+            tok1 = serve_batch(cfg, params, prompts, gen, **kw)
+            lg1 = serve_logits(cfg, params, prompts, tok1, **kw)
+            ref[arch, layers, gen] = (tok1, lg1)
+            del params
+            torch.cuda.empty_cache()
+    # part (c)'s one-device losses, and their first against the same
+    # step with every bf16 product taken in f32 and rounded once, as the
+    # tp > 1 row products are: the rounding spread its first loss is held
+    # to (whisper-small's 24 layers of self-, cross-attention and MLP
+    # products part the sharded loss by more than SHARDED_STEP1_TOL)
+    from repro_torch.models import layers as L
+    arch, steps = MODALITY_TRAIN
+    one_losses = sharded_steps(mesh_cfg(arch, None),
+                               Env(plan=sharded_plan()), steps)[0]
+    bf16_matmul = L._bf16_matmul
+    L._bf16_matmul = lambda a, b: (a.float() @ b.float()).to(a.dtype)
+    try:
+        f32_loss = sharded_steps(mesh_cfg(arch, None),
+                                 Env(plan=sharded_plan()), 1)[0][0]
+    finally:
+        L._bf16_matmul = bf16_matmul
+    spread = abs(f32_loss - one_losses[0]) / abs(one_losses[0])
+    step1_tol = max(SHARDED_STEP1_TOL, 2 * spread)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_modality_ranks_")
+    t1 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+         "--modality-rank", str(r), f"{tmp}/store", f"{tmp}/out"],
+        env=env_b, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+    logs = []
+    for proc in procs:
+        try:
+            logs.append(proc.communicate(timeout=600)[0])
+        finally:
+            proc.kill()
+    if any(proc.returncode != 0 for proc in procs):
+        fail("phase 27 part (b): a rank failed:\n" + "\n".join(
+            log[-3000:] for log in logs))
+    ranks = []
+    for r in range(2):
+        with open(f"{tmp}/out.{r}.json") as f:
+            ranks.append(json.load(f))
+    wall_b = time.perf_counter() - t1
+    for arch, layers, B, S, gen in MODALITY_MESH_B:
+        cfg = mesh_cfg(arch, layers)
+        tok1, lg1 = ref[arch, layers, gen]
+        for layout in ("replicated", "seq_sharded"):
+            label = f"{arch}/{layout}"
+            z = np.load(f"{tmp}/out.{arch}.{layout}.npz")
+            ok, agreed, parted = near_tie_equal(z["tokens"], tok1,
+                                                z["logits"], lg1)
+            err = logit_err(z["logits"], lg1, agreed)
+            forced = (logit_err(z["forced"], np.load(
+                f"{tmp}/out.{arch}.replicated.npz")["logits"])
+                if "forced" in z else None)
+            per = [rep["launches"][label] for rep in ranks]
+            for p in per:
+                for k, n in p.items():
+                    launches[k] += n
+            want = modality_launches_want(cfg, S, gen, layout)
+            walls = [rep["wall_s"][label] for rep in ranks]
+            print(f"(b) {cfg.name} ({cfg.n_layers} layers) {layout} over "
+                  f"the (1, 2) gloo mesh (two processes on the card; a "
+                  f"rank's decode cache {ranks[0]['kv_bytes'][label]} "
+                  f"bytes, the cross caches included): logits within "
+                  f"{err:.3e} of one device's before the first differing "
+                  f"token (tolerance {MESH_TOL})"
+                  + ("" if forced is None else
+                     f", {forced:.3e} of the replicated mesh run's along "
+                     f"its tokens")
+                  + f"; {parted} of {B} rows part at a near-tie; wall "
+                  f"tokens/s {B * gen / max(walls):.1f} through "
+                  f"{'run_oneshot' if layout == 'replicated' else 'serve_batch'}"
+                  f" (the slower rank) on {card()}; launches per rank "
+                  f"{[{k: n for k, n in p.items() if n} for p in per]}")
+            if not ok or err > MESH_TOL or (forced or 0.0) > MESH_TOL:
+                fail(f"phase 27 (b) {label}: near-tie oracle {ok}, logits "
+                     f"{err:.3e}, forced {forced}")
+            if any(p != want for p in per):
+                fail(f"phase 27 (b) {label}: launches {per}, expected "
+                     f"{want}")
+    if any(any(rep["train_launches"].values()) for rep in ranks):
+        fail(f"phase 27 (c) launched "
+             f"{[rep['train_launches'] for rep in ranks]}")
+    b_losses = ranks[0]["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(b_losses, one_losses)]
+    print(f"(c) {MODALITY_TRAIN[0]}, {MODALITY_TRAIN[1]} sharded steps "
+          f"over the (1, 2) mesh (seeded frames): loss "
+          f"{' '.join(f'{x:.6f}' for x in b_losses)}, one device "
+          f"{' '.join(f'{x:.6f}' for x in one_losses)} (relative "
+          f"{' '.join(f'{e:.2e}' for e in rel)}; tolerance {step1_tol:.2e} "
+          f"first: twice the one-device loss's spread with f32 products, "
+          f"{spread:.2e}, or {SHARDED_STEP1_TOL:.0e}; {MESH_LATER_TOL:.0e} "
+          f"after); "
+          f"sharded step {_ms(ranks[0]['step_s'])}, peak "
+          f"{ranks[0]['peak_gib']:.2f} GiB a rank, on {card()}; parts (b) "
+          f"and (c) {wall_b:.1f}s with the processes' start")
+    if not (ranks[0]["losses"] == ranks[1]["losses"]
+            and rel[0] <= step1_tol
+            and all(e <= MESH_LATER_TOL for e in rel[1:])):
+        fail(f"phase 27 (c): losses {[r['losses'] for r in ranks]} against "
+             f"{one_losses}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    try:
+        out, err = cli.communicate(timeout=300)
+    finally:
+        cli.kill()
+    gi = out.rfind("generated 64 tokens in ")
+    si = out.rfind("sample: [")
+    if cli.returncode != 0 or not 0 <= gi < si:
+        fail(f"serve CLI --arch whisper-small --trace oneshot under "
+             f"torchrun: exit {cli.returncode}, {out[-2000:]}{err[-2000:]}")
+    print(f"serve CLI --arch whisper-small --trace oneshot under torchrun, "
+          f"one NCCL rank on the card (ended "
+          f"{time.perf_counter() - t_cli:.1f}s after its start, beside parts "
+          f"(b) and (c)): " + " ".join(out[gi:].split()))
+    print(f"modality mesh phase: {time.perf_counter() - t0:.1f}s; kernel "
+          f"launches {launches}")
+    return launches, rows
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -4494,6 +4985,10 @@ def main():
     # step over the same mesh
     mesh_launches, fd_seq = check_mesh_serving(counted)
     done(26)
+    # 27. the modality archs over the rendered mesh: the vision rows,
+    # whisper's encoder and cross caches per rank, in both KV layouts
+    modality_mesh_launches, fd_cross = check_mesh_modality(counted)
+    done(27)
     report[2]["rings_int8"] = ring_q
     report[2]["modality"] = {"gqa7 serving mix int8":
                              mod_paged.pop("gqa7 serving mix int8")}
@@ -4511,7 +5006,9 @@ def main():
         k["elastic_launches"] = elastic_launches.get(k["name"], 0)
         k["sharded_launches"] = sharded_launches.get(k["name"], 0)
         k["mesh_launches"] = mesh_launches.get(k["name"], 0)
+        k["mesh_modality_launches"] = modality_mesh_launches.get(k["name"], 0)
     report[-1]["seq_sharded"] = fd_seq
+    report[-1]["seq_sharded_cross"] = fd_cross
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": report}))
@@ -4528,5 +5025,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--mesh-rank"]:  # phase 26's parts (b) and (c)
         mesh_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--modality-rank"]:  # phase 27's parts (b), (c)
+        modality_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
         sys.exit(0)
     sys.exit(main())

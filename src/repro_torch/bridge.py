@@ -10,7 +10,8 @@ tests make the numpy tree and hand it over.
 
 Over a DeviceMesh the same tree is padded for its tp degree
 (pad_for_mesh) and cut to each rank's shards (rank_shards): the parameter
-leaves of every block kind, the recurrent ones included.
+leaves of every block kind, the recurrent ones, an encoder's and the
+cross-attention's included.
 
 The same conversion carries an AdamW state over (optim/adamw.py): the
 int32 step, the f32 master weights and the moments, f32 or int8 {"q",
@@ -46,8 +47,9 @@ def pad_for_mesh(params: Any, cfg, env) -> Any:
     """A one-device parameter tree (heads and vocabulary padded for tp 1)
     padded with zeros into env's tp layout, the shapes the JAX package's
     init_params gives under that mesh (head_pad, vocab_pad): the
-    vocabulary's embed rows and unembed columns appended, and the query
-    heads padded inside each KV group (G heads a group become
+    vocabulary's embed rows and unembed columns appended, and every
+    attention's query heads (the encoder's and the cross-attention's
+    too; the qkv biases with their weights) padded inside each KV group (G heads a group become
     head_pad / Hkv, so every real head keeps its KV head); an MHA arch
     pads its KV heads alongside, appended. A padded head's wq columns and
     wo rows are zero, so it adds nothing to the output."""
@@ -89,8 +91,9 @@ def pad_for_mesh(params: Any, cfg, env) -> Any:
                 for k, v in u.items()}
 
     out = dict(params)
-    out["blocks"] = tuple(unit(u) for u in params["blocks"])
-    out["tail"] = tuple(unit(u) for u in params["tail"])
+    for group in ("blocks", "tail", "enc_blocks"):
+        if group in params:
+            out[group] = tuple(unit(u) for u in params[group])
     out["embed"] = F.pad(params["embed"], (0, 0, 0, dv))
     out["unembed"] = F.pad(params["unembed"], (0, dv))
     return out

@@ -67,7 +67,7 @@ from repro_torch.core import (ClusterImage, LatencyPolicy, QueueDepthPolicy,
 from repro_torch.core.clock import ManualClock
 from repro_torch.launch import steps as St
 from repro_torch.models import model as Mo
-from repro_torch.models.env import SERVE_PLAN, Env, sharded
+from repro_torch.models.env import SERVE_PLAN, Env, modality, sharded
 from repro_torch.parallel import collectives as C
 from repro_torch.parallel import rules
 from repro_torch.serve import (SamplingParams, burst_trace,
@@ -109,16 +109,16 @@ def serve_batch(cfg, params, prompts, gen_len: int, *,
 
     A VLM or an encoder-decoder takes the full prefill only (a streamed
     prefill would carry no modality), with its stubs: `stubs` ({"vision_
-    embeds"} or {"frames"}, tensors), zeros of modality_stubs' shapes by
-    default. A VLM's decode positions start past its vision embeddings,
-    at S + num_vision_embeds.
+    embeds"} or {"frames"}, tensors or arrays of the whole batch's rows),
+    zeros of modality_stubs' shapes by default. A VLM's decode positions
+    start past its vision embeddings, at S + num_vision_embeds.
 
     mesh (the JAX package's serve_batch signature; None: one device): a
     DeviceMesh of a process group's ranks, every rank of it calling with
     the same whole (one-device) params and prompts. Each rank keeps its
     shards of the params (bridge.rank_shards) and its rows of the batch
-    (B / dp), prefills and decodes them per rank (models/model.py
-    _Ranks) under `plan` (its kv_cache picks the layout: "replicated" or
+    (B / dp; the stubs' rows too), prefills and decodes them per rank
+    (models/model.py _Ranks) under `plan` (its kv_cache picks the layout: "replicated" or
     "seq_sharded", flash-decoding over the positions split across tp),
     and picks each token by the vocabulary-parallel argmax. The tokens
     come back gathered, the same on every rank."""
@@ -149,16 +149,21 @@ def _oneshot(cfg, params, prompts, gen_len, streamed_prefill, device,
     prompts = torch.as_tensor(np.asarray(prompts), device=device)
     if forced is not None:
         forced = torch.as_tensor(np.asarray(forced), device=device)
+    if stubs is not None:
+        stubs = {k: torch.as_tensor(v, device=device)
+                 for k, v in stubs.items()}
     if per_rank:
         params = bridge.rank_shards(params, cfg, env)
-        rows = rules.Spec((env.dpx or None, None))
-        prompts = rules.local_shard(prompts, rows, env)
+        rows = lambda x: rules.local_shard(x, rules.Spec(
+            (env.dpx or None,) + (None,) * (x.dim() - 1)), env)
+        prompts = rows(prompts)
         if forced is not None:
-            forced = rules.local_shard(forced, rows, env)
+            forced = rows(forced)
+        if stubs is not None:
+            stubs = {k: rows(v) for k, v in stubs.items()}
     B, S = prompts.shape
     decode = St.make_decode_step(cfg, env)
-    modal = cfg.family == "vlm" or cfg.is_encdec
-    if streamed_prefill and modal:
+    if streamed_prefill and modality(cfg):
         raise ValueError(f"{cfg.name}: a streamed prefill carries no "
                          "modality; serve it with streamed_prefill=False")
     if streamed_prefill:
@@ -590,8 +595,8 @@ def main() -> int:
     from repro_torch.launch.train import join_ranks
     if "RANK" in os.environ and args.trace != "oneshot":
         raise SystemExit("under torchrun the CLI serves --trace oneshot over "
-                         "the rendered mesh; the engines over a mesh are a "
-                         "later ROADMAP item")
+                         "the rendered mesh; the engines over a mesh are "
+                         "ROADMAP item 12")
     join_ranks(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     params = Mo.init_params(cfg, Env(), seed=0, device=args.device)

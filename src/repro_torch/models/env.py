@@ -5,9 +5,10 @@ heads and vocabulary for its tensor-parallel degree. The port's Env
 carries an optional mesh too: a torch DeviceMesh over the ranks of a
 process group, or a shape-only mesh from launch/mesh.py (axis names and
 sizes, no ranks) for resolving the sharding rules (parallel/rules.py).
-Over a DeviceMesh the text archs (dense, MoE and recurrent) compute per
-rank on their local shards (`sharded`; models/model.py): the train step,
-and prefill and decode for serving. The padding helpers take the mesh's
+Over a DeviceMesh every arch (dense, MoE, recurrent, and the modality
+archs behind their stubs) computes per rank on its local shards
+(`sharded`; models/model.py): the train step, and prefill and decode for
+serving. The padding helpers take the mesh's
 tp degree, as the JAX package's do.
 """
 from __future__ import annotations
@@ -90,11 +91,8 @@ def modality(cfg: ModelConfig) -> bool:
 
 
 def check_mesh(cfg: ModelConfig, env: Env) -> None:
-    """The model's refusals of a mesh: axes other than the plan's dp axes
-    and tp axis (ValueError), and a modality arch (a VLM or an
-    encoder-decoder) over a mesh of more than one device
-    (NotImplementedError: the per-rank forward covers the text archs;
-    the modality archs over a mesh are ROADMAP item 8.4)."""
+    """The model's refusal of a mesh: axes other than the plan's dp axes
+    and tp axis (ValueError). Every arch is accepted over the others."""
     if env.mesh is None:
         return
     extra = set(env.axis_names) - set(env.plan.dp_axes) - {env.plan.tp_axis}
@@ -102,20 +100,14 @@ def check_mesh(cfg: ModelConfig, env: Env) -> None:
         raise ValueError(f"mesh axes {sorted(extra)} are neither the plan's "
                          f"dp axes {env.plan.dp_axes} nor its tp axis "
                          f"{env.plan.tp_axis!r}")
-    n = mesh_size(env)
-    if n > 1 and modality(cfg):
-        raise NotImplementedError(
-            f"{cfg.name} over a mesh of {n} devices: the per-rank forward "
-            f"covers the dense, MoE and recurrent archs; the modality archs "
-            f"over a mesh are ROADMAP item 8.4")
 
 
 def sharded(cfg: ModelConfig, env: Env) -> bool:
     """Whether the model computes per rank over env.mesh (models/model.py
-    _Ranks: train mode, prefill and decode): a DeviceMesh, for an arch
-    check_mesh lets through. A modality arch over a one-device DeviceMesh
-    computes on that device (False); a shape-only mesh of more than one
-    device has no ranks to compute on (ValueError)."""
+    _Ranks: train mode, prefill and decode): over a DeviceMesh, every
+    arch check_mesh lets through. A shape-only mesh of more than one
+    device has no ranks to compute on (ValueError); of one device it
+    computes on that device (False)."""
     from torch.distributed.device_mesh import DeviceMesh
     check_mesh(cfg, env)
     if env.mesh is None:
@@ -127,7 +119,7 @@ def sharded(cfg: ModelConfig, env: Env) -> bool:
                 "sharding specs; the model computes over a DeviceMesh of a "
                 "process group's ranks")
         return False
-    return not modality(cfg)
+    return True
 
 
 def out_dims(env: Env, seq_len: int):

@@ -278,12 +278,20 @@ def init_cache(cfg: ModelConfig, env: Env, batch: int, max_len: int, *,
     [L, B, Hkv, max_len // enc_downsample, hd] (the encoder's length).
 
     Over a DeviceMesh (models/env.py sharded), this rank's: B / dp rows,
-    and the heads, positions and channels _Ranks lays out."""
+    and the heads, positions and channels _Ranks lays out (the cross
+    caches' encoder positions too)."""
     rk = _Ranks(cfg, env, 1) if sharded(cfg, env) else None
     hkv, hd = kv_head_pad(cfg, env), cfg.head_dim
     enc_len = max_len // cfg.enc_downsample if cfg.is_encdec else 0
+    hx, xlen = hkv, enc_len  # the cross caches' heads and positions
     if rk is not None:
         batch = _local_rows(batch, env)
+        if rk.kv_seq:
+            xlen = rk.cross_len(enc_len)
+        else:
+            hx = rk.n_kv_local()
+    z = lambda h, n: torch.zeros((batch, h, n, hd), dtype=torch.bfloat16,
+                                 device=device)
 
     def unit(kind):
         if kind in RECURRENT_KINDS:
@@ -294,12 +302,10 @@ def init_cache(cfg: ModelConfig, env: Env, batch: int, max_len: int, *,
             n = _seq_len_local(n, rk)
         elif rk is not None:
             h = rk.n_kv_local()
-        z = lambda n: torch.zeros((batch, h, n, hd), dtype=torch.bfloat16,
-                                  device=device)
         if kind == "dec":
-            return {"k": z(max_len), "v": z(max_len), "xk": z(enc_len),
-                    "xv": z(enc_len)}
-        return {"k": z(n), "v": z(n)}
+            return {"k": z(h, n), "v": z(h, n), "xk": z(hx, xlen),
+                    "xv": z(hx, xlen)}
+        return {"k": z(h, n), "v": z(h, n)}
 
     return _tree_of(cfg, unit)
 
@@ -341,10 +347,11 @@ def grow_caches(caches: Pytree, extra: int, cfg: ModelConfig,
                 env: Env = None) -> Pytree:
     """Extend prefill-emitted KV caches ([L,B,Hkv,S,hd], length == prompt)
     by `extra` zero positions so decode can append. Cross-attention caches
-    (xk/xv) keep the encoder's length; recurrent states have no sequence
-    axis and pass through. Sliding-window ('local') rings grow
-    only to min(window, prompt + extra): a full ring is never padded, or
-    the slot = pos % window alignment breaks.
+    (xk/xv) keep the encoder's length (per rank, the layout their prefill
+    gave them); recurrent states have no sequence axis and pass through.
+    Sliding-window ('local') rings grow only to min(window, prompt +
+    extra): a full ring is never padded, or the slot = pos % window
+    alignment breaks.
 
     Per rank over a DeviceMesh under the seq_sharded layout (env), a
     global unit's grown k/v [.., S + extra, hd] keep this rank's
@@ -636,36 +643,65 @@ def _attn_prefill(p, h, cfg: ModelConfig, S: int, rope, window: int = 0,
     return out(o), {"k": kc, "v": vc}
 
 
-def _xattn_prefill(p, h, cfg: ModelConfig, S: int, enc, train: bool):
+def _xattn_prefill(p, h, cfg: ModelConfig, S: int, enc, train: bool,
+                   ranks=None):
     """Cross-attention of the first S positions of the row-padded decoder
     stream h [B,Sp,d] over the encoder's output: enc = (its row-padded
     output [B,Sep,d], its Se real positions). No rope, no mask, always
     attention_naive (the reference's dispatch sends no cross-attention to
     its flash kernel). Returns (out [B,Sp,d], {"xk","xv"} [B,Hkv,Se,hd],
-    the decode steps' cross caches; None in train mode)."""
+    the decode steps' cross caches; None in train mode). ranks (the
+    per-rank forward; enc whole on every rank): this rank's query heads
+    over the whole decoder sequence, its share of the output projection
+    summed over tp; the cache holds the KV heads its heads read, or under
+    the seq_sharded layout every KV head at the rank's encoder positions
+    (_Ranks.cross_local)."""
     e, Se = enc
+    if ranks is not None:
+        h = ranks.enter(h)
     q, k, v = L._project_qkv(p, h, cfg, x_kv=e)
     k, v = k[:, :Se], v[:, :Se]
-    o = L.attention_naive(q[:, :S], k, v, cfg, causal=False)
-    out = L.linear(F.pad(o, (0, 0, 0, h.shape[1] - S)), p["wo"])
+    kc, vc = k, v
+    if ranks is not None:
+        k, v = ranks.local_kv(k, v)
+        if ranks.kv_seq:
+            kc, vc = ranks.cross_local(kc, 1), ranks.cross_local(vc, 1)
+        else:
+            kc, vc = k, v
+    o = F.pad(L.attention_naive(q[:, :S], k, v, cfg, causal=False),
+              (0, 0, 0, h.shape[1] - S))
+    out = (L.linear(o, p["wo"]) if ranks is None
+           else ranks.row(o, p["wo"], ranks.heads_split))
     if train:
         return out, None
-    return out, {"xk": k.transpose(1, 2).contiguous(),
-                 "xv": v.transpose(1, 2).contiguous()}
+    return out, {"xk": kc.transpose(1, 2).contiguous(),
+                 "xv": vc.transpose(1, 2).contiguous()}
 
 
-def _xattn_decode(p, h, cfg: ModelConfig, n_rows: int, cache):
+def _xattn_decode(p, h, cfg: ModelConfig, n_rows: int, cache, ranks=None):
     """Decode cross-attention of the first n_rows rows of h [Bp,1,d] over
     the cached xk/xv [B,Hkv,Se,hd]: every row attends over all Se encoder
     positions (depth Se - 1, as the reference reads its cross cache)
     through the contiguous-cache read of models/layers.py. Nothing is
-    written."""
+    written. ranks (the per-rank forward): this rank's query heads over
+    its cross cache, its share of the output projection summed over tp;
+    under the seq_sharded layout flash-decoding over the rank's encoder
+    positions (_flash_decode_ranks)."""
     q = L._project(p, h, cfg, "q")[:n_rows]  # no rope
-    xk = cache["xk"]
-    depth = torch.full((n_rows,), xk.shape[-2] - 1, dtype=torch.int32,
-                       device=h.device)
-    o = L.attention_decode(q, xk, cache["xv"], depth, cfg)
+    xk, xv = cache["xk"], cache["xv"]
+    if ranks is not None and ranks.kv_seq:
+        # no write: every encoder position valid, each rank's whole slice
+        # read (where the cache is whole on every rank, Se % tp != 0, the
+        # ranks' partials are the same and merge to themselves)
+        o = _flash_decode_ranks(q, xk, xv, ranks.tp * xk.shape[-2] - 1,
+                                ranks)
+    else:
+        depth = torch.full((n_rows,), xk.shape[-2] - 1, dtype=torch.int32,
+                           device=h.device)
+        o = L.attention_decode(q, xk, xv, depth, cfg)
     o = F.pad(o, (0, 0, 0, 0, 0, h.shape[0] - n_rows))
+    if ranks is not None:
+        return ranks.row(o, p["wo"], ranks.heads_split)
     return L.linear(o, p["wo"])
 
 
@@ -772,13 +808,10 @@ def _attn_seq_sharded(q, k, v, ck, cv, cur_len, ranks):
     a global unit's cache split over tp along the sequence: ck, cv
     [n,Hkv,Smax/tp,hd], this rank's positions of every KV head. The new
     K/V (k, v [n,Hkv,hd], every KV head) is written on the rank that owns
-    cur_len; q is gathered over tp (every head), flash-decoding (kernel
-    #5: the kernel on the card, its plain version on the CPU) attends to
-    the rank's positions and merges the tp ranks' partials, and the rank
-    keeps its own heads. The rows share one cur_len (the one-shot's
-    uniform batch), read on the device. Returns [n,1,Hq/tp*hd]."""
-    from repro_torch.kernels.flash_decode.ops import flash_decode_seq_sharded
-    n, _, hq, hd = q.shape
+    cur_len, then _flash_decode_ranks attends. The rows share one cur_len
+    (the one-shot's uniform batch), read on the device. Returns
+    [n,1,Hq/tp*hd]."""
+    n = q.shape[0]
     s_local = ck.shape[-2]
     r = C.axis_rank(ranks.env, ranks.tp_axis)
     cur = cur_len[:1]
@@ -788,6 +821,20 @@ def _attn_seq_sharded(q, k, v, ck, cv, cur_len, ranks):
     rows = torch.arange(n, device=q.device)
     ck[rows, :, pos] = torch.where(own, k.to(ck.dtype), ck[rows, :, pos])
     cv[rows, :, pos] = torch.where(own, v.to(cv.dtype), cv[rows, :, pos])
+    return _flash_decode_ranks(q, ck, cv, cur, ranks)
+
+
+def _flash_decode_ranks(q, ck, cv, cur, ranks):
+    """This rank's query heads q [n,1,Hq/tp,hd] over a cache split over tp
+    along its positions (ck, cv [n,Hkv,S/tp,hd], every KV head at this
+    rank's positions; cur the global index of the last valid one): q is
+    gathered over tp (every head), flash-decoding (kernel #5: the kernel
+    on the card, its plain version on the CPU) attends to the rank's
+    positions and merges the tp ranks' partials, and the rank keeps its
+    own heads. Returns [n,1,Hq/tp*hd]."""
+    from repro_torch.kernels.flash_decode.ops import flash_decode_seq_sharded
+    n, _, hq, hd = q.shape
+    r = C.axis_rank(ranks.env, ranks.tp_axis)
     qa = ranks.gather(q[:, 0], 1).contiguous()  # [n,Hq,hd]
     o = flash_decode_seq_sharded(qa, ck, cv, cur,
                                  group=C._group(ranks.env, ranks.tp_axis),
@@ -884,9 +931,9 @@ def _apply_block(kind: str, p, h, hf, cfg: ModelConfig, *, S=None, rope=None,
                 causal=kind != "enc", ranks=ranks)))
         if kind == "dec":
             subs.append(("lnx", (lambda x: (_xattn_decode(
-                p["xattn"], x, cfg, n_rows, cache), None)) if decode else
-                (lambda x: _xattn_prefill(p["xattn"], x, cfg, S, enc,
-                                          train))))
+                p["xattn"], x, cfg, n_rows, cache, ranks), None)) if decode
+                else (lambda x: _xattn_prefill(p["xattn"], x, cfg, S, enc,
+                                               train, ranks))))
         if kind == "moe":
             subs.append(("ln2", lambda x: _moe_sublayer(
                 p["moe"], x, cfg, S=None if decode else S, n_rows=n_rows,
@@ -1026,51 +1073,74 @@ def _pad_rows(h, S: int):
     return F.pad(h, (0, 0, 0, -(-S // L.ROW_TILE) * L.ROW_TILE - S))
 
 
-def _embed(params, tokens, cfg: ModelConfig, vision_embeds=None):
-    """Whole sequences' embeddings, each padded to a multiple of
-    layers.ROW_TILE positions (h [B,Sp,d] bf16), the rope angles of their
-    S positions and S. A VLM's sequence is its vision embeddings [B,Nv,d]
-    (the stub of the patch embedder) followed by the prompt's tokens, at
-    M-RoPE's 3-D positions; other archs' positions are 0..S-1."""
-    h = params["embed"][tokens.long()].to(torch.bfloat16)
+def _with_vision(h, cfg: ModelConfig, vision_embeds):
+    """A sequence's embeddings and the rope angles of its positions. A
+    VLM's sequence is its vision embeddings [B,Nv,d] (the stub of the
+    patch embedder) followed by the prompt's token embeddings h [B,S,d],
+    at M-RoPE's 3-D positions; other archs' h at positions 0..S-1.
+    Returns (h, rope)."""
     if cfg.family != "vlm":
-        pos = torch.arange(h.shape[1], device=tokens.device)
+        pos = torch.arange(h.shape[1], device=h.device)
     elif vision_embeds is None:
         raise ValueError(f"{cfg.name}: a prefill or train forward needs "
                          "vision_embeds [B, num_vision_embeds, d_model]")
     else:
         h = torch.cat([vision_embeds.to(torch.bfloat16), h], 1)
         pos = build_mrope_positions(h.shape[1], cfg.num_vision_embeds,
-                                    device=tokens.device)
+                                    device=h.device)
+    return h, _rope_of(cfg, pos)
+
+
+def _embed(params, tokens, cfg: ModelConfig, vision_embeds=None):
+    """Whole sequences' embeddings (a VLM's vision embeddings first,
+    _with_vision), each padded to a multiple of layers.ROW_TILE positions
+    (h [B,Sp,d] bf16), the rope angles of their S positions and S."""
+    h, rope = _with_vision(params["embed"][tokens.long()].to(torch.bfloat16),
+                           cfg, vision_embeds)
     S = h.shape[1]
-    return _pad_rows(h, S), _rope_of(cfg, pos), S
+    return _pad_rows(h, S), rope, S
 
 
-def _encode(params, frames, cfg: ModelConfig, plan=None):
+def _encode(params, frames, cfg: ModelConfig, plan=None, env=None):
     """The encoder of an encoder-decoder over its frame stub frames
     [B,Se,d] (the conv front end's output): encoder_layers "enc" blocks
     (full attention at rope positions 0..Se-1, as the reference runs its
     encoder in train mode: past FLASH_MIN_LEN frames the flash kernel,
     non-causal, in a prefill; train mode's dispatch under a training
     plan), then enc_norm. Returns (the row-padded output [B,Sep,d] bf16,
-    Se), what the "dec" blocks' cross-attention reads."""
+    Se), what the "dec" blocks' cross-attention reads.
+
+    Per rank over env.mesh (a DeviceMesh; frames this rank's rows): each
+    block on the rank's heads and ff columns (_Ranks, sequence-parallel
+    over the frames when tp divides Se), its FSDP-sharded weights
+    gathered; enc_norm reads the whole output on every rank (row-padded
+    at tp 1, as on one device)."""
     if frames is None:
         raise ValueError(f"{cfg.name}: a prefill or train forward needs "
                          "frames [B, S_enc, d_model]")
     Se = frames.shape[1]
-    h = _pad_rows(frames.to(torch.bfloat16), Se)
+    h = frames.to(torch.bfloat16)
+    rk = _Ranks(cfg, env, Se) if env is not None else None
+    if rk is None or rk.tp == 1:
+        h = _pad_rows(h, Se)
+    if rk is not None and rk.sp:
+        h = C.split(h, env, rk.tp_axis, 1)
     rope = _rope_of(cfg, torch.arange(Se, device=frames.device))
     unit = params["enc_blocks"][0]
+    unshard = ((lambda p: p) if rk is None
+               else (lambda p: rk.unshard(p, ("enc_blocks", 0))))
 
     def layer(h, i):
-        return _apply_block("enc", _layer(unit, i), h, None, cfg, S=Se,
-                            rope=rope, plan=plan)[0]
+        return _apply_block("enc", unshard(_layer(unit, i)), h, None, cfg,
+                            S=Se, rope=rope, plan=plan, ranks=rk)[0]
 
     remat = plan is not None and plan.remat in ("nothing", "dots")
     for i in range(cfg.encoder_layers):
         h = (torch.utils.checkpoint.checkpoint(layer, h, i,
                                                use_reentrant=False)
              if remat else layer(h, i))
+    if rk is not None:
+        h = rk.enter(h)
     return L.rms_norm(h, params["enc_norm"], cfg.norm_eps), Se
 
 
@@ -1127,8 +1197,15 @@ class _Ranks:
       rank's query heads read, at every position; under "seq_sharded"
       a global unit's hold every KV head at the rank's Smax / tp
       positions (flash-decoding, kernel #5, merges the ranks' partials),
-      and window rings stay whole. Recurrent states hold the rank's
-      channels or heads.
+      and window rings stay whole. A "dec" unit's cross caches xk / xv
+      follow the layout over the encoder's Se positions (cross_local:
+      whole where tp does not divide Se, as rules._validated drops the
+      axis). Recurrent states hold the rank's channels or heads.
+    - The modality stubs are the rank's rows: a VLM's vision embeddings
+      go before its tokens (the M-RoPE positions and sequence
+      parallelism cover Nv + S positions); an encoder-decoder's frames
+      go through the encoder per rank (_encode), whose whole output each
+      rank's cross-attention reads.
 
     At tp 1 every product is the one-device forward's (row tiles
     included), so a 1 x 1 mesh computes the one-device step's values."""
@@ -1161,8 +1238,9 @@ class _Ranks:
         spec = self.specs
         for k in path:
             spec = spec[k]
-        kind = (self.cfg.block_pattern if path[0] == "blocks"
-                else self.cfg.pattern_tail)[path[1]]
+        kind = {"blocks": self.cfg.block_pattern,
+                "tail": self.cfg.pattern_tail,
+                "enc_blocks": ("enc",)}[path[0]][path[1]]
         if not self.env.plan.fsdp and kind not in self.whole:
             return p  # no spec names a dp axis without FSDP
         dp = set(self.env.dp_axes)
@@ -1180,6 +1258,20 @@ class _Ranks:
             return x
 
         return rules._tree_map_with_names(one, p, spec)
+
+    def cross_local(self, x, dim: int):
+        """A cross cache's encoder positions (dim) this rank holds under
+        the seq_sharded layout: its tp chunk, or all of them where tp does
+        not divide them (rules._validated drops the axis)."""
+        n = x.shape[dim]
+        if n % self.tp:
+            return x
+        r = C.axis_rank(self.env, self.tp_axis)
+        return x.narrow(dim, r * (n // self.tp), n // self.tp)
+
+    def cross_len(self, n: int) -> int:
+        """The length of cross_local's chunk of n encoder positions."""
+        return n if n % self.tp else n // self.tp
 
     def enter(self, x):
         """A sublayer's input: the whole sequence under sequence
@@ -1253,27 +1345,6 @@ def param_specs(cfg: ModelConfig, env: Env):
     return rules.param_specs(init_params(cfg, env, device="meta"), cfg, env)
 
 
-def _train_sharded(params, tokens, cfg: ModelConfig, env: Env):
-    """forward(mode="train") per rank over env.mesh (_Ranks): params are
-    this rank's shards, tokens its rows [B/dp, S]. Returns (this rank's
-    logits [B/dp, S, Vpad / tp] — its vocabulary columns —, the MoE aux
-    loss, a mean over the mesh's ranks)."""
-    S = tokens.shape[1]
-    rk = _Ranks(cfg, env, S)
-    h = _embed_ranks(params, tokens, rk)
-    if rk.tp == 1:  # the one-device forward's row tiles
-        h = _pad_rows(h, S)
-    rope = _rope_of(cfg, torch.arange(S, device=tokens.device))
-    if rk.sp:
-        h = C.split(h, env, rk.tp_axis, 1)
-    x, _, aux = _run_blocks(params, h, cfg, S=S, rope=rope, plan=env.plan,
-                            ranks=rk)
-    h = L.rms_norm(x, params["final_norm"], cfg.norm_eps).to(torch.bfloat16)
-    h = rk.enter(h)
-    aux = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
-    return L.linear(h, params["unembed"])[:, :S], aux
-
-
 def _embed_ranks(params, tokens, rk: _Ranks):
     """This rank's tokens' embeddings, whole: the embedding's columns
     gathered over tp."""
@@ -1283,26 +1354,55 @@ def _embed_ranks(params, tokens, rk: _Ranks):
     return h
 
 
-def _prefill_sharded(params, tokens, cfg: ModelConfig, env: Env,
-                     last_only: bool):
-    """forward(mode="prefill") per rank over env.mesh (_Ranks): params
-    are this rank's shards, tokens its rows [B/dp, S]. Returns (this
-    rank's logits, its vocabulary columns: [B/dp, S, Vpad/tp], or
-    [B/dp, Vpad/tp] with last_only; its prompt caches, in the layout
-    _Ranks describes). At tp 1 each sequence is padded to whole row tiles
-    as on one device (the same bits); at tp > 1 the residual stream is
-    split over the positions when S % tp == 0 (sequence parallelism)."""
-    S = tokens.shape[1]
+def _stack_ranks(params, tokens, cfg: ModelConfig, env: Env, vision_embeds,
+                 frames, plan=None):
+    """The per-rank stack of prefill and train mode over env.mesh
+    (_Ranks): params are this rank's shards, tokens and the stubs its
+    rows. A VLM's vision embeddings go first (the positions and the
+    sequence parallelism cover Nv + S); an encoder-decoder runs its
+    encoder per rank first. At tp 1 each sequence is padded to whole row
+    tiles as on one device (the same bits); at tp > 1 the residual
+    stream is split over the positions when tp divides them (sequence
+    parallelism). Returns (the final norm's output [B/dp, S(p), d] bf16,
+    whole over the sequence, the prompt caches (None under a training
+    plan), the MoE aux loss, S)."""
+    h, rope = _with_vision(_embed_ranks(params, tokens, _Ranks(cfg, env, 1)),
+                           cfg, vision_embeds)
+    S = h.shape[1]
     rk = _Ranks(cfg, env, S)
-    h = _embed_ranks(params, tokens, rk)
     if rk.tp == 1:
         h = _pad_rows(h, S)
-    rope = _rope_of(cfg, torch.arange(S, device=tokens.device))
     if rk.sp:
         h = C.split(h, env, rk.tp_axis, 1)
-    x, caches, _ = _run_blocks(params, h, cfg, S=S, rope=rope, ranks=rk)
+    enc = _encode(params, frames, cfg, plan, env) if cfg.is_encdec else None
+    x, caches, aux = _run_blocks(params, h, cfg, S=S, rope=rope, plan=plan,
+                                 ranks=rk, enc=enc)
     h = L.rms_norm(x, params["final_norm"], cfg.norm_eps).to(torch.bfloat16)
-    h = rk.enter(h)
+    return rk.enter(h), caches, aux, S
+
+
+def _train_sharded(params, tokens, cfg: ModelConfig, env: Env,
+                   vision_embeds=None, frames=None):
+    """forward(mode="train") per rank over env.mesh (_stack_ranks):
+    params are this rank's shards, tokens and the stubs its rows [B/dp,
+    ...]. Returns (this rank's logits [B/dp, S, Vpad / tp] — its
+    vocabulary columns; a VLM's over its vision positions too —, the MoE
+    aux loss, a mean over the mesh's ranks)."""
+    h, _, aux, S = _stack_ranks(params, tokens, cfg, env, vision_embeds,
+                                frames, env.plan)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
+    return L.linear(h, params["unembed"])[:, :S], aux
+
+
+def _prefill_sharded(params, tokens, cfg: ModelConfig, env: Env,
+                     last_only: bool, vision_embeds=None, frames=None):
+    """forward(mode="prefill") per rank over env.mesh (_stack_ranks):
+    params are this rank's shards, tokens and the stubs its rows [B/dp,
+    ...]. Returns (this rank's logits, its vocabulary columns: [B/dp, S,
+    Vpad/tp], or [B/dp, Vpad/tp] with last_only; its prompt caches, in the
+    layout _Ranks describes)."""
+    h, caches, _, S = _stack_ranks(params, tokens, cfg, env, vision_embeds,
+                                   frames)
     if last_only:
         t0 = (S - 1) // L.ROW_TILE * L.ROW_TILE
         tile = L.linear(h[:, t0:t0 + L.ROW_TILE], params["unembed"])
@@ -1320,7 +1420,8 @@ def _train(params, tokens, cfg: ModelConfig, env: Env, vision_embeds=None,
     they carry no gradient into a loss over the first S. Over a
     DeviceMesh, the sharded train forward (_train_sharded)."""
     if sharded(cfg, env):
-        return _train_sharded(params, tokens, cfg, env)
+        return _train_sharded(params, tokens, cfg, env, vision_embeds,
+                              frames)
     h, rope, S = _embed(params, tokens, cfg, vision_embeds)
     enc = (_encode(params, frames, cfg, env.plan) if cfg.is_encdec
            else None)
@@ -1370,17 +1471,18 @@ def forward(params, tokens, cfg: ModelConfig, env: Env, mode: str = "decode",
 
     Over a DeviceMesh (models/env.py sharded) every mode runs per rank
     (_Ranks): params are the rank's shards (bridge.rank_shards, or
-    parallel/rules.py apply_shardings), tokens its rows, the logits its
-    vocabulary columns and the caches its own (init_cache, grow_caches;
-    a contiguous cache: block tables and row slots, the engines' pools,
-    raise NotImplementedError there). Decode under the seq_sharded
+    parallel/rules.py apply_shardings), tokens and the stubs its rows,
+    the logits its vocabulary columns and the caches its own
+    (init_cache, grow_caches; a contiguous cache: block tables and row
+    slots, the engines' pools, raise NotImplementedError there). Decode under the seq_sharded
     layout takes one cur_len for every row (the one-shot's uniform
     batch)."""
     check_supported(cfg)
     per_rank = sharded(cfg, env)
     if mode == "prefill":
         if per_rank:
-            return _prefill_sharded(params, tokens, cfg, env, last_only)
+            return _prefill_sharded(params, tokens, cfg, env, last_only,
+                                    vision_embeds, frames)
         return _prefill(params, tokens, cfg, last_only, vision_embeds, frames)
     if mode == "train":
         return _train(params, tokens, cfg, env, vision_embeds, frames)
@@ -1394,8 +1496,8 @@ def forward(params, tokens, cfg: ModelConfig, env: Env, mode: str = "decode",
         if block_tables is not None or row_slots is not None:
             raise NotImplementedError(
                 "decode over a mesh reads a contiguous cache: the engines' "
-                "pools (block tables, row slots) over a mesh are a later "
-                "ROADMAP item")
+                "pools (block tables, row slots) over a mesh are ROADMAP "
+                "item 12")
         rk = _Ranks(cfg, env, 1)
         if rk.kv_seq and cl.ndim:
             raise ValueError("decode under the seq_sharded layout takes one "

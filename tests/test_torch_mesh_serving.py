@@ -78,6 +78,8 @@ from repro_torch.models import model as Mo
 from repro_torch.models.env import Env
 from repro_torch.optim import adamw as A
 
+import _torch_mesh_refusals as refusals
+
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 WORLD = 8
 B, S, GEN, LONG = 8, 16, 8, 160
@@ -326,15 +328,8 @@ for name, (arch, shape) in cases["train"].items():
         losses.append(float(m["loss"]))
     report["train"][name] = losses
 
-refused = {}
-for arch in ("qwen2-vl-7b", "whisper-small", "rwkv6-1.6b"):
-    try:
-        Mo.init_params(get_smoke(arch), Env(
-            plan=ParallelPlan(), mesh=make_test_mesh(
-                world, model=2, device_type="cpu")), device="meta")
-        refused[arch] = ""
-    except NotImplementedError as e:
-        refused[arch] = str(e)
+mesh = make_test_mesh(world, model=2, device_type="cpu")
+exec(sys.argv[5])  # tests/_torch_mesh_refusals.py RANK_CODE: `refused`
 report["refused"] = refused
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules), "a rank imported jax or repro"
@@ -453,8 +448,9 @@ def ranks(tmp_path_factory):
                GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
         [sys.executable, "-c", textwrap.dedent(_RANK), str(r), str(WORLD),
-         str(tmp / "store"), out], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(WORLD)]
+         str(tmp / "store"), out, refusals.RANK_CODE], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(WORLD)]
     jenv = dict(env, JAX_PLATFORMS="cpu",
                 XLA_FLAGS="--xla_force_host_platform_device_count=8")
     procs.append(subprocess.Popen(
@@ -657,14 +653,15 @@ def test_recurrent_train_step_over_a_mesh(ranks, name):
 
 
 def test_a_modality_arch_over_a_mesh_names_item_8_4(ranks):
-    """qwen2-vl-7b and whisper-small over the eight ranks' DeviceMesh
-    raise NotImplementedError naming ROADMAP item 8.4, on every rank;
-    rwkv6-1.6b is accepted."""
+    """ROADMAP item 8.4 is closed: qwen2-vl-7b and whisper-small over the
+    eight ranks' DeviceMesh are accepted, as every arch is, on every rank
+    (their serve over a mesh: tests/test_torch_mesh_modality.py); block
+    tables and row slots over the mesh (the engines' pools, ROADMAP item
+    12) and an axis the plan does not name are still refused, and over a
+    shape-only (1, 2) mesh the modality archs get the JAX package's
+    padded shapes and refuse to compute (tests/_torch_mesh_refusals.py)."""
     _, reports, _, _ = ranks
-    for rep in reports:
-        for arch in ("qwen2-vl-7b", "whisper-small"):
-            assert "ROADMAP item 8.4" in rep["refused"][arch]
-        assert rep["refused"]["rwkv6-1.6b"] == ""
+    refusals.check([rep["refused"] for rep in reports])
 
 
 def test_greedy_on_one_device_is_the_argmax():

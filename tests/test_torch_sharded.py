@@ -81,6 +81,8 @@ from repro_torch.models import moe as M
 from repro_torch.models.env import Env
 from repro_torch.optim import adamw as A
 
+import _torch_mesh_refusals as refusals
+
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 WORLD = 8
 LR = 1e-3
@@ -299,16 +301,8 @@ for moments in ("fp32", "int8"):  # AdamW alone, the same gradients
     if rank == 0:
         torch.save(whole, out + f".adamw.{moments}.pt")
 
-refused = {}
-for arch in ("qwen2-vl-7b", "rwkv6-1.6b", "recurrentgemma-9b"):
-    try:
-        Mo.init_params(get_smoke(arch),
-                       Env(plan=ParallelPlan(), mesh=make_test_mesh(
-                           world, model=2, device_type="cpu")),
-                       device="meta")
-        refused[arch] = ""
-    except NotImplementedError as e:
-        refused[arch] = str(e)
+mesh = make_test_mesh(world, model=2, device_type="cpu")
+exec(sys.argv[5])  # tests/_torch_mesh_refusals.py RANK_CODE: `refused`
 report["refused"] = refused
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules), "a rank imported jax or repro"
@@ -379,8 +373,9 @@ def ranks(tmp_path_factory):
                GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
         [sys.executable, "-c", textwrap.dedent(_RANK), str(r), str(WORLD),
-         str(tmp / "store"), out], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(WORLD)]
+         str(tmp / "store"), out, refusals.RANK_CODE], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(WORLD)]
     jenv = dict(env, JAX_PLATFORMS="cpu",
                 XLA_FLAGS="--xla_force_host_platform_device_count=8")
     jcases = sorted({(a, m) for a, m, c in MOE if c == "config"})
@@ -651,13 +646,13 @@ def test_sharded_adamw_update_is_one_devices(ranks, moments):
 
 
 def test_recurrent_archs_over_a_mesh_name_item_8_4(ranks):
-    """Over the eight ranks' DeviceMesh the refusal naming ROADMAP item
-    8.4 is the modality archs' alone: qwen2-vl-7b raises
-    NotImplementedError naming it, on every rank; the recurrent archs
-    (rwkv6-1.6b, recurrentgemma-9b) are accepted, as they now compute
-    per rank (tests/test_torch_mesh_serving.py)."""
+    """ROADMAP item 8.4 is closed: over the eight ranks' DeviceMesh every
+    arch is accepted, the recurrent and modality archs included (they
+    compute per rank: tests/test_torch_mesh_serving.py,
+    tests/test_torch_mesh_modality.py), on every rank; what the model
+    still refuses there keeps refusing (block tables and row slots,
+    ROADMAP item 12; an axis the plan does not name), and over a
+    shape-only (1, 2) mesh the modality archs get the JAX package's
+    padded shapes and refuse to compute (tests/_torch_mesh_refusals.py)."""
     _, reports = ranks
-    for rep in reports:
-        assert "ROADMAP item 8.4" in rep["refused"]["qwen2-vl-7b"]
-        assert rep["refused"]["rwkv6-1.6b"] == ""
-        assert rep["refused"]["recurrentgemma-9b"] == ""
+    refusals.check([rep["refused"] for rep in reports])

@@ -63,6 +63,8 @@ from repro_torch.optim import adamw as A
 from repro_torch.optim import compress as C
 from repro_torch.parallel import rules as R
 
+import _torch_mesh_refusals as refusals
+
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 EF_TOL = 1e-6
 
@@ -505,35 +507,33 @@ def test_mesh_constructors_resolve_the_production_layout_without_ranks():
         (("data", "model"), ("data",), "model", 2, 4)
 
 
-def test_the_model_refuses_a_mesh_of_more_than_one_device():
-    """The guard the per-rank slices narrowed (models/env.py check_mesh,
-    sharded). A modality arch over a mesh of two devices raises
-    NotImplementedError naming ROADMAP item 8.4, in init_params and in
-    forward (train mode and prefill). A dense, MoE or recurrent arch over
-    it is accepted: init_params gives the whole tree padded for the
-    mesh's tp degree, the JAX package's shapes under the same mesh;
-    computing needs a DeviceMesh's ranks (a shape-only mesh of two raises
-    ValueError; tests/test_torch_sharded.py and
-    tests/test_torch_mesh_serving.py compute over gloo ranks); a mesh of
-    one device computes on it."""
+def test_the_model_refuses_a_mesh_of_more_than_one_device(gloo_ranks):
+    """What the model still refuses over a mesh (models/env.py
+    check_mesh, sharded; models/model.py forward), now that every arch
+    computes per rank (ROADMAP item 8.4 closed): over the four gloo
+    ranks' 2x2 DeviceMesh every arch is accepted, and block tables, row
+    slots (ROADMAP item 12) and an axis the plan does not name are
+    refused (tests/_torch_mesh_refusals.py). Over a shape-only mesh every
+    arch's init_params gives the whole tree padded for the mesh's tp
+    degree, the JAX package's shapes under the same mesh, the modality
+    archs' included; computing needs a DeviceMesh's ranks (a shape-only
+    mesh of two raises ValueError); a mesh of one device computes on
+    it."""
+    out, _ = gloo_ranks
+    reports = []
+    for r in range(WORLD):
+        with open(out + f".mesh.{r}.json") as f:
+            reports.append(json.load(f)["refused"])
+    refusals.check(reports)
     shape_mesh = lambda dims: LM.ShapeMesh(dims, ("data", "model"))
     wide = Env(plan=ParallelPlan(), mesh=shape_mesh((1, 2)))
     tok = torch.zeros((1, 4), dtype=torch.int32)
-    for arch in ("qwen2-vl-7b", "whisper-small"):
-        cfg = torch_smoke(arch)
-        with pytest.raises(NotImplementedError, match="ROADMAP item 8.4"):
-            Mo.init_params(cfg, wide, device="meta")
-        params = Mo.init_params(cfg, Env(), device="cpu")
-        for mode in ("train", "prefill"):
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP item 8.4"):
-                Mo.forward(params, tok, cfg, wide, mode=mode)
     for arch in ("rwkv6-1.6b", "recurrentgemma-9b"):
         params = Mo.init_params(torch_smoke(arch), Env(), device="cpu")
         with pytest.raises(ValueError, match="shape-only mesh"):
             Mo.forward(params, tok, torch_smoke(arch), wide, mode="train")
     for arch in ("qwen2-1.5b", "granite-3-8b", "grok-1-314b", "rwkv6-1.6b",
-                 "recurrentgemma-9b"):
+                 "recurrentgemma-9b", "qwen2-vl-7b", "whisper-small"):
         jenv = JEnv(mesh=AbstractMesh((1, 2), ("data", "model")),
                     plan=JPlan())
         want = jax.eval_shape(lambda k: JMo.init_params(
@@ -624,6 +624,8 @@ for x, d, s in zip(A.tree_leaves(state), A.tree_leaves(dist_state),
     if not torch.equal(d.full_tensor(), x) or \\
             list(d.to_local().shape) != want:
         report["bad"].append([list(x.shape), list(s)])
+exec(sys.argv[5])  # tests/_torch_mesh_refusals.py RANK_CODE: `refused`
+report["refused"] = refused
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules), "a rank imported jax or repro"
 with open(out + f".mesh.{rank}.json", "w") as f:
@@ -647,8 +649,9 @@ def gloo_ranks(tmp_path_factory):
                GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
         [sys.executable, "-c", textwrap.dedent(_RANK), str(r), str(WORLD),
-         str(tmp / "store"), out], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(WORLD)]
+         str(tmp / "store"), out, refusals.RANK_CODE], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(WORLD)]
     logs = []
     for p in procs:
         try:
