@@ -106,8 +106,8 @@ Phases, any failure exits non-zero before the result line:
      (5 layers, prompt 160: flash attention and the RG-LRU scan in its
      prefill), swapping its window-ring blocks and state rows;
  17. speculative decoding at full width (paper-demo-110m cut to
-     SPEC_LAYERS = 4 of its 12 layers since PR 27, to keep the script
-     within its time limit): n-gram and model drafters at
+     SPEC_LAYERS = 2 of its 12 layers, to keep the script within its
+     time limit): n-gram and model drafters at
      spec_k 4 and auto, greedy and seeded (k 50 / p 0.9), on the paged,
      int8 and slot pools over a repetitive trace (8 requests, prompt 64,
      gen 32, 8 slots), each bit-identical to --spec off on the same pool
@@ -116,8 +116,8 @@ Phases, any failure exits non-zero before the result line:
      accepted tokens per step, and wall tokens/s of n-gram k 4 and the
      model drafter against --spec off, three runs each;
  18. the four dense attention archs at full width and depth (random
-     seeded weights; qwen3-32b at 32 of its 64 layers since PR 27, 32.8
-     GB of bf16 weights, to keep the script within its time limit):
+     seeded weights; qwen3-32b at 16 of its 64 layers, 18.7 GB of bf16
+     weights, to keep the script within its time limit):
      qwen2-1.5b, granite-3-8b, yi-9b and qwen3-32b (qk-norm) each serve 8
      Poisson requests
      (prompt 64, gen 32, 8 slots, chunked lanes, greedy, block 16, prefix
@@ -152,8 +152,10 @@ Phases, any failure exits non-zero before the result line:
      paper-demo-110m at 2 layers, card vs CPU: the loss and every
      gradient leaf's norm within twice the larger of the CPU's f64 spread
      and the card's f32-GEMM spread (phases 14 and 19's method);
- 21. the rollout loop (launch/rollout.py) at full width and depth:
-     paper-demo-110m, 4 prompts x 4 samples, prompt 64, gen 32,
+ 21. the rollout loop (launch/rollout.py) at full width (and full
+     ROLLOUT_LAYERS = 4 of its 12 layers, to keep the script within its
+     time limit): paper-demo-110m, 4 prompts x 4
+     samples, prompt 64, gen 32,
      temperature 0.7, top-k 50, top-p 0.9, 2 replicas x 4 slots, block
      16, 2 rounds of 4 DPO steps, then one round with --kv quant; counts
      read between each loop and its verify: #1 and #2 launched (#3 and #2
@@ -279,7 +281,26 @@ Phases, any failure exits non-zero before the result line:
      device (the first loss within twice the spread f32 products give
      the one-device loss).
      Counts zeroed before each run and read after it, the ranks' too
-     (`mesh_modality_launches`; #5's row gains `seq_sharded_cross`).
+     (`mesh_modality_launches`; #5's row gains `seq_sharded_cross`);
+ 28. the analytic dry run and the examples (budget: 90 s). (a)
+     launch/dryrun.py over every cell of configs.cells() on both
+     production meshes (shape-only, 16 x 16 and 2 x 16 x 16) on the
+     H100's rates, the fit against this card's total_memory: 64 OK
+     lines, reports under reports/dryrun_torch/. (b) Two one-device
+     steps at full width and depth against launch/roofline.py's bound
+     for the same configuration: paper-demo-110m's train step (B=8
+     S=128, phase 20's plan) and qwen2-1.5b's contiguous-cache decode
+     step (B=8, 2048 positions, #1 launched 28 times a step), the
+     median wall time of 7 steps after 2, the bound, the share of it
+     (fails past 1.05: the count would be wrong) and mfu (model flops
+     over the time at 989 TFLOP/s); the train state's modeled weight,
+     gradient and AdamW bytes equal to the allocated ones; the modeled
+     residency beside max_memory_allocated. (c) The four examples
+     (src/repro_torch/examples: quickstart at 20 steps, elastic
+     scaling, fault tolerance, the serve demo), each exiting 0 with the
+     JAX example's lines (EXAMPLE_LINES); the serve demo's two verdicts
+     MATCH, #1 and #2 launched (`dryrun_launches`: the decode steps'
+     and the demo's, its verify passes included).
 Each phase's wall time is printed as it ends.
 Phase 2 also holds the quant kernel to its plain version and to the bf16
 kernel on the same pool (relative RMS), the flash-attention kernel to its
@@ -391,15 +412,18 @@ MASK_WIDE = tuple(V for T, V in time_mask.SHAPES if T == 8)
 
 
 # the zoo slice (phases 18 and 19): the dense archs' depths are their own
-# but qwen3-32b's, cut to 32 of 64 layers (PR 27: the script had outgrown
-# its time limit); the MoE archs keep their width and are cut in depth to
-# fit one card
+# but qwen3-32b's, cut to 16 of 64 layers to keep the script within its
+# time limit; the MoE archs keep their width and are cut in depth to fit
+# one card
 ZOO_DENSE = ("qwen2-1.5b", "granite-3-8b", "yi-9b", "qwen3-32b")
-ZOO_DEPTH = {"qwen3-32b": 32}
+ZOO_DEPTH = {"qwen3-32b": 16}
 ZOO_MOE = (("grok-1-314b", 4), ("llama4-scout-17b-a16e", 8))
-# phase 17's paper-demo-110m depth (its width whole): 4 of 12 layers since
-# PR 27, as ZOO_DEPTH; the spec paths' checks do not depend on depth
-SPEC_LAYERS = 4
+# phase 17's paper-demo-110m depth (its width whole), cut as ZOO_DEPTH;
+# the spec paths' checks do not depend on depth
+SPEC_LAYERS = 2
+# phase 21's paper-demo-110m depth (its width whole), cut as ZOO_DEPTH;
+# the loop's checks do not depend on depth
+ROLLOUT_LAYERS = 4
 # one MoE layer, card vs CPU on the same input and weights: the bf16
 # outputs of the tokens routed alike differ by the expert products'
 # rounding (cuBLAS's bf16 GEMMs against f32-accumulated CPU ones, a bf16
@@ -2486,7 +2510,8 @@ def rollout_args(extra, dev):
 
 
 def check_rollout(counted, dev):
-    """Phase 21: the rollout loop at full width and depth (rollout_args),
+    """Phase 21: the rollout loop at full width, ROLLOUT_LAYERS deep
+    (rollout_args),
     then one round with --kv quant. Counts zeroed before each loop and
     read after it, before its verify (the verify's engines launch the
     kernels too); the DPO steps' own launches counted apart (none
@@ -2502,7 +2527,8 @@ def check_rollout(counted, dev):
     from repro_torch.launch import rollout as cli
     from repro_torch.rollout import preference
 
-    cfg = get_config("paper-demo")
+    cfg = dataclasses.replace(get_config("paper-demo"),
+                              n_layers=ROLLOUT_LAYERS)
     params = load_params(cfg, seed=0, device=dev)
     dpo_launches = {}
     step = preference.PreferenceTrainer.step
@@ -4540,6 +4566,283 @@ def check_mesh_modality(counted):
     return launches, rows
 
 
+# phase 28: the lines the JAX package's examples print on the CPU
+# (examples/*.py; tests/test_torch_examples.py holds the port's CPU runs
+# to the JAX runs themselves), which the port's examples must print on
+# the card: node lists, hostfiles, epochs, counters, the autoscaler's
+# timeline in simulated time, the verdicts
+EXAMPLE_LINES = {
+    "quickstart": [
+        "[2] nodes registered: ['compute001', 'compute002']",
+        "# epoch 1; rendered from hpc-node catalog",
+        "compute001 slots=1  # simnet://compute001?devices=0 role=compute",
+        "compute002 slots=1  # simnet://compute002?devices=0 role=compute",
+        "head000 slots=0  # simnet://head000?devices= role=head",
+        "[4] 16-domain job result: 512.0000",
+        "done; checkpoints at steps [20]"],
+    "elastic_scaling": [
+        "--- scaling to 4 nodes (epoch 1 -> ...) ---",
+        "--- scaling to 3 nodes (epoch 2 -> ...) ---",
+        "epoch_changes=3 reshards=2 steps_lost=0 (expected 0: planned "
+        "changes)"],
+    "fault_tolerance": [
+        "trained to step 7; durable ckpt at 5",
+        "--- CRASH compute004 (stops heartbeating; no dereg) ---",
+        "recovered on 3 nodes at step 6; rolled back 2 steps (restores=1)",
+        "--- STRAGGLER: one node reports 5x step times ---",
+        "straggler compute001 replaced; nodes=['compute002', 'compute003', "
+        "'compute005'] step=8",
+        "fault-tolerance demo OK"],
+    "serve_demo": [line for verdict in (
+        "verify vs streamed-prefill one-shot baseline: token-for-token "
+        "MATCH",
+        "verify seeded sampling (4 vs 2 slots): bit-identical MATCH")
+        for line in (
+            "  t=   0.05s  nodes=1  queue=0  p95=0ms  occ=0.00",
+            "  t=   0.80s  nodes=2  queue=3  p95=0ms  occ=1.00",
+            "  t=   1.17s  nodes=3  queue=5  p95=732ms  occ=1.00",
+            "  t=   1.49s  nodes=4  queue=8  p95=713ms  occ=1.00",
+            "  t=   1.80s  nodes=3  queue=5  p95=729ms  occ=1.00",
+            "  t=   2.12s  nodes=1  queue=0  p95=718ms  occ=1.00",
+            "autoscale: start=1 peak=4 final=1 (5 actions)",
+            "p50=630ms p95=1121ms tokens/s(sim)=138.6", verdict)],
+}
+# the elastic example's nodes and epoch at each of its 20 steps
+ELASTIC_EXAMPLE_STEPS = [(2, 1)] * 5 + [(4, 2)] * 7 + [(3, 3)] * 8
+# phase 28's timed steps: median over STEP_REPS after STEP_WARM warmups
+STEP_WARM, STEP_REPS = 2, 7
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def timed_steps(run):
+    """Wall seconds of STEP_REPS calls of run() after STEP_WARM, each
+    between two synchronisations of the card."""
+    import torch
+    times = []
+    for i in range(STEP_WARM + STEP_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(i)
+        torch.cuda.synchronize()
+        if i >= STEP_WARM:
+            times.append(time.perf_counter() - t0)
+    return times
+
+
+def bound_line(label, rep, t, peak):
+    """Print a step's median wall time against its analytic bound;
+    returns (share of the bound, mfu)."""
+    rates = rep["rates"]
+    share = rep["step_s_lower"] / t
+    mfu = rep["model_flops_global"] / (t * rates["bf16_flops"])
+    print(f"{label}: median step {t * 1e3:.3f} ms over {STEP_REPS} steps; "
+          f"bound {rep['step_s_lower'] * 1e3:.4f} ms ({rep['dominant']}: "
+          f"compute {rep['compute_s'] * 1e3:.4f}, memory "
+          f"{rep['memory_s'] * 1e3:.4f} ms), share of the bound "
+          f"{share:.5f}, mfu {mfu:.5f} (model flops "
+          f"{rep['model_flops_global']:.4e}, executed "
+          f"{rep['analytic_flops_global']:.4e}); modeled resident "
+          f"{rep['memory']['resident_bytes_per_device'] / 1e9:.3f} GB, "
+          f"max_memory_allocated {peak / 1e9:.3f} GB; on {card()}")
+    if not share <= 1.05:
+        fail(f"{label}: {share:.3f} of the analytic bound: the count is "
+             "wrong")
+    return share, mfu
+
+
+def check_roofline_steps(counted, dev):
+    """Phase 28 (b): paper-demo-110m's train step (B=8 S=128, phase 20's
+    plan) and qwen2-1.5b's contiguous-cache decode step (B=8, a
+    2048-position cache, through #1) at full width and depth, each
+    step's median wall time against launch/roofline.py's bound for the
+    same configuration on one device; the memory model's weight,
+    gradient and optimizer bytes held to what the port allocates, the
+    optimizer's less the formula's known excess (formula_excess)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.paged_decode.ops import paged_flash_decode
+    from repro_torch.launch import roofline as RF
+    from repro_torch.launch.memory_model import formula_excess, tree_bytes
+    from repro_torch.launch.steps import make_decode_step, make_train_step
+    from repro_torch.models import model as Mo
+    from repro_torch.models.env import Env
+    from repro_torch.optim.adamw import (AdamWConfig, make_train_state,
+                                         value_and_grad)
+
+    out = {}
+    # the train step
+    cfg = get_config("paper-demo")
+    env = train_env()
+    opt = AdamWConfig(lr=1e-3, warmup_steps=0, weight_decay=0.0)
+    params = load_params(cfg, seed=0, device=dev)
+    batch = train_batch(cfg, 8, 128, dev)
+    rep = RF.analyze(cfg, ShapeConfig("train_b8_s128", 128, 8, "train"),
+                     env, opt)
+    _, grads = value_and_grad(lambda p: Mo.lm_loss(p, batch, cfg, env),
+                              params)
+    state = make_train_state(params, opt)
+    allocated = {"weights": tree_bytes(params), "grads": tree_bytes(grads),
+                 "opt": tree_bytes(state["opt"])}
+    del grads
+    modeled = rep["memory"]["train_state_bytes_per_device"]
+    excess = formula_excess(params, 12.0)
+    del params
+    print(f"paper-demo-110m train state: modeled {modeled}, allocated "
+          f"{allocated}; the formula's optimizer bytes exceed the "
+          f"allocation by {excess:.0f} (f32 leaves counted as two bf16 "
+          "parameters; no step counter)")
+    if (modeled["weights"] != allocated["weights"]
+            or modeled["grads"] != allocated["grads"]
+            or modeled["opt"] - excess != allocated["opt"]):
+        fail(f"train state: modeled {modeled} less {excess:.0f} of the "
+             f"optimizer's != allocated {allocated}")
+    step = make_train_step(cfg, env, opt)
+    box = {"state": state}
+
+    def train(i):
+        box["state"], m = step(box["state"], batch)
+
+    torch.cuda.reset_peak_memory_stats()
+    before = _launch_counts(counted)
+    t = _median(timed_steps(train))
+    peak = torch.cuda.max_memory_allocated()
+    if _launch_counts(counted) != before:
+        fail("the train step launched a kernel")
+    out["train"] = bound_line("paper-demo-110m train B=8 S=128", rep, t,
+                              peak)
+    del box, state, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the decode step through #1
+    cfg = get_config("qwen2-1.5b")
+    B, Smax = 8, 2048
+    params = load_params(cfg, seed=0, device=dev)
+    cache = Mo.init_cache(cfg, Env(), B, Smax, device=dev)
+    rep = RF.analyze(cfg, ShapeConfig("decode_b8_2048", Smax, B, "decode"),
+                     Env())
+    step = make_decode_step(cfg, Env())
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(3)).to(dev)
+    n = STEP_WARM + STEP_REPS
+    # the last positions of the cache: each step attends over ~2040
+    cur = [torch.full((B,), Smax - n + i, dtype=torch.int32, device=dev)
+           for i in range(n)]
+
+    def decode(i):
+        step(params, cache, tok, cur[i])
+
+    for op in counted:
+        op.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t = _median(timed_steps(decode))
+    peak = torch.cuda.max_memory_allocated()
+    launched = _launch_counts(counted)
+    want = n * cfg.n_layers
+    if launched.pop("paged_flash_decode") != want or any(launched.values()):
+        fail(f"the decode steps launched {_launch_counts(counted)}, "
+             f"expected {want} of paged_flash_decode alone")
+    out["decode"] = bound_line("qwen2-1.5b decode B=8, 2048-position "
+                               "cache", rep, t, peak)
+    out["decode_launches"] = want
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_example(name, argv):
+    """One example's main(argv) in this process, its output captured;
+    fails unless it exits 0 and prints every line EXAMPLE_LINES holds
+    for it (in order)."""
+    import contextlib
+    import importlib
+    import io
+    module = importlib.import_module(f"repro_torch.examples.{name}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv)
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    missing, at = [], 0
+    for want in EXAMPLE_LINES[name]:  # in order
+        if want in lines[at:]:
+            at += lines[at:].index(want) + 1
+        else:
+            missing.append(want)
+    if rc != 0 or missing:
+        print(buf.getvalue()[-4000:])
+        fail(f"example {name}: rc {rc}, lines missing {missing}")
+    print(f"example {name} {' '.join(argv)}: exit 0, its "
+          f"{len(EXAMPLE_LINES[name])} JAX lines printed, {wall:.1f}s")
+    return lines
+
+
+def check_examples(counted, dev):
+    """Phase 28 (c): the four examples on the card at short step counts
+    (the quickstart at 20), each ending with the JAX example's lines;
+    the serve demo's two verdicts MATCH with #1 and #2 launched (counts
+    zeroed before it and read after, its verify passes included)."""
+    import re
+    import tempfile
+    root = os.path.join(HERE, "build")
+    os.makedirs(root, exist_ok=True)
+    ckpt = lambda: ["--device", str(dev), "--ckpt-dir",
+                    tempfile.mkdtemp(dir=root)]
+    run_example("quickstart", ["--steps", "20"] + ckpt())
+    lines = run_example("elastic_scaling", ckpt())
+    got = [tuple(int(x) for x in re.findall(r"nodes=(\d+) epoch=(\d+)",
+                                           l)[0])
+           for l in lines if l.startswith("step ")]
+    if got != ELASTIC_EXAMPLE_STEPS:
+        fail(f"elastic_scaling: nodes and epochs {got}")
+    run_example("fault_tolerance", ckpt())
+    for op in counted:
+        op.launches = 0
+    run_example("serve_demo", ["--device", str(dev)])
+    launched = _launch_counts(counted)
+    if not launched["paged_flash_decode"] or not launched["topk_topp_mask"]:
+        fail(f"the serve demo launched {launched}")
+    print(f"serve demo launches: {launched}")
+    return launched
+
+
+def check_dryrun(counted, dev):
+    """Phase 28: (a) the dry run over both production meshes on the
+    card's rates with the card's own memory; (b) two full-size steps
+    against their bound; (c) the four examples."""
+    import torch
+    from repro_torch.configs import cells
+    from repro_torch.launch import dryrun
+    cap = torch.cuda.get_device_properties(0).total_memory
+    t0 = time.perf_counter()
+    todo = [(a, s) for a, s, tag in cells() if tag == "run"]
+    reports, failures = dryrun.run(
+        todo, ["single", "multi"], os.path.join(HERE, "reports",
+                                                "dryrun_torch"),
+        capacity_bytes=cap)
+    n_ok = sum(len(r) for r in reports.values())
+    if failures or n_ok != 2 * len(todo):
+        fail(f"dry run: {n_ok} cells, failures {failures}")
+    unfit = [f"{r['arch']} {r['shape']} {tag}"
+             for tag, reps in reports.items() for r in reps
+             if not r["memory"]["fits_device"]]
+    print(f"dry run: {n_ok} cells OK over both meshes in "
+          f"{time.perf_counter() - t0:.1f}s, fit against {cap / 1e9:.2f} GB "
+          f"(total_memory of {card()}); cells that do not fit: "
+          f"{unfit or 'none'}")
+    steps = check_roofline_steps(counted, dev)
+    demo = check_examples(counted, dev)
+    launches = dict(demo)
+    launches["paged_flash_decode"] += steps["decode_launches"]
+    return launches, steps
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -4989,6 +5292,10 @@ def main():
     # whisper's encoder and cross caches per rank, in both KV layouts
     modality_mesh_launches, fd_cross = check_mesh_modality(counted)
     done(27)
+    # 28. the analytic dry run over the production meshes on the card's
+    # rates, two full-size steps against their bound, the four examples
+    dryrun_launches, _ = check_dryrun(counted, dev)
+    done(28)
     report[2]["rings_int8"] = ring_q
     report[2]["modality"] = {"gqa7 serving mix int8":
                              mod_paged.pop("gqa7 serving mix int8")}
@@ -5007,6 +5314,7 @@ def main():
         k["sharded_launches"] = sharded_launches.get(k["name"], 0)
         k["mesh_launches"] = mesh_launches.get(k["name"], 0)
         k["mesh_modality_launches"] = modality_mesh_launches.get(k["name"], 0)
+        k["dryrun_launches"] = dryrun_launches.get(k["name"], 0)
     report[-1]["seq_sharded"] = fd_seq
     report[-1]["seq_sharded_cross"] = fd_cross
 

@@ -40,6 +40,11 @@ _ARCH_MODULES: Dict[str, str] = {
 
 
 ARCH_IDS = tuple(_ARCH_MODULES)
+# the JAX package's ARCH_IDS, in its order: the zoo the dry run's cells
+# cover, without paper-demo (ARCH_IDS keeps it: it serves and trains too)
+ZOO_ARCH_IDS = ("yi-9b", "granite-3-8b", "qwen3-32b", "qwen2-1.5b",
+                "grok-1-314b", "llama4-scout-17b-a16e", "recurrentgemma-9b",
+                "whisper-small", "rwkv6-1.6b", "qwen2-vl-7b")
 
 
 def _module(arch: str):
@@ -54,3 +59,23 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke(arch: str) -> ModelConfig:
     return _module(arch).smoke()
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
+def cells(include_long_skips: bool = False):
+    """Yield every assigned (arch, shape, tag) cell of the zoo, in the JAX
+    package's order (its configs/__init__.py cells): each zoo arch over
+    SHAPES, tag "run". long_500k needs sub-quadratic attention: only the
+    archs with no full-attention block run it; the others are skipped,
+    or with include_long_skips yielded tagged "skip:full-attention"."""
+    for arch in ZOO_ARCH_IDS:
+        cfg = get_config(arch)
+        for sname, shape in SHAPES.items():
+            if shape.long_context and not cfg.sub_quadratic:
+                if include_long_skips:
+                    yield arch, sname, "skip:full-attention"
+                continue
+            yield arch, sname, "run"

@@ -114,12 +114,15 @@ def merge_partials(o, m, l, group=None):
     """LSE-merge the partials of the ranks of `group` (kernel.py
     merge_partials): o [B,Hq,hd] f32 normalised per rank, m, l [B,Hq,1].
     An all-masked rank has l = 0, so zero weight."""
+    from repro_torch.parallel.collectives import count
     m_g = m.clone()
     dist.all_reduce(m_g, op=dist.ReduceOp.MAX, group=group)
     w = l * torch.exp(m - m_g)
     num = o * w
     dist.all_reduce(w, op=dist.ReduceOp.SUM, group=group)
     dist.all_reduce(num, op=dist.ReduceOp.SUM, group=group)
+    for x in (m_g, w, num):
+        count("all-reduce", x)
     return num / torch.clamp_min(w, 1e-30)
 
 

@@ -14,10 +14,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch import random as R
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.kernels.sampling.ops import topk_topp_mask
 from repro_torch.models import model as Mo
-from repro_torch.models.env import Env, sharded
+from repro_torch.models.env import Env, mesh_size, sharded
 from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
                                      tree_map, value_and_grad)
 from repro_torch.parallel import collectives as C
@@ -114,11 +114,79 @@ def _sharded_train_step(cfg: ModelConfig, env: Env, opt: AdamWConfig):
     return train_step
 
 
+# ---------------------------------------------------------------------------
+# shape builders: meta-device tensors (shapes and dtypes, no storage), the
+# JAX package's jax.eval_shape structs; the dry run (launch/roofline.py,
+# launch/memory_model.py) reads them
+# ---------------------------------------------------------------------------
+
+
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_struct(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """A cell's batch: tokens [B, S] int32 (a VLM's S less its vision
+    positions, which the vision embeddings [B, Nv, d] f32 fill), labels
+    for train, an encoder-decoder's frames [B, S / enc_downsample, d]
+    f32."""
+    B, S = shape.global_batch, shape.seq_len
+    if cfg.family == "vlm":
+        S = S - cfg.num_vision_embeds
+    out = {"tokens": _meta((B, S), torch.int32)}
+    if shape.kind == "train":
+        out["labels"] = _meta((B, S), torch.int32)
+    if cfg.family == "vlm":
+        out["vision_embeds"] = _meta((B, cfg.num_vision_embeds, cfg.d_model),
+                                     torch.float32)
+    if cfg.is_encdec:
+        out["frames"] = _meta((B, S // cfg.enc_downsample, cfg.d_model),
+                              torch.float32)
+    return out
+
+
+def params_struct(cfg: ModelConfig, env: Env):
+    """init_params' tree (padded for env's tp degree) on the meta
+    device."""
+    return Mo.meta_params(cfg, env)
+
+
 def state_struct(cfg: ModelConfig, env: Env, opt: AdamWConfig):
     """make_train_state's tree as meta-device tensors: shapes and dtypes,
     no storage (the JAX package's jax.eval_shape of it)."""
-    params = Mo.init_params(cfg, env, device="meta")
+    params = params_struct(cfg, env)
     return {"params": params, "opt": adamw_init(params, opt)}
+
+
+def cache_struct(cfg: ModelConfig, env: Env, shape: ShapeConfig):
+    """The contiguous decode cache of a cell (global_batch rows,
+    seq_len positions) on the meta device: over a shape-only mesh the
+    whole cache (models/model.py init_cache)."""
+    return Mo.init_cache(cfg, env, shape.global_batch, shape.seq_len,
+                         device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, env: Env,
+                opt: AdamWConfig = None):
+    """(the step's arguments as meta-device trees, the step) for a cell's
+    kind: train (state, batch) -> make_train_step; prefill (params,
+    batch) -> make_prefill_step; decode (params, cache, tokens [B, 1]
+    int32, cur_len int32) -> make_decode_step. No shardings: the rules
+    (parallel/rules.py) resolve the trees' specs over env.mesh, a
+    shape-only mesh included. Over a mesh of more than one device the
+    train step is the sharded one (it runs over a DeviceMesh's ranks)."""
+    opt = opt or AdamWConfig()
+    if shape.kind == "train":
+        step = (_sharded_train_step(cfg, env, opt) if mesh_size(env) > 1
+                else make_train_step(cfg, env, opt))
+        return (state_struct(cfg, env, opt), batch_struct(cfg, shape)), step
+    params = params_struct(cfg, env)
+    if shape.kind == "prefill":
+        return (params, batch_struct(cfg, shape)), make_prefill_step(cfg, env)
+    tokens = _meta((shape.global_batch, 1), torch.int32)
+    cur = _meta((), torch.int32)
+    return ((params, cache_struct(cfg, env, shape), tokens, cur),
+            make_decode_step(cfg, env))
 
 
 def make_prefill_step(cfg: ModelConfig, env: Env):

@@ -102,17 +102,23 @@ def check_mesh(cfg: ModelConfig, env: Env) -> None:
                          f"{env.plan.tp_axis!r}")
 
 
+def over_ranks(env: Env) -> bool:
+    """Whether env.mesh is a DeviceMesh of a process group's ranks (not
+    None, not a shape-only mesh)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    return isinstance(env.mesh, DeviceMesh)
+
+
 def sharded(cfg: ModelConfig, env: Env) -> bool:
     """Whether the model computes per rank over env.mesh (models/model.py
     _Ranks: train mode, prefill and decode): over a DeviceMesh, every
     arch check_mesh lets through. A shape-only mesh of more than one
     device has no ranks to compute on (ValueError); of one device it
     computes on that device (False)."""
-    from torch.distributed.device_mesh import DeviceMesh
     check_mesh(cfg, env)
     if env.mesh is None:
         return False
-    if not isinstance(env.mesh, DeviceMesh):
+    if not over_ranks(env):
         if mesh_size(env) > 1:
             raise ValueError(
                 f"a shape-only mesh of {mesh_size(env)} devices resolves "

@@ -57,7 +57,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
 from repro_torch.models.env import (Env, check_mesh, head_pad, kv_head_pad,
-                                    out_dims, sharded, vocab_pad)
+                                    out_dims, over_ranks, sharded,
+                                    vocab_pad)
 from repro_torch.parallel import collectives as C
 from repro_torch.parallel import rules
 
@@ -227,6 +228,43 @@ def init_params(cfg: ModelConfig, env: Env, *, seed: int = 0,
     return params
 
 
+def meta_params(cfg: ModelConfig, env: Env) -> Pytree:
+    """init_params(cfg, env, device="meta"), cached: the tree's shapes
+    depend on the mesh only through its tp degree (the dry run reads it
+    for every cell)."""
+    check_mesh(cfg, env)
+    return _meta_params(cfg, env.tp)
+
+
+@functools.lru_cache(maxsize=32)
+def _meta_params(cfg: ModelConfig, tp: int) -> Pytree:
+    from repro_torch.launch.mesh import ShapeMesh
+    mesh = ShapeMesh((tp,), ("model",)) if tp > 1 else None
+    return init_params(cfg, Env(mesh=mesh), device="meta")
+
+
+def count_params(cfg: ModelConfig, env: Env, padded: bool = True) -> int:
+    """Exact parameter count from init_params' shapes on the meta device
+    (no storage; the JAX package's count_params over jax.eval_shape).
+    padded=False subtracts what the tp padding adds, as the JAX package
+    does: the padded query heads' rows of wq and wo (head_pad) and the
+    padded vocabulary rows of embed and unembed (vocab_pad)."""
+    from repro_torch.optim.adamw import tree_leaves
+    total = sum(x.numel() for x in tree_leaves(meta_params(cfg, env)))
+    if not padded:
+        d, hd = cfg.d_model, cfg.head_dim
+        dh = head_pad(cfg, env) - cfg.n_heads
+        dv = vocab_pad(cfg, env) - cfg.vocab_size
+        n_attn = sum(k in ("attn", "moe", "local", "enc") for k in
+                     cfg.block_pattern) * cfg.num_blocks
+        n_attn += sum(k in ("attn", "moe", "local") for k in cfg.pattern_tail)
+        n_attn += cfg.encoder_layers + 2 * (cfg.block_pattern.count("dec")
+                                            * cfg.num_blocks)
+        total -= n_attn * 2 * dh * hd * d  # padded wq + wo rows
+        total -= 2 * dv * d  # padded embed/unembed rows
+    return total
+
+
 # ---------------------------------------------------------------------------
 # caches
 # ---------------------------------------------------------------------------
@@ -279,8 +317,12 @@ def init_cache(cfg: ModelConfig, env: Env, batch: int, max_len: int, *,
 
     Over a DeviceMesh (models/env.py sharded), this rank's: B / dp rows,
     and the heads, positions and channels _Ranks lays out (the cross
-    caches' encoder positions too)."""
-    rk = _Ranks(cfg, env, 1) if sharded(cfg, env) else None
+    caches' encoder positions too). Over a shape-only mesh
+    (launch/mesh.py ShapeMesh) the whole cache, heads padded for its tp
+    degree, as the JAX package's init_cache under an abstract mesh: the
+    dry run's cache_struct (launch/steps.py)."""
+    rk = (_Ranks(cfg, env, 1) if over_ranks(env) and sharded(cfg, env)
+          else None)
     hkv, hd = kv_head_pad(cfg, env), cfg.head_dim
     enc_len = max_len // cfg.enc_downsample if cfg.is_encdec else 0
     hx, xlen = hkv, enc_len  # the cross caches' heads and positions
@@ -1168,6 +1210,19 @@ def _prefill(params, tokens, cfg: ModelConfig, last_only: bool = False,
     return L.linear(h, params["unembed"])[:, :S], caches
 
 
+def whole_kinds(cfg: ModelConfig, tp: int) -> set:
+    """The recurrent kinds each of tp ranks computes whole: those whose
+    channels (and gate blocks) or heads do not split evenly."""
+    kinds = set(cfg.block_pattern) | set(cfg.pattern_tail)
+    whole = set()
+    if tp > 1 and "rglru" in kinds and (
+            cfg.rglru_width % tp or R.gate_blocks(cfg) % tp):
+        whole.add("rglru")
+    if tp > 1 and "rwkv" in kinds and cfg.n_heads % tp:
+        whole.add("rwkv")
+    return whole
+
+
 class _Ranks:
     """One rank of the per-rank forward over a DeviceMesh (the port's
     counterpart of the JAX package's GSPMD layout): the rank computes on
@@ -1218,13 +1273,7 @@ class _Ranks:
         self.heads_split = self.tp > 1 and head_pad(cfg, env) % self.tp == 0
         self.ff_split = self.tp > 1 and cfg.d_ff % self.tp == 0
         self.kv_seq = env.plan.kv_cache == "seq_sharded"
-        self.whole = set()  # recurrent kinds computed whole on every rank
-        kinds = set(cfg.block_pattern) | set(cfg.pattern_tail)
-        if self.tp > 1 and "rglru" in kinds and (
-                cfg.rglru_width % self.tp or R.gate_blocks(cfg) % self.tp):
-            self.whole.add("rglru")
-        if self.tp > 1 and "rwkv" in kinds and cfg.n_heads % self.tp:
-            self.whole.add("rwkv")
+        self.whole = whole_kinds(cfg, self.tp)
 
     def on_tp(self, spec, dim: int) -> bool:
         """Whether a leaf's dim is split over tp ranks."""

@@ -51,12 +51,14 @@ def ef_psum_grads(grads: Pytree, err: Pytree, group=None
     the dequantized views are all-reduced and divided by the world size
     (the reference's pmean), and the local residual is returned as the
     next error."""
+    from repro_torch.parallel.collectives import count
     world = dist.get_world_size(group)
     new_err = []
 
     def one(g, e):  # leaves in the tree's order, the same on every rank
         dq, ne = compress_decompress(g, e)
         dist.all_reduce(dq, op=dist.ReduceOp.SUM, group=group)
+        count("all-reduce", dq)
         new_err.append(ne)
         return dq / world
 

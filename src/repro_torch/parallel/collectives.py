@@ -38,6 +38,28 @@ import torch.distributed as dist
 from repro_torch.models.env import Env, mesh_axes
 
 
+# Result bytes on this rank of every collective issued, by type (what the
+# dry run's analytic count, launch/roofline.py, predicts): host-side
+# counters read from the tensors' shapes, no launch and no sync.
+_BYTES = {"all-gather": 0, "reduce-scatter": 0, "all-reduce": 0,
+          "all-to-all": 0}
+
+
+def count(kind: str, x) -> None:
+    """Add a collective's result tensor x to the `kind` count."""
+    _BYTES[kind] += x.numel() * x.element_size()
+
+
+def collective_bytes(reset: bool = False) -> dict:
+    """The counts since the last reset, {type: bytes}; reset=True zeroes
+    them after reading."""
+    out = dict(_BYTES)
+    if reset:
+        for k in _BYTES:
+            _BYTES[k] = 0
+    return out
+
+
 def axis_size(env: Env, axis: str) -> int:
     return mesh_axes(env.mesh)[axis]
 
@@ -54,6 +76,7 @@ def _all_gather(x, group, n: int, dim: int):
     xt = x.movedim(dim, 0).contiguous()
     out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
     dist.all_gather_into_tensor(out, xt, group=group)
+    count("all-gather", out)
     return out.movedim(0, dim)
 
 
@@ -61,12 +84,14 @@ def _reduce_scatter(x, group, n: int, dim: int):
     xt = x.movedim(dim, 0).contiguous()
     out = xt.new_empty((xt.shape[0] // n,) + tuple(xt.shape[1:]))
     dist.reduce_scatter_tensor(out, xt, group=group)
+    count("reduce-scatter", out)
     return out.movedim(0, dim)
 
 
 def _sum(x, group):
     x = x.contiguous().clone()
     dist.all_reduce(x, group=group)
+    count("all-reduce", x)
     return x
 
 
@@ -118,19 +143,22 @@ class _Split(torch.autograd.Function):
         return out, None, None, None
 
 
+def _exchange(x, group):
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x.contiguous(), group=group)
+    count("all-to-all", out)
+    return out
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        out = torch.empty_like(x)
-        dist.all_to_all_single(out, x.contiguous(), group=group)
-        return out
+        return _exchange(x, group)
 
     @staticmethod
     def backward(ctx, g):
-        out = torch.empty_like(g)
-        dist.all_to_all_single(out, g.contiguous(), group=ctx.group)
-        return out, None
+        return _exchange(g, ctx.group), None
 
 
 class _MeshMean(torch.autograd.Function):
@@ -200,6 +228,7 @@ def all_reduce_max(x, env: Env, axes: Sequence[str]):
     x = x.contiguous().clone()
     for axis in axes:
         dist.all_reduce(x, op=dist.ReduceOp.MAX, group=_group(env, axis))
+        count("all-reduce", x)
     return x
 
 
