@@ -300,7 +300,26 @@ Phases, any failure exits non-zero before the result line:
      scaling, fault tolerance, the serve demo), each exiting 0 with the
      JAX example's lines (EXAMPLE_LINES); the serve demo's two verdicts
      MATCH, #1 and #2 launched (`dryrun_launches`: the decode steps'
-     and the demo's, its verify passes included).
+     and the demo's, its verify passes included);
+ 29. the serving engines over the rendered mesh (ServingEngine and
+     ReplicaSet with mesh=, per rank; budget: 60 s). Part (a), one NCCL
+     rank and the 1 x 1 mesh VirtualCluster(n_compute=1) renders,
+     paper-demo-110m at full width and depth: phase 3's trace with phase
+     3's tokens (wall tokens/s beside phase 3's); phase 4's seeded trace
+     at 8 and 4 slots, bit-identical; the int8 pool as a 2-replica
+     ReplicaSet under VirtualCluster.serve through a scale-up and a
+     scale-down (4 slots a replica), bit-identical to one engine; the
+     slot pool by classic admission at prompt 256 (#4 once a request and
+     layer) with phase 10's tokens; recurrentgemma-9b at 5 layers and
+     rwkv6-1.6b at 2 by classic admission equal to the engine without a
+     mesh. Part (b), two processes sharing the card over gloo, the (1, 2)
+     mesh a VirtualCluster of two nodes renders: paper-demo-110m and
+     recurrentgemma-9b at 5 layers (8 requests, prompt 64, gen 8), both
+     ranks' tokens equal and equal to the one-shot over the same mesh
+     (streamed where the engine admits by lanes), a rank's paged pool
+     holding 2 of paper-demo-110m's 4 KV heads. Counts zeroed before each
+     mesh run and read after it, the ranks' too: #1, #2, #3, #4, #6 and
+     #7 where expected, #5 never (`mesh_engine_launches`).
 Each phase's wall time is printed as it ends.
 Phase 2 also holds the quant kernel to its plain version and to the bf16
 kernel on the same pool (relative RMS), the flash-attention kernel to its
@@ -4843,6 +4862,328 @@ def check_dryrun(counted, dev):
     return launches, steps
 
 
+# phase 29: the serving engines over the cluster's rendered mesh. Part
+# (a)'s recurrent archs (arch, layers, the trace's requests, prompt, gen,
+# slots): recurrentgemma-9b at 5 layers (one (rglru, rglru, local) unit
+# and the rglru tail pair: #6, #1 over its rings), rwkv6-1.6b at 2
+MESH_ENGINE_RECURRENT = (("recurrentgemma-9b", 5, 8, 64, 16, 4),
+                         ("rwkv6-1.6b", 2, 8, 64, 16, 4))
+# part (b)'s (1, 2) mesh: (arch, layers, requests, prompt, gen, slots).
+# Its classic admission (recurrentgemma-9b) is held to the one-shot one
+# prompt at a time: a batch-1 prefill, as the engine's. Over tp > 1 a
+# per-rank prefill of B rows need not give a row the bits of a batch-1
+# prefill on the card (a first form of this phase at 8 requests found
+# the engine's tokens unequal to the B=8 one-shot's over the same mesh;
+# on the CPU they are equal), so the phase prints how many tokens of the
+# batched one-shot differ beside it
+MESH_ENGINE_B = (("paper-demo", None, 4, 64, 8, 4),
+                 ("recurrentgemma-9b", 5, 4, 64, 8, 4))
+
+
+def layer_kinds(cfg):
+    """The block kinds cfg's layers hold (a cut depth may hold no full
+    pattern unit)."""
+    return set(cfg.block_pattern * cfg.num_blocks + cfg.pattern_tail)
+
+
+def recurrent_args(requests, prompt, gen, slots):
+    return serve_args(["--requests", str(requests), "--prompt-len",
+                       str(prompt), "--gen", str(gen), "--slots", str(slots)])
+
+
+def mesh_engine_rank(rank, store, out):
+    """Part (b) of phase 29, one of two processes sharing the card: a gloo
+    group with CUDA tensors and the (1, 2) DeviceMesh a VirtualCluster of
+    two nodes renders. Each MESH_ENGINE_B model served through a
+    ServingEngine over that mesh (counts zeroed before, read after), then
+    the one-shot over the same mesh on the same prompts: streamed where
+    the engine admits by lanes, else by full prefill one prompt at a
+    time (the engine's batch-1 prefill) and all together. Every rank
+    writes its tokens, the one-shots', its launch counts, its pool's KV
+    heads and the wall times (out.<rank>.json)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import VirtualCluster
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_decode.ops import flash_decode_partials
+    from repro_torch.kernels.paged_decode.ops import (
+        paged_flash_decode, paged_flash_decode_quant)
+    from repro_torch.kernels.rglru.ops import rglru_scan
+    from repro_torch.kernels.rwkv6.ops import wkv6
+    from repro_torch.kernels.sampling.ops import topk_topp_mask
+    from repro_torch.launch.serve import serve, serve_batch
+    from repro_torch.models import model as Mo
+    from repro_torch.models.env import Env
+
+    counted = (paged_flash_decode, paged_flash_decode_quant, topk_topp_mask,
+               flash_attention, rglru_scan, wkv6, flash_decode_partials)
+    name = lambda op: ("flash_decode" if op is flash_decode_partials
+                       else op.__name__)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="file://" + store, rank=rank,
+                            world_size=2)
+    cluster = VirtualCluster(n_compute=2, devices_per_node=1, device="cuda")
+    mesh = cluster.rendering.mesh
+    rep = {"mesh": list(mesh.shape), "cases": {}}
+    for arch, layers, n, S, gen, slots in MESH_ENGINE_B:
+        cfg = mesh_cfg(arch, layers)
+        params = Mo.init_params(cfg, Env(), seed=0, device="cuda")
+        for op in counted:
+            op.launches = 0
+        run = serve(recurrent_args(n, S, gen, slots), cfg, params, mesh)
+        launches = {name(op): op.launches for op in counted}
+        engine, trace, res = run["engine"], run["trace"], run["out"]
+        k = engine.pool.caches["blocks"][-1].get("k")
+        streamed = engine.prefill_chunk > 0
+        prompts = np.stack([r.prompt for r in trace])
+        kw = dict(streamed_prefill=streamed, mesh=mesh)
+        base = serve_batch(cfg, params, prompts, gen, **kw)
+        one = base if streamed else np.concatenate([
+            serve_batch(cfg, params, p[None], gen, **kw) for p in prompts])
+        rep["cases"][arch] = {
+            "tokens": [res[r.rid] for r in trace], "oneshot": one.tolist(),
+            "batched": base.tolist(), "streamed": streamed,
+            "launches": launches, "wall_s": run["wall_s"],
+            "kv_heads": None if k is None else int(k.shape[2])}
+        del engine, params
+        torch.cuda.empty_cache()
+    with open(f"{out}.{rank}.json", "w") as f:
+        json.dump(rep, f)
+    dist.destroy_process_group()
+
+
+def check_mesh_engines(counted, phase3, phase10):
+    """Phase 29: the serving engines over the cluster's rendered mesh
+    (serve/scheduler.py ServingEngine and serve/router.py ReplicaSet with
+    mesh=, per rank). Part (a), one rank of an NCCL group and the 1 x 1
+    mesh VirtualCluster(n_compute=1) renders under it, paper-demo-110m at
+    full width and depth: phase 3's trace (greedy, prefix cache on) with
+    phase 3's tokens (`phase3`: (rid -> tokens, wall tokens/s)); phase 4's
+    seeded trace at 8 and 4 slots, bit-identical; the int8 pool as a
+    2-replica ReplicaSet under VirtualCluster.serve through a scale-up
+    and a scale-down, bit-identical to one engine; the slot pool by
+    classic admission at prompt 256 (#4) with phase 10's tokens
+    (`phase10`); recurrentgemma-9b at 5 layers and rwkv6-1.6b at 2 by
+    classic admission, equal to the same engine without a mesh. Part
+    (b), two processes sharing the card over gloo and the (1, 2) mesh
+    (mesh_engine_rank): paper-demo-110m and recurrentgemma-9b at 2
+    layers, both ranks' tokens equal and equal to the one-shot over the
+    same mesh, each rank's pool holding 2 of the 4 KV heads. Counts
+    zeroed before each mesh run and read after it, the ranks' too;
+    #5 never launches. Returns {kernel: launches}."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import VirtualCluster
+    from repro_torch.launch.serve import make_trace, serve
+    from repro_torch.serve.router import ReplicaSet
+
+    t0 = time.perf_counter()
+    names = {op: ("flash_decode" if op.__name__ == "flash_decode_partials"
+                  else op.__name__) for op in counted}
+    launches = {n: 0 for n in names.values()}
+
+    def zero():
+        for op in counted:
+            op.launches = 0
+
+    def read(label, want):
+        """Add the counts since zero() to `launches`; fail unless each
+        kernel of `want` launched (True) or did not (False)."""
+        got = {names[op]: op.launches for op in counted}
+        for k, n in got.items():
+            launches[k] += n
+        if any((got[k] > 0) != w for k, w in want.items()):
+            fail(f"phase 29 {label}: launches {got}, expected "
+                 f"{ {k: 'some' if w else 0 for k, w in want.items()} }")
+        return {k: n for k, n in got.items() if n}
+
+    none = {k: False for k in launches}
+    store = tempfile.mkdtemp(prefix="chip_smoke_engines_")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            rank=0, world_size=1)
+    try:
+        cluster = VirtualCluster(n_compute=1, devices_per_node=1)
+        mesh = cluster.rendering.mesh
+        if tuple(mesh.shape) != (1, 1):
+            fail(f"phase 29: the one-rank cluster rendered {mesh}")
+        cfg = mesh_cfg("paper-demo", None)
+        params = load_params(cfg, 0)
+        # phase 3's trace
+        zero()
+        run = serve(serve_args([]), cfg, params, mesh)
+        got = read("(a) greedy", dict(none, paged_flash_decode=True))
+        want_out, one_rate = phase3
+        out, wall, n_tok = run["out"], run["wall_s"], run["tokens"]
+        if out != want_out:
+            fail("phase 29 (a): the 1 x 1 mesh's greedy tokens differ from "
+                 "phase 3's")
+        print(f"(a) {cfg.name} over the rendered 1 x 1 NCCL mesh, phase 3's "
+              f"trace: tokens equal phase 3's bit for bit; {n_tok} tokens, "
+              f"{n_tok / wall:.1f} tokens/s wall (phase 3, one device: "
+              f"{one_rate:.1f}) on {card()}; launches {got}")
+        # phase 4's seeded trace at 8 and 4 slots
+        seeded = ["--temperature", "0.8", "--top-k", "50", "--top-p",
+                  "0.9", "--sample-seed", "7"]
+        zero()
+        run8 = serve(serve_args(seeded), cfg, params, mesh)
+        got = read("(a) seeded", dict(none, paged_flash_decode=True,
+                                      topk_topp_mask=True))
+        run4 = serve(serve_args(seeded + ["--slots", "4"]), cfg, params,
+                     mesh)
+        if run8["out"] != run4["out"]:
+            fail("phase 29 (a): seeded tokens at 8 and 4 slots differ")
+        print(f"(a) seeded over the 1 x 1 mesh: 8 vs 4 slots bit-identical; "
+              f"{run8['tokens'] / run8['wall_s']:.1f} tokens/s wall at 8 "
+              f"slots; launches {got}")
+        # the int8 pool as a 2-replica fleet under VirtualCluster.serve
+        fargs = serve_args(["--trace", "burst", "--kv", "quant"])
+        zero()
+        # 4 slots a replica: the burst outlasts the drained replicas, so
+        # they are released before the run ends
+        fleet = ReplicaSet(cfg, params, replicas=2, clock=cluster.clock,
+                           num_slots=4, prompt_len=fargs.prompt_len,
+                           max_gen=fargs.gen_max, kv="quant",
+                           device="cuda", mesh=mesh)
+        sizes = []
+
+        def on_step(i, snap, c):
+            if i == 2:
+                c.scale_to(3)
+            elif i == 12:
+                c.scale_to(1)
+            sizes.append(len(fleet.live_replicas()))
+
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fout = cluster.serve(fleet, make_trace(fargs, cfg),
+                             dt=fargs.step_time, on_step=on_step)
+        wall = time.perf_counter() - t1
+        got = read("(a) quant fleet", dict(none,
+                                           paged_flash_decode_quant=True))
+        if fout != serve(fargs, cfg, params, mesh)["out"]:
+            fail("phase 29 (a): the quant fleet under serve differs from "
+                 "one engine")
+        if not (fleet.replica_warmups and fleet.released
+                and max(sizes) > 2 and sizes[-1] < max(sizes)):
+            fail(f"phase 29 (a): no scale-up and scale-down: live replicas "
+                 f"{sizes}, warmups {fleet.replica_warmups}, released "
+                 f"{fleet.released}")
+        print(f"(a) int8 fleet under VirtualCluster.serve over the 1 x 1 "
+              f"mesh: live replicas {sizes[0]} -> {max(sizes)} -> "
+              f"{sizes[-1]}, released {fleet.released}; bit-identical to "
+              f"one engine; {sum(len(t) for t in fout.values()) / wall:.1f} "
+              f"tokens/s wall; launches {got}")
+        del fleet
+        # the slot pool by classic admission at prompt 256
+        slargs = serve_args(["--kv", "slot", "--prompt-len", "256"])
+        zero()
+        run = serve(slargs, cfg, params, mesh)
+        got = read("(a) slot pool", dict(none, paged_flash_decode=True,
+                                         flash_attention=True))
+        if got.get("flash_attention") != slargs.requests * cfg.num_blocks:
+            fail(f"phase 29 (a): the slot pool launched #4 "
+                 f"{got.get('flash_attention')} times")
+        if run["out"] != phase10:
+            fail("phase 29 (a): the slot pool's tokens differ from phase "
+                 "10's")
+        print(f"(a) slot pool over the 1 x 1 mesh, prompt 256: tokens equal "
+              f"phase 10's bit for bit; {run['tokens'] / run['wall_s']:.1f} "
+              f"tokens/s wall; launches {got}")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        for arch, layers, n, S, gen, slots in MESH_ENGINE_RECURRENT:
+            rcfg = mesh_cfg(arch, layers)
+            rparams = load_params(rcfg, 0)
+            rargs = recurrent_args(n, S, gen, slots)
+            kinds = layer_kinds(rcfg)
+            zero()
+            run = serve(rargs, rcfg, rparams, mesh)
+            got = read(f"(a) {arch}", dict(
+                none, rglru_scan="rglru" in kinds, wkv6="rwkv" in kinds,
+                paged_flash_decode=bool(kinds & {"attn", "local"})))
+            if run["out"] != serve(rargs, rcfg, rparams)["out"]:
+                fail(f"phase 29 (a) {arch}: the 1 x 1 mesh's tokens differ "
+                     "from the engine's without a mesh")
+            print(f"(a) {rcfg.name} ({layers} layers) over the 1 x 1 mesh, "
+                  f"classic: tokens equal the engine's without a mesh; "
+                  f"{run['tokens'] / run['wall_s']:.1f} tokens/s wall; "
+                  f"launches {got}")
+            del rparams
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    t_a = time.perf_counter() - t0
+    # part (b): two processes over gloo, the (1, 2) mesh
+    env_b = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_engine_ranks_")
+    t1 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+         "--engine-rank", str(r), f"{tmp}/store", f"{tmp}/out"],
+        env=env_b, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+    logs = []
+    for proc in procs:
+        try:
+            logs.append(proc.communicate(timeout=600)[0])
+        finally:
+            proc.kill()
+    if any(proc.returncode != 0 for proc in procs):
+        fail("phase 29 part (b): a rank failed:\n" + "\n".join(
+            log[-3000:] for log in logs))
+    ranks = []
+    for r in range(2):
+        with open(f"{tmp}/out.{r}.json") as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(tmp, ignore_errors=True)
+    for arch, layers, n, S, gen, slots in MESH_ENGINE_B:
+        cases = [rep["cases"][arch] for rep in ranks]
+        c = cases[0]
+        kinds = layer_kinds(mesh_cfg(arch, layers))
+        need = dict(none, rglru_scan="rglru" in kinds, wkv6="rwkv" in kinds,
+                    paged_flash_decode=bool(kinds & {"attn", "local"}))
+        for case in cases:
+            for k, m in case["launches"].items():
+                launches[k] += m
+            if any((case["launches"][k] > 0) != w for k, w in need.items()):
+                fail(f"phase 29 (b) {arch}: launches "
+                     f"{[x['launches'] for x in cases]}")
+        if not (ranks[0]["mesh"] == [1, 2]
+                and all(x["tokens"] == c["tokens"] for x in cases)
+                and c["tokens"] == c["oneshot"]):
+            fail(f"phase 29 (b) {arch}: the ranks' tokens differ, or from "
+                 f"the one-shot over the mesh")
+        if arch == "paper-demo" and not all(x["kv_heads"] == 2
+                                            for x in cases):
+            fail(f"phase 29 (b): a rank's pool holds "
+                 f"{[x['kv_heads'] for x in cases]} KV heads")
+        parted = sum(a != b for x, y in zip(c["batched"], c["tokens"])
+                     for a, b in zip(x, y))
+        oracle = ("the streamed one-shot" if c["streamed"] else
+                  f"the one-shot one prompt at a time (the batched one: "
+                  f"{parted} of {n * gen} tokens differ)")
+        print(f"(b) {mesh_cfg(arch, layers).name} over the (1, 2) gloo mesh "
+              f"(two processes on the card): both ranks' tokens equal, and "
+              f"equal {oracle} over the same mesh; a rank's pool holds "
+              f"{c['kv_heads']} KV heads; wall tokens/s "
+              f"{n * gen / max(x['wall_s'] for x in cases):.1f} (the slower "
+              f"rank); launches per rank "
+              f"{[{k: m for k, m in x['launches'].items() if m} for x in cases]}")
+    print(f"(a) {t_a:.1f}s; (b) {time.perf_counter() - t1:.1f}s with the "
+          f"processes' start; "
+          f"mesh engines phase: {time.perf_counter() - t0:.1f}s; kernel "
+          f"launches {launches}")
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -5252,6 +5593,7 @@ def main():
     # 18. the four dense attention archs at full width and depth; 19. the
     # two MoE archs at full width and cut depth (paper-demo's engines and
     # weights freed first)
+    phase3, phase10 = (run["out"], tok_s), slrun["out"]  # phase 29's
     del params, run, srun, frun, qrun, crun, slrun
     gc.collect()
     torch.cuda.empty_cache()
@@ -5296,6 +5638,10 @@ def main():
     # rates, two full-size steps against their bound, the four examples
     dryrun_launches, _ = check_dryrun(counted, dev)
     done(28)
+    # 29. the serving engines over the rendered mesh: one NCCL rank's 1 x 1
+    # mesh against phases 3 and 10, two processes' (1, 2) mesh
+    mesh_engine_launches = check_mesh_engines(counted, phase3, phase10)
+    done(29)
     report[2]["rings_int8"] = ring_q
     report[2]["modality"] = {"gqa7 serving mix int8":
                              mod_paged.pop("gqa7 serving mix int8")}
@@ -5315,6 +5661,7 @@ def main():
         k["mesh_launches"] = mesh_launches.get(k["name"], 0)
         k["mesh_modality_launches"] = modality_mesh_launches.get(k["name"], 0)
         k["dryrun_launches"] = dryrun_launches.get(k["name"], 0)
+        k["mesh_engine_launches"] = mesh_engine_launches.get(k["name"], 0)
     report[-1]["seq_sharded"] = fd_seq
     report[-1]["seq_sharded_cross"] = fd_cross
 
@@ -5336,5 +5683,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--modality-rank"]:  # phase 27's parts (b), (c)
         modality_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--engine-rank"]:  # phase 29's part (b)
+        mesh_engine_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
         sys.exit(0)
     sys.exit(main())

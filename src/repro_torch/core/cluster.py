@@ -170,10 +170,31 @@ class VirtualCluster:
         constant dt is the honest choice there. The engine must share this
         cluster's clock.
 
+        Under a process group the engine is one over the rendered mesh
+        (built with mesh=rendering.mesh, serve/scheduler.py): every rank
+        of the mesh drives the same loop, and the control plane's
+        decisions are the same on each because the clock and the metrics
+        (host state, the same on every rank) are. A rank outside the
+        rendered mesh does nothing and gets None, as submit does (its
+        `engine` may be None). The engine's mesh is fixed for its life,
+        as in the JAX package, so while the loop runs the template's
+        renders keep that mesh (MeshTemplate.hold_mesh): a new DeviceMesh
+        is built by every rank of the world, and the ranks outside this
+        one do not run the loop. Those ranks' control planes stay where
+        the serve found them.
+
         Returns engine.results() (rid -> tokens).
         """
+        mesh = self.rendering.mesh
+        if mesh is not None and mesh.get_coordinate() is None:
+            return None
         assert engine.clock is self.clock, \
             "engine must be built with clock=cluster.clock"
+        with self.template.hold_mesh(mesh):
+            return self._serve(engine, requests, dt, autoscale, max_steps,
+                               on_step)
+
+    def _serve(self, engine, requests, dt, autoscale, max_steps, on_step):
         engine.submit(requests)
         head_agent = self.sim.nodes[self.head_id].agent
         reconcile = getattr(engine, "reconcile", None)

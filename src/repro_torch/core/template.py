@@ -20,6 +20,7 @@ DeviceMesh construction requires: each one enters every new sub-group.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from dataclasses import dataclass
 from typing import Any, Callable, List, Optional, Sequence, Tuple
@@ -126,6 +127,21 @@ class MeshTemplate:
         self._rendering: Optional[Rendering] = None
         self._callbacks: List[Callable[[Rendering, ViewDiff], None]] = []
         self._lock = threading.RLock()
+        self._held: Optional[Any] = None  # hold_mesh's mesh, while held
+
+    @contextlib.contextmanager
+    def hold_mesh(self, mesh):
+        """While the block runs, renders keep `mesh` instead of building a
+        DeviceMesh (a collective that every rank of the world enters): a
+        loop run by the ranks of one mesh alone (VirtualCluster.serve)
+        re-renders its hostfile and devices without the other ranks."""
+        with self._lock:
+            prev, self._held = self._held, mesh
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._held = prev
 
     def on_change(self, fn: Callable[[Rendering, ViewDiff], None]) -> None:
         self._callbacks.append(fn)
@@ -154,8 +170,8 @@ class MeshTemplate:
                     return None  # debounced; next poll retries
                 self._last_render_t = now
             devices, oversub = render_devices(view, self.devices)
-            mesh = None
-            if self.device_type is not None:
+            mesh = self._held
+            if self.device_type is not None and mesh is None:
                 mesh, _ = render_mesh(view, self.devices, self.device_type,
                                       self.mesh_rule)
             hostfile = render_hostfile(view)

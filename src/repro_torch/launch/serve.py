@@ -239,11 +239,12 @@ def make_policy(args):
 
 
 def make_engine(args, cfg, params, *, num_slots=None, replicas=None,
-                clock=None, spec=None):
+                clock=None, spec=None, mesh=None):
     """A ServingEngine (replicas == 1) or a Router + ReplicaSet data
     plane. --kv-blocks is per replica; --prefill-chunk 0 admits by classic
     prefill. `spec` overrides --spec (the --verify re-serve passes
-    "off")."""
+    "off"). `mesh` (a DeviceMesh; the CLI passes none, as the JAX CLI)
+    serves per rank over it."""
     sched = {"preemptive": True} if (args.sched == "edf"
                                      and args.edf_preempt) else {}
     return make_serving_engine(
@@ -258,13 +259,14 @@ def make_engine(args, cfg, params, *, num_slots=None, replicas=None,
         spec=args.spec if spec is None else spec, spec_k=args.spec_k,
         swap=args.swap == "on", swap_budget_blocks=args.swap_budget_blocks,
         policy=make_scheduler_policy(args.sched, **sched),
-        clock=clock or ManualClock(), device=args.device)
+        clock=clock or ManualClock(), device=args.device, mesh=mesh)
 
 
-def serve(args, cfg, params) -> dict:
-    """Serve the trace on one engine (or fleet) without a cluster; returns
-    rid -> tokens plus the run's numbers."""
-    engine = make_engine(args, cfg, params)
+def serve(args, cfg, params, mesh=None) -> dict:
+    """Serve the trace on one engine (or fleet) without a cluster, over
+    `mesh` if given (make_engine); returns rid -> tokens plus the run's
+    numbers."""
+    engine = make_engine(args, cfg, params, mesh=mesh)
     trace = make_trace(args, cfg)
     if args.device.startswith("cuda"):
         torch.cuda.synchronize()
@@ -595,8 +597,9 @@ def main() -> int:
     from repro_torch.launch.train import join_ranks
     if "RANK" in os.environ and args.trace != "oneshot":
         raise SystemExit("under torchrun the CLI serves --trace oneshot over "
-                         "the rendered mesh; the engines over a mesh are "
-                         "ROADMAP item 12")
+                         "the rendered mesh, as the JAX CLI passes no mesh "
+                         "to its engines (serve/scheduler.py takes mesh= "
+                         "from a script)")
     join_ranks(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     params = Mo.init_params(cfg, Env(), seed=0, device=args.device)

@@ -7,7 +7,10 @@ closures so the serving code reads as in the reference. Over a
 DeviceMesh the train step runs per rank on the local shards of a state of
 DTensors (_sharded_train_step), and the prefill and decode steps per rank
 on the rank's shards, rows and caches (models/model.py _Ranks): their
-logits are the rank's vocabulary columns, which `greedy` reads.
+logits are the rank's vocabulary columns, which `greedy` reads. The
+engines' fused steps over a mesh take every row on every rank and pick
+the same tokens on each: greedy rows by the vocabulary-parallel argmax,
+sampled rows from the columns gathered over tp (make_sample_fn).
 """
 from __future__ import annotations
 
@@ -195,7 +198,9 @@ def make_prefill_step(cfg: ModelConfig, env: Env):
     stubs "vision_embeds" (a VLM) or "frames" (an encoder-decoder). Only
     the last position's row tile is unembedded (the same bits as the full
     logits, without the [B,S,Vpad] tensor). Over a DeviceMesh, per rank:
-    its rows, its vocabulary columns, its caches."""
+    its rows, its vocabulary columns, its caches; an engine's classic
+    admission prefills its batch of one on every rank (the rows whole),
+    its caches holding the heads and channels of the rank's pool."""
     def prefill_step(params, batch):
         return Mo.forward(params, batch["tokens"], cfg, env, mode="prefill",
                           last_only=True,
@@ -241,7 +246,7 @@ def _select_tokens(prev_tok, meta_i):
     return torch.where(tok_src >= 0, prev_tok[safe], fresh_tok)
 
 
-def make_sample_fn(cfg: ModelConfig, prompt_len: int):
+def make_sample_fn(cfg: ModelConfig, prompt_len: int, env: Env = None):
     """Fused on-device sample step: [T,Vpad] logits -> [T] int32 tokens.
 
     Each row's key is fold_in(PRNGKey(seed), position) where position =
@@ -250,10 +255,18 @@ def make_sample_fn(cfg: ModelConfig, prompt_len: int):
     whether it decodes alone, inside a busy mixed-depth batch, or after a
     preemption restart. Rows with temperature <= 0 take the plain argmax.
     top-k/top-p masking runs through kernels/sampling; sampling itself is
-    Gumbel-max over the masked, temperature-scaled logits."""
+    Gumbel-max over the masked, temperature-scaled logits.
+
+    Over a DeviceMesh (env; the logits a rank's vocabulary columns) the
+    columns are gathered over tp first (parallel/collectives.py
+    vocab_gather), so every tp rank masks and draws the same whole rows
+    and picks the same tokens."""
     V = cfg.vocab_size
+    per_rank = env is not None and sharded(cfg, env)
 
     def sample(logits, meta_i, meta_f):
+        if per_rank:
+            logits = C.vocab_gather(logits, env)
         lf = logits[:, :V].float()
         greedy = torch.argmax(lf, dim=-1)
         temp = meta_f[ROW_TEMPERATURE]
@@ -283,21 +296,18 @@ def make_fused_decode_step(cfg: ModelConfig, env: Env, *, prompt_len: int = 0,
     is the slot pool's analogue of the paged step's block tables: it lets
     speculative verify rows (several rows sharing one slot at consecutive
     depths) ride the fused step, and a drafter step one row over a pool
-    of many slots."""
-    V = cfg.vocab_size
-    sampler = make_sample_fn(cfg, prompt_len) if sample else None
+    of many slots. Over a DeviceMesh every rank runs every row
+    (whole_rows) on its pool and picks the same tokens (_pick)."""
+    sampler = make_sample_fn(cfg, prompt_len, env) if sample else None
 
     def step(params, caches, prev_tok, meta_i, meta_f, row_slots=None):
         tok = _select_tokens(prev_tok, meta_i)
         logits, new_caches = Mo.forward(
             params, tok[:, None], cfg, env, mode="decode", caches=caches,
-            cur_len=meta_i[ROW_CUR_LEN], row_slots=row_slots)
-        lg = logits[:, 0, :]
-        if sampler is None:
-            nxt = torch.argmax(lg[:, :V], dim=-1).to(torch.int32)
-        else:
-            nxt = sampler(lg, meta_i, meta_f)
-        return nxt, new_caches
+            cur_len=meta_i[ROW_CUR_LEN], row_slots=row_slots,
+            whole_rows=True)
+        return _pick(logits[:, 0, :], meta_i, meta_f, sampler, cfg,
+                     env), new_caches
 
     return step
 
@@ -318,20 +328,27 @@ def make_paged_decode_step(cfg: ModelConfig, env: Env, *, prompt_len: int = 0,
     units (their rings). Recurrent units read and write state row t for
     row t (a state pool has no lanes: T == slots); the rows padded past T
     to whole row tiles touch no state (Mo.forward). The sample/argmax
-    step is fused; the [T] token vector is the only per-step download."""
-    V = cfg.vocab_size
-    sampler = make_sample_fn(cfg, prompt_len) if sample else None
+    step is fused; the [T] token vector is the only per-step download.
+    Over a DeviceMesh every rank runs every row on its pool (the KV heads
+    its query heads read, its state channels) and picks the same tokens
+    (_pick)."""
+    sampler = make_sample_fn(cfg, prompt_len, env) if sample else None
 
     def step(params, caches, prev_tok, meta_i, meta_f, tables):
         tok = _select_tokens(prev_tok, meta_i)
         logits, new_caches = Mo.forward(
             params, tok[:, None], cfg, env, mode="decode", caches=caches,
             cur_len=meta_i[ROW_CUR_LEN], block_tables=tables)
-        lg = logits[:, 0, :]
-        if sampler is None:
-            nxt = torch.argmax(lg[:, :V], dim=-1).to(torch.int32)
-        else:
-            nxt = sampler(lg, meta_i, meta_f)
-        return nxt, new_caches
+        return _pick(logits[:, 0, :], meta_i, meta_f, sampler, cfg,
+                     env), new_caches
 
     return step
+
+
+def _pick(logits, meta_i, meta_f, sampler, cfg: ModelConfig, env: Env):
+    """A fused step's [T] int32 tokens from its logits [T, Vpad] (a
+    rank's vocabulary columns over a mesh): the argmax (greedy, the
+    vocabulary-parallel one over a mesh) without a sampler."""
+    if sampler is not None:
+        return sampler(logits, meta_i, meta_f)
+    return greedy(logits, cfg, env)[:, 0]

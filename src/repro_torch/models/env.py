@@ -8,8 +8,11 @@ sizes, no ranks) for resolving the sharding rules (parallel/rules.py).
 Over a DeviceMesh every arch (dense, MoE, recurrent, and the modality
 archs behind their stubs) computes per rank on its local shards
 (`sharded`; models/model.py): the train step, and prefill and decode for
-serving. The padding helpers take the mesh's
-tp degree, as the JAX package's do.
+serving, the engines' steps included (serve/scheduler.py builds its
+`Env(mesh=, plan=)` as the JAX package's engine does). The padding
+helpers take the mesh's tp degree, as the JAX package's do; kv_index
+says which KV heads one rank's query heads read, the heads a rank's
+cache or pool holds under the replicated layout.
 """
 from __future__ import annotations
 
@@ -158,3 +161,31 @@ def vocab_pad(cfg: ModelConfig, env: Env) -> int:
     tp = max(env.tp, 1)
     m = max(128, tp) if tp > 1 else 8
     return ((cfg.vocab_size + m - 1) // m) * m
+
+
+def kv_index(cfg: ModelConfig, env: Env, rank: int, hkv: int):
+    """Which of hkv KV heads tp rank `rank`'s query heads read: the rank
+    holds query heads rank * hq_local ... (head_pad over tp) and query
+    head h reads KV head h // G (G = padded heads / hkv). A slice (a
+    whole group, or a part of one, keeps the grouping), or, where the
+    rank's heads straddle groups unevenly, a list: each query head its
+    own KV head. Every head where the heads do not split over tp."""
+    tp = env.tp
+    hq = head_pad(cfg, env)
+    if tp <= 1 or hq % tp:
+        return slice(0, hkv)
+    hq_local = hq // tp
+    G = hq // hkv
+    idx = [(rank * hq_local + i) // G for i in range(hq_local)]
+    lo, n = idx[0], idx[-1] + 1 - idx[0]
+    if hq_local % n == 0 and idx == [lo + i // (hq_local // n)
+                                    for i in range(hq_local)]:
+        return slice(lo, lo + n)
+    return idx
+
+
+def kv_heads_local(cfg: ModelConfig, env: Env, rank: int) -> int:
+    """The KV heads one tp rank's cache or pool holds under the
+    replicated layout (kv_index's count); kv_head_pad on one device."""
+    sel = kv_index(cfg, env, rank, kv_head_pad(cfg, env))
+    return (sel.stop - sel.start) if isinstance(sel, slice) else len(sel)

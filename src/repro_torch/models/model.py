@@ -57,8 +57,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
 from repro_torch.models.env import (Env, check_mesh, head_pad, kv_head_pad,
-                                    out_dims, over_ranks, sharded,
-                                    vocab_pad)
+                                    kv_heads_local, kv_index, out_dims,
+                                    over_ranks, sharded, vocab_pad)
 from repro_torch.parallel import collectives as C
 from repro_torch.parallel import rules
 
@@ -309,15 +309,16 @@ def _seq_len_local(n: int, rk) -> int:
 
 
 def init_cache(cfg: ModelConfig, env: Env, batch: int, max_len: int, *,
-               device="cuda") -> Pytree:
+               device="cuda", whole_rows: bool = False) -> Pytree:
     """Contiguous decode cache: attention k/v [L, B, Hkv, max_len, hd]
     bf16 (local rings min(window, max_len) long), recurrent state rows
     [L, B, ...]; a "dec" unit adds the cross-attention caches xk/xv
     [L, B, Hkv, max_len // enc_downsample, hd] (the encoder's length).
 
-    Over a DeviceMesh (models/env.py sharded), this rank's: B / dp rows,
-    and the heads, positions and channels _Ranks lays out (the cross
-    caches' encoder positions too). Over a shape-only mesh
+    Over a DeviceMesh (models/env.py sharded), this rank's: B / dp rows
+    (every row with whole_rows: the slot pool of an engine over a mesh,
+    serve/slots.py), and the heads, positions and channels _Ranks lays
+    out (the cross caches' encoder positions too). Over a shape-only mesh
     (launch/mesh.py ShapeMesh) the whole cache, heads padded for its tp
     degree, as the JAX package's init_cache under an abstract mesh: the
     dry run's cache_struct (launch/steps.py)."""
@@ -327,7 +328,8 @@ def init_cache(cfg: ModelConfig, env: Env, batch: int, max_len: int, *,
     enc_len = max_len // cfg.enc_downsample if cfg.is_encdec else 0
     hx, xlen = hkv, enc_len  # the cross caches' heads and positions
     if rk is not None:
-        batch = _local_rows(batch, env)
+        if not whole_rows:
+            batch = _local_rows(batch, env)
         if rk.kv_seq:
             xlen = rk.cross_len(enc_len)
         else:
@@ -365,14 +367,26 @@ def init_paged_cache(cfg: ModelConfig, env: Env, num_blocks: int,
     With quant=True, k/v store int8 values plus per-row f32 dequant scales
     k_scale/v_scale [L, NB, Hkv, bs] (one scale per (block, head, token)
     over the head dim): (hd + 4) / (2 hd) of the bf16 pool's bytes. The
-    decode path dispatches on the presence of "k_scale"."""
+    decode path dispatches on the presence of "k_scale".
+
+    Over a DeviceMesh (models/env.py sharded), this rank's pool for the
+    engines over a mesh: every block, the KV heads the rank's query heads
+    read (the replicated layout, whatever plan.kv_cache says: the JAX
+    package's paged branch ignores the layout), and state rows of the
+    rank's channels or heads (every row: the engine's rows are whole on
+    every rank). The int8 scales are per (block, head, token), so the
+    rank's scales are the one-device pool's at its heads."""
+    rk = (_Ranks(cfg, env, 1) if over_ranks(env) and sharded(cfg, env)
+          else None)
     hkv, hd = kv_head_pad(cfg, env), cfg.head_dim
+    if rk is not None:
+        hkv = rk.n_kv_local()
     shape = (num_blocks, hkv, block_size, hd)
     z = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)
 
     def unit(kind):
         if kind in RECURRENT_KINDS:
-            return _state_cache(kind, cfg, num_rows, device)
+            return _state_cache(kind, cfg, num_rows, device, rk)
         if kind not in PAGEABLE_KINDS:
             raise ValueError(f"block kind {kind!r} has no paged-cache layout "
                              "(enc/dec caches carry cross-attention state)")
@@ -899,14 +913,19 @@ def _moe_sublayer(p, x, cfg: ModelConfig, *, S=None, n_rows=None,
     a decode step's first n_rows rows (masked rows included); the padding
     rows are not dispatched and come out zero. ranks: this rank's rows of
     the per-rank forward (train mode, prefill or decode), dispatched by
-    the layer's ep or tp mode. Returns (out, aux loss)."""
+    the layer's ep or tp mode (an engine step's whole rows split over dp
+    for the dispatch, _Ranks.whole_rows). Returns (out, aux loss)."""
     if ranks is not None and ranks.sp:
         return M.moe_layer(p, x, cfg, ranks.env, seq_sharded=True)
     env = None if ranks is None else ranks.env
+    # one device calls moe_layer as it always has (chip_smoke.py phase 19
+    # wraps it with that signature)
+    kw = ({"whole_rows": True} if ranks is not None and ranks.whole_rows
+          else {})
     if S is not None:
-        y, aux = M.moe_layer(p, x[:, :S], cfg, env)
+        y, aux = M.moe_layer(p, x[:, :S], cfg, env, **kw)
         return F.pad(y, (0, 0, 0, x.shape[1] - S)), aux
-    y, aux = M.moe_layer(p, x[:n_rows], cfg, env)
+    y, aux = M.moe_layer(p, x[:n_rows], cfg, env, **kw)
     return F.pad(y, (0, 0) * (x.dim() - 1) + (0, x.shape[0] - n_rows)), aux
 
 
@@ -1262,11 +1281,23 @@ class _Ranks:
       go through the encoder per rank (_encode), whose whole output each
       rank's cross-attention reads.
 
+    - The engines' decode (block tables, row slots, or a slot pool's
+      whole_rows; serve/scheduler.py): every rank takes every row of the
+      step (`whole_rows`), since the engine keeps one scheduler, one set
+      of tables and one pool, and a step is padded to whole 128-row
+      tiles, so splitting its few rows over dp would save nothing: a dp
+      rank repeats its tp group's work. The MoE dispatch alone splits
+      the rows over dp where they divide, as the JAX package's
+      shard_map does (models/moe.py). The paged pools hold the rank's
+      KV heads (init_paged_cache) under either plan.kv_cache: the JAX
+      package's paged branch runs before its layout's.
+
     At tp 1 every product is the one-device forward's (row tiles
     included), so a 1 x 1 mesh computes the one-device step's values."""
 
     def __init__(self, cfg: ModelConfig, env: Env, S: int):
         self.cfg, self.env = cfg, env
+        self.whole_rows = False
         self.tp_axis, self.tp = env.tp_axis, env.tp
         self.sp = out_dims(env, S)[1] is not None
         self.specs = param_specs(cfg, env)
@@ -1354,23 +1385,14 @@ class _Ranks:
         h = L.silu(L.linear(x, p["w_gate"])) * L.linear(x, p["w_up"])
         return self.row(h, p["w_down"], self.ff_split)
 
+    @property
+    def tp_rank(self) -> int:
+        return C.axis_rank(self.env, self.tp_axis) if self.tp > 1 else 0
+
     def kv_index(self, hkv: int):
-        """Which of hkv KV heads this rank's query heads read: rank r holds
-        query heads r*hq_local ... and query head h reads KV head h // G
-        (G = padded heads / Hkv). A slice (a whole group, or a part of
-        one, keeps the grouping), or, where the rank's heads straddle
-        groups unevenly, a list: each query head its own KV head."""
-        hq_local = head_pad(self.cfg, self.env) // self.tp
-        if not self.heads_split:
-            return slice(0, hkv)
-        G = hq_local * self.tp // hkv
-        r = C.axis_rank(self.env, self.tp_axis)
-        idx = [(r * hq_local + i) // G for i in range(hq_local)]
-        lo, n = idx[0], idx[-1] + 1 - idx[0]
-        if hq_local % n == 0 and idx == [lo + i // (hq_local // n)
-                                        for i in range(hq_local)]:
-            return slice(lo, lo + n)
-        return idx
+        """Which of hkv KV heads this rank's query heads read
+        (models/env.py kv_index)."""
+        return kv_index(self.cfg, self.env, self.tp_rank, hkv)
 
     def local_kv(self, k, v, dim: int = 2):
         """The KV heads (dim) of k / v that this rank's query heads read
@@ -1383,8 +1405,7 @@ class _Ranks:
         return k.index_select(dim, sel), v.index_select(dim, sel)
 
     def n_kv_local(self) -> int:
-        sel = self.kv_index(kv_head_pad(self.cfg, self.env))
-        return (sel.stop - sel.start) if isinstance(sel, slice) else len(sel)
+        return kv_heads_local(self.cfg, self.env, self.tp_rank)
 
 
 @functools.lru_cache(maxsize=8)
@@ -1483,7 +1504,8 @@ def _train(params, tokens, cfg: ModelConfig, env: Env, vision_embeds=None,
 
 def forward(params, tokens, cfg: ModelConfig, env: Env, mode: str = "decode",
             caches=None, cur_len=None, block_tables=None, row_slots=None,
-            last_only: bool = False, vision_embeds=None, frames=None):
+            last_only: bool = False, vision_embeds=None, frames=None,
+            whole_rows: bool = False):
     """mode="prefill": tokens [B,S] (whole prompts); returns (logits
     [B,S,Vpad] bf16 — [B,Vpad] of the last position with last_only —,
     caches in the init_cache layout at the prompt's length: attention k/v
@@ -1522,10 +1544,14 @@ def forward(params, tokens, cfg: ModelConfig, env: Env, mode: str = "decode",
     (_Ranks): params are the rank's shards (bridge.rank_shards, or
     parallel/rules.py apply_shardings), tokens and the stubs its rows,
     the logits its vocabulary columns and the caches its own
-    (init_cache, grow_caches; a contiguous cache: block tables and row
-    slots, the engines' pools, raise NotImplementedError there). Decode under the seq_sharded
-    layout takes one cur_len for every row (the one-shot's uniform
-    batch)."""
+    (init_cache, grow_caches, init_paged_cache). The one-shot's decode
+    takes the rank's rows; the engines' decode (block tables, row slots,
+    or whole_rows: a slot pool's step) takes every row on every rank
+    (_Ranks.whole_rows). Block tables read the rank's KV heads under
+    either layout. Decode under the seq_sharded layout takes one cur_len
+    for every row (the one-shot's uniform batch); row slots under it
+    (the slot pool under seq_sharded) raise NotImplementedError
+    (ROADMAP item 12.2)."""
     check_supported(cfg)
     per_rank = sharded(cfg, env)
     if mode == "prefill":
@@ -1542,12 +1568,16 @@ def forward(params, tokens, cfg: ModelConfig, env: Env, mode: str = "decode",
     cl = torch.as_tensor(cur_len, device=tokens.device).long()
     rk = None
     if per_rank:
-        if block_tables is not None or row_slots is not None:
-            raise NotImplementedError(
-                "decode over a mesh reads a contiguous cache: the engines' "
-                "pools (block tables, row slots) over a mesh are ROADMAP "
-                "item 12")
         rk = _Ranks(cfg, env, 1)
+        if rk.kv_seq and row_slots is not None:
+            raise NotImplementedError(
+                "row slots under the seq_sharded layout (the slot pool "
+                "under a seq_sharded plan) over a mesh are ROADMAP item "
+                "12.2")
+        rk.whole_rows = (whole_rows or block_tables is not None
+                         or row_slots is not None)
+        if block_tables is not None:
+            rk.kv_seq = False  # the paged pools: the rank's KV heads
         if rk.kv_seq and cl.ndim:
             raise ValueError("decode under the seq_sharded layout takes one "
                              "cur_len for every row")

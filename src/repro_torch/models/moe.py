@@ -15,7 +15,11 @@ shard_map body, per rank) in one of two modes (plan.resolve_moe):
         and back ([E, cap, d] -> [E/tp, tp*cap, d] -> [E, cap, d]);
   "tp": every expert's ff columns sharded over the tp axis; the tp ranks
         dispatch the same tokens and sum the down projection's shares.
-The capacity is the local dispatch's, as in the reference. The aux loss
+The capacity is the local dispatch's, as in the reference. An engine's
+step (whole_rows: every rank holds every row, models/model.py _Ranks)
+takes the rows the reference's shard_map gives a rank: its dp chunk
+where the rows divide over dp, every row otherwise; the chunks' outputs
+are gathered back over dp. The aux loss
 is the mean of the ranks' own (the reference returns device 0's:
 ROADMAP.md section 3).
 
@@ -194,7 +198,7 @@ def _gather_fsdp(p, cfg: ModelConfig, env: Env) -> dict:
 
 
 def moe_layer(p, x, cfg: ModelConfig, env: Env = None, *,
-              seq_sharded: bool = False):
+              seq_sharded: bool = False, whole_rows: bool = False):
     """x: [B, S, d], every token of it dispatched. Returns (y, aux_loss).
 
     Over a DeviceMesh (env.mesh): p is this rank's shards of the layer's
@@ -202,9 +206,15 @@ def moe_layer(p, x, cfg: ModelConfig, env: Env = None, *,
     every position, or [B/dp, S/tp, d], its positions, with seq_sharded
     (the sharded forward's sequence-parallel residual); y comes back in
     x's layout, and aux is the mean over the mesh's ranks of each one's
-    own dispatch's."""
+    own dispatch's. whole_rows: x is every row on every rank (an
+    engine's step), dispatched by dp chunks where B divides over dp."""
     if env is not None and env.mesh is not None:
-        return _moe_ranks(p, x, cfg, env, seq_sharded)
+        dpx = env.dpx if whole_rows and env.dp > 1 and \
+            x.shape[0] % env.dp == 0 else ()
+        for axis in dpx:  # major first, as gather undoes it
+            x = C.split(x, env, axis, 0)
+        y, aux = _moe_ranks(p, x, cfg, env, seq_sharded)
+        return (C.gather(y, env, dpx, 0) if dpx else y), aux
     m = cfg.moe
     E, k, cf = m.num_experts, m.top_k, m.capacity_factor
     B, S, d = x.shape

@@ -19,7 +19,10 @@ over the axis' ranks. That fixes every mirror:
   loss_mean       the loss's mesh_mean       | 1 / ranks (each rank seeds 1)
 
 Serving (prefill and decode per rank) runs the same calls outside
-autograd, and adds the vocabulary-parallel greedy pick (vocab_argmax).
+autograd, and adds the vocabulary-parallel greedy pick (vocab_argmax),
+the gather of a step's vocabulary columns for the sampler
+(vocab_gather) and the engines' check that every rank picked the same
+tokens (same_on_every_rank).
 
 so a replicated value feeding a column-sharded product needs no identity
 with an all-reduce behind it (Megatron's f): its partial gradients are
@@ -264,3 +267,25 @@ def vocab_argmax(logits, env: Env, vocab_size: int):
     idxs = _all_gather(idx[None], _group(env, tp), n, 0)
     best = torch.argmax(vals, dim=0)  # the first rank among equal maxima
     return torch.gather(idxs, 0, best[None])[0]
+
+
+@torch.no_grad()
+def vocab_gather(logits, env: Env):
+    """Vocabulary-parallel logits [..., V / tp] (this rank's columns of
+    the padded vocabulary) gathered whole, [..., V], on every rank
+    (contiguous, as the kernels' wrappers take their rows)."""
+    if env.tp_axis is None:
+        return logits
+    return _all_gather(logits, _group(env, env.tp_axis),
+                       axis_size(env, env.tp_axis),
+                       logits.dim() - 1).contiguous()
+
+
+@torch.no_grad()
+def same_on_every_rank(x, env: Env) -> bool:
+    """Whether the integer tensor x is the same on every rank of the
+    mesh: one max-reduction of (x, -x) over its axes (the max and the
+    negated min), so every rank gets the same answer."""
+    both = torch.stack([x.long(), -x.long()])
+    top = all_reduce_max(both, env, env.axis_names)
+    return bool(torch.equal(top[0], -top[1]))

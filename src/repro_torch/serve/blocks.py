@@ -57,6 +57,14 @@ resumes where it stopped with nothing recomputed. One host pool may serve
 a whole fleet (serve/router.py), so a request drained off one replica
 resumes on another.
 
+Over a DeviceMesh (an engine built with `mesh=`) the manager is the
+rank's: the host side (tables, refcounts, reservations, the prefix index)
+is the same on every rank, and the pool holds every block with the KV
+heads the rank's query heads read and state rows of its channels or
+heads (Mo.init_paged_cache); a classic insert scatters the rank's
+prefill cache, which holds the same heads and channels. The host swap
+tier over a mesh is ROADMAP item 12.2 (serve/kv.py refuses it).
+
 Left out of the port so far: the int8 pool for window or recurrent archs.
 """
 from __future__ import annotations

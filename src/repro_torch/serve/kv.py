@@ -37,6 +37,13 @@ to a HostSwapPool and evicts it; re-admission calls swap_in(rid), which
 scatters them into fresh blocks, and decoding resumes where it stopped.
 The slot pool has no host tier: its swap_out returns False and the engine
 restart-preempts.
+
+Over a DeviceMesh (an engine built with `mesh=`, serve/scheduler.py)
+every backend is per rank: the same host bookkeeping on every rank
+(tables, slots, reservations, the prefix index), and a device cache of
+the rank's KV heads and state channels (models/model.py
+init_paged_cache, init_cache). The host swap tier over a mesh is not
+ported yet (ROADMAP item 12.2: HostSwapPool would copy per rank).
 """
 from __future__ import annotations
 
@@ -46,7 +53,7 @@ from typing import (Any, Dict, List, Optional, Protocol,
 import numpy as np
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.env import Env
+from repro_torch.models.env import Env, sharded
 
 Pytree = Any
 
@@ -161,11 +168,17 @@ def make_kv_backend(kind: str, cfg: ModelConfig, env: Env, *, num_slots: int,
     swap=True attaches a host swap tier (serve/blocks.py HostSwapPool):
     pass a prebuilt `swap_pool` to share one across a fleet's replicas
     (ReplicaSet does), else a private pool is made with
-    `swap_budget_blocks` capacity (None = unbounded)."""
+    `swap_budget_blocks` capacity (None = unbounded). Over a DeviceMesh
+    (env.mesh) the rank's backend; swap=True raises NotImplementedError
+    there (ROADMAP item 12.2)."""
     from repro_torch.serve.blocks import (BlockManager, HostSwapPool,
                                           QuantBlockManager)
     from repro_torch.serve.slots import SlotPool
 
+    if swap and sharded(cfg, env):
+        raise NotImplementedError(
+            "the host swap tier over a mesh (HostSwapPool copies per rank) "
+            "is ROADMAP item 12.2")
     if swap and swap_pool is None:
         swap_pool = HostSwapPool(swap_budget_blocks)
     elif not swap:

@@ -178,10 +178,13 @@ class ReplicaSet:
         """`replica_kw` is forwarded to every ReplicaEngine (num_slots,
         prompt_len, max_gen, kv, block_size, kv_blocks, prefix_cache,
         max_shared_fraction, prefill_chunk, spec, spec_k, swap,
-        swap_budget_blocks, device) — each replica builds its own drafter,
-        but swap=True builds ONE HostSwapPool shared fleet-wide — and
-        kv_blocks is PER REPLICA: a fleet at an equal total KV budget to a
-        single engine passes total/N here."""
+        swap_budget_blocks, plan, mesh, device) — each replica builds its
+        own drafter, but swap=True builds ONE HostSwapPool shared
+        fleet-wide — and kv_blocks is PER REPLICA: a fleet at an equal
+        total KV budget to a single engine passes total/N here. With
+        mesh= (a DeviceMesh) every replica runs over that mesh, per rank
+        (serve/scheduler.py), cut from the whole params given here; every
+        rank of the mesh builds the same fleet and routes alike."""
         if replicas < 1:
             raise ValueError(f"need at least one replica, got {replicas}")
         if drain_mode not in ("finish", "preempt"):
@@ -524,7 +527,9 @@ def make_serving_engine(cfg, params, *, replicas: int = 1,
                         routing="occupancy", drain_mode: str = "finish",
                         policy=None, clock=None, **replica_kw):
     """One constructor for both data planes: a plain ServingEngine when
-    replicas == 1 (the zero-router path), a Router + ReplicaSet beyond."""
+    replicas == 1 (the zero-router path), a Router + ReplicaSet beyond.
+    replica_kw takes the JAX package's plan= and mesh= too (the engines
+    over a mesh, serve/scheduler.py)."""
     if replicas == 1:
         return ServingEngine(cfg, params, policy=policy, clock=clock,
                              **replica_kw)

@@ -52,6 +52,27 @@ and lane-placement-invariant; speculative serving emits bit for bit what
 non-speculative serving emits, and a swap-resumed request what an
 unpreempted one emits. The clock is injected: tests and the CLI drive a
 ManualClock; nothing here sleeps.
+
+Over a mesh (`mesh=`, a DeviceMesh of a process group's ranks, and
+`plan=`, SERVE_PLAN by default: the JAX package's keywords) every rank of
+the mesh runs the same engine: the whole one-device params are cut to
+the rank's shards once (bridge.rank_shards), and every rank keeps the
+same host state (queue, tables, slots, the prefix index) over a pool of
+its own KV heads and state channels (serve/kv.py). A step's rows are not
+split over the data axes: the engine has one scheduler, one set of
+tables and one pool, a classic admission prefills a batch of 1, and a
+step is padded to 128-row tiles, so splitting its few rows would save
+nothing; every rank runs the whole step and a data rank repeats its tp
+group's work (models/model.py _Ranks.whole_rows; unlike the train step
+and the one-shot, which split rows over dp). The tokens a step downloads
+are the only input of the scheduler, so every rank picks the same ones
+(launch/steps.py: the vocabulary-parallel argmax, or the sampler over
+the columns gathered over tp), and the engine checks that they are the
+same on every rank, stopping the run (RuntimeError) where they are not.
+Speculative decoding and the host swap tier over a mesh raise
+NotImplementedError (ROADMAP item 12.2), as does the slot pool under a
+seq_sharded plan; the paged pools hold the rank's KV heads under either
+layout (the JAX package's paged branch ignores the layout).
 """
 from __future__ import annotations
 
@@ -61,10 +82,12 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch import bridge
+from repro_torch.configs.base import ModelConfig, ParallelPlan
 from repro_torch.core.clock import Clock, ManualClock
 from repro_torch.launch import steps as St
-from repro_torch.models.env import Env
+from repro_torch.models.env import SERVE_PLAN, Env, sharded
+from repro_torch.parallel import collectives as C
 from repro_torch.serve.kv import KVBackend, make_kv_backend
 from repro_torch.serve.metrics import ServingMetrics
 from repro_torch.serve.policy import FIFOPolicy, SchedulerPolicy
@@ -104,16 +127,23 @@ class ReplicaEngine:
                  swap: bool = False,
                  swap_budget_blocks: Optional[int] = None,
                  swap_pool=None,
+                 plan: Optional[ParallelPlan] = None, mesh=None,
                  clock: Optional[Clock] = None,
                  metrics_window_s: float = 10.0,
                  device="cuda"):
         self.cfg = cfg
-        self.params = params
         self.name = name
         self.prompt_len = prompt_len
         self.max_gen = max_gen
         self.clock = clock or ManualClock()
-        self.env = Env()
+        self.env = Env(mesh=mesh, plan=plan or SERVE_PLAN)
+        # per rank over a DeviceMesh: the rank's shards of the params
+        self.per_rank = sharded(cfg, self.env)
+        if self.per_rank and not (spec is None or spec == "off"):
+            raise NotImplementedError(
+                "speculative decoding over a mesh (the model drafter needs "
+                "a draft pool per rank) is ROADMAP item 12.2")
+        self.params = self._local(params)
         self.device = torch.device(device)
         self.pool: KVBackend = make_kv_backend(
             kv, cfg, self.env, num_slots=num_slots, prompt_len=prompt_len,
@@ -169,7 +199,7 @@ class ReplicaEngine:
         self._prefill = St.make_prefill_step(cfg, self.env)
         # classic admissions sample their first token from the prefill
         # logits with the same fused sample math (position 0)
-        self._sample_first = St.make_sample_fn(cfg, prompt_len)
+        self._sample_first = St.make_sample_fn(cfg, prompt_len, self.env)
         self._lanes: List[_Lane] = []
         # device [T] int32: last step's fused sample/argmax
         self._tok_prev = torch.zeros((num_slots,), dtype=torch.int32,
@@ -180,6 +210,19 @@ class ReplicaEngine:
         self.completed: List[Request] = []
         self.decode_steps = 0
         self.draining = False
+
+    def _local(self, params: Pytree) -> Pytree:
+        """The whole one-device params as this replica computes on them:
+        the rank's shards over a mesh, as they are otherwise."""
+        return (bridge.rank_shards(params, self.cfg, self.env)
+                if self.per_rank else params)
+
+    def _agreed(self, tokens) -> None:
+        """Over a mesh, stop the run where the ranks' tokens differ (their
+        schedulers would diverge silently)."""
+        if self.per_rank and not C.same_on_every_rank(tokens, self.env):
+            raise RuntimeError(
+                f"{self.name}: the mesh's ranks picked different tokens")
 
     # -- state -----------------------------------------------------------------
     @property
@@ -263,15 +306,17 @@ class ReplicaEngine:
                                            recompute=req.restarts > 0)
         self.pool.insert(slot, req.rid, caches, req.eff_gen_len)
         if req.sampling.greedy:
-            first = int(torch.argmax(logits[0, :self.cfg.vocab_size]))
+            first_dev = St.greedy(logits, self.cfg, self.env)[:, 0]
         else:
             mi = np.zeros((St.META_I_ROWS, 1), np.int32)
             mf = np.zeros((St.META_F_ROWS, 1), np.float32)
             mi[St.ROW_CUR_LEN, 0] = len(req.prompt) - 1  # -> position 0
             self._fill_sampling(mi, mf, 0, req)
-            first = int(self._sample_first(
+            first_dev = self._sample_first(
                 logits, torch.as_tensor(mi, device=self.device),
-                torch.as_tensor(mf, device=self.device))[0])
+                torch.as_tensor(mf, device=self.device))
+        self._agreed(first_dev)
+        first = int(first_dev[0])
         req.t_first_token = now
         req.tokens.append(first)
         self._fresh[slot] = first
@@ -458,6 +503,7 @@ class ReplicaEngine:
 
         nxt_dev = self.pool.decode(self.params, self._tok_prev, meta_i,
                                    meta_f, row_slots, sample=sample)
+        self._agreed(nxt_dev)
         self._tok_prev = nxt_dev
         nxt = nxt_dev.cpu().numpy()  # the one host transfer per step
         self.decode_steps += 1
@@ -574,13 +620,14 @@ class ReplicaEngine:
         is unreferenced once the replica is idle, so it is returned to the
         free list): those blocks hold K/V computed under the old weights,
         and a later prompt sharing their prefix would attend over them
-        (ROADMAP.md §3)."""
+        (ROADMAP.md §3). Over a mesh the whole params are cut to the
+        rank's shards, as at construction."""
         if self.busy or self._lanes:
             raise RuntimeError(
                 f"{self.name}: set_params with {len(self._inflight)} "
                 "requests in flight — drain first")
         self.pool.drop_prefix_cache()
-        self.params = params
+        self.params = self._local(params)
 
     def snapshot(self, *, queue_depth: Optional[int] = None
                  ) -> Dict[str, float]:
@@ -606,6 +653,7 @@ class ServingEngine:
                  swap_budget_blocks: Optional[int] = None,
                  swap_pool=None,
                  policy: Optional[SchedulerPolicy] = None,
+                 plan: Optional[ParallelPlan] = None, mesh=None,
                  clock: Optional[Clock] = None,
                  metrics_window_s: float = 10.0,
                  device="cuda"):
@@ -616,7 +664,7 @@ class ServingEngine:
             max_shared_fraction=max_shared_fraction,
             prefill_chunk=prefill_chunk, spec=spec, spec_k=spec_k,
             swap=swap, swap_budget_blocks=swap_budget_blocks,
-            swap_pool=swap_pool, clock=clock,
+            swap_pool=swap_pool, plan=plan, mesh=mesh, clock=clock,
             metrics_window_s=metrics_window_s, device=device)
         self.policy: SchedulerPolicy = policy or FIFOPolicy()
         self.queue = RequestQueue()
@@ -629,6 +677,10 @@ class ServingEngine:
     @property
     def params(self):
         return self.replica.params
+
+    @property
+    def env(self):
+        return self.replica.env
 
     @property
     def clock(self):

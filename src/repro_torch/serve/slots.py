@@ -22,6 +22,12 @@ fewer rows than slots (speculative verify rows stacked past the slots; a
 draft model's one row) runs the row-indirected step, which reads each
 row's slot through a one-entry table of the same kernel. The pool has no
 host swap tier: swap_out declines, and the engine restart-preempts.
+
+Over a DeviceMesh (an engine built with `mesh=`) the pool is the rank's:
+every slot (an engine's rows are whole on every rank), the KV heads the
+rank's query heads read and its recurrent channels or heads
+(Mo.init_cache whole_rows=True), under the replicated layout; a
+seq_sharded plan raises NotImplementedError (ROADMAP item 12.2).
 """
 from __future__ import annotations
 
@@ -34,7 +40,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import steps as St
 from repro_torch.models import model as Mo
-from repro_torch.models.env import Env
+from repro_torch.models.env import Env, sharded
 
 Pytree = Any
 
@@ -68,6 +74,10 @@ class SlotPool:
                 f"{cfg.name}: sliding-window ('local') blocks are not "
                 "supported by the slot pool (ring-buffer caches cannot be "
                 "grown after prefill)")
+        if sharded(cfg, env) and env.plan.kv_cache == "seq_sharded":
+            raise NotImplementedError(
+                "the slot pool under a seq_sharded plan over a mesh is "
+                "ROADMAP item 12.2")
         self.cfg = cfg
         self.env = env
         self.device = torch.device(device)
@@ -76,7 +86,8 @@ class SlotPool:
         self.max_gen = max_gen
         self.caches: Pytree = Mo.init_cache(cfg, env, num_slots,
                                             prompt_len + max_gen,
-                                            device=self.device)
+                                            device=self.device,
+                                            whole_rows=True)
         self._slots: List[Optional[SlotInfo]] = [None] * num_slots
         self._free: Deque[int] = deque(range(num_slots))  # O(1) admission
         # two fused-step variants: an all-greedy batch runs the pure-argmax

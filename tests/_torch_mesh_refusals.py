@@ -1,17 +1,22 @@
-"""What the port's model still refuses over a mesh, now that every arch
-computes per rank over one (the modality archs included): axes the plan
-does not name, compute over a shape-only mesh of more than one device,
-and the engines' pools (block tables, row slots) over a DeviceMesh
-(ROADMAP item 12). Shared by the three test files whose gloo children
-hold a DeviceMesh (tests/test_torch_substrates.py, test_torch_sharded.py
-and test_torch_mesh_serving.py).
+"""What the port's model accepts and still refuses over a mesh, now that
+every arch computes per rank over one (the modality archs included) and
+the engines' pools decode over one (ROADMAP item 12): it refuses axes
+the plan does not name, compute over a shape-only mesh of more than one
+device, and row slots under the seq_sharded layout (the slot pool under
+a seq_sharded plan, ROADMAP item 12.2). Shared by the three test files
+whose gloo children hold a DeviceMesh (tests/test_torch_substrates.py,
+test_torch_sharded.py and test_torch_mesh_serving.py).
 
 RANK_CODE runs in a rank child (torch and repro_torch only) with `mesh`,
 a DeviceMesh of ("data", "model") over its ranks, and leaves `refused`:
 per arch "" when init_params over the mesh accepts it, else the
 NotImplementedError's message; per refusal its message, or "" if nothing
-was raised. check() holds the children's `refused` and the shape-only
-mesh's cases in the test process.
+was raised; for block tables and row slots (the engines' pools: the
+paged pool under either layout, the slot pool under the replicated one)
+"" when a decode step over the mesh returns finite logits of its rows
+and, on the rank of a 1 x 1 mesh, the one-device step's logits bit for
+bit. check() holds the children's `refused` and the shape-only mesh's
+cases in the test process.
 """
 import jax
 import jax.numpy as jnp
@@ -46,14 +51,44 @@ for arch in ARCH_IDS:
         refused[arch] = ""
     except NotImplementedError as e:
         refused[arch] = str(e)
-tok = torch.zeros((2, 1), dtype=torch.int32)
-for what, kw in (("block_tables", {"block_tables": {"global": tok}}),
-                 ("row_slots", {"row_slots": tok[:, 0]})):
+from repro_torch import bridge
+from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.models.env import SERVE_PLAN
+cfg = get_smoke("paper-demo")
+params = Mo.init_params(cfg, Env(), seed=0, device="cpu")
+one = make_test_mesh(1, model=1, device_type=mesh.device_type)
+tok = torch.tensor([[5], [7]], dtype=torch.int32)
+
+
+def pool_decode(env, what):
+    # one decode step of two rows over a pool: block tables into a paged
+    # pool, or row slots into a slot pool's contiguous cache
+    p = (bridge.rank_shards(params, cfg, env) if env.mesh is not None
+         else params)
+    if what == "block_tables":
+        caches = Mo.init_paged_cache(cfg, env, 3, 16, device="cpu")
+        kw = {"block_tables": {"global": torch.tensor([[2], [1]],
+                                                      dtype=torch.int32)}}
+    else:
+        caches = Mo.init_cache(cfg, env, 2, 16, device="cpu",
+                               whole_rows=True)
+        kw = {"row_slots": torch.tensor([1, 0], dtype=torch.int32)}
+    return Mo.forward(p, tok, cfg, env, mode="decode", caches=caches,
+                      cur_len=torch.tensor([3, 0]), **kw)[0]
+
+
+for what, plan in (("block_tables", ParallelPlan()),
+                   ("row_slots", SERVE_PLAN),
+                   ("row_slots_seq_sharded", ParallelPlan())):
+    kind = what.split("_seq")[0]
     try:
-        Mo.forward(None, tok, get_smoke("whisper-small"),
-                   Env(plan=ParallelPlan(), mesh=mesh), mode="decode",
-                   cur_len=0, **kw)
-        refused[what] = ""
+        lg = pool_decode(Env(plan=plan, mesh=mesh), kind)
+        ok = lg.shape[0] == 2 and bool(torch.isfinite(lg.float()).all())
+        if one.get_coordinate() is not None:
+            ok = ok and torch.equal(pool_decode(Env(plan=plan, mesh=one),
+                                                kind),
+                                    pool_decode(Env(plan=plan), kind))
+        refused[what] = "" if ok else "differs from one device"
     except NotImplementedError as e:
         refused[what] = str(e)
 try:  # the plan's dp axes leave "data" unnamed
@@ -66,8 +101,10 @@ except ValueError as e:
 
 
 def check(refused_by_rank):
-    """Every rank accepted every arch over its DeviceMesh and refused
-    block tables and row slots (ROADMAP item 12) and an unnamed axis;
+    """Every rank accepted every arch over its DeviceMesh, decoded through
+    block tables and row slots over it (a 1 x 1 mesh the one-device
+    step's logits), and refused row slots under the seq_sharded layout
+    (ROADMAP item 12.2) and an unnamed axis;
     over a shape-only (1, 2) mesh init_params gives the JAX package's
     padded shapes for both modality archs, and their compute raises
     ValueError."""
@@ -75,7 +112,9 @@ def check(refused_by_rank):
     for refused in refused_by_rank:
         assert all(refused[arch] == "" for arch in ARCH_IDS), refused
         for what in ("block_tables", "row_slots"):
-            assert "ROADMAP item 12" in refused[what], refused
+            assert refused[what] == "", refused
+        assert "ROADMAP item 12.2" in refused["row_slots_seq_sharded"], \
+            refused
         assert "neither the plan's dp axes" in refused["extra_axes"]
     wide = Env(plan=ParallelPlan(), mesh=LM.ShapeMesh((1, 2),
                                                       ("data", "model")))

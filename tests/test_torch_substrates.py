@@ -511,9 +511,11 @@ def test_the_model_refuses_a_mesh_of_more_than_one_device(gloo_ranks):
     """What the model still refuses over a mesh (models/env.py
     check_mesh, sharded; models/model.py forward), now that every arch
     computes per rank (ROADMAP item 8.4 closed): over the four gloo
-    ranks' 2x2 DeviceMesh every arch is accepted, and block tables, row
-    slots (ROADMAP item 12) and an axis the plan does not name are
-    refused (tests/_torch_mesh_refusals.py). Over a shape-only mesh every
+    ranks' 2x2 DeviceMesh every arch is accepted, block tables and row
+    slots (the engines' pools, ROADMAP item 12) decode over it (a 1 x 1
+    mesh as one device does), and row slots under seq_sharded (ROADMAP
+    item 12.2) and an axis the plan does not name are refused
+    (tests/_torch_mesh_refusals.py). Over a shape-only mesh every
     arch's init_params gives the whole tree padded for the mesh's tp
     degree, the JAX package's shapes under the same mesh, the modality
     archs' included; computing needs a DeviceMesh's ranks (a shape-only
