@@ -86,7 +86,12 @@ Phases, any failure exits non-zero before the result line:
      counts read after; the partials against the plain version at
      cur_len -1, 0, ragged and S-1, eight slices merged against the whole
      cache, times beside SDPA, and each setting of the op's split knobs
-     (BLOCKS_PER_SM, the bf16 tile) checked and timed; the mask kernel on
+     (BLOCKS_PER_SM, the bf16 tile) checked and timed; #5's per-row form
+     (each row's own cur_len over a row-to-slot map, the slot pool under
+     seq_sharded's decode) at B=8 rows over 8 slots at spread depths,
+     permuted and repeated slots, bf16 and f32: against its plain version
+     and every row bit for bit the scalar form's, timed beside the scalar
+     form and SDPA with its bound from bytes; the mask kernel on
      8 rows of 57857, 65536 and 256000 logits (split over a cluster of
      blocks) and 462849 (a cluster reading device memory) torch.equal to
      the plain version and timed beside it and one torch.sort under phase
@@ -110,14 +115,14 @@ Phases, any failure exits non-zero before the result line:
      time limit): n-gram and model drafters at
      spec_k 4 and auto, greedy and seeded (k 50 / p 0.9), on the paged,
      int8 and slot pools over a repetitive trace (8 requests, prompt 64,
-     gen 32, 8 slots), each bit-identical to --spec off on the same pool
+     gen 16, 8 slots), each bit-identical to --spec off on the same pool
      with the launches of #1 / #3 and #2 counted between the run and its
      verify, and n-gram k 4 at 4 slots bit-identical to the 8-slot runs;
      accepted tokens per step, and wall tokens/s of n-gram k 4 and the
      model drafter against --spec off, three runs each;
  18. the four dense attention archs at full width and depth (random
-     seeded weights; qwen3-32b at 16 of its 64 layers, 18.7 GB of bf16
-     weights, to keep the script within its time limit):
+     seeded weights; qwen3-32b at 8 of its 64 layers, to keep the script
+     within its time limit):
      qwen2-1.5b, granite-3-8b, yi-9b and qwen3-32b (qk-norm) each serve 8
      Poisson requests
      (prompt 64, gen 32, 8 slots, chunked lanes, greedy, block 16, prefix
@@ -130,7 +135,7 @@ Phases, any failure exits non-zero before the result line:
      granite-3-8b at 2 layers, card vs CPU prefill logits (phase 14's
      method);
  19. the two MoE archs at full width and cut depth, grok-1-314b at 4 of
-     64 layers and llama4-scout-17b-a16e at 8 of 48: the same serve
+     64 layers and llama4-scout-17b-a16e at 4 of 48: the same serve
      completes with #1 launched (GQA 6 and 5) and again with bit-identical
      tokens, the tokens dispatched, capacity and drops printed per layer;
      one MoE layer on the first 72-row step's input, card vs CPU (routing
@@ -246,7 +251,7 @@ Phases, any failure exits non-zero before the result line:
      tensors, the (1, 2) mesh a VirtualCluster of two nodes renders: the
      same models against one device (logits within 3e-2 before the first
      differing token, tokens under the near-tie oracle), paper-demo-110m
-     in both layouts, recurrentgemma-9b with 2048 channels and 8 gate
+     at 4 layers and gen 16 in both layouts, recurrentgemma-9b with 2048 channels and 8 gate
      blocks a rank, rwkv6-1.6b with 16 heads a rank at 2 layers (at 24 a
      rounding amplified by the recurrence outgrows any tolerance that
      still tells a fault); #5 merged across
@@ -273,7 +278,7 @@ Phases, any failure exits non-zero before the result line:
      valid) against its plain version, merged over the one-rank group,
      timed beside its plain version, SDPA and its bound. Part (b), two
      processes sharing the card over gloo, the (1, 2) mesh:
-     whisper-small whole and qwen2-vl-7b at 4 layers, gen 8, both
+     whisper-small and qwen2-vl-7b at 4 decoder layers, gen 8, both
      layouts, against one device on the same seeded stubs (logits within
      3e-2 before the first differing token), each rank's decode-cache
      bytes (init_cache on the meta device, cross caches included). Part
@@ -313,13 +318,32 @@ Phases, any failure exits non-zero before the result line:
      layer) with phase 10's tokens; recurrentgemma-9b at 5 layers and
      rwkv6-1.6b at 2 by classic admission equal to the engine without a
      mesh. Part (b), two processes sharing the card over gloo, the (1, 2)
-     mesh a VirtualCluster of two nodes renders: paper-demo-110m and
-     recurrentgemma-9b at 5 layers (8 requests, prompt 64, gen 8), both
-     ranks' tokens equal and equal to the one-shot over the same mesh
-     (streamed where the engine admits by lanes), a rank's paged pool
-     holding 2 of paper-demo-110m's 4 KV heads. Counts zeroed before each
-     mesh run and read after it, the ranks' too: #1, #2, #3, #4, #6 and
-     #7 where expected, #5 never (`mesh_engine_launches`).
+     mesh a VirtualCluster of two nodes renders: paper-demo-110m (4
+     requests) and recurrentgemma-9b at 5 layers (8 requests, classic
+     admission), prompt 64, gen 8, both ranks' tokens equal and equal to
+     the one-shot over the same mesh (streamed where the engine admits by
+     lanes, else the full prefill of every prompt together), a rank's
+     paged pool holding 2 of paper-demo-110m's 4 KV heads. Counts zeroed
+     before each mesh run and read after it, the ranks' too: #1, #2, #3,
+     #4, #6 and #7 where expected, #5 never (`mesh_engine_launches`);
+ 30. ROADMAP item 12.2 over the rendered mesh (budget: 60-90 s). Part
+     (a), one NCCL rank and the 1 x 1 mesh, paper-demo-110m at full
+     width: phase 17's k-4 spec runs at its depth (n-gram on the three
+     pools greedy and seeded, the model drafter greedy on the three and
+     seeded on the paged pool), each bit for bit phase 17's tokens and
+     spec off over the mesh; phase 16's two swap victims, bit for bit
+     phase 16's tokens, nothing recomputed, bytes out = in; phase 10's
+     trace on the slot pool under seq_sharded (#4 a prefill and layer, #5
+     at each row's own depth), bit for bit the seq_sharded one-shot over
+     the same mesh. Part (b), two processes sharing the card over gloo,
+     the (1, 2) mesh: paper-demo-110m at 2 layers (4 requests, prompt 64,
+     gen 8) through n-gram spec (= spec off), a swap victim (= its
+     unpreempted run) and the slot pool under seq_sharded (= the
+     seq_sharded one-shot; #5 merged across the ranks), both ranks
+     equal; a per-rank prefill of 8 prompts against each prompt alone,
+     logits and cache leaves bit for bit (paper-demo-110m at 12 layers,
+     recurrentgemma-9b at 5, both layouts). Counts zeroed before each run
+     and read after it, the ranks' too (`item12_launches`, by part).
 Each phase's wall time is printed as it ends.
 Phase 2 also holds the quant kernel to its plain version and to the bf16
 kernel on the same pool (relative RMS), the flash-attention kernel to its
@@ -431,15 +455,17 @@ MASK_WIDE = tuple(V for T, V in time_mask.SHAPES if T == 8)
 
 
 # the zoo slice (phases 18 and 19): the dense archs' depths are their own
-# but qwen3-32b's, cut to 16 of 64 layers to keep the script within its
+# but qwen3-32b's, cut to 8 of 64 layers to keep the script within its
 # time limit; the MoE archs keep their width and are cut in depth to fit
-# one card
+# one card and the time limit
 ZOO_DENSE = ("qwen2-1.5b", "granite-3-8b", "yi-9b", "qwen3-32b")
-ZOO_DEPTH = {"qwen3-32b": 16}
-ZOO_MOE = (("grok-1-314b", 4), ("llama4-scout-17b-a16e", 8))
-# phase 17's paper-demo-110m depth (its width whole), cut as ZOO_DEPTH;
-# the spec paths' checks do not depend on depth
+ZOO_DEPTH = {"qwen3-32b": 8}
+ZOO_MOE = (("grok-1-314b", 4), ("llama4-scout-17b-a16e", 4))
+# phase 17's paper-demo-110m depth (its width whole), cut as ZOO_DEPTH,
+# and its trace (gen 16 since phase 30 replays its k-4 runs over the mesh);
+# the spec paths' checks do not depend on depth or length
 SPEC_LAYERS = 2
+SPEC_TRACE = ("--trace", "repetitive", "--requests", "8", "--gen", "16")
 # phase 21's paper-demo-110m depth (its width whole), cut as ZOO_DEPTH;
 # the loop's checks do not depend on depth
 ROLLOUT_LAYERS = 4
@@ -1771,6 +1797,117 @@ def check_flash_decode(dev):
     return launches, worst, rows
 
 
+def fd_rows_bound_ms(Hq, Hkv, hd, ns, itemsize):
+    """fd_bound_ms for rows at their own depths: row b reads its n_b valid
+    K/V rows (ns; 0 for a row at -1) once, its q once, and writes its o,
+    m, l; 4 hd operations per (query head, valid key)."""
+    B, n_tok = len(ns), sum(ns)
+    nbytes = (2 * Hkv * n_tok * hd * itemsize + B * Hq * hd * itemsize
+              + B * Hq * (hd + 2) * 4 + 2 * B * 4)
+    flops = 4 * hd * n_tok * Hq
+    rate = BF16_FLOPS if itemsize == 2 else F32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_flash_decode_rows(dev):
+    """Phase 15: kernel #5's per-row form (the slot pool under a
+    seq_sharded plan decodes each row at its own depth over its own
+    slot). FD_SHAPES' heads at B=8 rows over a cache of 8 slots, the rows
+    at spread depths (-1, 0, a ragged one, S/2, S-1, ...) through a
+    permuted row-to-slot map, and again through one with repeated slots
+    (verify rows sharing a slot), in bf16 and f32: against its plain
+    version (FD_TOL; a row at -1 exactly m = -1e30, l = 0, o = 0) and bit
+    for bit the scalar form's row, called on the slots' rows gathered
+    (the same B, so the same split) at that row's depth. Then timed
+    beside the scalar form over the same gathered rows with the cache
+    full and SDPA over them (a boolean mask per row), its bound from the
+    bytes its rows' depths read. Returns (the worst o error, rows for
+    the JSON line)."""
+    import torch
+    from repro_torch.kernels.flash_decode.ops import flash_decode_partials
+    from repro_torch.kernels.flash_decode.ref import (
+        flash_decode_partials_ref)
+
+    gen = torch.Generator(device=dev).manual_seed(151)
+    perm = torch.tensor([3, 7, 0, 5, 1, 6, 2, 4], dtype=torch.int32,
+                        device=dev)
+    shared = torch.tensor([2, 2, 2, 5, 5, 0, 7, 7], dtype=torch.int32,
+                          device=dev)
+    worst, rows = 0.0, []
+    for name, _, Hq, Hkv, hd, S in FD_SHAPES:
+        B = 8
+        depths = [-1, 0, S * 5 // 8 + 3, S // 2, S - 1, 1, S // 3, S - 1]
+        for dtype in (torch.bfloat16, torch.float32):
+            mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(dtype)
+            q, k, v = mk(B, Hq, hd), mk(B, Hkv, S, hd), mk(B, Hkv, S, hd)
+            cur = torch.tensor(depths, dtype=torch.int32, device=dev)
+            tag = (f"{name} B={B} Hq={Hq} Hkv={Hkv} hd={hd} S={S} {dtype} "
+                   f"per-row")
+            for label, slots in (("permuted", perm), ("shared", shared)):
+                o, m, l = flash_decode_partials(q, k, v, cur, slots)
+                ro, rm, rl = flash_decode_partials_ref(q, k, v, cur, slots)
+                torch.cuda.synchronize()
+                live = cur >= 0
+                if (o[~live].any() or l[~live].any()
+                        or not bool((m[~live] == -1e30).all())):
+                    fail(f"flash decode per-row ({tag}, {label}): a row at "
+                         "-1 is not m = -1e30, l = 0, o = 0")
+                errs = (float((o - ro)[live].abs().max()),
+                        float((m - rm)[live].abs().max()),
+                        float(((l - rl)[live].abs() / rl[live]).max()))
+                if not all(math.isfinite(e) and e <= FD_TOL for e in errs):
+                    fail(f"flash decode per-row kernel vs plain ({tag}, "
+                         f"{label}): o {errs[0]}, m {errs[1]}, l relative "
+                         f"{errs[2]}")
+                worst = max(worst, errs[0])
+                kg = k[slots.long()].contiguous()
+                vg = v[slots.long()].contiguous()
+                for b, c in enumerate(depths):
+                    so, sm, sl = flash_decode_partials(
+                        q, kg, vg, torch.tensor([c], dtype=torch.int32,
+                                                device=dev))
+                    if not (torch.equal(so[b], o[b]) and torch.equal(sm[b], m[b])
+                            and torch.equal(sl[b], l[b])):
+                        fail(f"flash decode per-row ({tag}, {label}) row {b} "
+                             f"at {c}: not the scalar form's bits")
+                print(f"flash decode {tag}, {label} slots "
+                      f"{slots.tolist()}, depths {depths}: vs plain o "
+                      f"{errs[0]:.3e}, m {errs[1]:.3e}, l relative "
+                      f"{errs[2]:.3e}; every row bit for bit the scalar "
+                      f"form's")
+            kg, vg = k[perm.long()].contiguous(), v[perm.long()].contiguous()
+            full = torch.tensor([S - 1], dtype=torch.int32, device=dev)
+            amask = (torch.arange(S, device=dev)[None, :]
+                     <= cur.long()[:, None])[:, None, None, :]
+            bound, by = fd_rows_bound_ms(Hq, Hkv, hd,
+                                         [c + 1 for c in depths],
+                                         q.element_size())
+            row = {"shape": tag, "depths": depths,
+                   "ms": device_ms(lambda: flash_decode_partials(
+                       q, k, v, cur, perm)),
+                   "scalar_ms": device_ms(lambda: flash_decode_partials(
+                       q, kg, vg, full)),
+                   "plain_ms": device_ms(lambda: flash_decode_partials_ref(
+                       q, k, v, cur, perm), calls=5, replays=5),
+                   "library_ms": device_ms(
+                       lambda: torch.nn.functional.scaled_dot_product_attention(
+                           q[:, :, None, :], kg, vg, attn_mask=amask,
+                           enable_gqa=True)),
+                   "bound_ms": bound, "bound_by": by,
+                   "max_abs_err": errs[0]}
+            print(f"  {row['ms'] * 1e3} us per-row kernel, "
+                  f"{row['scalar_ms'] * 1e3} us scalar form (cache full), "
+                  f"{row['plain_ms'] * 1e3} us plain, "
+                  f"{row['library_ms'] * 1e3} us SDPA (masked), bound "
+                  f"{bound * 1e3} us ({by}), {bound / row['ms']:.4f} of "
+                  f"the bound")
+            rows.append(row)
+            del q, k, v, kg, vg
+            torch.cuda.empty_cache()
+    return worst, rows
+
+
 def check_wide_mask(dev):
     """Phase 15: the mask kernel on 8 rows wider than one block's shared
     memory (a cluster of blocks a row, each staging its share; past the
@@ -1866,13 +2003,16 @@ def _timed(obj, name, acc):
     setattr(obj, name, timed)
 
 
-def swap_victim(cfg, params, kv, prompt_len, counted, label):
+def swap_victim(cfg, params, kv, prompt_len, counted, label, mesh=None,
+                gen=32, tokens=None):
     """An EDF-preemptive engine with one slot: a seeded (k 50 / p 0.9)
-    deadline-free victim of 32 tokens is preempted at t = 0.12 s by an
+    deadline-free victim of `gen` tokens is preempted at t = 0.12 s by an
     urgent 4-token request (deadline 0.4 s), swapped out to the host tier
     and swapped back in. Its tokens must equal an unpreempted run's, with
-    nothing recomputed and the bytes out equal to the bytes in. Returns
-    the launches of `counted` in the swap run."""
+    nothing recomputed and the bytes out equal to the bytes in. Over
+    `mesh` (a DeviceMesh) both engines run per rank. Returns the launches
+    of `counted` in the swap run; with tokens=[] the run's tokens are
+    appended to it (the victim's, then the urgent request's)."""
     import numpy as np
     import torch
     from repro_torch.core.clock import ManualClock
@@ -1884,12 +2024,12 @@ def swap_victim(cfg, params, kv, prompt_len, counted, label):
                            dtype=np.int32)
     sp = SamplingParams(temperature=0.8, top_k=50, top_p=0.9, seed=7)
     reqs = lambda: [
-        Request(rid=0, prompt=prompts[0], gen_len=32, sampling=sp),
+        Request(rid=0, prompt=prompts[0], gen_len=gen, sampling=sp),
         Request(rid=1, prompt=prompts[1], gen_len=4, arrival_t=0.12,
                 deadline_s=0.4)]
     mk = lambda **kw: ServingEngine(
-        cfg, params, num_slots=1, prompt_len=prompt_len, max_gen=32, kv=kv,
-        block_size=16, clock=ManualClock(), device="cuda", **kw)
+        cfg, params, num_slots=1, prompt_len=prompt_len, max_gen=gen, kv=kv,
+        block_size=16, clock=ManualClock(), device="cuda", mesh=mesh, **kw)
     solo = run_to_completion(mk(), reqs()[:1], dt=0.05)
     for op in counted:
         op.launches = 0
@@ -1913,6 +2053,8 @@ def swap_victim(cfg, params, kv, prompt_len, counted, label):
              f"{pm['swap_out_bytes']} bytes out and {pm['swap_in_bytes']} "
              "in")
     eng.pool.release()
+    if tokens is not None:
+        tokens += [out[0], out[1]]
     print(f"{label}: victim swapped out and resumed, tokens equal the "
           f"unpreempted run's, recomputed 0; {pm['swapped_blocks']:.0f} "
           f"blocks, {pm['swap_out_bytes']:.0f} bytes out = "
@@ -1922,14 +2064,16 @@ def swap_victim(cfg, params, kv, prompt_len, counted, label):
     return launches
 
 
-def check_swap_tier(cfg, params, counted):
+def check_swap_tier(cfg, params, counted, victims=None):
     """Phase 16: the host swap tier at full width. The EDF victim on the
     bf16 and the int8 pools of paper-demo-110m; the autoscaled int8 fleet
     of phase 7 with --drain preempt --swap on (tokens equal one engine's,
     nothing recomputed, every pool released with its leak checks, the
     shared host pool empty); recurrentgemma-9b at full width and phase
     14's cut depth (5 layers, prompt 160: the flash branch), one swap of
-    its ring blocks and state rows. Returns launches by kernel name."""
+    its ring blocks and state rows. Returns launches by kernel name;
+    `victims` (a dict) gets paper-demo-110m's victims' tokens by pool
+    (phase 30's oracle)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import run_trace, verify
@@ -1938,8 +2082,11 @@ def check_swap_tier(cfg, params, counted):
 
     launches = {}
     for kv in ("paged", "quant"):
+        toks = []
         got = swap_victim(cfg, params, kv, 64, counted,
-                          f"swap tier, {cfg.name} {kv} pool")
+                          f"swap tier, {cfg.name} {kv} pool", tokens=toks)
+        if victims is not None:
+            victims[kv] = toks
         for n, c in got.items():
             launches[n] = launches.get(n, 0) + c
     fargs = serve_args(["--trace", "burst", "--kv", "quant", "--replicas",
@@ -1989,19 +2136,21 @@ def check_swap_tier(cfg, params, counted):
     return launches
 
 
-def check_spec(cfg, params, counted):
+def check_spec(cfg, params, counted, tokens=None):
     """Phase 17: speculative decoding at full width. n-gram and model
     drafters at spec_k 4 and auto, greedy and seeded (k 50 / p 0.9), on
-    the paged, int8 and slot pools, over a repetitive trace (8 requests,
-    prompt 64, gen 32, 8 slots): every run's tokens bit-identical to
+    the paged, int8 and slot pools, over SPEC_TRACE (8 requests, prompt
+    64, gen 16, 8 slots): every run's tokens bit-identical to
     --spec off on the same pool, launches read between the run and its
     verify, and n-gram k 4 at 4 slots equal to them. Then wall tokens/s
     of n-gram k 4 and of the model drafter against --spec off on the
-    paged pool, three runs each. Returns the launches by kernel name."""
+    paged pool, three runs each. Returns the launches by kernel name;
+    `tokens` (a dict) gets each k-4 run's tokens by (pool, drafter,
+    seeded) (phase 30's oracle)."""
     import statistics
     from repro_torch.launch.serve import serve, verify
 
-    base = ["--trace", "repetitive", "--requests", "8"]
+    base = list(SPEC_TRACE)
     seeded = ["--temperature", "0.8", "--top-k", "50", "--top-p", "0.9",
               "--sample-seed", "7"]
     launches = {}
@@ -2030,6 +2179,8 @@ def check_spec(cfg, params, counted):
                     if not ok:
                         fail(f"spec {drafter} k={k} {kv}: {line}")
                     outs.append(run["out"])
+                    if tokens is not None and k == "4":
+                        tokens[(kv, drafter, bool(samp))] = run["out"]
                     snap = run["engine"].snapshot()
                     print(f"spec {drafter} k={k} {kv} "
                           f"{'seeded' if samp else 'greedy'}: accepted/step "
@@ -3582,8 +3733,9 @@ MESH_CASES = (("paper-demo", None, 8, 256, 32),
 # 0.34-0.37 at logits up to 5.1 at 2, 6, 12 and 24 layers; the card at 24
 # layers and 256 tokens 0.25 of the largest logit), which no tolerance
 # tells from a fault; at 2 layers a wrong head, gather or sum still moves
-# every logit
-MESH_B_CASES = (("paper-demo", None, 8, 256, 32),
+# every logit. paper-demo-110m at 4 of its 12 layers and gen 16 (the
+# script's time: every collective of gloo a host round trip)
+MESH_B_CASES = (("paper-demo", 4, 8, 256, 16),
                 ("rwkv6-1.6b", 2, 8, 256, 16),
                 ("recurrentgemma-9b", 5, 8, 256, 16))
 # the (1, 2) mesh (two processes sharing the card over gloo) and the
@@ -4134,9 +4286,9 @@ MODALITY_MESH = (("qwen2-vl-7b", None, 4, 128, 16),
                  ("whisper-small", None, 8, 512, 16))
 # ... and part (b)'s over the (1, 2) gloo mesh, gen 8 (the script's time:
 # every collective of gloo a host round trip): qwen2-vl-7b at full width
-# cut to 4 of its 28 layers, whisper-small whole
+# cut to 4 of its 28 layers, whisper-small to 4 of its 12 decoder layers
 MODALITY_MESH_B = (("qwen2-vl-7b", 4, 4, 128, 8),
-                   ("whisper-small", None, 8, 512, 8))
+                   ("whisper-small", 4, 8, 512, 8))
 MODALITY_TRAIN = ("whisper-small", 3)  # part (c): arch, sharded steps
 
 
@@ -4869,15 +5021,13 @@ def check_dryrun(counted, dev):
 MESH_ENGINE_RECURRENT = (("recurrentgemma-9b", 5, 8, 64, 16, 4),
                          ("rwkv6-1.6b", 2, 8, 64, 16, 4))
 # part (b)'s (1, 2) mesh: (arch, layers, requests, prompt, gen, slots).
-# Its classic admission (recurrentgemma-9b) is held to the one-shot one
-# prompt at a time: a batch-1 prefill, as the engine's. Over tp > 1 a
-# per-rank prefill of B rows need not give a row the bits of a batch-1
-# prefill on the card (a first form of this phase at 8 requests found
-# the engine's tokens unequal to the B=8 one-shot's over the same mesh;
-# on the CPU they are equal), so the phase prints how many tokens of the
-# batched one-shot differ beside it
+# Its classic admission (recurrentgemma-9b's batch-1 prefills) is held to
+# the full-prefill one-shot of all 8 prompts over the same mesh: the
+# per-rank prefill pads each sequence to whole row tiles at every tp
+# degree (models/model.py _Ranks), so a prompt's rows do not depend on
+# the batch around it (phase 30 (b) checks the rows themselves)
 MESH_ENGINE_B = (("paper-demo", None, 4, 64, 8, 4),
-                 ("recurrentgemma-9b", 5, 4, 64, 8, 4))
+                 ("recurrentgemma-9b", 5, 8, 64, 8, 4))
 
 
 def layer_kinds(cfg):
@@ -4897,9 +5047,9 @@ def mesh_engine_rank(rank, store, out):
     two nodes renders. Each MESH_ENGINE_B model served through a
     ServingEngine over that mesh (counts zeroed before, read after), then
     the one-shot over the same mesh on the same prompts: streamed where
-    the engine admits by lanes, else by full prefill one prompt at a
-    time (the engine's batch-1 prefill) and all together. Every rank
-    writes its tokens, the one-shots', its launch counts, its pool's KV
+    the engine admits by lanes, else by full prefill of them all. Every
+    rank
+    writes its tokens, the one-shot's, its launch counts, its pool's KV
     heads and the wall times (out.<rank>.json)."""
     import numpy as np
     import torch
@@ -4939,11 +5089,9 @@ def mesh_engine_rank(rank, store, out):
         prompts = np.stack([r.prompt for r in trace])
         kw = dict(streamed_prefill=streamed, mesh=mesh)
         base = serve_batch(cfg, params, prompts, gen, **kw)
-        one = base if streamed else np.concatenate([
-            serve_batch(cfg, params, p[None], gen, **kw) for p in prompts])
         rep["cases"][arch] = {
-            "tokens": [res[r.rid] for r in trace], "oneshot": one.tolist(),
-            "batched": base.tolist(), "streamed": streamed,
+            "tokens": [res[r.rid] for r in trace], "oneshot": base.tolist(),
+            "streamed": streamed,
             "launches": launches, "wall_s": run["wall_s"],
             "kv_heads": None if k is None else int(k.shape[2])}
         del engine, params
@@ -4967,9 +5115,11 @@ def check_mesh_engines(counted, phase3, phase10):
     (`phase10`); recurrentgemma-9b at 5 layers and rwkv6-1.6b at 2 by
     classic admission, equal to the same engine without a mesh. Part
     (b), two processes sharing the card over gloo and the (1, 2) mesh
-    (mesh_engine_rank): paper-demo-110m and recurrentgemma-9b at 2
-    layers, both ranks' tokens equal and equal to the one-shot over the
-    same mesh, each rank's pool holding 2 of the 4 KV heads. Counts
+    (mesh_engine_rank): paper-demo-110m (4 requests) and
+    recurrentgemma-9b at 5 layers (8, classic), both ranks' tokens equal
+    and equal to the one-shot over the same mesh (the batched full
+    prefill for classic admission), each rank's pool holding 2 of the 4
+    KV heads. Counts
     zeroed before each mesh run and read after it, the ranks' too;
     #5 never launches. Returns {kernel: launches}."""
     import shutil
@@ -5165,11 +5315,8 @@ def check_mesh_engines(counted, phase3, phase10):
                                             for x in cases):
             fail(f"phase 29 (b): a rank's pool holds "
                  f"{[x['kv_heads'] for x in cases]} KV heads")
-        parted = sum(a != b for x, y in zip(c["batched"], c["tokens"])
-                     for a, b in zip(x, y))
         oracle = ("the streamed one-shot" if c["streamed"] else
-                  f"the one-shot one prompt at a time (the batched one: "
-                  f"{parted} of {n * gen} tokens differ)")
+                  f"the full-prefill one-shot of all {n} prompts")
         print(f"(b) {mesh_cfg(arch, layers).name} over the (1, 2) gloo mesh "
               f"(two processes on the card): both ranks' tokens equal, and "
               f"equal {oracle} over the same mesh; a rank's pool holds "
@@ -5182,6 +5329,333 @@ def check_mesh_engines(counted, phase3, phase10):
           f"mesh engines phase: {time.perf_counter() - t0:.1f}s; kernel "
           f"launches {launches}")
     return launches
+
+
+# phase 30: ROADMAP item 12.2 over the rendered mesh. Part (b)'s model over
+# the (1, 2) gloo mesh: (arch, layers, requests, prompt, gen)
+ITEM12_B = ("paper-demo", 2, 4, 64, 8)
+# ... and the archs whose per-rank prefill of one prompt alone and inside
+# a batch of 8 must give the same bits over (1, 2): (arch, layers)
+ITEM12_LEAD = (("paper-demo", None), ("recurrentgemma-9b", 5))
+
+
+def kernel_name(op):
+    """The JSON line's name of a counted op (#5's wrapper is
+    flash_decode_partials)."""
+    return ("flash_decode" if op.__name__ == "flash_decode_partials"
+            else op.__name__)
+
+
+def seq_plan():
+    """SERVE_PLAN with the KV cache split over tp along the positions."""
+    from repro_torch.models.env import SERVE_PLAN
+    return dataclasses.replace(SERVE_PLAN, kv_cache="seq_sharded")
+
+
+def item12_rank(rank, store, out):
+    """Part (b) of phase 30, one of two processes sharing the card: a gloo
+    group with CUDA tensors and the (1, 2) DeviceMesh a VirtualCluster of
+    two nodes renders. ITEM12_B's model through n-gram speculation (and
+    spec off), a swap victim (swap_victim over the mesh: its own checks),
+    the slot pool under seq_sharded (and the full-prefill one-shot over
+    the mesh in that layout), counts zeroed before each and read after;
+    then each ITEM12_LEAD arch's per-rank prefill of 8 prompts against
+    each prompt alone, logits and cache leaves, in both layouts. Every
+    rank writes its tokens, counts and the unequal rows (out.<rank>.json)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import bridge
+    from repro_torch.core import VirtualCluster
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_decode.ops import flash_decode_partials
+    from repro_torch.kernels.paged_decode.ops import (
+        paged_flash_decode, paged_flash_decode_quant)
+    from repro_torch.kernels.rglru.ops import rglru_scan
+    from repro_torch.kernels.rwkv6.ops import wkv6
+    from repro_torch.kernels.sampling.ops import topk_topp_mask
+    from repro_torch.launch.serve import serve, serve_batch
+    from repro_torch.models import model as Mo
+    from repro_torch.models.env import SERVE_PLAN, Env
+
+    counted = (paged_flash_decode, paged_flash_decode_quant, topk_topp_mask,
+               flash_attention, rglru_scan, wkv6, flash_decode_partials)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="file://" + store, rank=rank,
+                            world_size=2)
+    mesh = VirtualCluster(n_compute=2, devices_per_node=1,
+                          device="cuda").rendering.mesh
+    rep = {"mesh": list(mesh.shape), "cases": {}, "lead": {}}
+    arch, layers, n, S, gen = ITEM12_B
+    cfg = mesh_cfg(arch, layers)
+    params = Mo.init_params(cfg, Env(), seed=0, device="cuda")
+    base = ["--requests", str(n), "--prompt-len", str(S), "--gen", str(gen),
+            "--slots", "4"]
+
+    def counts():
+        return {kernel_name(op): op.launches for op in counted}
+
+    def zero():
+        for op in counted:
+            op.launches = 0
+
+    order = lambda res: [res[r] for r in sorted(res)]
+    rep_args = serve_args(base + ["--trace", "repetitive", "--spec",
+                                  "ngram"])
+    zero()
+    t0 = time.perf_counter()
+    run = serve(rep_args, cfg, params, mesh)
+    got = counts()
+    rep["cases"]["spec"] = {
+        "tokens": order(run["out"]), "launches": got,
+        "wall_s": time.perf_counter() - t0,
+        "accepted_per_step": run["engine"].snapshot()["accepted_per_step"],
+        "off": order(serve(serve_args(base + ["--trace", "repetitive"]),
+                           cfg, params, mesh)["out"])}
+    toks = []
+    got = swap_victim(cfg, params, "paged", S, counted,
+                      f"(b) rank {rank}: swap victim over (1, 2)", mesh=mesh,
+                      gen=gen, tokens=toks)
+    rep["cases"]["swap"] = {"tokens": toks, "launches": {
+        ("flash_decode" if k == "flash_decode_partials" else k): v
+        for k, v in got.items()}}
+    sl_args = serve_args(base + ["--kv", "slot"])
+    zero()
+    t0 = time.perf_counter()
+    run = serve(sl_args, cfg, params, mesh, plan=seq_plan())
+    got = counts()
+    prompts = np.stack([r.prompt for r in run["trace"]])
+    rep["cases"]["slotseq"] = {
+        "tokens": order(run["out"]), "launches": got,
+        "wall_s": time.perf_counter() - t0,
+        "positions": int(run["engine"].pool.caches["blocks"][0]["k"]
+                         .shape[3]),
+        "oneshot": serve_batch(cfg, params, prompts, gen,
+                               streamed_prefill=False, mesh=mesh,
+                               plan=seq_plan()).tolist()}
+    del params
+    for arch, layers in ITEM12_LEAD:
+        lcfg = mesh_cfg(arch, layers)
+        lparams = Mo.init_params(lcfg, Env(), seed=0, device="cuda")
+        tok = torch.as_tensor(np.random.default_rng(1).integers(
+            0, lcfg.vocab_size, (8, S), dtype=np.int32), device="cuda")
+        for plan in (SERVE_PLAN, seq_plan()):
+            env = Env(mesh=mesh, plan=plan)
+            p = bridge.rank_shards(lparams, lcfg, env)
+            lb, cb = Mo.forward(p, tok, lcfg, env, mode="prefill")
+            rows = leaves = 0
+            for i in range(8):
+                l1, c1 = Mo.forward(p, tok[i:i + 1], lcfg, env,
+                                    mode="prefill")
+                rows += int(not torch.equal(l1[0], lb[i]))
+                leaves += sum(int(not torch.equal(a[:, 0], b[:, i]))
+                              for a, b in zip(Mo._all_views(c1),
+                                              Mo._all_views(cb)))
+            rep["lead"][f"{lcfg.name} ({lcfg.n_layers} layers) "
+                        f"{plan.kv_cache}"] = [rows, leaves]
+            del p
+        del lparams
+        torch.cuda.empty_cache()
+    with open(f"{out}.{rank}.json", "w") as f:
+        json.dump(rep, f)
+    dist.destroy_process_group()
+
+
+def check_item12(counted, spec_tokens, victims, phase10):
+    """Phase 30: ROADMAP item 12.2 over the cluster's rendered mesh.
+    Part (a), one rank of an NCCL group and the 1 x 1 mesh
+    VirtualCluster(n_compute=1) renders under it, paper-demo-110m at full
+    width: n-gram and model speculation (k 4) greedy and seeded on the
+    paged, int8 and slot pools at phase 17's SPEC_LAYERS depth (the model
+    drafter seeded on the paged pool only) over SPEC_TRACE, each
+    bit-identical to phase 17's tokens (`spec_tokens`) and to spec off
+    over the mesh; phase 16's swap victim on the bf16 and int8 pools at
+    full depth, its tokens phase 16's (`victims`); phase 10's trace on the
+    slot pool under a seq_sharded plan (#4's prefills, #5's decode at each
+    row's own depth), bit for bit the seq_sharded one-shot over the same
+    mesh, its tokens against phase 10's (`phase10`) counted. Part (b), two
+    processes sharing the card over gloo and the (1, 2) mesh
+    (item12_rank): n-gram speculation equal to spec off, a swap victim
+    equal to its unpreempted run, the slot pool under seq_sharded equal to
+    the seq_sharded one-shot and #5 merged across the two ranks, both
+    ranks' tokens equal; the per-rank prefill's rows independent of the
+    batch. Counts zeroed before each run and read after it, the ranks'
+    too. Returns ({kernel: launches}, {part: {kernel: launches}})."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import VirtualCluster
+    from repro_torch.launch.serve import serve, verify
+    from repro_torch.models import model as Mo
+    from repro_torch.models.env import Env
+
+    t0 = time.perf_counter()
+    launches = {kernel_name(op): 0 for op in counted}
+    parts = {}
+
+    def zero():
+        for op in counted:
+            op.launches = 0
+
+    def read():
+        got = {kernel_name(op): op.launches for op in counted}
+        for k, v in got.items():
+            launches[k] += v
+        return {k: v for k, v in got.items() if v}
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_item12_")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = VirtualCluster(n_compute=1, devices_per_node=1).rendering.mesh
+        if tuple(mesh.shape) != (1, 1):
+            fail(f"phase 30: the one-rank cluster rendered {mesh}")
+        cfg = mesh_cfg("paper-demo", None)
+        spec_cfg = dataclasses.replace(cfg, n_layers=SPEC_LAYERS)
+        spec_params = Mo.init_params(spec_cfg, Env(), seed=0, device="cuda")
+        base = list(SPEC_TRACE)
+        seeded = ["--temperature", "0.8", "--top-k", "50", "--top-p", "0.9",
+                  "--sample-seed", "7"]
+        for kv in ("paged", "quant", "slot"):
+            for samp in ([], seeded):
+                off = serve(serve_args(base + ["--kv", kv] + samp), spec_cfg,
+                            spec_params, mesh)["out"]
+                # the model drafter's T=1 steps are the phase's time: its
+                # seeded rows on the paged pool only
+                for drafter in (("ngram", "model") if kv == "paged"
+                                or not samp else ("ngram",)):
+                    args = serve_args(base + ["--kv", kv, "--spec", drafter,
+                                              "--spec-k", "4"] + samp)
+                    zero()
+                    run = serve(args, spec_cfg, spec_params, mesh)
+                    got = read()
+                    label = (f"(a) spec {drafter} {kv} "
+                             f"{'seeded' if samp else 'greedy'}")
+                    if run["out"] != spec_tokens[(kv, drafter, bool(samp))]:
+                        fail(f"phase 30 {label}: the 1 x 1 mesh's tokens "
+                             "differ from phase 17's")
+                    if run["out"] != off:
+                        fail(f"phase 30 {label}: spec differs from spec off "
+                             "over the mesh")
+                    snap = run["engine"].snapshot()
+                    print(f"{label} over the 1 x 1 mesh ({SPEC_LAYERS} "
+                          f"layers): tokens equal phase 17's and spec off's "
+                          f"bit for bit; accepted/step "
+                          f"{snap['accepted_per_step']:.3f}, "
+                          f"{run['tokens'] / run['wall_s']:.1f} tokens/s "
+                          f"wall; launches {got}")
+        del spec_params
+        params = load_params(cfg, 0)
+        for kv in ("paged", "quant"):
+            toks = []
+            zero()
+            swap_victim(cfg, params, kv, 64, counted,
+                        f"(a) swap victim over the 1 x 1 mesh, {kv} pool",
+                        mesh=mesh, tokens=toks)
+            read()
+            if toks != victims[kv]:
+                fail(f"phase 30 (a) swap {kv}: the 1 x 1 mesh's tokens "
+                     "differ from phase 16's")
+        slargs = serve_args(["--kv", "slot", "--prompt-len", "256"])
+        zero()
+        run = serve(slargs, cfg, params, mesh, plan=seq_plan())
+        got = read()
+        if (got.get("flash_attention") != slargs.requests * cfg.num_blocks
+                or not got.get("flash_decode")
+                or got.get("paged_flash_decode")):
+            fail(f"phase 30 (a) slot pool under seq_sharded: launches {got}")
+        ok, line = verify(slargs, cfg, params, run, mesh=mesh,
+                          plan=seq_plan())
+        if not ok:
+            fail(f"phase 30 (a) slot pool under seq_sharded: {line}")
+        parted = sum(a != b for r in phase10 for a, b in
+                     zip(run["out"][r], phase10[r]))
+        print(f"(a) slot pool under seq_sharded over the 1 x 1 mesh, phase "
+              f"10's trace (prompt 256): {line} (the seq_sharded one-shot "
+              f"over the same mesh); {parted} of "
+              f"{sum(len(t) for t in phase10.values())} tokens differ from "
+              f"phase 10's (kernel #1's attention there); "
+              f"{run['tokens'] / run['wall_s']:.1f} tokens/s wall; "
+              f"launches {got}")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    t_a = time.perf_counter() - t0
+    parts["a"] = dict(launches)
+    env_b = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_item12_ranks_")
+    t1 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+         "--item12-rank", str(r), f"{tmp}/store", f"{tmp}/out"],
+        env=env_b, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+    logs = []
+    for proc in procs:
+        try:
+            logs.append(proc.communicate(timeout=600)[0])
+        finally:
+            proc.kill()
+    if any(proc.returncode != 0 for proc in procs):
+        fail("phase 30 part (b): a rank failed:\n" + "\n".join(
+            log[-3000:] for log in logs))
+    ranks = []
+    for r in range(2):
+        with open(f"{tmp}/out.{r}.json") as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(tmp, ignore_errors=True)
+    if not all(x["mesh"] == [1, 2] for x in ranks):
+        fail(f"phase 30 (b): meshes {[x['mesh'] for x in ranks]}")
+    want = {"spec": {"paged_flash_decode"}, "swap": {"paged_flash_decode"},
+            "slotseq": {"flash_decode"}}
+    for case, need in want.items():
+        cases = [x["cases"][case] for x in ranks]
+        c = cases[0]
+        for x in cases:
+            for k, v in x["launches"].items():
+                launches[k] += v
+            got = {k for k, v in x["launches"].items() if v}
+            if not need <= got or (case == "slotseq"
+                                   and "paged_flash_decode" in got):
+                fail(f"phase 30 (b) {case}: launches {x['launches']}")
+        if not all(x["tokens"] == c["tokens"] for x in cases):
+            fail(f"phase 30 (b) {case}: the ranks' tokens differ")
+        oracle = {"spec": "off", "slotseq": "oneshot"}.get(case)
+        if oracle and c["tokens"] != c[oracle]:
+            fail(f"phase 30 (b) {case}: tokens differ from {oracle}")
+    spec, slotseq = ranks[0]["cases"]["spec"], ranks[0]["cases"]["slotseq"]
+    print(f"(b) {mesh_cfg(*ITEM12_B[:2]).name} ({ITEM12_B[1]} layers) over "
+          f"the (1, 2) gloo mesh (two processes on the card): n-gram spec "
+          f"equals spec off on both ranks, accepted/step "
+          f"{spec['accepted_per_step']:.3f}, "
+          f"{sum(map(len, spec['tokens'])) / spec['wall_s']:.1f} tokens/s "
+          f"wall; the swap victim equals its unpreempted run; the slot pool "
+          f"under seq_sharded ({slotseq['positions']} of "
+          f"{ITEM12_B[3] + ITEM12_B[4]} positions a rank) equals the "
+          f"seq_sharded one-shot, #5 merged across the ranks, "
+          f"{sum(map(len, slotseq['tokens'])) / slotseq['wall_s']:.1f} "
+          f"tokens/s wall; launches per rank "
+          f"{[{c: {k: v for k, v in x['cases'][c]['launches'].items() if v} for c in want} for x in ranks]}")
+    for key in ranks[0]["lead"]:
+        per = [x["lead"][key] for x in ranks]
+        print(f"(b) per-rank prefill of 8 prompts vs each alone, {key}: "
+              f"unequal rows (logits, cache leaves) per rank {per}")
+        if any(a or b for a, b in per):
+            fail(f"phase 30 (b): {key}'s prefill rows depend on the batch")
+    parts["b"] = {k: v - parts["a"][k] for k, v in launches.items()}
+    print(f"(a) {t_a:.1f}s; (b) {time.perf_counter() - t1:.1f}s with the "
+          f"processes' start; item 12.2 phase: "
+          f"{time.perf_counter() - t0:.1f}s; kernel launches {launches} "
+          f"(by part {parts})")
+    if not (parts["a"]["flash_decode"] and parts["b"]["flash_decode"]):
+        fail(f"phase 30 did not launch kernel #5 in each part: {parts}")
+    return launches, parts
 
 
 def _leaves(tree):
@@ -5551,6 +6025,8 @@ def main():
     # 15. the flash-decoding path (kernel #5) at full width; the mask's
     # rows past shared memory and a seeded serve of a 65536-token vocab
     fd_launches, fd_err, fd_rows = check_flash_decode(dev)
+    fd_per_row_err, fd_per_row = check_flash_decode_rows(dev)
+    fd_err = max(fd_err, fd_per_row_err)
     wide = check_wide_mask(dev)
     n_mask_wide = serve_seeded_rwkv()
 
@@ -5583,11 +6059,13 @@ def main():
 
     done(15)
     # 16. the host swap tier at full width; 17. speculative decoding
-    swap_launches = check_swap_tier(cfg, params, counted)
+    victims = {}  # phase 30's oracles
+    swap_launches = check_swap_tier(cfg, params, counted, victims)
     done(16)
     spec_cfg = dataclasses.replace(cfg, n_layers=SPEC_LAYERS)
     spec_params = Mo.init_params(spec_cfg, Env(), seed=0, device=dev)
-    spec_launches = check_spec(spec_cfg, spec_params, counted)
+    spec_tokens = {}
+    spec_launches = check_spec(spec_cfg, spec_params, counted, spec_tokens)
     del spec_params
     done(17)
     # 18. the four dense attention archs at full width and depth; 19. the
@@ -5642,6 +6120,12 @@ def main():
     # mesh against phases 3 and 10, two processes' (1, 2) mesh
     mesh_engine_launches = check_mesh_engines(counted, phase3, phase10)
     done(29)
+    # 30. ROADMAP item 12.2 over the rendered mesh: speculative decoding,
+    # the host swap tier and the slot pool under seq_sharded (kernel #5 at
+    # each row's own depth), one NCCL rank and two processes over gloo
+    item12_launches, item12_parts = check_item12(counted, spec_tokens,
+                                                 victims, phase10)
+    done(30)
     report[2]["rings_int8"] = ring_q
     report[2]["modality"] = {"gqa7 serving mix int8":
                              mod_paged.pop("gqa7 serving mix int8")}
@@ -5662,8 +6146,12 @@ def main():
         k["mesh_modality_launches"] = modality_mesh_launches.get(k["name"], 0)
         k["dryrun_launches"] = dryrun_launches.get(k["name"], 0)
         k["mesh_engine_launches"] = mesh_engine_launches.get(k["name"], 0)
+        k["item12_launches"] = item12_launches.get(k["name"], 0)
+        k["item12_launches_by_part"] = {
+            p: n.get(k["name"], 0) for p, n in item12_parts.items()}
     report[-1]["seq_sharded"] = fd_seq
     report[-1]["seq_sharded_cross"] = fd_cross
+    report[-1]["per_row"] = fd_per_row
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": report}))
@@ -5686,5 +6174,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--engine-rank"]:  # phase 29's part (b)
         mesh_engine_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--item12-rank"]:  # phase 30's part (b)
+        item12_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
         sys.exit(0)
     sys.exit(main())

@@ -1,7 +1,11 @@
 // Flash-decoding over a contiguous KV cache for Hopper (sm_90a): the
 // partial (o, m, l) of one-query GQA attention over k, v [B,Hkv,S,hd],
-// f32 or bf16, keys at positions <= cur_len (one scalar for the batch,
-// read from device memory so a CUDA graph can capture the call).
+// f32 or bf16, keys at positions <= cur_len: one scalar for the batch, or
+// (per_row) row b's own cur_len[b], read from device memory so a CUDA
+// graph can capture the call. Given a row-to-slot map, row b reads cache
+// row slots[b] of k, v [num_slots,Hkv,S,hd] in place (a slot pool's rows,
+// several query rows on one slot at their own depths): no cache row is
+// copied.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_decode/kernel.py
 // flash_decode_kernel (body _fd_kernel), whose partials the
@@ -18,10 +22,11 @@
 // one block per (split, KV head, row), holding all g = Hq/Hkv query heads,
 // so each K/V row is read once for its whole group and B * Hkv * n_split
 // blocks fill the card (B * Hkv alone is 32 at paper-demo's B=8). The
-// valid tokens n = cur_len + 1 are cut into n_split spans of whole tiles
-// on the device, so the work follows cur_len and blocks past it exit at
-// once. Each block writes its span's unnormalised partial to a workspace;
-// a second kernel merges a row's spans into (o, m, l).
+// valid tokens n = cur_len + 1 (the row's own) are cut into n_split spans
+// of whole tiles on the device, so the work follows each row's cur_len and
+// blocks past it exit at once. Each block writes its span's unnormalised
+// partial to a workspace; a second kernel merges a row's spans into (o, m,
+// l).
 //
 // bf16 (the main dtype): both products on the tensor cores
 // (attention_mma.cuh). The GQA group is the M dimension of mma.m16n8k16:
@@ -82,8 +87,15 @@ __device__ __forceinline__ int span_of(int n, int n_split, int tile) {
   return (per + tile - 1) / tile * tile;
 }
 
-__device__ __forceinline__ int valid_tokens(const int* cur_len, int S) {
-  return min(cur_len[0], S - 1) + 1;
+// Row b's valid tokens: its own cur_len[b] (per_row), else the batch's.
+__device__ __forceinline__ int valid_tokens(const int* cur_len, int b,
+                                            int per_row, int S) {
+  return min(cur_len[per_row ? b : 0], S - 1) + 1;
+}
+
+// The cache row query row b reads: slots[b] given a map, else b.
+__device__ __forceinline__ int64_t cache_row(const int* slots, int b) {
+  return slots != nullptr ? (int64_t)slots[b] : (int64_t)b;
 }
 
 // 16 bytes of an f32 K/V row
@@ -98,8 +110,9 @@ __device__ __forceinline__ void load4(const float* p, float* f) {
 __global__ void __launch_bounds__(kThreads) flash_decode_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const int* __restrict__ cur_len,
-    float* __restrict__ part_o, float* __restrict__ part_ml, int Hq,
-    int Hkv, int S, int hd, int tile, int n_split, float scale) {
+    const int* __restrict__ slots, int per_row, float* __restrict__ part_o,
+    float* __restrict__ part_ml, int Hq, int Hkv, int S, int hd, int tile,
+    int n_split, float scale) {
   constexpr int kVec = 4;  // f32 values in 16 bytes
   // 16-byte K/V slices a thread has in flight: 8 values of K and of V
   // (64 registers, four blocks an SM, no spill)
@@ -108,7 +121,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_f32_kernel(
   const int sp = blockIdx.x;  // split
   const int h = blockIdx.y;   // KV head
   const int b = blockIdx.z;   // row
-  const int n = valid_tokens(cur_len, S);
+  const int n = valid_tokens(cur_len, b, per_row, S);
   if (n <= 0) return;
   const int span = span_of(n, n_split, tile);
   const int j_begin = sp * span;
@@ -135,7 +148,8 @@ __global__ void __launch_bounds__(kThreads) flash_decode_f32_kernel(
     run_m[i] = kMaskValue;
     run_l[i] = 0.f;
   }
-  const int64_t row0 = ((int64_t)b * Hkv + h) * S;  // position 0's row
+  // position 0's row of the row's slot
+  const int64_t row0 = (cache_row(slots, b) * Hkv + h) * S;
   const int tpt = hd / kVec;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -301,8 +315,9 @@ template <int HDB>
 __global__ void __launch_bounds__(kMmaThreads, 1) flash_decode_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ cur_len,
-    float* __restrict__ part_o, float* __restrict__ part_ml, int Hq,
-    int Hkv, int S, int hd, int tile, int n_split, float scale) {
+    const int* __restrict__ slots, int per_row, float* __restrict__ part_o,
+    float* __restrict__ part_ml, int Hq, int Hkv, int S, int hd, int tile,
+    int n_split, float scale) {
   constexpr int kTK = MmaTiles<HDB>::kTK;
   constexpr int kNT = kTK / 8;  // 8-token score tiles a chunk
   constexpr int kD = HDB / 8;   // 8-column output tiles (at most)
@@ -310,7 +325,7 @@ __global__ void __launch_bounds__(kMmaThreads, 1) flash_decode_mma_kernel(
   const int sp = blockIdx.x;  // split
   const int h = blockIdx.y;   // KV head
   const int b = blockIdx.z;   // row
-  const int n = valid_tokens(cur_len, S);
+  const int n = valid_tokens(cur_len, b, per_row, S);
   if (n <= 0) return;
   const int span = span_of(n, n_split, tile);
   const int j_begin = sp * span;
@@ -331,7 +346,8 @@ __global__ void __launch_bounds__(kMmaThreads, 1) flash_decode_mma_kernel(
   float* mo = reinterpret_cast<float*>(ring);  // the merge: [warp][16][hdp]
   float* mm = mo + kMmaWarps * 16 * hdp;       // [warp][16]
   float* ml = mm + kMmaWarps * 16;             // [warp][16]
-  const int64_t row0 = ((int64_t)b * Hkv + h) * S;  // position 0's row
+  // position 0's row of the row's slot
+  const int64_t row0 = (cache_row(slots, b) * Hkv + h) * S;
   const int n_chunks = (j_end - j_begin + kTK - 1) / kTK;
 
   // a warp's chunk c of the span into its ring stage st: rows past j_end
@@ -500,7 +516,7 @@ __global__ void __launch_bounds__(kMmaThreads, 1) flash_decode_mma_kernel(
 // column then sums its spans in span order, as does the sum l.
 __global__ void __launch_bounds__(kThreads) flash_decode_merge_kernel(
     const float* __restrict__ part_o, const float* __restrict__ part_ml,
-    const int* __restrict__ cur_len, float* __restrict__ o,
+    const int* __restrict__ cur_len, int per_row, float* __restrict__ o,
     float* __restrict__ m, float* __restrict__ l, int Hq, int S, int hd,
     int tile, int n_split) {
   __shared__ float wt[kThreads];  // a chunk of spans' weights
@@ -509,7 +525,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_merge_kernel(
   const int64_t r = (int64_t)blockIdx.y * Hq + blockIdx.x;
   const int d = threadIdx.x;
   float* orow = o + r * hd;
-  const int n = valid_tokens(cur_len, S);
+  const int n = valid_tokens(cur_len, blockIdx.y, per_row, S);
   if (n <= 0) {
     if (d < hd) orow[d] = 0.f;
     if (d == 0) {
@@ -579,24 +595,26 @@ cudaError_t opt_in(Kernel kernel, size_t smem, std::atomic<int>* opted) {
 }
 
 int launch_f32(const float* q, const float* k, const float* v,
-               const int* len, float* part_o, float* part_ml, int B, int Hq,
-               int Hkv, int S, int hd, int tile, int n_split, float scale,
-               cudaStream_t stream) {
+               const int* len, const int* slots, int per_row, float* part_o,
+               float* part_ml, int B, int Hq, int Hkv, int S, int hd,
+               int tile, int n_split, float scale, cudaStream_t stream) {
   const size_t smem = f32_smem_bytes(Hq / Hkv, hd, tile);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   static std::atomic<int> opted[kMaxDevices];
   cudaError_t e = opt_in(flash_decode_f32_kernel, smem, opted);
   if (e != cudaSuccess) return (int)e;
   flash_decode_f32_kernel<<<dim3(n_split, Hkv, B), kThreads, smem, stream>>>(
-      q, k, v, len, part_o, part_ml, Hq, Hkv, S, hd, tile, n_split, scale);
+      q, k, v, len, slots, per_row, part_o, part_ml, Hq, Hkv, S, hd, tile,
+      n_split, scale);
   return (int)cudaGetLastError();
 }
 
 template <int HDB>
 int launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
-               const __nv_bfloat16* v, const int* len, float* part_o,
-               float* part_ml, int B, int Hq, int Hkv, int S, int hd,
-               int tile, int n_split, float scale, cudaStream_t stream) {
+               const __nv_bfloat16* v, const int* len, const int* slots,
+               int per_row, float* part_o, float* part_ml, int B, int Hq,
+               int Hkv, int S, int hd, int tile, int n_split, float scale,
+               cudaStream_t stream) {
   const size_t smem = mma_smem_bytes(hd);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   static std::atomic<int> opted[kMaxDevices];
@@ -604,32 +622,27 @@ int launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
   if (e != cudaSuccess) return (int)e;
   flash_decode_mma_kernel<HDB>
       <<<dim3(n_split, Hkv, B), kMmaThreads, smem, stream>>>(
-          q, k, v, len, part_o, part_ml, Hq, Hkv, S, hd, tile, n_split,
-          scale);
+          q, k, v, len, slots, per_row, part_o, part_ml, Hq, Hkv, S, hd,
+          tile, n_split, scale);
   return (int)cudaGetLastError();
 }
 
 int launch_bf16(const void* q, const void* k, const void* v, const int* len,
-                float* part_o, float* part_ml, int B, int Hq, int Hkv, int S,
-                int hd, int tile, int n_split, float scale,
-                cudaStream_t stream) {
+                const int* slots, int per_row, float* part_o, float* part_ml,
+                int B, int Hq, int Hkv, int S, int hd, int tile, int n_split,
+                float scale, cudaStream_t stream) {
   const auto* qb = static_cast<const __nv_bfloat16*>(q);
   const auto* kb = static_cast<const __nv_bfloat16*>(k);
   const auto* vb = static_cast<const __nv_bfloat16*>(v);
-  if (hd <= 16)
-    return launch_mma<16>(qb, kb, vb, len, part_o, part_ml, B, Hq, Hkv, S,
-                          hd, tile, n_split, scale, stream);
-  if (hd <= 32)
-    return launch_mma<32>(qb, kb, vb, len, part_o, part_ml, B, Hq, Hkv, S,
-                          hd, tile, n_split, scale, stream);
-  if (hd <= 64)
-    return launch_mma<64>(qb, kb, vb, len, part_o, part_ml, B, Hq, Hkv, S,
-                          hd, tile, n_split, scale, stream);
-  if (hd <= 128)
-    return launch_mma<128>(qb, kb, vb, len, part_o, part_ml, B, Hq, Hkv, S,
-                           hd, tile, n_split, scale, stream);
-  return launch_mma<256>(qb, kb, vb, len, part_o, part_ml, B, Hq, Hkv, S, hd,
-                         tile, n_split, scale, stream);
+#define FD_LAUNCH(HDB)                                                      \
+  launch_mma<HDB>(qb, kb, vb, len, slots, per_row, part_o, part_ml, B, Hq, \
+                  Hkv, S, hd, tile, n_split, scale, stream)
+  if (hd <= 16) return FD_LAUNCH(16);
+  if (hd <= 32) return FD_LAUNCH(32);
+  if (hd <= 64) return FD_LAUNCH(64);
+  if (hd <= 128) return FD_LAUNCH(128);
+  return FD_LAUNCH(256);
+#undef FD_LAUNCH
 }
 
 }  // namespace
@@ -644,32 +657,38 @@ extern "C" int flash_decode_smem_bytes(int Hq, int Hkv, int hd, int tile,
 }
 
 // work: B * Hq * n_split * (hd + 2) floats, the spans' P.V then their
-// (m, l) pairs.
+// (m, l) pairs. cur_len: 1 int32, or B (per_row). slots: B int32 cache rows
+// in [0, num_slots), or null (row b reads cache row b; num_slots == B).
 extern "C" int flash_decode_partials(const void* q, const void* k,
                                      const void* v, const void* cur_len,
-                                     void* o, void* m, void* l, void* work,
-                                     int B, int Hq, int Hkv, int S, int hd,
-                                     int tile, int n_split, int is_bf16,
-                                     void* stream) {
+                                     const void* slots, void* o, void* m,
+                                     void* l, void* work, int B, int Hq,
+                                     int Hkv, int S, int hd, int tile,
+                                     int n_split, int is_bf16, int per_row,
+                                     int num_slots, void* stream) {
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || S <= 0 || hd <= 0 ||
       hd % 8 != 0 || hd > kThreads || tile <= 0 || n_split <= 0 ||
-      B > 65535 || Hkv > 65535 || Hq > 65535 || n_split > 65535)
+      B > 65535 || Hkv > 65535 || Hq > 65535 || n_split > 65535 ||
+      num_slots <= 0 || (slots == nullptr && num_slots != B))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* part_o = static_cast<float*>(work);
   float* part_ml = part_o + (int64_t)B * Hq * n_split * hd;
   const int* len = static_cast<const int*>(cur_len);
+  const int* sl = static_cast<const int*>(slots);
+  const int pr = per_row ? 1 : 0;
   const float scale = (float)(1.0 / sqrt((double)hd));
   const int rc =
-      is_bf16 ? launch_bf16(q, k, v, len, part_o, part_ml, B, Hq, Hkv, S, hd,
-                            tile, n_split, scale, s)
+      is_bf16 ? launch_bf16(q, k, v, len, sl, pr, part_o, part_ml, B, Hq, Hkv,
+                            S, hd, tile, n_split, scale, s)
               : launch_f32(static_cast<const float*>(q),
                            static_cast<const float*>(k),
-                           static_cast<const float*>(v), len, part_o, part_ml,
-                           B, Hq, Hkv, S, hd, tile, n_split, scale, s);
+                           static_cast<const float*>(v), len, sl, pr, part_o,
+                           part_ml, B, Hq, Hkv, S, hd, tile, n_split, scale,
+                           s);
   if (rc != 0) return rc;
   flash_decode_merge_kernel<<<dim3(Hq, B), kThreads, 0, s>>>(
-      part_o, part_ml, len, static_cast<float*>(o), static_cast<float*>(m),
+      part_o, part_ml, len, pr, static_cast<float*>(o), static_cast<float*>(m),
       static_cast<float*>(l), Hq, S, hd, tile, n_split);
   return (int)cudaGetLastError();
 }

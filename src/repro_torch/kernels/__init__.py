@@ -42,7 +42,7 @@ _SIGNATURES = {
     "flash_attention_smem_bytes": ([_I], _I),
     "rglru_scan_f32": ([_P] * 4 + [_I] * 3 + [_P], _I),
     "wkv6_bf16": ([_P] * 7 + [_I] * 4 + [_P], _I),
-    "flash_decode_partials": ([_P] * 8 + [_I] * 8 + [_P], _I),
+    "flash_decode_partials": ([_P] * 9 + [_I] * 10 + [_P], _I),
     "flash_decode_smem_bytes": ([_I] * 5, _I),
     "kernel_error_string": ([_I], ctypes.c_char_p),
 }

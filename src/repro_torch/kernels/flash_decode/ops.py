@@ -10,10 +10,16 @@ group (one all_reduce MAX of m, two of SUM), merge_partials_stacked those
 of slices one process holds (stacked on dim 0). flash_decode_seq_sharded
 is the SPMD form: every rank passes its own slice of the sequence.
 
-cur_len is one scalar for the batch, the local index of the last valid
-position (-1: every key masked): an int, or a 1-element int32 tensor on
-the inputs' device, which the kernel reads there (so a CUDA graph can
-capture the call).
+cur_len is the local index of the last valid position (-1: every key
+masked): one scalar for the batch (an int, or a 1-element int tensor on
+the inputs' device), or a [B] int tensor, row b's own (the rows of an
+engine step, each at its depth). The kernel reads it on the device (so a
+CUDA graph can capture the call). slots (optional, a [B] int tensor on
+the device) maps query row b onto cache row slots[b] of k, v [num_slots,
+Hkv,S,hd]: the kernel reads that row in place, several query rows may
+share one, and the slots must lie in [0, num_slots) (not checked on the
+device). The scalar form without slots computes what it computed before
+this form existed, bit for bit.
 """
 from __future__ import annotations
 
@@ -36,15 +42,21 @@ BF16_TILE = 64
 BLOCKS_PER_SM = 8
 
 
-def _cur_len_tensor(cur_len, device):
-    """cur_len as a 1-element int32 tensor on `device` (no copy when it
-    already is one)."""
+def _cur_len_tensor(cur_len, B: int, device):
+    """(cur_len as an int32 tensor on `device`, per_row): one element for
+    the batch, or B, row b's own (no copy when it already is one)."""
     if isinstance(cur_len, torch.Tensor):
-        if cur_len.numel() != 1:
+        if cur_len.numel() == 1:
+            return cur_len.reshape(1).to(device=device,
+                                         dtype=torch.int32), False
+        if cur_len.dim() != 1 or cur_len.shape[0] != B:
             raise ValueError("flash_decode: cur_len is one scalar for the "
-                             f"batch, got shape {tuple(cur_len.shape)}")
-        return cur_len.reshape(1).to(device=device, dtype=torch.int32)
-    return torch.tensor([int(cur_len)], dtype=torch.int32, device=device)
+                             f"batch or one per row ({B}), got shape "
+                             f"{tuple(cur_len.shape)}")
+        return cur_len.to(device=device,
+                          dtype=torch.int32).contiguous(), True
+    return torch.tensor([int(cur_len)], dtype=torch.int32,
+                        device=device), False
 
 
 def _split(B, Hkv, S, hd, dtype, device):
@@ -56,25 +68,33 @@ def _split(B, Hkv, S, hd, dtype, device):
     return tile, max(1, min(want, -(-S // tile)))
 
 
-def flash_decode_partials(q, k, v, cur_len):
-    """q [B,Hq,hd]; k, v [B,Hkv,S,hd] (f32 or bf16, one dtype); GQA with
-    g = Hq/Hkv, scale 1/sqrt(hd); keys at positions <= cur_len.
+def flash_decode_partials(q, k, v, cur_len, slots=None):
+    """q [B,Hq,hd]; k, v [B,Hkv,S,hd] (f32 or bf16, one dtype), or
+    [num_slots,Hkv,S,hd] read through slots [B]; GQA with g = Hq/Hkv,
+    scale 1/sqrt(hd); keys at positions <= cur_len (a scalar or [B]).
 
     Returns (o [B,Hq,hd] f32 normalised, m [B,Hq,1] f32, l [B,Hq,1] f32),
-    the partials flash_decode_kernel returns: an all-masked slice gives
-    m = -1e30, l = 0, o = 0."""
+    the partials flash_decode_kernel returns: an all-masked slice or row
+    gives m = -1e30, l = 0, o = 0."""
     if q.device.type == "cpu":
-        return flash_decode_partials_ref(q, k, v, cur_len)
+        return flash_decode_partials_ref(q, k, v, cur_len, slots)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode_partials: no kernel for {q.device}")
     name = "flash_decode_partials"
-    cur = _cur_len_tensor(cur_len, q.device)
+    B = q.shape[0]
+    cur, per_row = _cur_len_tensor(cur_len, B, q.device)
     check_tensors(name, q, k, v, cur)
+    if slots is not None:
+        if not isinstance(slots, torch.Tensor) or slots.shape != (B,):
+            raise ValueError(f"{name}: slots must be a [{B}] tensor")
+        slots = slots.to(device=q.device, dtype=torch.int32).contiguous()
+        check_tensors(name, q, slots)
     if q.dtype not in (torch.float32, torch.bfloat16) or \
             (k.dtype, v.dtype) != (q.dtype, q.dtype):
         raise ValueError(f"{name}: q, k and v must be all f32 or all bf16")
     B, Hq, hd = q.shape
-    if (k.dim() != 4 or v.shape != k.shape or k.shape[0] != B
+    if (k.dim() != 4 or v.shape != k.shape
+            or (slots is None and k.shape[0] != B) or k.shape[0] == 0
             or k.shape[3] != hd or Hq % k.shape[1] or hd % 8 or hd > 256
             or k.shape[2] == 0):
         raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)}, "
@@ -93,9 +113,10 @@ def flash_decode_partials(q, k, v, cur_len):
                        device=q.device)
     rc = library().flash_decode_partials(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), cur.data_ptr(),
-        o.data_ptr(), m.data_ptr(), l.data_ptr(), work.data_ptr(), B, Hq,
-        Hkv, S, hd, tile, n_split, int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        None if slots is None else slots.data_ptr(), o.data_ptr(),
+        m.data_ptr(), l.data_ptr(), work.data_ptr(), B, Hq, Hkv, S, hd,
+        tile, n_split, int(q.dtype == torch.bfloat16), int(per_row),
+        k.shape[0], torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(rc, name)
     flash_decode_partials.launches += 1
     return o, m, l
@@ -104,10 +125,11 @@ def flash_decode_partials(q, k, v, cur_len):
 flash_decode_partials.launches = 0
 
 
-def flash_decode(q, k, v, cur_len):
-    """Unsharded decode attention: q [B,Hq,hd]; k, v [B,Hkv,S,hd].
-    Returns [B,Hq,hd] in q's dtype."""
-    return flash_decode_partials(q, k, v, cur_len)[0].to(q.dtype)
+def flash_decode(q, k, v, cur_len, slots=None):
+    """Unsharded decode attention: q [B,Hq,hd]; k, v [B,Hkv,S,hd] (or
+    [num_slots,...] through slots); cur_len a scalar or [B]. Returns
+    [B,Hq,hd] in q's dtype."""
+    return flash_decode_partials(q, k, v, cur_len, slots)[0].to(q.dtype)
 
 
 def merge_partials(o, m, l, group=None):
@@ -134,15 +156,17 @@ def merge_partials_stacked(o, m, l):
 
 
 def flash_decode_seq_sharded(q, k_local, v_local, cur_len, group=None,
-                             index=None):
+                             index=None, slots=None):
     """Flash-decoding over a cache whose sequence axis is split evenly
     across the ranks of `group`: each rank passes q (the same on every
-    rank) and its own slice k_local, v_local [B,Hkv,S/world,hd], slice
-    `index` of the sequence (default: the rank's place in the group; a
-    DeviceMesh passes its coordinate along the axis); cur_len is the
-    global index of the last valid position, an int or a [1] int tensor
-    on q's device (no host sync). Each rank attends to its slice up to
-    clamp(cur_len - index * s_local, -1, s_local - 1) through
+    rank) and its own slice k_local, v_local [B,Hkv,S/world,hd] (or
+    [num_slots,...] read through slots [B]), slice `index` of the
+    sequence (default: the rank's place in the group; a DeviceMesh
+    passes its coordinate along the axis); cur_len is the global index of
+    the last valid position, an int or a [1] int tensor on q's device, or
+    a [B] one, row b's own (no host sync). Each rank attends to its slice
+    up to clamp(cur_len - index * s_local, -1, s_local - 1), each row at
+    its own, through
     flash_decode_partials (the kernel on a CUDA tensor, the plain version
     on a CPU one) and the partials merge across the group (ops.py
     flash_decode_seq_sharded). Returns [B,Hq,hd] in q's dtype on every
@@ -152,9 +176,10 @@ def flash_decode_seq_sharded(q, k_local, v_local, cur_len, group=None,
         index = dist.get_rank(group)
     start = index * s_local
     if isinstance(cur_len, torch.Tensor):
-        local = (cur_len.reshape(1).to(q.device) - start).clamp(
-            -1, s_local - 1).to(torch.int32)
+        cur = cur_len.to(q.device)
+        cur = cur.reshape(1) if cur.numel() == 1 else cur
+        local = (cur - start).clamp(-1, s_local - 1).to(torch.int32)
     else:
         local = min(max(int(cur_len) - start, -1), s_local - 1)
-    o, m, l = flash_decode_partials(q, k_local, v_local, local)
+    o, m, l = flash_decode_partials(q, k_local, v_local, local, slots)
     return merge_partials(o, m, l, group).to(q.dtype)

@@ -375,8 +375,8 @@ class _Walk:
 
     def rows_of(self, S: int) -> int:
         """Positions of a whole sequence in a sublayer's product: padded
-        to whole row tiles at tp 1, as they are past it."""
-        return _tiles(S) if self.tp == 1 else S
+        to whole row tiles at every tp degree (_Ranks)."""
+        return _tiles(S)
 
     def sp_of(self, S: int) -> bool:
         return self.mesh and out_dims(self.env, S)[1] is not None
@@ -453,12 +453,13 @@ class _Walk:
             if self.remat:
                 self.recompute_stops(("enc_blocks", 0), "enc", Se, Sx, sp)
         self.enter(self.Bl * Se, sp)
-        return (Sx if self.tp == 1 else Se, Se)
+        return (Sx, Se)
 
     def block(self, path, kind: str, S: int, Sx: int, sp: bool, enc,
               stacked: bool = True):
         cfg, Bl = self.cfg, self.Bl
         R = Bl * Sx
+        Rr = Bl * (S if sp else Sx)  # a row product's rows (_Ranks.row)
         self.unshard(path, kind, stacked)
         if kind in ("attn", "local", "moe", "enc", "dec"):
             window = cfg.local_window if kind == "local" else 0
@@ -466,7 +467,7 @@ class _Walk:
             for w in ("wq", "wk", "wv", "wo"):
                 self.linear(path + ("attn", w), kind, R, stacked)
             self.attention(S, S, window, causal=kind != "enc")
-            self.row(Bl * S, True, sp)
+            self.row(Rr, True, sp)
             if kind == "dec":
                 e_rows, Se = enc
                 self.enter(Bl * S, sp)
@@ -476,7 +477,7 @@ class _Walk:
                     self.linear(path + ("xattn", w), kind, Bl * e_rows,
                                 stacked)
                 self.core(Bl, S, Se)
-                self.row(Bl * S, True, sp)
+                self.row(Rr, True, sp)
             if kind == "moe":
                 self.moe(path + ("moe",), Bl, S, sp)
             else:
@@ -485,7 +486,7 @@ class _Walk:
             self.enter(Bl * S, sp)
             for w in ("w_gate_in", "w_in", "w_rgate", "w_igate", "w_out"):
                 self.linear(path + ("rec", w), kind, R, stacked)
-            self.row(Bl * S, self._split(path + ("rec", "w_out"), kind,
+            self.row(Rr, self._split(path + ("rec", "w_out"), kind,
                                          stacked), sp)
             self.mlp(path + ("mlp",), kind, Bl, S, Sx, sp, stacked)
         else:  # rwkv
@@ -499,24 +500,24 @@ class _Walk:
                 self.wkv_chunked(H, S)
             else:
                 self.mm(2 * Bl * H * S * hd * hd)  # the readout r^T S_t
-            self.row(Bl * S, H * hd != cfg.d_model, sp)
+            self.row(Rr, H * hd != cfg.d_model, sp)
             self.enter(Bl * S, sp)  # channel mix
             for w in ("cm_k", "cm_r", "cm_v"):
                 self.linear(path + ("mix", w), kind, R, stacked)
-            self.row(Bl * S, self._split(path + ("mix", "cm_v"), kind,
+            self.row(Rr, self._split(path + ("mix", "cm_v"), kind,
                                          stacked), sp)
             if self.local_numel(path + ("mix", "cm_r"), kind, stacked) \
                     != cfg.d_model ** 2:  # rr's columns gathered
                 d = cfg.d_model
-                self.gather(Bl * S * d * 2, self.tpa,
-                            Bl * S * d // self.tp * 4)
+                self.gather(R * d * 2, self.tpa, R * d // self.tp * 4)
 
     def recompute_stops(self, path, kind: str, S: int, Sx: int, sp: bool):
         """torch.utils.checkpoint (non-reentrant) stops a unit's recompute
         once the last tensor its backward saved is recomputed, so what
-        the unit's last block runs after that is not run again: the tp
-        row product closing its MLP (a matmul saves its inputs before it
-        runs) and that product's sum or reduce-scatter; after an MoE
+        the unit's last block runs after that is not run again: the last
+        row tile's product of the tp row product closing its MLP (a
+        matmul saves its inputs before it runs) and that product's sum or
+        reduce-scatter; after an MoE
         layer's combine, its closing gather and the aux loss's mean.
         RWKV's channel mix multiplies after its row: nothing stops
         early."""
@@ -535,12 +536,16 @@ class _Walk:
         w = path + ("mlp", "w_down")
         if self.tp == 1 or not self._split(w, kind, True):
             return
-        self.out.no_recompute += 2 * Bl * Sx * self.local_numel(w, kind)
+        # the product runs tile by tile (layers.linear_f32): the stop
+        # spares the last row tile's product only
+        rows = Bl * Sx
+        last = rows - (_tiles(rows) // L.ROW_TILE - 1) * L.ROW_TILE
+        self.out.no_recompute += 2 * last * self.local_numel(w, kind)
         if sp:
             self.out.coll.remove("reduce-scatter", Bl * S // self.tp * d * 4,
                                  self.tpa)
         else:
-            self.out.coll.remove("all-reduce", Bl * S * d * 4, self.tpa)
+            self.out.coll.remove("all-reduce", Bl * Sx * d * 4, self.tpa)
 
     def _split(self, path, kind, stacked) -> bool:
         """Whether a row weight holds this rank's rows."""
@@ -579,7 +584,8 @@ class _Walk:
         self.enter(Bl * S, sp)
         for w in ("w_gate", "w_up", "w_down"):
             self.linear(path + (w,), kind, Bl * Sx, stacked)
-        self.row(Bl * S, self._split(path + ("w_down",), kind, stacked), sp)
+        self.row(Bl * (S if sp else Sx),
+                 self._split(path + ("w_down",), kind, stacked), sp)
 
     def moe(self, path, Bl: int, S: int, sp: bool):
         """models/moe.py over the tokens one dispatch holds."""

@@ -239,12 +239,15 @@ def make_policy(args):
 
 
 def make_engine(args, cfg, params, *, num_slots=None, replicas=None,
-                clock=None, spec=None, mesh=None):
+                clock=None, spec=None, mesh=None, plan=None):
     """A ServingEngine (replicas == 1) or a Router + ReplicaSet data
     plane. --kv-blocks is per replica; --prefill-chunk 0 admits by classic
     prefill. `spec` overrides --spec (the --verify re-serve passes
     "off"). `mesh` (a DeviceMesh; the CLI passes none, as the JAX CLI)
-    serves per rank over it."""
+    serves per rank over it under `plan` (SERVE_PLAN by default; its
+    kv_cache "seq_sharded" splits the slot pool's positions over tp),
+    with every option of the CLI's: --spec and --spec-k (a drafter per
+    rank), --swap (a host pool per rank), --kv slot."""
     sched = {"preemptive": True} if (args.sched == "edf"
                                      and args.edf_preempt) else {}
     return make_serving_engine(
@@ -259,14 +262,15 @@ def make_engine(args, cfg, params, *, num_slots=None, replicas=None,
         spec=args.spec if spec is None else spec, spec_k=args.spec_k,
         swap=args.swap == "on", swap_budget_blocks=args.swap_budget_blocks,
         policy=make_scheduler_policy(args.sched, **sched),
-        clock=clock or ManualClock(), device=args.device, mesh=mesh)
+        clock=clock or ManualClock(), device=args.device, mesh=mesh,
+        plan=plan)
 
 
-def serve(args, cfg, params, mesh=None) -> dict:
+def serve(args, cfg, params, mesh=None, plan=None) -> dict:
     """Serve the trace on one engine (or fleet) without a cluster, over
-    `mesh` if given (make_engine); returns rid -> tokens plus the run's
-    numbers."""
-    engine = make_engine(args, cfg, params, mesh=mesh)
+    `mesh` under `plan` if given (make_engine); returns rid -> tokens plus
+    the run's numbers."""
+    engine = make_engine(args, cfg, params, mesh=mesh, plan=plan)
     trace = make_trace(args, cfg)
     if args.device.startswith("cuda"):
         torch.cuda.synchronize()
@@ -278,7 +282,7 @@ def serve(args, cfg, params, mesh=None) -> dict:
             "tokens": n_tok, "steps": engine.decode_steps}
 
 
-def verify(args, cfg, params, run) -> tuple:
+def verify(args, cfg, params, run, mesh=None, plan=None) -> tuple:
     """(ok, line): the acceptance bar of the run, in the JAX package's
     order. A fleet emits bit-identically what one zero-router engine
     emits; a speculative run what a fresh engine with --spec off emits
@@ -288,12 +292,14 @@ def verify(args, cfg, params, run) -> tuple:
     emits; a greedy fp run equals the one-shot baseline token for token:
     the streamed-prefill one under chunked admission, the full-prefill one
     under classic admission. Swap and preemption events are invisible in
-    every one of these."""
+    every one of these. Over `mesh` under `plan` (a run of serve(mesh=,
+    plan=)) each oracle runs over the same mesh and plan: the one-shot is
+    serve_batch's over them, in the same KV layout."""
     out, trace, engine = run["out"], run["trace"], run["engine"]
     alt = args.slots // 2 if args.slots > 1 else args.slots + 1
     again = lambda **kw: run_to_completion(
-        make_engine(args, cfg, params, **kw), make_trace(args, cfg),
-        dt=args.step_time)
+        make_engine(args, cfg, params, mesh=mesh, plan=plan, **kw),
+        make_trace(args, cfg), dt=args.step_time)
     match = lambda ok: "bit-identical MATCH" if ok else "MISMATCH"
     if args.replicas > 1:
         ok = out == again(replicas=1)
@@ -316,7 +322,8 @@ def verify(args, cfg, params, run) -> tuple:
     streamed = bool(engine.prefill_chunk)
     base = serve_batch(cfg, params, np.stack([r.prompt for r in trace]),
                        args.gen_max, streamed_prefill=streamed,
-                       device=args.device)
+                       device=args.device, mesh=mesh,
+                       plan=SERVE_PLAN if plan is None else plan)
     # slice by the admitted budget (gen_len capped by max_tokens)
     ok = all(np.array_equal(base[r.rid][:r.eff_gen_len], np.array(out[r.rid]))
              for r in trace)

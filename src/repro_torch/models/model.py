@@ -786,8 +786,9 @@ def _attn_sublayer(p, h, cfg: ModelConfig, n_rows: int, cur_len, rope,
 
     ranks (the per-rank forward, a contiguous cache): this rank's query
     heads; its share of the output projection summed over tp. A global
-    unit under the seq_sharded layout goes through _attn_seq_sharded;
-    otherwise the rank's cache holds the KV heads its heads read."""
+    unit under the seq_sharded layout goes through _attn_seq_sharded (the
+    engines' rows, row_slots or not, each at its own depth); otherwise
+    the rank's cache holds the KV heads its heads read."""
     q, k, v = L._project_qkv(p, h, cfg)  # [Bp,1,H,hd]
     q = L.rotate(q, *rope)[:n_rows]
     k = L.rotate(k, *rope)[:n_rows, 0]
@@ -795,7 +796,8 @@ def _attn_sublayer(p, h, cfg: ModelConfig, n_rows: int, cur_len, rope,
     ck, cv = cache["k"], cache["v"]
     if ranks is not None:
         if ranks.kv_seq and not window:
-            o = _attn_seq_sharded(q, k, v, ck, cv, cur_len, ranks)
+            o = _attn_seq_sharded(q, k, v, ck, cv, cur_len, ranks,
+                                  row_slots)
             o = F.pad(o, (0, 0, 0, 0, 0, h.shape[0] - n_rows))
             return ranks.row(o, p["wo"], ranks.heads_split)
         k, v = ranks.local_kv(k, v, dim=1)
@@ -859,42 +861,66 @@ def _attn_sublayer(p, h, cfg: ModelConfig, n_rows: int, cur_len, rope,
     return L.linear(o, p["wo"])
 
 
-def _attn_seq_sharded(q, k, v, ck, cv, cur_len, ranks):
+def _attn_seq_sharded(q, k, v, ck, cv, cur_len, ranks, row_slots=None):
     """Decode attention of this rank's query heads q [n,1,Hq/tp,hd] over
     a global unit's cache split over tp along the sequence: ck, cv
-    [n,Hkv,Smax/tp,hd], this rank's positions of every KV head. The new
-    K/V (k, v [n,Hkv,hd], every KV head) is written on the rank that owns
-    cur_len, then _flash_decode_ranks attends. The rows share one cur_len
-    (the one-shot's uniform batch), read on the device. Returns
-    [n,1,Hq/tp*hd]."""
+    [rows,Hkv,Smax/tp,hd], this rank's positions of every KV head. The
+    new K/V (k, v [n,Hkv,hd], every KV head) is written on the rank that
+    owns its position, then _flash_decode_ranks attends, each row at its
+    own cur_len (read on the device; the one-shot's rows share one).
+
+    Row b reads cache row b, or row_slots[b] (the slot pool's
+    row-indirected step), several rows possibly on one slot at
+    consecutive depths; a masked row (slot < 0) writes at slot 0's tail
+    position Smax - 1, which no depth reaches (the replicated row-slot
+    branch's null place), and reads slot 0 at its cur_len. Where rows
+    share a place, each writes the last owning row's K/V (_last_writer:
+    the card's duplicate-index writes stay deterministic, and an MoE
+    arch's masked rows read what the JAX package's scatter leaves
+    there). Returns [n,1,Hq/tp*hd]."""
     n = q.shape[0]
     s_local = ck.shape[-2]
     r = C.axis_rank(ranks.env, ranks.tp_axis)
-    cur = cur_len[:1]
-    idx = cur - r * s_local
+    if row_slots is None:
+        slot = torch.arange(n, device=q.device)
+        idx = cur_len
+    else:
+        live = row_slots >= 0
+        slot = torch.where(live, row_slots, 0).long()
+        idx = torch.where(live, cur_len, ranks.tp * s_local - 1)
+    idx = idx - r * s_local
     own = (idx >= 0) & (idx < s_local)
     pos = idx.clamp(0, s_local - 1)
+    place = slot * s_local + pos
     rows = torch.arange(n, device=q.device)
-    ck[rows, :, pos] = torch.where(own, k.to(ck.dtype), ck[rows, :, pos])
-    cv[rows, :, pos] = torch.where(own, v.to(cv.dtype), cv[rows, :, pos])
-    return _flash_decode_ranks(q, ck, cv, cur, ranks)
+    same = (place[:, None] == place[None, :]) & own[None, :]
+    src = torch.amax(torch.where(same, rows[None, :], -1), dim=1)
+    old_k, old_v = ck[slot, :, pos], cv[slot, :, pos]
+    keep = (src < 0)[:, None, None]
+    src = src.clamp_min(0)
+    ck[slot, :, pos] = torch.where(keep, old_k, k[src].to(ck.dtype))
+    cv[slot, :, pos] = torch.where(keep, old_v, v[src].to(cv.dtype))
+    return _flash_decode_ranks(q, ck, cv, cur_len.to(torch.int32), ranks,
+                               None if row_slots is None else slot)
 
 
-def _flash_decode_ranks(q, ck, cv, cur, ranks):
+def _flash_decode_ranks(q, ck, cv, cur, ranks, slots=None):
     """This rank's query heads q [n,1,Hq/tp,hd] over a cache split over tp
-    along its positions (ck, cv [n,Hkv,S/tp,hd], every KV head at this
-    rank's positions; cur the global index of the last valid one): q is
-    gathered over tp (every head), flash-decoding (kernel #5: the kernel
-    on the card, its plain version on the CPU) attends to the rank's
-    positions and merges the tp ranks' partials, and the rank keeps its
-    own heads. Returns [n,1,Hq/tp*hd]."""
+    along its positions (ck, cv [rows,Hkv,S/tp,hd], every KV head at this
+    rank's positions; cur the global index of the last valid one, one for
+    every row or [n], each row's own; slots [n] the cache row each row
+    reads, or None: row b's): q is gathered over tp (every head),
+    flash-decoding (kernel #5: the kernel on the card, its plain version
+    on the CPU) attends to the rank's positions and merges the tp ranks'
+    partials, and the rank keeps its own heads. Returns
+    [n,1,Hq/tp*hd]."""
     from repro_torch.kernels.flash_decode.ops import flash_decode_seq_sharded
     n, _, hq, hd = q.shape
     r = C.axis_rank(ranks.env, ranks.tp_axis)
     qa = ranks.gather(q[:, 0], 1).contiguous()  # [n,Hq,hd]
     o = flash_decode_seq_sharded(qa, ck, cv, cur,
                                  group=C._group(ranks.env, ranks.tp_axis),
-                                 index=r)
+                                 index=r, slots=slots)
     return o[:, r * hq:(r + 1) * hq].reshape(n, 1, hq * hd)
 
 
@@ -1174,18 +1200,18 @@ def _encode(params, frames, cfg: ModelConfig, plan=None, env=None):
     Per rank over env.mesh (a DeviceMesh; frames this rank's rows): each
     block on the rank's heads and ff columns (_Ranks, sequence-parallel
     over the frames when tp divides Se), its FSDP-sharded weights
-    gathered; enc_norm reads the whole output on every rank (row-padded
-    at tp 1, as on one device)."""
+    gathered; enc_norm reads the whole output on every rank (row-padded,
+    as on one device)."""
     if frames is None:
         raise ValueError(f"{cfg.name}: a prefill or train forward needs "
                          "frames [B, S_enc, d_model]")
     Se = frames.shape[1]
     h = frames.to(torch.bfloat16)
     rk = _Ranks(cfg, env, Se) if env is not None else None
-    if rk is None or rk.tp == 1:
-        h = _pad_rows(h, Se)
     if rk is not None and rk.sp:
         h = C.split(h, env, rk.tp_axis, 1)
+    else:
+        h = _pad_rows(h, Se)
     rope = _rope_of(cfg, torch.arange(Se, device=frames.device))
     unit = params["enc_blocks"][0]
     unshard = ((lambda p: p) if rk is None
@@ -1266,6 +1292,14 @@ class _Ranks:
       the residual stream holds this rank's S / tp positions; a
       sublayer gathers the sequence on entry and its share of the output
       is reduce-scattered back onto the positions.
+    - Row tiles: each sequence a sublayer's products see is padded to
+      whole layers.ROW_TILE positions at every tp degree, as on one
+      device (the residual stream itself without sequence parallelism;
+      the gathered sequence on entry with it), and the tp shares of a
+      row product are taken tile by tile (layers.linear_f32). So a
+      prompt's rows do not depend on the batch around it: a batch-1
+      prefill gives the rows of the same prompt inside a batch of 8, bit
+      for bit, as the engines' classic admission over a mesh needs.
     - The decode caches (init_cache, grow_caches): under plan.kv_cache
       "replicated" an attention unit's k / v hold the KV heads the
       rank's query heads read, at every position; under "seq_sharded"
@@ -1296,7 +1330,7 @@ class _Ranks:
     included), so a 1 x 1 mesh computes the one-device step's values."""
 
     def __init__(self, cfg: ModelConfig, env: Env, S: int):
-        self.cfg, self.env = cfg, env
+        self.cfg, self.env, self.S = cfg, env, S
         self.whole_rows = False
         self.tp_axis, self.tp = env.tp_axis, env.tp
         self.sp = out_dims(env, S)[1] is not None
@@ -1355,8 +1389,19 @@ class _Ranks:
 
     def enter(self, x):
         """A sublayer's input: the whole sequence under sequence
-        parallelism (gathered over tp), x as it is otherwise."""
-        return C.gather(x, self.env, self.tp_axis, 1) if self.sp else x
+        parallelism (gathered over tp and padded to whole row tiles), x as
+        it is otherwise (the residual stream is padded already)."""
+        if not self.sp:
+            return x
+        return _pad_rows(C.gather(x, self.env, self.tp_axis, 1), self.S)
+
+    def positions(self, x):
+        """A value over the whole row-padded sequence (dim 1) as the
+        residual stream holds it: this rank's positions of the first S
+        under sequence parallelism, x otherwise."""
+        if not self.sp:
+            return x
+        return C.split(x[:, :self.S], self.env, self.tp_axis, 1)
 
     def gather(self, x, dim: int):
         """x's dim, split over tp, gathered."""
@@ -1372,11 +1417,10 @@ class _Ranks:
         under sequence parallelism); a whole w gives the whole product on
         every rank."""
         if self.tp == 1 or not split:
-            y = L.linear(x, w)
-            return C.split(y, self.env, self.tp_axis, 1) if self.sp else y
-        y = x.float() @ w.float()
-        y = (C.reduce_scatter(y, self.env, self.tp_axis, 1) if self.sp
-             else C.all_reduce(y, self.env, (self.tp_axis,)))
+            return self.positions(L.linear(x, w))
+        y = L.linear_f32(x.float(), w.float())
+        y = (C.reduce_scatter(y[:, :self.S], self.env, self.tp_axis, 1)
+             if self.sp else C.all_reduce(y, self.env, (self.tp_axis,)))
         return y.to(torch.bfloat16)
 
     def mlp(self, p, x):
@@ -1433,17 +1477,15 @@ def _stack_ranks(params, tokens, cfg: ModelConfig, env: Env, vision_embeds,
     encoder per rank first. At tp 1 each sequence is padded to whole row
     tiles as on one device (the same bits); at tp > 1 the residual
     stream is split over the positions when tp divides them (sequence
-    parallelism). Returns (the final norm's output [B/dp, S(p), d] bf16,
-    whole over the sequence, the prompt caches (None under a training
-    plan), the MoE aux loss, S)."""
+    parallelism), padded to whole row tiles otherwise (_Ranks: at every tp
+    degree, as on one device). Returns (the final norm's output [B/dp,
+    Sp, d] bf16, whole over the row-padded sequence, the prompt caches
+    (None under a training plan), the MoE aux loss, S)."""
     h, rope = _with_vision(_embed_ranks(params, tokens, _Ranks(cfg, env, 1)),
                            cfg, vision_embeds)
     S = h.shape[1]
     rk = _Ranks(cfg, env, S)
-    if rk.tp == 1:
-        h = _pad_rows(h, S)
-    if rk.sp:
-        h = C.split(h, env, rk.tp_axis, 1)
+    h = C.split(h, env, rk.tp_axis, 1) if rk.sp else _pad_rows(h, S)
     enc = _encode(params, frames, cfg, plan, env) if cfg.is_encdec else None
     x, caches, aux = _run_blocks(params, h, cfg, S=S, rope=rope, plan=plan,
                                  ranks=rk, enc=enc)
@@ -1548,10 +1590,8 @@ def forward(params, tokens, cfg: ModelConfig, env: Env, mode: str = "decode",
     takes the rank's rows; the engines' decode (block tables, row slots,
     or whole_rows: a slot pool's step) takes every row on every rank
     (_Ranks.whole_rows). Block tables read the rank's KV heads under
-    either layout. Decode under the seq_sharded layout takes one cur_len
-    for every row (the one-shot's uniform batch); row slots under it
-    (the slot pool under seq_sharded) raise NotImplementedError
-    (ROADMAP item 12.2)."""
+    either layout; a contiguous cache under the seq_sharded layout is
+    read by kernel #5 at each row's own depth (_attn_seq_sharded)."""
     check_supported(cfg)
     per_rank = sharded(cfg, env)
     if mode == "prefill":
@@ -1569,18 +1609,10 @@ def forward(params, tokens, cfg: ModelConfig, env: Env, mode: str = "decode",
     rk = None
     if per_rank:
         rk = _Ranks(cfg, env, 1)
-        if rk.kv_seq and row_slots is not None:
-            raise NotImplementedError(
-                "row slots under the seq_sharded layout (the slot pool "
-                "under a seq_sharded plan) over a mesh are ROADMAP item "
-                "12.2")
         rk.whole_rows = (whole_rows or block_tables is not None
                          or row_slots is not None)
         if block_tables is not None:
             rk.kv_seq = False  # the paged pools: the rank's KV heads
-        if rk.kv_seq and cl.ndim:
-            raise ValueError("decode under the seq_sharded layout takes one "
-                             "cur_len for every row")
     cl = cl.expand(B) if cl.ndim == 0 else cl
     clp = F.pad(cl, (0, Bp - B))
     pos = (build_mrope_positions(1, cfg.num_vision_embeds, cur_len=clp,

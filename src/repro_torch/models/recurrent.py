@@ -461,8 +461,7 @@ def rwkv_channel_mix(p, x, cfg: ModelConfig, state=None, *, S=None,
         hv = ranks.row(kk, p["cm_v"], p["cm_v"].shape[0] != cfg.d_ff)
         if rr.shape[-1] != x.shape[-1]:  # cm_r's columns: the whole rr
             rr = ranks.gather(rr, -1)
-        if ranks.sp:  # the rank's positions, as hv's
-            rr = ranks.local(rr, 1)
+        rr = ranks.positions(rr)  # the rank's positions, as hv's
     y = rr * hv
     new = x[:, S - 1] if (state is not None or return_state) else None
     return y, new

@@ -63,7 +63,15 @@ is the same on every rank, and the pool holds every block with the KV
 heads the rank's query heads read and state rows of its channels or
 heads (Mo.init_paged_cache); a classic insert scatters the rank's
 prefill cache, which holds the same heads and channels. The host swap
-tier over a mesh is ROADMAP item 12.2 (serve/kv.py refuses it).
+tier copies the rank's own share of a victim: the KV heads of its pool
+(and the int8 pool's scales at those heads) and its state channels, into
+pinned host memory of the rank's own HostSwapPool. The budget counts
+blocks, which the host bookkeeping keeps the same on every rank, so
+every rank accepts or declines the same swap and the host state stays
+the same on every rank. swap_out_bytes / swap_in_bytes count the bytes
+this rank copied, its share: over tp ranks that split the KV heads and
+channels evenly, 1 / tp of the logical blocks' bytes the JAX package
+counts (its payload is the whole, gathered array).
 
 Left out of the port so far: the int8 pool for window or recurrent archs.
 """

@@ -42,8 +42,11 @@ Over a DeviceMesh (an engine built with `mesh=`, serve/scheduler.py)
 every backend is per rank: the same host bookkeeping on every rank
 (tables, slots, reservations, the prefix index), and a device cache of
 the rank's KV heads and state channels (models/model.py
-init_paged_cache, init_cache). The host swap tier over a mesh is not
-ported yet (ROADMAP item 12.2: HostSwapPool would copy per rank).
+init_paged_cache, init_cache). The host swap tier works per rank too:
+each rank's backend copies out, and back, its own share of a victim's
+blocks and state rows into its own HostSwapPool (one per rank, shared by
+that rank's replicas), and since the budget counts blocks, every rank
+accepts or declines the same swap (serve/blocks.py).
 """
 from __future__ import annotations
 
@@ -53,7 +56,7 @@ from typing import (Any, Dict, List, Optional, Protocol,
 import numpy as np
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.env import Env, sharded
+from repro_torch.models.env import Env
 
 Pytree = Any
 
@@ -169,16 +172,11 @@ def make_kv_backend(kind: str, cfg: ModelConfig, env: Env, *, num_slots: int,
     pass a prebuilt `swap_pool` to share one across a fleet's replicas
     (ReplicaSet does), else a private pool is made with
     `swap_budget_blocks` capacity (None = unbounded). Over a DeviceMesh
-    (env.mesh) the rank's backend; swap=True raises NotImplementedError
-    there (ROADMAP item 12.2)."""
+    (env.mesh) the rank's backend, and its host pool the rank's."""
     from repro_torch.serve.blocks import (BlockManager, HostSwapPool,
                                           QuantBlockManager)
     from repro_torch.serve.slots import SlotPool
 
-    if swap and sharded(cfg, env):
-        raise NotImplementedError(
-            "the host swap tier over a mesh (HostSwapPool copies per rank) "
-            "is ROADMAP item 12.2")
     if swap and swap_pool is None:
         swap_pool = HostSwapPool(swap_budget_blocks)
     elif not swap:

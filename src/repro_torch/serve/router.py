@@ -184,7 +184,10 @@ class ReplicaSet:
         total KV budget to a single engine passes total/N here. With
         mesh= (a DeviceMesh) every replica runs over that mesh, per rank
         (serve/scheduler.py), cut from the whole params given here; every
-        rank of the mesh builds the same fleet and routes alike."""
+        rank of the mesh builds the same fleet and routes alike, and the
+        shared HostSwapPool is the rank's (each rank swaps its own share
+        of a victim, so a request drained off one replica resumes on
+        another on every rank alike)."""
         if replicas < 1:
             raise ValueError(f"need at least one replica, got {replicas}")
         if drain_mode not in ("finish", "preempt"):

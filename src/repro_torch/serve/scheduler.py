@@ -69,10 +69,14 @@ are the only input of the scheduler, so every rank picks the same ones
 (launch/steps.py: the vocabulary-parallel argmax, or the sampler over
 the columns gathered over tp), and the engine checks that they are the
 same on every rank, stopping the run (RuntimeError) where they are not.
-Speculative decoding and the host swap tier over a mesh raise
-NotImplementedError (ROADMAP item 12.2), as does the slot pool under a
-seq_sharded plan; the paged pools hold the rank's KV heads under either
-layout (the JAX package's paged branch ignores the layout).
+A speculative step's check covers every row, so every verify row's token
+(each one a block accepts) and the drafts the verify rows fed in. The
+drafters are per rank (serve/spec.py), AdaptiveSpecK is host state, the
+same on every rank. The host swap tier copies each rank's own share of a
+victim (serve/blocks.py). The paged pools hold the rank's KV heads under
+either layout (the JAX package's paged branch ignores the layout); the
+slot pool follows plan.kv_cache (serve/slots.py: under seq_sharded every
+KV head at the rank's positions, kernel #5 at each row's own depth).
 """
 from __future__ import annotations
 
@@ -139,10 +143,6 @@ class ReplicaEngine:
         self.env = Env(mesh=mesh, plan=plan or SERVE_PLAN)
         # per rank over a DeviceMesh: the rank's shards of the params
         self.per_rank = sharded(cfg, self.env)
-        if self.per_rank and not (spec is None or spec == "off"):
-            raise NotImplementedError(
-                "speculative decoding over a mesh (the model drafter needs "
-                "a draft pool per rank) is ROADMAP item 12.2")
         self.params = self._local(params)
         self.device = torch.device(device)
         self.pool: KVBackend = make_kv_backend(
@@ -503,7 +503,11 @@ class ReplicaEngine:
 
         nxt_dev = self.pool.decode(self.params, self._tok_prev, meta_i,
                                    meta_f, row_slots, sample=sample)
-        self._agreed(nxt_dev)
+        # every row's token (a verify block's accepted ones among them),
+        # and the drafts the verify rows fed in
+        self._agreed(nxt_dev if not spec_rows else torch.cat([
+            nxt_dev.long(), torch.as_tensor(
+                meta_i[St.ROW_FRESH, spec_base:], device=self.device).long()]))
         self._tok_prev = nxt_dev
         nxt = nxt_dev.cpu().numpy()  # the one host transfer per step
         self.decode_steps += 1

@@ -24,10 +24,21 @@ row's slot through a one-entry table of the same kernel. The pool has no
 host swap tier: swap_out declines, and the engine restart-preempts.
 
 Over a DeviceMesh (an engine built with `mesh=`) the pool is the rank's:
-every slot (an engine's rows are whole on every rank), the KV heads the
-rank's query heads read and its recurrent channels or heads
-(Mo.init_cache whole_rows=True), under the replicated layout; a
-seq_sharded plan raises NotImplementedError (ROADMAP item 12.2).
+every slot (an engine's rows are whole on every rank) and its recurrent
+channels or heads (Mo.init_cache whole_rows=True). Under the replicated
+layout it holds the KV heads the rank's query heads read at every
+position; under a seq_sharded plan every KV head at the rank's share of
+the positions (the JAX package's row-slot branch over its seq-sharded
+cache). There each row writes its K/V on the rank whose positions hold
+its depth, and kernel #5 attends each row over its own slot at its own
+depth on every rank, the ranks' partials merged over tp
+(models/model.py _attn_seq_sharded). Where tp does not divide
+prompt_len + max_gen, the slot is padded to the next multiple of tp:
+the positions past prompt_len + max_gen - 1 are never valid (no depth
+reaches them; the last one is the masked rows' write place). A classic
+admission's prefill caches (every KV head at every prompt position,
+models/model.py _prefill_sharded) are grown to the slot and cut to the
+rank's positions on insert (Mo.grow_caches).
 """
 from __future__ import annotations
 
@@ -74,10 +85,11 @@ class SlotPool:
                 f"{cfg.name}: sliding-window ('local') blocks are not "
                 "supported by the slot pool (ring-buffer caches cannot be "
                 "grown after prefill)")
+        # a slot's positions: a multiple of tp under a seq_sharded plan
+        n = prompt_len + max_gen
         if sharded(cfg, env) and env.plan.kv_cache == "seq_sharded":
-            raise NotImplementedError(
-                "the slot pool under a seq_sharded plan over a mesh is "
-                "ROADMAP item 12.2")
+            n = -(-n // env.tp) * env.tp
+        self.slot_len = n
         self.cfg = cfg
         self.env = env
         self.device = torch.device(device)
@@ -85,7 +97,7 @@ class SlotPool:
         self.prompt_len = prompt_len
         self.max_gen = max_gen
         self.caches: Pytree = Mo.init_cache(cfg, env, num_slots,
-                                            prompt_len + max_gen,
+                                            self.slot_len,
                                             device=self.device,
                                             whole_rows=True)
         self._slots: List[Optional[SlotInfo]] = [None] * num_slots
@@ -168,13 +180,15 @@ class SlotPool:
     def insert(self, slot: int, rid: int, prefill_caches: Pytree,
                gen_len: int) -> None:
         """Bind `rid` to `slot` and write its prefilled (batch-1, length
-        prompt_len) cache into the pool, grown to the pool's length."""
+        prompt_len) cache into the pool, grown to the pool's length (the
+        rank's positions of it under a seq_sharded plan)."""
         assert self._slots[slot] is None, f"slot {slot} occupied"
         if slot in self._free:  # direct pool use (tests): claim this slot
             self._free.remove(slot)
         self.caches = Mo.cache_insert_slot(
-            self.caches, Mo.grow_caches(prefill_caches, self.max_gen,
-                                        self.cfg), slot)
+            self.caches, Mo.grow_caches(
+                prefill_caches, self.slot_len - self.prompt_len, self.cfg,
+                self.env), slot)
         self._slots[slot] = SlotInfo(rid=rid, cur_len=self.prompt_len,
                                      tokens_done=1, gen_len=gen_len)
 

@@ -29,6 +29,17 @@ of many slots (the row-indirected slot step). The target's emitted
 tokens are fed in as catch-up before each proposal, so rejected draft KV
 is overwritten sequentially and never attended — rollback is implicit.
 Each drafter step is a T=1 fused step with a host sync.
+
+Over a DeviceMesh (the engine's Env) the model drafter runs per rank as
+the engine does: its SlotPool is the rank's (every row; the rank's KV
+heads, or every KV head at the rank's positions under a seq_sharded
+plan), its weights the rank's shards of the whole draft tree, and its
+greedy picks the vocabulary-parallel argmax, so every rank proposes the
+same drafts. The draft config's 3 query heads and 1 KV head do not
+divide tp 2: the query heads are padded to head_pad (as the JAX
+package's init_params pads them under a mesh) and the KV head is
+replicated, as parallel/rules.py replicates a size its axis does not
+divide.
 """
 from __future__ import annotations
 
@@ -41,7 +52,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import steps as St
 from repro_torch.models import model as Mo
-from repro_torch.models.env import Env
+from repro_torch.models.env import Env, sharded
+from repro_torch.parallel import rules
 from repro_torch.serve.request import Request
 
 
@@ -133,8 +145,12 @@ class ModelDrafter(Drafter):
     Per request: admit() prefills the prompt into a draft slot; propose()
     first catches the draft KV up with the target-emitted tokens (the
     committed cursor), then chains k greedy T=1 steps feeding its own
-    predictions. `params` are the draft model's weights; by default the
-    port's own seeded init_params(draft_config(target), seed=0)."""
+    predictions. `params` are the draft model's weights, the whole tree
+    in env's layout (over a mesh padded for its tp degree, as
+    init_params(draft_config(target), env) gives it, and as the JAX
+    package's draft weights over the same mesh are); by default the
+    port's own seeded init_params(draft_config(target), env, seed=0).
+    Over a mesh each rank keeps its shards of it."""
 
     name = "model"
 
@@ -150,9 +166,11 @@ class ModelDrafter(Drafter):
         self.pool = SlotPool(self.cfg, env, num_slots=num_slots,
                              prompt_len=prompt_len,
                              max_gen=max_gen + spec_k, device=self.device)
-        self.params = (params if params is not None else
-                       Mo.init_params(self.cfg, env, seed=0,
-                                      device=self.device))
+        whole = (params if params is not None else
+                 Mo.init_params(self.cfg, env, seed=0, device=self.device))
+        self.params = (rules.local_shards(whole, Mo.param_specs(self.cfg,
+                                                                env), env)
+                       if sharded(self.cfg, env) else whole)
         self._prefill = St.make_prefill_step(self.cfg, env)
         self._state: Dict[int, _DraftState] = {}
         self._tok_prev = torch.zeros((1,), dtype=torch.int32,

@@ -1,9 +1,8 @@
 """What the port's model accepts and still refuses over a mesh, now that
 every arch computes per rank over one (the modality archs included) and
-the engines' pools decode over one (ROADMAP item 12): it refuses axes
-the plan does not name, compute over a shape-only mesh of more than one
-device, and row slots under the seq_sharded layout (the slot pool under
-a seq_sharded plan, ROADMAP item 12.2). Shared by the three test files
+the engines' pools decode over one in either KV layout (ROADMAP item
+12): it refuses axes the plan does not name and compute over a
+shape-only mesh of more than one device. Shared by the three test files
 whose gloo children hold a DeviceMesh (tests/test_torch_substrates.py,
 test_torch_sharded.py and test_torch_mesh_serving.py).
 
@@ -12,11 +11,15 @@ a DeviceMesh of ("data", "model") over its ranks, and leaves `refused`:
 per arch "" when init_params over the mesh accepts it, else the
 NotImplementedError's message; per refusal its message, or "" if nothing
 was raised; for block tables and row slots (the engines' pools: the
-paged pool under either layout, the slot pool under the replicated one)
-"" when a decode step over the mesh returns finite logits of its rows
-and, on the rank of a 1 x 1 mesh, the one-device step's logits bit for
-bit. check() holds the children's `refused` and the shape-only mesh's
-cases in the test process.
+paged pool under either layout, the slot pool under either) "" when a
+decode step over the mesh returns finite logits of its rows and, on the
+rank of a 1 x 1 mesh, the one-device step's logits: bit for bit, but for
+row slots under the seq_sharded layout within LAYOUT_TOL = 0.0625 (the
+bound tests/test_torch_mesh_serving.py holds the seq_sharded one-shot's
+decode to: kernel #5's plain version over the positions, its partials
+merged, against the one-device step's paged-decode attention, two f32
+attentions summed in another order). check() holds the children's
+`refused` and the shape-only mesh's cases in the test process.
 """
 import jax
 import jax.numpy as jnp
@@ -85,9 +88,11 @@ for what, plan in (("block_tables", ParallelPlan()),
         lg = pool_decode(Env(plan=plan, mesh=mesh), kind)
         ok = lg.shape[0] == 2 and bool(torch.isfinite(lg.float()).all())
         if one.get_coordinate() is not None:
-            ok = ok and torch.equal(pool_decode(Env(plan=plan, mesh=one),
-                                                kind),
-                                    pool_decode(Env(plan=plan), kind))
+            a = pool_decode(Env(plan=plan, mesh=one), kind)
+            b = pool_decode(Env(plan=plan), kind)
+            ok = ok and (torch.equal(a, b) if what != "row_slots_seq_sharded"
+                         else float((a.float() - b.float()).abs().max())
+                         <= 0.0625)
         refused[what] = "" if ok else "differs from one device"
     except NotImplementedError as e:
         refused[what] = str(e)
@@ -102,19 +107,16 @@ except ValueError as e:
 
 def check(refused_by_rank):
     """Every rank accepted every arch over its DeviceMesh, decoded through
-    block tables and row slots over it (a 1 x 1 mesh the one-device
-    step's logits), and refused row slots under the seq_sharded layout
-    (ROADMAP item 12.2) and an unnamed axis;
+    block tables and row slots over it in either layout (a 1 x 1 mesh the
+    one-device step's logits), and refused an unnamed axis;
     over a shape-only (1, 2) mesh init_params gives the JAX package's
     padded shapes for both modality archs, and their compute raises
     ValueError."""
     assert refused_by_rank
     for refused in refused_by_rank:
         assert all(refused[arch] == "" for arch in ARCH_IDS), refused
-        for what in ("block_tables", "row_slots"):
+        for what in ("block_tables", "row_slots", "row_slots_seq_sharded"):
             assert refused[what] == "", refused
-        assert "ROADMAP item 12.2" in refused["row_slots_seq_sharded"], \
-            refused
         assert "neither the plan's dp axes" in refused["extra_axes"]
     wide = Env(plan=ParallelPlan(), mesh=LM.ShapeMesh((1, 2),
                                                       ("data", "model")))

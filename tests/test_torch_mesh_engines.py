@@ -42,10 +42,8 @@ top-p 0.9, a seed a request). Tolerances, and why:
   the engine's, so its margins are the one-shot's, an approximation
   (measured: 29 of its 32 tokens equal JAX's over (2, 2); recurrentgemma-9b
   29 of 32 over (1, 2); every other case 32 of 32).
-- (d) Speculative decoding, the host swap tier and the slot pool under a
-  seq_sharded plan over a mesh raise NotImplementedError naming ROADMAP
-  item 12.2 (JAX's engine runs all three over its mesh: ROADMAP.md
-  section 3).
+Speculative decoding, the host swap tier and the slot pool under a
+seq_sharded plan over the mesh are tests/test_torch_mesh_spec_swap.py's.
 """
 import json
 import os
@@ -124,7 +122,6 @@ def one_torch_thread():
 
 
 _RANK = """
-import dataclasses
 import json
 import os
 import sys
@@ -137,7 +134,7 @@ from repro_torch.core import VirtualCluster
 from repro_torch.launch import serve as cli
 from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models import model as Mo
-from repro_torch.models.env import SERVE_PLAN, Env
+from repro_torch.models.env import Env
 from repro_torch.optim import adamw as A
 from repro_torch.serve.request import Request
 from repro_torch.serve.router import ReplicaSet
@@ -279,21 +276,6 @@ for arch in spec["archs"]:  # the one-shots over each mesh
                                    device="cpu", mesh=MESH[m])
             key = f"{arch}/{m}/" + ("streamed" if streamed else "full")
             report["oneshot"][key] = toks.tolist()
-
-refused = {}
-if MESH["1x2"].get_coordinate() is not None:
-    cfg = get_smoke("paper-demo")
-    seq = dataclasses.replace(SERVE_PLAN, kv_cache="seq_sharded")
-    for what, kw in (("spec", {"spec": "ngram"}), ("swap", {"swap": True}),
-                     ("slot_seq_sharded", {"kv": "slot", "plan": seq})):
-        try:
-            ServingEngine(cfg, jax_params("paper-demo"), num_slots=4,
-                          prompt_len=S, max_gen=GEN, device="cpu",
-                          mesh=MESH["1x2"], **kw)
-            refused[what] = ""
-        except NotImplementedError as e:
-            refused[what] = str(e)
-report["refused"] = refused
 
 # the data ranks of the (2, 2) mesh hold different params: their tp groups
 # pick different tokens, and every rank stops the run
@@ -549,19 +531,6 @@ def test_engine_over_the_mesh_matches_jax(children, name):
         if diff.size:
             t = diff[0]
             assert _margin(lg[t, row]) < JAX_TOL, (name, row, t)
-
-
-def test_item_12_2_is_refused_over_the_mesh(children):
-    """(d) Over the (1, 2) mesh, on both of its ranks: speculative
-    decoding, the host swap tier and the slot pool under a seq_sharded
-    plan raise NotImplementedError naming ROADMAP item 12.2."""
-    _, reports, _ = _results(children)
-    members = [rep["refused"] for rep in reports if rep["refused"]]
-    assert len(members) == 2
-    for refused in members:
-        assert set(refused) == {"spec", "swap", "slot_seq_sharded"}
-        assert all("ROADMAP item 12.2" in m for m in refused.values()), \
-            refused
 
 
 def test_ranks_that_disagree_stop_the_run(children):

@@ -657,9 +657,9 @@ def test_a_modality_arch_over_a_mesh_names_item_8_4(ranks):
     eight ranks' DeviceMesh are accepted, as every arch is, on every rank
     (their serve over a mesh: tests/test_torch_mesh_modality.py); block
     tables and row slots over the mesh (the engines' pools, ROADMAP item
-    12) decode, a 1 x 1 mesh as one device does; row slots under
-    seq_sharded (ROADMAP item 12.2) and an axis the plan does not name
-    are still refused, and over a
+    12) decode in either KV layout, a 1 x 1 mesh as one device does (row
+    slots under seq_sharded within LAYOUT_TOL); an axis the plan does
+    not name is still refused, and over a
     shape-only (1, 2) mesh the modality archs get the JAX package's
     padded shapes and refuse to compute (tests/_torch_mesh_refusals.py)."""
     _, reports, _, _ = ranks

@@ -650,10 +650,11 @@ def test_recurrent_archs_over_a_mesh_name_item_8_4(ranks):
     arch is accepted, the recurrent and modality archs included (they
     compute per rank: tests/test_torch_mesh_serving.py,
     tests/test_torch_mesh_modality.py), on every rank; block tables and
-    row slots (the engines' pools, ROADMAP item 12) decode over it, a
-    1 x 1 mesh as one device does; what the model still refuses there
-    keeps refusing (row slots under seq_sharded, ROADMAP item 12.2; an
-    axis the plan does not name), and over a
+    row slots (the engines' pools, ROADMAP item 12) decode over it in
+    either KV layout, a 1 x 1 mesh as one device does (row slots under
+    seq_sharded within the seq_sharded decode's tolerance); what the
+    model still refuses there keeps refusing (an axis the plan does not
+    name), and over a
     shape-only (1, 2) mesh the modality archs get the JAX package's
     padded shapes and refuse to compute (tests/_torch_mesh_refusals.py)."""
     _, reports = ranks

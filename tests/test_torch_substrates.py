@@ -512,9 +512,10 @@ def test_the_model_refuses_a_mesh_of_more_than_one_device(gloo_ranks):
     check_mesh, sharded; models/model.py forward), now that every arch
     computes per rank (ROADMAP item 8.4 closed): over the four gloo
     ranks' 2x2 DeviceMesh every arch is accepted, block tables and row
-    slots (the engines' pools, ROADMAP item 12) decode over it (a 1 x 1
-    mesh as one device does), and row slots under seq_sharded (ROADMAP
-    item 12.2) and an axis the plan does not name are refused
+    slots (the engines' pools, ROADMAP item 12) decode over it in either
+    KV layout (a 1 x 1 mesh as one device does; row slots under
+    seq_sharded within the seq_sharded decode's tolerance), and an axis
+    the plan does not name is refused
     (tests/_torch_mesh_refusals.py). Over a shape-only mesh every
     arch's init_params gives the whole tree padded for the mesh's tp
     degree, the JAX package's shapes under the same mesh, the modality
