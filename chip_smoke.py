@@ -343,7 +343,16 @@ Phases, any failure exits non-zero before the result line:
      equal; a per-rank prefill of 8 prompts against each prompt alone,
      logits and cache leaves bit for bit (paper-demo-110m at 12 layers,
      recurrentgemma-9b at 5, both layouts). Counts zeroed before each run
-     and read after it, the ranks' too (`item12_launches`, by part).
+     and read after it, the ranks' too (`item12_launches`, by part);
+ 31. the port's linter (repro_torch.analysis) in-process over
+     src/repro_torch, failing on any unsuppressed finding; then a
+     host-sync census: phase 3's engine (paper-demo-110m at full width,
+     paged, prompt 64, 8 slots, greedy) and phase 4's seeded one, each
+     warmed, then 4 engine steps under
+     torch.cuda.set_sync_debug_mode("warn"). One line gives the syncs per
+     step and their sites (file:line under src/repro_torch/, the
+     innermost frame there). Printed, not asserted: the per-step token
+     download is the one sync the design intends.
 Each phase's wall time is printed as it ends.
 Phase 2 also holds the quant kernel to its plain version and to the bf16
 kernel on the same pool (relative RMS), the flash-attention kernel to its
@@ -5658,6 +5667,92 @@ def check_item12(counted, spec_tokens, victims, phase10):
     return launches, parts
 
 
+CENSUS_WARM, CENSUS_STEPS = 8, 4  # phase 31: engine steps warmed, counted
+
+
+def sync_census(args, cfg, params):
+    """Phase 31 (b) for one engine: warm it CENSUS_WARM steps into its
+    trace, then run CENSUS_STEPS steps under
+    torch.cuda.set_sync_debug_mode("warn"), each synchronizing call's
+    warning attributed to the innermost frame under src/repro_torch/.
+    Returns ([syncs of each step], {site: count})."""
+    import collections
+    import traceback
+    import warnings
+
+    import torch
+    from repro_torch.launch.serve import make_engine, make_trace
+    root = HERE + os.sep
+    engine = make_engine(args, cfg, params)
+    engine.submit(make_trace(args, cfg))
+    for _ in range(CENSUS_WARM):
+        engine.step()
+        engine.clock.sleep(args.step_time)
+    sites, per_step = collections.Counter(), []
+
+    stepping = [False]  # count inside engine.step() only
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if not stepping[0] or "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()
+                if f.filename.startswith(root + "src/repro_torch/")]
+        f = ours[-1] if ours else None
+        sites[f"{f.filename[len(root):]}:{f.lineno}" if f
+              else f"{filename}:{lineno}"] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(CENSUS_STEPS):
+                n = sum(sites.values())
+                stepping[0] = True
+                engine.step()
+                stepping[0] = False
+                per_step.append(sum(sites.values()) - n)
+                engine.clock.sleep(args.step_time)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return per_step, dict(sites.most_common())
+
+
+def check_lint_and_syncs(dev):
+    """Phase 31: (a) the port's linter over src/repro_torch, in-process;
+    (b) the host-sync census of phases 3 and 4's engines."""
+    import torch
+    from repro_torch.analysis.core import run_lint
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as Mo
+    from repro_torch.models.env import Env
+    t0 = time.perf_counter()
+    res = run_lint([os.path.join(HERE, "src", "repro_torch")])
+    if res.unsuppressed:
+        fail("phase 31: replint findings in src/repro_torch:\n"
+             + "\n".join(f.format() for f in res.unsuppressed))
+    print(f"(a) replint over src/repro_torch: {len(res.unsuppressed)} "
+          f"findings, {len(res.suppressed)} suppressed, "
+          f"{len(res.unused_suppressions)} unused, {res.files_scanned} "
+          f"files, {time.perf_counter() - t0:.2f}s")
+    cfg = get_config("paper-demo")
+    params = Mo.init_params(cfg, Env(), seed=0, device=dev)
+    census = {}
+    for label, extra in (("greedy", []),
+                         ("seeded", ["--temperature", "0.8", "--top-k", "50",
+                                     "--top-p", "0.9", "--sample-seed", "7"])):
+        per_step, sites = sync_census(serve_args(extra), cfg, params)
+        census[label] = {"syncs_per_step": sum(per_step) / CENSUS_STEPS,
+                         "per_step": per_step, "sites": sites}
+    print("host-sync census (" + cfg.name + ", paged, prompt 64, 8 slots, "
+          f"after {CENSUS_WARM} warm steps): " + json.dumps(census))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return census
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -6126,6 +6221,10 @@ def main():
     item12_launches, item12_parts = check_item12(counted, spec_tokens,
                                                  victims, phase10)
     done(30)
+    # 31. the port's linter in-process, and a host-sync census of the
+    # fused steps (phases 3 and 4's engines under the sync debug mode)
+    check_lint_and_syncs(dev)
+    done(31)
     report[2]["rings_int8"] = ring_q
     report[2]["modality"] = {"gqa7 serving mix int8":
                              mod_paged.pop("gqa7 serving mix int8")}
