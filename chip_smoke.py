@@ -290,8 +290,12 @@ Phases, any failure exits non-zero before the result line:
  28. the analytic dry run and the examples (budget: 90 s). (a)
      launch/dryrun.py over every cell of configs.cells() on both
      production meshes (shape-only, 16 x 16 and 2 x 16 x 16) on the
-     H100's rates, the fit against this card's total_memory: 64 OK
-     lines, reports under reports/dryrun_torch/. (b) Two one-device
+     H100's rates, the fit against this card's total_memory, the
+     analytic terms (--analytic: the measured dry run runs each cell's
+     step on the meta device, minutes of CPU for the 64; its counts
+     are held to the analytic ones by the CPU tests, and phase 32 holds
+     the measurement to the card): 64 OK lines, reports under
+     reports/dryrun_torch/. (b) Two one-device
      steps at full width and depth against launch/roofline.py's bound
      for the same configuration: paper-demo-110m's train step (B=8
      S=128, phase 20's plan) and qwen2-1.5b's contiguous-cache decode
@@ -352,7 +356,19 @@ Phases, any failure exits non-zero before the result line:
      torch.cuda.set_sync_debug_mode("warn"). One line gives the syncs per
      step and their sites (file:line under src/repro_torch/, the
      innermost frame there). Printed, not asserted: the per-step token
-     download is the one sync the design intends.
+     download is the one sync the design intends;
+ 32. the measured dry run against the card (launch/step_analysis.py):
+     phase 28's two steps (paper-demo-110m's train step, B=8 S=128;
+     qwen2-1.5b's decode step, B=8 over 2048 positions, #1) and
+     paper-demo-110m's prefill of 8 prompts of 256 tokens (#4), each run
+     once on the card under the step meter (the kernels reporting their
+     work) and once on the meta device by measure_step: the flops, the
+     collective bytes and the bytes accessed equal, or the phase fails.
+     Printed beside them: the meter's peak temporary storage and the
+     card's max_memory_allocated less the memory held before the step,
+     the measured flops beside the analytic count (count_step), and the
+     bytes accessed beside the memory model's traffic. Counts zeroed
+     before the card's runs and read after (`step_analysis_launches`).
 Each phase's wall time is printed as it ends.
 Phase 2 also holds the quant kernel to its plain version and to the bf16
 kernel on the same pool (relative RMS), the flash-attention kernel to its
@@ -5005,14 +5021,14 @@ def check_dryrun(counted, dev):
     reports, failures = dryrun.run(
         todo, ["single", "multi"], os.path.join(HERE, "reports",
                                                 "dryrun_torch"),
-        capacity_bytes=cap)
+        capacity_bytes=cap, measure=False)
     n_ok = sum(len(r) for r in reports.values())
     if failures or n_ok != 2 * len(todo):
         fail(f"dry run: {n_ok} cells, failures {failures}")
     unfit = [f"{r['arch']} {r['shape']} {tag}"
              for tag, reps in reports.items() for r in reps
              if not r["memory"]["fits_device"]]
-    print(f"dry run: {n_ok} cells OK over both meshes in "
+    print(f"dry run (analytic terms): {n_ok} cells OK over both meshes in "
           f"{time.perf_counter() - t0:.1f}s, fit against {cap / 1e9:.2f} GB "
           f"(total_memory of {card()}); cells that do not fit: "
           f"{unfit or 'none'}")
@@ -5753,6 +5769,111 @@ def check_lint_and_syncs(dev):
     return census
 
 
+# phase 32's steps: (label, arch, kind, batch, positions); the train and
+# decode steps are phase 28's, the prefill reaches #4 (256 > 128)
+STEP_CASES = (("paper-demo-110m train B=8 S=128", "paper-demo", "train", 8,
+               128),
+              ("qwen2-1.5b decode B=8, 2048-position cache", "qwen2-1.5b",
+               "decode", 8, 2048),
+              ("paper-demo-110m prefill B=8 S=256", "paper-demo", "prefill",
+               8, 256))
+
+
+def check_step_analysis(counted, dev):
+    """Phase 32: each STEP_CASES step run once on the card under the step
+    meter (launch/step_analysis.py measure: every tensor op counted, the
+    kernel ops reporting their work) and once on the meta device
+    (measure_step); the flops, the collective bytes by type and the
+    bytes accessed must be equal. Returns the kernel launches of the
+    card's runs."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import roofline as RF
+    from repro_torch.launch import step_analysis as SA
+    from repro_torch.launch import steps as St
+    from repro_torch.models import model as Mo
+    from repro_torch.models.env import Env
+    from repro_torch.optim.adamw import AdamWConfig, make_train_state
+    t0 = time.perf_counter()
+    for op in counted:
+        op.launches = 0
+    out = {}
+    for label, arch, kind, B, S in STEP_CASES:
+        cfg = get_config(arch)
+        shape = ShapeConfig(f"{kind}_b{B}_s{S}", S, B, kind)
+        env = train_env() if kind == "train" else Env()
+        opt = AdamWConfig(lr=1e-3, warmup_steps=0, weight_decay=0.0)
+        meta = SA.measure_step(cfg, shape, env, opt, units=False)
+        params = load_params(cfg, seed=0, device=dev)
+        g = torch.Generator().manual_seed(11)
+        tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                               dtype=torch.int32).to(dev)
+        if kind == "train":
+            state = make_train_state(params, opt)
+            args = (state, {"tokens": tokens,
+                            "labels": torch.roll(tokens, -1, dims=1)})
+            step = St.make_train_step(cfg, env, opt)
+        elif kind == "prefill":
+            args = (params, {"tokens": tokens})
+            step = St.make_prefill_step(cfg, env)
+        else:
+            cache = Mo.init_cache(cfg, env, B, S, device=dev)
+            args = (params, cache, tokens[:, :1].contiguous(),
+                    torch.tensor(S - 8, dtype=torch.int32, device=dev))
+            step = St.make_decode_step(cfg, env)
+        held = _leaves(list(args))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        card_cost = SA.measure(
+            lambda: SA.run_step(cfg, shape, env, step, args), held)
+        torch.cuda.synchronize()
+        card_temp = torch.cuda.max_memory_allocated() - base
+        count = RF.count_step(cfg, shape, env, opt)
+        traffic = RF.analyze(cfg, shape, env, opt, measure=False)[
+            "memory"]["traffic_bytes_per_device"]
+        same = {f: (getattr(card_cost, f), getattr(meta, f))
+                for f in ("flops", "kernel_flops", "bytes_accessed",
+                          "args_bytes")}
+        same["collective_by_type"] = (card_cost.coll.by_type,
+                                      meta.coll.by_type)
+        print(f"{label}: card {json.dumps({k: v[0] for k, v in same.items()})}"
+              f", meta {json.dumps({k: v[1] for k, v in same.items()})}")
+        print(f"{label}: temp_bytes meta {meta.temp_bytes}, card meter "
+              f"{card_cost.temp_bytes}, max_memory_allocated less the "
+              f"memory held before the step {card_temp}; measured flops "
+              f"{meta.flops} + unmatmul {count.unmatmul} vs analytic "
+              f"{count.flops}; bytes accessed {meta.bytes_accessed} vs the "
+              f"memory model's traffic {traffic} "
+              f"({meta.bytes_accessed / traffic:.2f}x); card meter "
+              f"{card_cost.seconds:.2f}s, meta {meta.seconds:.2f}s")
+        differ = {k: v for k, v in same.items() if v[0] != v[1]}
+        if differ:
+            fail(f"phase 32 {label}: the card and the meta measurement "
+                 f"differ: {differ}")
+        if meta.flops + count.unmatmul != count.flops:
+            fail(f"phase 32 {label}: measured {meta.flops} + "
+                 f"{count.unmatmul} != analytic {count.flops}")
+        out[label] = {"flops": meta.flops, "analytic_flops": count.flops,
+                      "bytes_accessed": meta.bytes_accessed,
+                      "traffic_bytes": traffic,
+                      "temp_bytes": meta.temp_bytes,
+                      "card_temp_bytes": card_temp,
+                      "args_bytes": meta.args_bytes}
+        del args, params, held
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = _launch_counts(counted)
+    launches["flash_decode"] = launches.pop("flash_decode_partials")
+    print(f"measured dry run against the card: {len(out)} steps equal in "
+          f"{time.perf_counter() - t0:.1f}s; kernel launches {launches}; "
+          + json.dumps(out))
+    if not (launches["paged_flash_decode"] and launches["flash_attention"]):
+        fail(f"phase 32 did not launch #1 and #4: {launches}")
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -6225,6 +6346,11 @@ def main():
     # fused steps (phases 3 and 4's engines under the sync debug mode)
     check_lint_and_syncs(dev)
     done(31)
+    # 32. the measured dry run against the card: phase 28's two steps and
+    # a 256-token prefill run once on the card under the step meter and
+    # once on the meta device, their counts equal
+    step_launches = check_step_analysis(counted, dev)
+    done(32)
     report[2]["rings_int8"] = ring_q
     report[2]["modality"] = {"gqa7 serving mix int8":
                              mod_paged.pop("gqa7 serving mix int8")}
@@ -6246,6 +6372,7 @@ def main():
         k["dryrun_launches"] = dryrun_launches.get(k["name"], 0)
         k["mesh_engine_launches"] = mesh_engine_launches.get(k["name"], 0)
         k["item12_launches"] = item12_launches.get(k["name"], 0)
+        k["step_analysis_launches"] = step_launches.get(k["name"], 0)
         k["item12_launches_by_part"] = {
             p: n.get(k["name"], 0) for p, n in item12_parts.items()}
     report[-1]["seq_sharded"] = fd_seq

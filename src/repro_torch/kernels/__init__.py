@@ -7,6 +7,13 @@ Each kernel package has:
            it runs the plain version. Any other device raises.
   ref.py — the plain PyTorch version (the oracle the kernel is held to)
 
+On a meta tensor a wrapper returns an empty result of its plain
+version's shape and dtype, with no launch and no count: the dry run
+(launch/step_analysis.py) runs whole steps on the meta device. While an
+analysis is active, a wrapper called on a meta or CUDA tensor reports
+its work (`reported`); on a CPU tensor the plain version's own tensor ops
+are counted as they run.
+
 The CUDA sources live in repro_torch/csrc/ (*.cu, with shared kernel
 bodies in *.cuh headers). The first kernel call builds
 them with nvcc into one shared library with a plain C interface under
@@ -18,6 +25,7 @@ time: the CPU tests import every module.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -137,3 +145,47 @@ def check_tensors(name: str, *tensors) -> None:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: non-contiguous input {tuple(t.shape)}")
+
+
+class _Analysis:
+    """The hook of the step analysis (launch/step_analysis.py). While
+    `sink` is set, a kernel op called on a meta or CUDA tensor runs with
+    `quiet` raised, so the analysis leaves the tensor ops of its body
+    uncounted (its output and workspace allocations, its alignment
+    copies: the meta branch has none of them), and then hands the sink
+    (flops, bytes read and written, its result). With no sink an op pays
+    one check."""
+    sink = None
+    quiet = 0
+
+
+ANALYSIS = _Analysis()
+
+
+def nbytes(*tensors) -> int:
+    """The bytes of the tensors given (None and numbers skipped)."""
+    import torch
+    return sum(t.numel() * t.element_size() for t in tensors
+               if isinstance(t, torch.Tensor))
+
+
+def reported(work):
+    """Decorator of a kernel op: work(*args, **kwargs) gives (flops,
+    bytes) at the call's shapes: the products its plain version computes
+    (the count torch.utils.flop_counter.FlopCounterMode gives of it on
+    the CPU) and the bytes the kernel reads and writes."""
+    def wrap(op):
+        @functools.wraps(op)
+        def call(*args, **kwargs):
+            sink = ANALYSIS.sink
+            if sink is None or args[0].device.type == "cpu":
+                return op(*args, **kwargs)
+            ANALYSIS.quiet += 1
+            try:
+                out = op(*args, **kwargs)
+            finally:
+                ANALYSIS.quiet -= 1
+            sink(*work(*args, **kwargs), out)
+            return out
+        return call
+    return wrap

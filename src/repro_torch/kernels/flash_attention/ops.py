@@ -11,19 +11,28 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import check_launch, check_tensors, library
+from repro_torch.kernels import (check_launch, check_tensors, library,
+                                 nbytes, reported)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's instantiations
 
 
+def _work(q, k, v, **_):
+    """The plain version's scores and P.V over every (query, key) pair;
+    q, k and v read, the output written."""
+    B, Sq, Hq, hd = q.shape
+    return 4 * B * Hq * Sq * k.shape[1] * hd, 2 * nbytes(q) + nbytes(k, v)
+
+
+@reported(_work)
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     n_kv_heads: int | None = None):
     """q: [B,Sq,Hq,hd], k/v: [B,Sk,Hkv,hd] (model layout) -> [B,Sq,Hq*hd]
     in q.dtype.
 
     CUDA tensors launch the kernel (bf16, contiguous, hd in HEAD_DIMS);
-    CPU tensors run the plain version."""
+    CPU tensors run the plain version; meta tensors give its shape."""
     B, Sq, Hq, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     if n_kv_heads is not None and n_kv_heads != Hkv:
@@ -33,6 +42,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         o = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                           v.transpose(1, 2), causal=causal, window=window)
         return o.transpose(1, 2).reshape(B, Sq, Hq * hd)
+    if q.device.type == "meta":
+        return q.new_empty((B, Sq, Hq * hd))
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     name = "flash_attention"

@@ -26,7 +26,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from repro_torch.kernels import check_launch, check_tensors, library
+from repro_torch.kernels import (check_launch, check_tensors, library,
+                                 nbytes, reported)
 from repro_torch.kernels.flash_decode.ref import flash_decode_partials_ref
 
 # the kernel's token tile (a span is a whole number of them), by head_dim.
@@ -68,6 +69,18 @@ def _split(B, Hkv, S, hd, dtype, device):
     return tile, max(1, min(want, -(-S // tile)))
 
 
+def _work(q, k, v, cur_len, slots=None):
+    """The plain version's scores and P.V over each row's cache (its
+    slot's through slots); q, the rows' k and v, cur_len and slots read,
+    o, m and l (f32) written."""
+    B, Hq, hd = q.shape
+    S = k.shape[2]
+    row = k.shape[1] * S * hd * k.element_size()
+    return (4 * B * Hq * S * hd,
+            nbytes(q, cur_len, slots) + 2 * B * row + 4 * B * Hq * (hd + 2))
+
+
+@reported(_work)
 def flash_decode_partials(q, k, v, cur_len, slots=None):
     """q [B,Hq,hd]; k, v [B,Hkv,S,hd] (f32 or bf16, one dtype), or
     [num_slots,Hkv,S,hd] read through slots [B]; GQA with g = Hq/Hkv,
@@ -75,9 +88,14 @@ def flash_decode_partials(q, k, v, cur_len, slots=None):
 
     Returns (o [B,Hq,hd] f32 normalised, m [B,Hq,1] f32, l [B,Hq,1] f32),
     the partials flash_decode_kernel returns: an all-masked slice or row
-    gives m = -1e30, l = 0, o = 0."""
+    gives m = -1e30, l = 0, o = 0. Meta tensors give their shapes."""
     if q.device.type == "cpu":
         return flash_decode_partials_ref(q, k, v, cur_len, slots)
+    if q.device.type == "meta":
+        B, Hq, hd = q.shape
+        return (q.new_empty((B, Hq, hd), dtype=torch.float32),
+                q.new_empty((B, Hq, 1), dtype=torch.float32),
+                q.new_empty((B, Hq, 1), dtype=torch.float32))
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode_partials: no kernel for {q.device}")
     name = "flash_decode_partials"
@@ -144,7 +162,7 @@ def merge_partials(o, m, l, group=None):
     dist.all_reduce(w, op=dist.ReduceOp.SUM, group=group)
     dist.all_reduce(num, op=dist.ReduceOp.SUM, group=group)
     for x in (m_g, w, num):
-        count("all-reduce", x)
+        count("all-reduce", x, group)
     return num / torch.clamp_min(w, 1e-30)
 
 

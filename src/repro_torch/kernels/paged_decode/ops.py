@@ -16,7 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import check_launch, check_tensors, library
+from repro_torch.kernels import (check_launch, check_tensors, library,
+                                 nbytes, reported)
 from repro_torch.kernels.paged_decode.ref import (paged_decode_quant_ref,
                                                   paged_decode_ref)
 
@@ -106,14 +107,41 @@ def _workspace(q, k_pool, tables):
                              device=q.device)
 
 
+def _table_work(q, k_pool, tables, lengths, scales=()):
+    """(flops, bytes) of a paged read: the plain version's scores and P.V
+    over each row's whole table (MB x bs positions); q, the blocks each
+    row's table names (k and v, with their scales), the tables and
+    lengths read, the f32 output written."""
+    B, Hq, hd = q.shape
+    Hkv, bs = k_pool.shape[1], k_pool.shape[2]
+    MB = tables.shape[1]
+    scale = scales[0].element_size() if scales else 0
+    block = Hkv * bs * (hd * k_pool.element_size() + scale)
+    return (4 * B * Hq * MB * bs * hd,
+            nbytes(q, tables, lengths) + 2 * B * MB * block
+            + 4 * B * Hq * hd)
+
+
+def _work(q, k_pool, v_pool, tables, lengths):
+    return _table_work(q, k_pool, tables, lengths)
+
+
+def _quant_work(q, k_pool, v_pool, k_scale, v_scale, tables, lengths):
+    return _table_work(q, k_pool, tables, lengths, (k_scale, v_scale))
+
+
+@reported(_work)
 def paged_flash_decode(q, k_pool, v_pool, tables, lengths):
     """q [B,Hq,hd]; k_pool/v_pool [NB,Hkv,bs,hd]; tables [B,MB] int32 block
     ids; lengths [B] int32 last valid position (-1: zero row).
 
     Returns [B,Hq,hd] f32. CUDA tensors launch the kernel (bf16 q and
-    pools); CPU tensors run the plain version."""
+    pools); CPU tensors run the plain version; meta tensors give its
+    shape."""
     if q.device.type == "cpu":
         return paged_decode_ref(q, k_pool, v_pool, tables, lengths)
+    if q.device.type == "meta":
+        return q.new_empty(q.shape, dtype=torch.float32)
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_decode: no kernel for {q.device}")
     name = "paged_flash_decode"
@@ -141,6 +169,7 @@ def paged_flash_decode(q, k_pool, v_pool, tables, lengths):
 paged_flash_decode.launches = 0
 
 
+@reported(_quant_work)
 def paged_flash_decode_quant(q, k_pool, v_pool, k_scale, v_scale, tables,
                              lengths):
     """Quantized paged decode. q [B,Hq,hd] bf16; k_pool/v_pool
@@ -148,10 +177,13 @@ def paged_flash_decode_quant(q, k_pool, v_pool, k_scale, v_scale, tables,
     scales; tables [B,MB] int32; lengths [B] int32 (-1: zero row).
 
     Returns [B,Hq,hd] f32. CUDA tensors launch the kernel
-    (csrc/paged_decode_quant.cu); CPU tensors run the plain version."""
+    (csrc/paged_decode_quant.cu); CPU tensors run the plain version; meta
+    tensors give its shape."""
     if q.device.type == "cpu":
         return paged_decode_quant_ref(q, k_pool, v_pool, k_scale, v_scale,
                                       tables, lengths)
+    if q.device.type == "meta":
+        return q.new_empty(q.shape, dtype=torch.float32)
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_decode_quant: no kernel for {q.device}")
     name = "paged_flash_decode_quant"

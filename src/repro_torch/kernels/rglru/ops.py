@@ -10,18 +10,27 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import check_launch, check_tensors, library
+from repro_torch.kernels import (check_launch, check_tensors, library,
+                                 nbytes, reported)
 from repro_torch.kernels.rglru.ref import rglru_ref_loop
 
 
+def _work(a, b, h0=None):
+    """No product; a, b and h0 read, h written."""
+    return 0, 2 * nbytes(a) + nbytes(b, h0)
+
+
+@reported(_work)
 def rglru_scan(a, b, h0=None):
     """a, b: [B,S,W] f32; h0: [B,W] f32 or None (zeros). Returns h
     [B,S,W] f32.
 
     CUDA tensors launch the kernel (f32, contiguous, any S >= 1); CPU
-    tensors run the plain version."""
+    tensors run the plain version; meta tensors give its shape."""
     if a.device.type == "cpu":
         return rglru_ref_loop(a, b, h0)
+    if a.device.type == "meta":
+        return a.new_empty(a.shape, dtype=torch.float32)
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan: no kernel for {a.device}")
     name = "rglru_scan"

@@ -10,22 +10,38 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import check_launch, check_tensors, library
+from repro_torch.kernels import (check_launch, check_tensors, library,
+                                 nbytes, reported)
 from repro_torch.kernels.rwkv6.ref import wkv6_ref
 
 HEAD_DIMS = (16, 32, 64)  # the kernel's instantiations
 
 
+def _work(r, k, v, logw, u):
+    """The plain version's readout r_t^T (S + diag(u) k_t v_t^T) at every
+    step (ref.py's einsum); r, k, v, logw and u read, o (f32) and the
+    final state (f32) written."""
+    B, S, H, hd = r.shape
+    return (2 * B * S * H * hd * hd,
+            nbytes(r, k, v, logw, u) + 4 * (B * S * H * hd + B * H * hd * hd))
+
+
+@reported(_work)
 def wkv6(r, k, v, logw, u):
     """r, k, v: [B,S,H,hd] (model layout, bf16 from the projections);
     logw: [B,S,H,hd] f32 (log decay, <= 0); u: [H,hd] f32 (bonus).
     Returns (o [B,S,H,hd] f32, s_final [B,H,hd,hd] f32).
 
     CUDA tensors launch the kernel (those dtypes, contiguous, hd in
-    HEAD_DIMS, any S >= 1); CPU tensors run the plain version."""
+    HEAD_DIMS, any S >= 1); CPU tensors run the plain version; meta
+    tensors give its shapes."""
     if r.device.type == "cpu":
         o, s = wkv6_ref(*(t.transpose(1, 2) for t in (r, k, v, logw)), u)
         return o.transpose(1, 2), s
+    if r.device.type == "meta":
+        B, S, H, hd = r.shape
+        return (r.new_empty(r.shape, dtype=torch.float32),
+                r.new_empty((B, H, hd, hd), dtype=torch.float32))
     if r.device.type != "cuda":
         raise ValueError(f"wkv6: no kernel for {r.device}")
     name = "wkv6"

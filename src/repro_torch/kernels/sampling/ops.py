@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import check_launch, check_tensors, library
+from repro_torch.kernels import (check_launch, check_tensors, library,
+                                 nbytes, reported)
 from repro_torch.kernels.sampling.ref import topk_topp_mask_ref
 
 # widest row one block stages in shared memory (csrc kMaxShared: 227 KB
@@ -26,12 +27,22 @@ MAX_SHARE = (227 * 1024 - 3072 - 3 * 16640 - 4096) // 4 - 8
 CLUSTER = 8
 
 
+def _work(logits, top_k, top_p):
+    """No product; the rows and their settings read, the masked rows
+    written (f32)."""
+    return 0, nbytes(logits, top_k, top_p) + 4 * logits.numel()
+
+
+@reported(_work)
 def topk_topp_mask(logits, top_k, top_p):
     """logits [T,V] f32; top_k [T] int32 (<=0 off); top_p [T] f32 (>=1 off).
 
-    Returns [T,V] f32: kept logits unchanged, dropped entries at -1e30."""
+    Returns [T,V] f32: kept logits unchanged, dropped entries at -1e30
+    (on meta tensors an empty result of that shape)."""
     if logits.device.type == "cpu":
         return topk_topp_mask_ref(logits, top_k, top_p)
+    if logits.device.type == "meta":
+        return logits.new_empty(logits.shape, dtype=torch.float32)
     if logits.device.type != "cuda":
         raise ValueError(f"topk_topp_mask: no kernel for {logits.device}")
     name = "topk_topp_mask"

@@ -1,21 +1,29 @@
-"""Dry run over the production meshes: the analytic roofline of every
-(arch x shape) cell on the H100's rates (port of the JAX package's
-launch/dryrun.py).
+"""Dry run over the production meshes: the roofline of every (arch x
+shape) cell on the H100's rates, its terms read from the step the port
+executes (port of the JAX package's launch/dryrun.py).
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-9b \
       --shape train_4k
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh multi
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh multi \
+      --no-units
 
-The meshes are shape-only (launch/mesh.py make_production_mesh(abstract=
-True): 16 x 16 and 2 x 16 x 16 devices), so the run needs no rank and no
-card: each cell's terms come from launch/roofline.py analyze_cell and
-launch/memory_model.py (where the JAX package lowers and compiles the
-step, `analysis_s` is the analysis's own time). One `OK` line a cell
-(compute, memory and collective ms, the dominant term, the fit in the
-card's 80 GB) after a line naming the fabric each mesh axis rides, a
-`SKIP` line for a long-context cell of a full-attention
-arch; exit 1 on any failure. Reports land in
+The meshes are 16 x 16 and 2 x 16 x 16 devices (launch/mesh.py
+make_production_mesh). Each cell's step runs once for one rank on the
+meta device inside a fake process group of the mesh's size, in this
+process (launch/step_analysis.py measure_step: where the JAX package
+lowers and compiles the step), so the run needs no rank and no card;
+launch/roofline.py analyze_cell takes the flops and collective terms from
+it and the memory term from launch/memory_model.py, and holds the
+measured counts to the analytic ones (count_step). `analysis_s` is the
+cell's time. One `OK` line a cell (compute, memory and collective ms, the
+dominant term, the fit in the card's 80 GB, whether the measured and
+analytic counts agree) after a line naming the fabric each mesh axis
+rides, a `SKIP` line for a long-context cell of a full-attention arch; a
+cell whose counts differ fails, and any failure exits 1. --no-units
+skips the per-segment unit runs (the JAX CLI's flag); --analytic takes
+the analytic terms alone and runs no step (`counts=analytic`, seconds
+for all 64 cells where the measured run takes minutes). Reports land in
 reports/dryrun_torch/<mesh>/<arch>__<shape>.json.
 """
 from __future__ import annotations
@@ -35,9 +43,11 @@ MESHES = {"single": ("single_pod_16x16", False),
 
 
 def run_cell(arch: str, shape: str, mesh, mesh_tag: str, outdir: str,
-             capacity_bytes=None) -> dict:
+             capacity_bytes=None, with_units: bool = True,
+             measure: bool = True) -> dict:
     t0 = time.perf_counter()
-    rep = analyze_cell(arch, shape, mesh, capacity_bytes=capacity_bytes)
+    rep = analyze_cell(arch, shape, mesh, capacity_bytes=capacity_bytes,
+                       measure=measure, units=with_units)
     rep["analysis_s"] = round(time.perf_counter() - t0, 3)
     os.makedirs(os.path.join(outdir, mesh_tag), exist_ok=True)
     path = os.path.join(outdir, mesh_tag, f"{arch}__{shape}.json")
@@ -53,12 +63,22 @@ def ok_line(mesh_tag: str, rep: dict) -> str:
             f"mem={rep['memory_s'] * 1e3:9.2f}ms "
             f"coll={rep['collective_s'] * 1e3:10.2f}ms "
             f"dom={rep['dominant']:10s} fit={mem['fits_device']} "
-            f"t={rep['analysis_s']:.2f}s")
+            f"counts={_counts(rep)} t={rep['analysis_s']:.2f}s")
 
 
-def run(todo, mesh_names, outdir: str, capacity_bytes=None, say=print):
-    """Analyze each (arch, shape) of `todo` on each named mesh. Returns
-    ({mesh_tag: [reports]}, [failures])."""
+def _counts(rep: dict) -> str:
+    """Whether the measured and analytic counts agree ("analytic": not
+    measured)."""
+    return {True: "agree", False: "DIFFER", None: "analytic"}[
+        rep["analytic_agrees"]]
+
+
+def run(todo, mesh_names, outdir: str, capacity_bytes=None, say=print,
+        with_units: bool = True, measure: bool = True):
+    """Analyze each (arch, shape) of `todo` on each named mesh (measure=
+    False: the analytic terms alone). Returns ({mesh_tag: [reports]},
+    [failures]): a cell whose measured and analytic counts differ is a
+    failure."""
     reports, failures = {}, []
     for name in mesh_names:
         mesh_tag, multi = MESHES[name]
@@ -74,7 +94,15 @@ def run(todo, mesh_names, outdir: str, capacity_bytes=None, say=print):
                 continue
             try:
                 rep = run_cell(arch, shape, mesh, mesh_tag, outdir,
-                               capacity_bytes)
+                               capacity_bytes, with_units, measure)
+                if rep["analytic_agrees"] is False:
+                    raise ValueError(
+                        "measured and analytic counts differ: flops "
+                        f"{rep['flops_per_device']} + unmatmul "
+                        f"{rep['analytic_unmatmul_per_device']} vs "
+                        f"{rep['analytic_flops_per_device']}, collectives "
+                        f"{rep['collective_by_type']} vs "
+                        f"{rep['analytic_collective_by_type']}")
                 reports[mesh_tag].append(rep)
                 say(ok_line(mesh_tag, rep))
             except Exception as e:  # noqa: BLE001 - report every cell
@@ -91,6 +119,10 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", default="single",
                     choices=["single", "multi", "both"])
     ap.add_argument("--all", action="store_true")
+    ap.add_argument("--no-units", action="store_true",
+                    help="skip the per-segment unit runs (faster)")
+    ap.add_argument("--analytic", action="store_true",
+                    help="the analytic terms alone: run no step")
     ap.add_argument("--out", default="reports/dryrun_torch")
     args = ap.parse_args(argv)
 
@@ -109,7 +141,8 @@ def main(argv=None) -> int:
           f"node of {H100['node_gpus']}, "
           f"{H100['network_bytes_per_s'] / 1e9:g} GB/s between nodes; "
           f"{H100['source']}")
-    _, failures = run(todo, names, args.out)
+    _, failures = run(todo, names, args.out, with_units=not args.no_units,
+                      measure=not args.analytic)
     if failures:
         print(f"\n{len(failures)} FAILURES:")
         for f in failures:

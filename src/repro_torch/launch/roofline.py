@@ -1,12 +1,15 @@
-"""The analytic roofline of a cell on the H100 (port of the JAX package's
+"""The roofline of a cell on the H100 (port of the JAX package's
 launch/roofline.py and the roofline half of launch/hlo_analysis.py).
 
 The JAX package compiles a cell's step for 256 or 512 forced host
 devices and reads its flops from XLA's cost analysis and its collective
-bytes from the HLO text. The port has no HLO: it counts both from the
-config, the plan and the mesh's axis sizes, walking the code path the
-port's step runs per rank (models/model.py: one device, or _Ranks over a
-mesh; models/moe.py; parallel/collectives.py; launch/steps.py):
+bytes from the HLO text. The port reads both from the step it executes,
+run once for one rank on the meta device (launch/step_analysis.py
+measure_step); analyze() takes its terms from that measurement and puts
+beside them an analytic count (count_step) from the config, the plan and
+the mesh's axis sizes, walking the code path the port's step runs per
+rank (models/model.py: one device, or _Ranks over a mesh; models/moe.py;
+parallel/collectives.py; launch/steps.py):
 
 - flops: every matrix product the step executes (a contraction: the
   linears, the attention scores and P.V, the MoE experts and router,
@@ -31,7 +34,8 @@ mesh; models/moe.py; parallel/collectives.py; launch/steps.py):
   port issues it (parallel/collectives.py). tests/test_torch_dryrun.py
   holds the flops to torch.utils.flop_counter.FlopCounterMode over the
   port's own step and the bytes to what parallel/collectives.py counts
-  over gloo ranks.
+  over gloo ranks; tests/test_torch_step_cells_*.py hold the count
+  equal to the measured step on every cell over both production meshes.
 
 The rates are the H100 SXM's (H100 below, with their sources). A
 collective's time follows the JAX package's ring model (an all-reduce
@@ -253,7 +257,9 @@ class _Walk:
         self.tp = env.tp
         self.tpa = env.tp_axis
         self.dp = env.dp
-        self.Bl = max(shape.global_batch // max(self.dp, 1), 1)
+        B = shape.global_batch
+        # the rank's rows: every row where dp does not divide them
+        self.Bl = B if B % max(self.dp, 1) else B // max(self.dp, 1)
         self.params = Mo.meta_params(cfg, env)
         self.specs = (rules.param_specs(self.params, cfg, env) if self.mesh
                       else None)
@@ -811,13 +817,31 @@ def plan_int8_ef(env: Env) -> bool:
             and "pod" in env.axis_names)
 
 
+def measured_agrees(step, count: StepCount) -> bool:
+    """Whether a measured step (launch/step_analysis.py StepCost) and the
+    analytic count agree: the flops exactly, with the products
+    FlopCounterMode cannot see (StepCount.unmatmul) added to the
+    measured, and the collective bytes exactly, type by type."""
+    nonzero = lambda c: {k: v for k, v in c.by_type.items() if v}
+    return (step.flops + count.unmatmul == count.flops
+            and nonzero(step.coll) == nonzero(count.coll))
+
+
 def analyze(cfg: ModelConfig, shape: ShapeConfig, env: Env,
             opt: Optional[AdamWConfig] = None, *, rates=H100,
-            capacity_bytes: Optional[float] = None) -> Dict[str, Any]:
+            capacity_bytes: Optional[float] = None, measure: bool = True,
+            units: bool = True) -> Dict[str, Any]:
     """The roofline report of one configuration on env's mesh (None: one
     device): the terms, the model flops, the memory model and the step's
-    bounds. capacity_bytes: the device's memory for the fit (default the
-    rates' HBM; on the card its total_memory)."""
+    bounds. The flops and collective terms are the step's own, measured
+    (launch/step_analysis.py measure_step: the step run once for one
+    rank on the meta device, as the JAX package reads them from its
+    compiled step), with the analytic count (count_step) beside them and
+    whether the two agree; measure=False: the analytic terms alone. The
+    memory term is the memory model's traffic, as in the JAX package.
+    units: the measured per-segment report. capacity_bytes: the device's
+    memory for the fit (default the rates' HBM; on the card its
+    total_memory)."""
     from repro_torch.launch.memory_model import analyze_memory
 
     if opt is None and cfg.param_count() > 1e11:
@@ -825,22 +849,30 @@ def analyze(cfg: ModelConfig, shape: ShapeConfig, env: Env,
         opt = AdamWConfig(state_dtype="int8")
     opt = opt or AdamWConfig()
     count = count_step(cfg, shape, env, opt)
+    step, agrees = None, None
+    if measure:
+        from repro_torch.launch.step_analysis import measure_step
+        step = measure_step(cfg, shape, env, opt, units=units)
+        agrees = measured_agrees(step, count)
     if plan_int8_ef(env):
         # the JAX package's modeled wire saving for the cross-pod gradient
         # sync at int8 (optim/compress.py); the step itself issues f32
-        count.coll.scale("all-reduce", 0.625)
+        for c in (count.coll, step.coll if step else None):
+            if c is not None:
+                c.scale("all-reduce", 0.625)
     opt_bytes = 6.3 if opt.state_dtype == "int8" else 12.0
     memrep = analyze_memory(cfg, shape, env,
                             opt_state_bytes_per_param=opt_bytes)
     axes = mesh_axes(env.mesh) if env.mesh is not None else {}
     n_dev = math.prod(axes.values()) if axes else 1
     fabric = axis_fabric(axes, rates)
-    terms = RooflineTerms(flops_per_device=count.flops,
+    flops = step.flops if step else count.flops
+    terms = RooflineTerms(flops_per_device=flops,
                           hbm_bytes_per_device=memrep.traffic_bytes,
-                          coll=count.coll, n_devices=n_dev, fabric=fabric,
-                          rates=rates)
+                          coll=step.coll if step else count.coll,
+                          n_devices=n_dev, fabric=fabric, rates=rates)
     mf = model_flops(cfg, shape, env)
-    step_global = count.flops * n_dev
+    step_global = flops * n_dev
     cap = capacity_bytes or rates["hbm_bytes"]
     out = {
         "arch": cfg.name,
@@ -850,8 +882,13 @@ def analyze(cfg: ModelConfig, shape: ShapeConfig, env: Env,
         "n_devices": int(n_dev),
         **terms.summary(),
         "model_flops_global": mf,
-        "analytic_flops_global": step_global,
+        "step_flops_global": step_global,
         "useful_flops_ratio": mf / step_global if step_global else 0.0,
+        "analytic_flops_per_device": count.flops,
+        "analytic_flops_global": count.flops * n_dev,
+        "analytic_unmatmul_per_device": count.unmatmul,
+        "analytic_collective_by_type": dict(count.coll.by_type),
+        "analytic_agrees": agrees,
         "memory": {
             "traffic_bytes_per_device": int(memrep.traffic_bytes),
             "resident_bytes_per_device": int(memrep.resident_bytes),
@@ -861,6 +898,7 @@ def analyze(cfg: ModelConfig, shape: ShapeConfig, env: Env,
             "device_bytes": cap,
             "fits_device": memrep.fits(cap),
         },
+        "units": step.units if step else [],
         "dominant": terms.bottleneck,
         # step time bound = max of terms (perfect overlap) / sum (none)
         "step_s_lower": max(terms.compute_s, terms.memory_s,
@@ -869,6 +907,13 @@ def analyze(cfg: ModelConfig, shape: ShapeConfig, env: Env,
         "rates": {k: rates[k] for k in ("name", "bf16_flops",
                                         "hbm_bytes_per_s", "source")},
     }
+    if step:
+        # the measured step's buffers and traffic (the JAX package's
+        # xla_cpu_* figures), beside the memory model's
+        out["memory"].update(step_args_bytes=step.args_bytes,
+                             step_temp_bytes=step.temp_bytes,
+                             step_bytes_accessed=step.bytes_accessed)
+        out["measure_s"] = step.seconds
     out["roofline_fraction"] = (
         (mf / n_dev / rates["bf16_flops"]) / out["step_s_lower"]
         if out["step_s_lower"] else 0.0)
@@ -878,14 +923,18 @@ def analyze(cfg: ModelConfig, shape: ShapeConfig, env: Env,
 def analyze_cell(arch: str, shape_name: str, mesh, *,
                  plan: Optional[ParallelPlan] = None,
                  opt: Optional[AdamWConfig] = None, rates=H100,
-                 capacity_bytes: Optional[float] = None) -> Dict[str, Any]:
+                 capacity_bytes: Optional[float] = None,
+                 measure: bool = True, units: bool = True
+                 ) -> Dict[str, Any]:
     """analyze() of one cell of configs.cells() under its default plan
-    (the JAX package's analyze_cell, analytic): mesh a shape-only mesh
-    (launch/mesh.py make_production_mesh(abstract=True)) or None."""
+    (the JAX package's analyze_cell): mesh a shape-only mesh
+    (launch/mesh.py make_production_mesh(abstract=True)) or None; the
+    step measured over a fake process group of the mesh's size."""
     cfg = get_config(arch)
     shape = get_shape(shape_name)
     plan = plan or default_plan(cfg, shape)
     out = analyze(cfg, shape, Env(plan=plan, mesh=mesh), opt, rates=rates,
-                  capacity_bytes=capacity_bytes)
+                  capacity_bytes=capacity_bytes, measure=measure,
+                  units=units)
     out["arch"], out["shape"] = arch, shape_name
     return out

@@ -293,10 +293,10 @@ def _tree_of(cfg: ModelConfig, unit_of) -> Pytree:
 
 
 def _local_rows(batch: int, env: Env) -> int:
-    """The rows of a batch of `batch` one rank of env.mesh holds."""
-    if batch % env.dp:
-        raise ValueError(f"a batch of {batch} rows over {env.dp} dp ranks")
-    return batch // env.dp
+    """The rows of a batch of `batch` one rank of env.mesh holds: its
+    share over dp, or every row where dp does not divide them (the rules
+    replicate such a batch: parallel/rules.py _validated)."""
+    return batch if batch % env.dp else batch // env.dp
 
 
 def _seq_len_local(n: int, rk) -> int:
@@ -1455,8 +1455,9 @@ class _Ranks:
 @functools.lru_cache(maxsize=8)
 def param_specs(cfg: ModelConfig, env: Env):
     """The parameter specs (parallel/rules.py) of init_params' tree over
-    env.mesh."""
-    return rules.param_specs(init_params(cfg, env, device="meta"), cfg, env)
+    env.mesh (meta_params' cached tree: a step that first calls this
+    allocates nothing for it once the tree is cached)."""
+    return rules.param_specs(meta_params(cfg, env), cfg, env)
 
 
 def _embed_ranks(params, tokens, rk: _Ranks):

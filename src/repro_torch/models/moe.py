@@ -46,6 +46,7 @@ import contextlib
 from typing import List, Optional
 
 import functools
+import types
 
 import torch
 
@@ -179,9 +180,11 @@ def _expert_specs(cfg: ModelConfig, env: Env) -> dict:
     """The specs of the stored expert weights over env.mesh (the JAX
     package's moe_param_specs, from parallel/rules.py)."""
     d, ff, E = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
-    meta = lambda *shape: torch.empty(shape, device="meta")
-    struct = {"moe": {"w_gate": meta(E, d, ff), "w_up": meta(E, d, ff),
-                      "w_down": meta(E, ff, d)}}
+    # the rules read a leaf's shape alone: no tensor is made (a step
+    # that first calls this allocates nothing for it)
+    leaf = lambda *shape: types.SimpleNamespace(shape=shape)
+    struct = {"moe": {"w_gate": leaf(E, d, ff), "w_up": leaf(E, d, ff),
+                      "w_down": leaf(E, ff, d)}}
     return rules.param_specs(struct, cfg, env)["moe"]
 
 

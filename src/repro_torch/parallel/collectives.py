@@ -48,19 +48,37 @@ _BYTES = {"all-gather": 0, "reduce-scatter": 0, "all-reduce": 0,
           "all-to-all": 0}
 
 
-def count(kind: str, x) -> None:
-    """Add a collective's result tensor x to the `kind` count."""
-    _BYTES[kind] += x.numel() * x.element_size()
+# The same bytes by (type, process group name), for the collectives
+# issued over a named group: the step analysis (launch/step_analysis.py)
+# names each group's mesh axis.
+_GROUP_BYTES = {}
+
+
+def count(kind: str, x, group=None) -> None:
+    """Add a collective's result tensor x to the `kind` count (and to
+    its group's, given the group it ran over)."""
+    n = x.numel() * x.element_size()
+    _BYTES[kind] += n
+    if group is not None:
+        key = (kind, group.group_name)
+        _GROUP_BYTES[key] = _GROUP_BYTES.get(key, 0) + n
 
 
 def collective_bytes(reset: bool = False) -> dict:
     """The counts since the last reset, {type: bytes}; reset=True zeroes
-    them after reading."""
+    them (and group_bytes') after reading."""
     out = dict(_BYTES)
     if reset:
         for k in _BYTES:
             _BYTES[k] = 0
+        _GROUP_BYTES.clear()
     return out
+
+
+def group_bytes() -> dict:
+    """The counts by group since the last reset, {(type, group name):
+    bytes}."""
+    return dict(_GROUP_BYTES)
 
 
 def axis_size(env: Env, axis: str) -> int:
@@ -79,7 +97,7 @@ def _all_gather(x, group, n: int, dim: int):
     xt = x.movedim(dim, 0).contiguous()
     out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
     dist.all_gather_into_tensor(out, xt, group=group)
-    count("all-gather", out)
+    count("all-gather", out, group)
     return out.movedim(0, dim)
 
 
@@ -87,14 +105,14 @@ def _reduce_scatter(x, group, n: int, dim: int):
     xt = x.movedim(dim, 0).contiguous()
     out = xt.new_empty((xt.shape[0] // n,) + tuple(xt.shape[1:]))
     dist.reduce_scatter_tensor(out, xt, group=group)
-    count("reduce-scatter", out)
+    count("reduce-scatter", out, group)
     return out.movedim(0, dim)
 
 
 def _sum(x, group):
     x = x.contiguous().clone()
     dist.all_reduce(x, group=group)
-    count("all-reduce", x)
+    count("all-reduce", x, group)
     return x
 
 
@@ -149,7 +167,7 @@ class _Split(torch.autograd.Function):
 def _exchange(x, group):
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x.contiguous(), group=group)
-    count("all-to-all", out)
+    count("all-to-all", out, group)
     return out
 
 
@@ -230,8 +248,9 @@ def all_reduce_max(x, env: Env, axes: Sequence[str]):
     """Elementwise max over each of `axes` (no gradient)."""
     x = x.contiguous().clone()
     for axis in axes:
-        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=_group(env, axis))
-        count("all-reduce", x)
+        group = _group(env, axis)
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+        count("all-reduce", x, group)
     return x
 
 

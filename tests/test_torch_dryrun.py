@@ -26,8 +26,15 @@ port's own step executes.
   step of yi-9b smoke at (2, 4) with FSDP (and other archs and meshes),
   grok-1-314b smoke's MoE layer in ep and tp modes at (4, 2), the decode
   step and its greedy pick at (1, 8) under seq_sharded and replicated.
-- The dry-run CLI on one cell and on --all --mesh single: exit 0, one OK
-  line a cell (32), the rates' sources printed.
+- The same ranks' counters against the measured dry run
+  (launch/step_analysis.py measure_step): each step case measured for
+  each rank on the meta device inside a fake process group of the
+  mesh's size in this process, its collective bytes by type and its
+  flops equal to that rank's counters over gloo.
+- The dry-run CLI on one cell (the step measured) and on --all --mesh
+  single --analytic (the analytic terms of every cell; the measured
+  counts of every cell: tests/test_torch_step_cells_<n>.py): exit 0,
+  one OK line a cell (32), the rates' sources printed.
 """
 import contextlib
 import io
@@ -59,7 +66,8 @@ from repro_torch.launch import roofline as RF
 from repro_torch.launch import steps as St
 from repro_torch.launch.memory_model import (analyze_memory,
                                              formula_excess, tree_bytes)
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import ShapeMesh, make_production_mesh
+from repro_torch.launch.step_analysis import measure_step
 from repro_torch.models import model as Mo
 from repro_torch.models.env import Env
 from repro_torch.optim.adamw import (AdamWConfig, make_train_state,
@@ -458,6 +466,28 @@ def test_collective_bytes_equal_the_counted(gloo_ranks, case):
         assert got["flops"] == got["want_flops"], (r, got)
 
 
+@pytest.mark.parametrize("case", sorted(c for c, v in RANK_CASES.items()
+                                         if v[0] != "moe"))
+def test_measured_step_equals_the_ranks_counters(gloo_ranks, case):
+    """The fake group's meta measurement of each rank against that rank's
+    counters over gloo (the step cases; the MoE layer alone is no
+    step)."""
+    kind, arch, dims, B, S, plan_kw, moments = RANK_CASES[case]
+    names = ("pod", "data", "model") if len(dims) == 3 else ("data",
+                                                            "model")
+    env = Env(plan=ParallelPlan(**plan_kw), mesh=ShapeMesh(dims, names))
+    shape = ShapeConfig(kind[0], S, B, kind)
+    opt = AdamWConfig(state_dtype=moments) if moments else None
+    reports = _rank_reports(gloo_ranks)
+    for r, rep in enumerate(reports):
+        got = measure_step(get_smoke(arch), shape, env, opt, units=False,
+                           rank=r)
+        want = rep[case]
+        assert {k: v for k, v in got.coll.by_type.items() if v} == \
+            want["bytes"], (r, case)
+        assert got.flops == want["flops"], (r, case)
+
+
 # ---- the CLI ----------------------------------------------------------------
 
 
@@ -476,17 +506,25 @@ def test_dryrun_cli_one_cell(tmp_path):
     for key in ("compute_s", "memory_s", "collective_s", "dominant",
                 "model_flops_global", "analytic_flops_global",
                 "useful_flops_ratio", "step_s_lower", "step_s_upper",
-                "roofline_fraction", "memory", "collective_by_type"):
+                "roofline_fraction", "memory", "collective_by_type",
+                "step_flops_global", "analytic_flops_per_device",
+                "analytic_collective_by_type", "units"):
         assert key in rep
+    assert "counts=agree" in ok[0] and rep["analytic_agrees"] is True
+    assert rep["units"] == [{"segment": "main", "trip": 48,
+                             "unit_flops": rep["units"][0]["unit_flops"]}]
+    for key in ("step_args_bytes", "step_temp_bytes", "step_bytes_accessed"):
+        assert rep["memory"][key] > 0
 
 
 def test_dryrun_cli_all_cells_single_mesh(tmp_path):
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = dryrun.main(["--all", "--mesh", "single", "--out",
-                          str(tmp_path)])
+        rc = dryrun.main(["--all", "--mesh", "single", "--analytic",
+                          "--out", str(tmp_path)])
     lines = buf.getvalue().splitlines()
     assert rc == 0, buf.getvalue()[-5000:]
     assert sum(l.startswith("OK   single_pod_16x16") for l in lines) == 32
+    assert all("counts=analytic" in l for l in lines if l.startswith("OK"))
     assert not any(l.startswith("FAIL") for l in lines)
     assert len(os.listdir(tmp_path / "single_pod_16x16")) == 32

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_no_kernel_device import NoKernelTensor
 from repro.configs import get_smoke
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref
@@ -129,9 +130,15 @@ def test_cpu_tensors_run_the_plain_version_and_other_devices_raise():
     assert flash_attention.launches == before  # launches count the kernel
     with pytest.raises(ValueError, match="n_kv_heads"):
         flash_attention(q, k, v, n_kv_heads=4)
-    meta = torch.empty((1, 16, 4, 16), device="meta")
+    # a meta tensor (the dry run) gives the plain version's shape and
+    # dtype with no launch; a device with no kernel raises
+    meta = flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    assert (meta.device.type, meta.shape, meta.dtype) == (
+        "meta", want.shape, want.dtype)
+    assert flash_attention.launches == before
+    other = NoKernelTensor((1, 16, 4, 16))
     with pytest.raises(ValueError, match="no kernel"):
-        flash_attention(meta, meta, meta)
+        flash_attention(other, other, other)
 
 
 @pytest.mark.parametrize("seed", range(4))

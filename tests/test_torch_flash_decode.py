@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_no_kernel_device import NoKernelTensor
 from repro.kernels.flash_decode.kernel import flash_decode_kernel
 from repro.kernels.flash_decode.ops import flash_decode as jax_flash_decode
 from repro.kernels.flash_decode.ref import decode_ref as jax_decode_ref
@@ -131,8 +132,10 @@ def test_ragged_length_is_refused_by_jax_and_taken_by_the_port():
 
 
 def test_op_raises_on_a_device_with_no_kernel():
-    q = torch.zeros((1, 2, 8), device="meta")
-    kv = torch.zeros((1, 1, 16, 8), device="meta")
+    """A device other than the CPU, the card and meta (the dry run's
+    shapes) has no kernel: the op raises."""
+    q = NoKernelTensor((1, 2, 8), torch.float32)
+    kv = NoKernelTensor((1, 1, 16, 8), torch.float32)
     with pytest.raises(ValueError, match="no kernel"):
         flash_decode_partials(q, kv, kv, 3)
 

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_no_kernel_device import NoKernelTensor
 from repro.kernels.flash_decode.ref import decode_ref
 from repro.kernels.paged_decode.ops import paged_flash_decode as jax_paged
 from repro.kernels.paged_decode.ref import paged_decode_ref as jax_ref
@@ -137,12 +138,13 @@ def test_block_placement_never_leaks_into_the_output():
 
 
 def test_no_silent_fallback_on_other_devices():
-    """Only CPU tensors take the plain version; any other device must
-    launch a kernel or raise."""
-    q = torch.empty((1, 4, 32), dtype=torch.bfloat16, device="meta")
-    kp = torch.empty((2, 2, 16, 32), dtype=torch.bfloat16, device="meta")
-    t = torch.zeros((1, 1), dtype=torch.int32, device="meta")
-    n = torch.zeros((1,), dtype=torch.int32, device="meta")
+    """Only CPU tensors take the plain version (meta tensors, the dry
+    run's, its shape alone); any other device must launch a kernel or
+    raise."""
+    q = NoKernelTensor((1, 4, 32))
+    kp = NoKernelTensor((2, 2, 16, 32))
+    t = NoKernelTensor((1, 1), torch.int32)
+    n = NoKernelTensor((1,), torch.int32)
     with pytest.raises(ValueError, match="no kernel"):
         paged_flash_decode(q, kp, kp, t, n)
 
